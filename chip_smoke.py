@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Drive fac_fake_torch on one NVIDIA H100: build the hand-written kernels,
 hold each against its plain PyTorch version, score videos end to end with the
-full-width base CViT, and print what it measured.
+full-width base CViT in fp32 and under int8 post-training quantization, and
+print what it measured.
 
-    python3 chip_smoke.py [--seed N]     # all phases, one card
+    python3 chip_smoke.py [--seed N] [--profile]     # all phases, one card
+
+``--profile`` adds a torch.profiler breakdown, by kernel, of one fp32 and
+one int8_full forward at batch 96 to phase 9.
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
-  2. build both kernels from fac_fake_torch/csrc;
+  2. build the four kernels (K1-K4) from fac_fake_torch/csrc, in parallel;
   3. K2 (normalize) against its plain version at (96|256, 224, 224, 3), fp32
      and bf16;
   4. K1 (frame detections) against its plain version on real BlazeFace dets
@@ -22,7 +26,21 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      seeded crops through `score_crops` and 8 x 29 through
      `score_crop_stacks`; launch counts of K1 and K2 must both be > 0;
   6. full-width logits on the card against the same module on the CPU;
-  7. the kernels line; 8. the result line.
+  7. K3 (int8 3x3 conv) against its plain version at each distinct conv of
+     the folded base stem at batch 96, fp32 and bf16 (bit-equal), timed
+     over the 17 convs of one forward;
+  8. K4 (int8 dense) against its plain version at the 26 denses of one
+     int8_full forward at batch 96 (bit-equal), beside torch._int_mm on the
+     same int8 operands (the GEMM alone);
+  9. int8 main path: `VideoScorer` with infer.quantize="int8_full" (it
+     calibrates on its first batch) runs `score_videos_batched` over the 8
+     videos, `score_video`, `score_crops` and `score_crop_stacks`; launch
+     counts of K1-K4 must all be > 0; then infer.quantize="int8" through
+     `score_crops` and `score_crop_stacks`; int8 vs fp32 logits for
+     information;
+ 10. full-width int8_full logits on the card against the same quantized
+     module on the CPU (plain versions);
+ 11. the kernels line; 12. the result line.
 """
 from __future__ import annotations
 
@@ -39,8 +57,23 @@ import numpy as np
 K2_TOL = {"float32": 1e-6, "bfloat16": 1.6e-2}   # bf16: one ulp in [2, 4)
 K1_RTOL, K1_ATOL = 1e-5, 1e-3                      # pixels; mask must be equal
 LOGIT_TOL = 1e-3                                   # PARITY.md logit bar
+# K3, K4: bit-equal (exact int32 sums; quantize and epilogue are the same
+# IEEE fp32 operations in both, built with -fmad=false), fp32 and bf16 out
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM
 FP32_FLOPS = 67e12                                 # H100 SXM, outside tensor cores
+INT8_TC_OPS = 1979e12                              # H100 SXM, dense int8 tensor cores
+SLEEP_CYCLES = 100_000_000                         # ~50 ms at the H100's 1.98 GHz boost
+
+QBATCH = 96                                        # crops a batch (batch_crops)
+# (H, Cin, Cout) of the folded base stem's 17 convs -> how many there are
+STEM_CONVS = {(224, 3, 32): 1, (224, 32, 32): 2, (112, 32, 64): 1, (112, 64, 64): 2,
+              (56, 64, 128): 1, (56, 128, 128): 2, (28, 128, 256): 1, (28, 256, 256): 3,
+              (14, 256, 512): 1, (14, 512, 512): 3}
+# (rows, out, in, bias) of the 26 int8_full denses at batch 96 -> how many:
+# patch embedding, to_qkv, to_out, FFN fc1, fc2 (two tokens a crop), head fc1
+INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
+               (192, 1024, 1024, True): 6, (192, 2048, 1024, True): 6,
+               (192, 1024, 2048, True): 6, (96, 2048, 1024, True): 1}
 
 
 def log(msg: str) -> None:
@@ -48,12 +81,18 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms a call of ``fn``: CUDA events around ``iters`` calls that
+    are queued behind a ~50 ms sleep kernel, so that the host has enqueued
+    them all before the first runs and the events time the card, not the
+    host's launch overhead (which exceeds the device time of a small
+    kernel). A call that synchronizes falls back to timing both."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -62,9 +101,159 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound_ms(nbytes: float, ops: float, rate: float = FP32_FLOPS) -> tuple:
+    """The larger of bytes over the memory rate and operations over
+    ``rate``, in ms, and which of the two it is."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def quant_inputs(rng, dev, x_shape, n_out, k_in, x_scale=0.0625):
+    """fp32 activations (an eighth of them exact .5 quantization ties),
+    int8 weights (n_out, k_in), per-channel scales, bias, 0-d x_scale."""
+    import torch
+    x = rng.standard_normal(x_shape, dtype=np.float32) * 3.0
+    ties = rng.random(x_shape, dtype=np.float32) < 0.125
+    x[ties] = (rng.integers(-200, 200, int(ties.sum())) + 0.5) * x_scale
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(x), t(rng.integers(-127, 128, (n_out, k_in), dtype=np.int8)),
+            t(rng.uniform(0.001, 0.05, n_out).astype(np.float32)),
+            torch.tensor(x_scale, device=dev), t(rng.standard_normal(n_out, dtype=np.float32)))
+
+
+def k3_phase(rng, dev) -> dict:
+    """K3 against its plain version at every distinct stem conv, batch 96;
+    totals over the 17 convs of one forward (fp32)."""
+    import torch
+    from fac_fake_torch.ops import quant as q
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, bound_sum=0.0, err=0.0)
+    for (hw, cin, cout), mult in STEM_CONVS.items():
+        x, wq, sw, sx, b = quant_inputs(rng, dev, (QBATCH, hw, hw, cin), cout, 9 * cin)
+        kq = wq.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)       # OIHW, O-HW-I memory
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt).permute(0, 3, 1, 2)
+            got = q.quant_conv3x3(xd, kq, sw, sx, b)
+            ref = q.quant_conv3x3_plain(xd, kq, sw, sx, b)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            tot["err"] = max(tot["err"], err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K3 {hw}x{hw} {cin}->{cout} {dt}: differs from plain, "
+                                     f"max abs {err}")
+            del got, ref
+        xd = x.permute(0, 3, 1, 2)
+        k_ms = cuda_ms(lambda: q.quant_conv3x3(xd, kq, sw, sx, b), iters=10)
+        p_ms = cuda_ms(lambda: q.quant_conv3x3_plain(xd, kq, sw, sx, b), iters=2, warmup=1)
+        m = QBATCH * hw * hw
+        nbytes = m * cin * 4 + kq.numel() + 8 * cout + 4 + m * cout * 4
+        ops = 2.0 * m * cout * 9 * cin
+        bms, by = bound_ms(nbytes, ops, INT8_TC_OPS)
+        log(f"K3 quant_conv3x3 ({QBATCH},{hw},{hw},{cin})->{cout} x{mult}: equal fp32+bf16; "
+            f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bms:.4f} ms ({by}) "
+            f"{ops / k_ms / 1e9:.1f} TOP/s")
+        tot["ms"] += mult * k_ms
+        tot["plain_ms"] += mult * p_ms
+        tot["bytes"] += mult * nbytes
+        tot["ops"] += mult * ops
+        tot["bound_sum"] += mult * bms
+        del x, xd, wq, kq
+        torch.cuda.empty_cache()
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], INT8_TC_OPS)
+    log(f"K3 over one forward's 17 convs: kernel {tot['ms']:.4f} ms plain "
+        f"{tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}; "
+        f"sum of per-conv bounds {tot['bound_sum']:.4f} ms)")
+    return tot
+
+
+def k4_phase(rng, dev) -> dict:
+    """K4 against its plain version at the 26 int8_full denses, batch 96,
+    beside torch._int_mm (the GEMM alone, on pre-quantized operands)."""
+    import torch
+    from fac_fake_torch.ops import quant as q
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, bound_sum=0.0,
+               err=0.0)
+    for (m, n, k, has_bias), mult in INT8_DENSES.items():
+        x, wq, sw, sx, b = quant_inputs(rng, dev, (m, k), n, k)
+        b = b if has_bias else None
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            got = q.quant_dense(xd, wq, sw, sx, b)
+            ref = q.quant_dense_plain(xd, wq, sw, sx, b)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            tot["err"] = max(tot["err"], err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K4 ({m},{k})x({k},{n}) {dt}: differs from plain, "
+                                     f"max abs {err}")
+        xq = q.quantize_plain(x, sx)
+        wt = wq.t()
+        if not torch.equal(torch._int_mm(xq, wt), q.int_matmul_plain(xq, wq)):
+            raise AssertionError("torch._int_mm differs from the exact int32 product")
+        k_ms = cuda_ms(lambda: q.quant_dense(x, wq, sw, sx, b))
+        p_ms = cuda_ms(lambda: q.quant_dense_plain(x, wq, sw, sx, b), iters=5)
+        l_ms = cuda_ms(lambda: torch._int_mm(xq, wt))
+        nbytes = m * k * 4 + n * k + 4 * n * (2 if has_bias else 1) + 4 + m * n * 4
+        ops = 2.0 * m * n * k
+        bms, by = bound_ms(nbytes, ops, INT8_TC_OPS)
+        log(f"K4 quant_dense ({m},{k})x({k},{n}) bias={has_bias} x{mult} "
+            f"(splits {q.dense_splits(m, n, k)}): equal fp32+bf16; kernel {k_ms:.4f} ms "
+            f"plain {p_ms:.4f} ms torch._int_mm {l_ms:.4f} ms bound {bms:.4f} ms ({by})")
+        tot["ms"] += mult * k_ms
+        tot["plain_ms"] += mult * p_ms
+        tot["library_ms"] += mult * l_ms
+        tot["bytes"] += mult * nbytes
+        tot["ops"] += mult * ops
+        tot["bound_sum"] += mult * bms
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], INT8_TC_OPS)
+    log(f"K4 over one int8_full forward's 26 denses: kernel {tot['ms']:.4f} ms plain "
+        f"{tot['plain_ms']:.4f} ms torch._int_mm {tot['library_ms']:.4f} ms bound "
+        f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}; sum of per-dense bounds "
+        f"{tot['bound_sum']:.4f} ms)")
+    return tot
+
+
+def profile_forward(model, x, pos, label: str, top: int = 12) -> None:
+    """Device time by kernel over one forward (torch.profiler), the busy
+    share of the forward's wall time, and the ``top`` kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        model(x, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(x, pos)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    # the kernels' own rows: an aten op's row repeats its kernels' device time
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e3
+    log(f"profile {label}: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
+        f"({busy / (wall * 1e3):.1%}; kernels summed, so overlap would count twice)")
+    if not rows:
+        raise AssertionError(f"profile {label}: the profiler saw no kernel on the card")
+    for key, us, n in rows[:top]:
+        log(f"  {us / 1e3:9.3f} ms  {n:4d}x  {key[:100]}")
+
+
+def crops_per_s(scorer, crops, stacks, n_it: int = 10) -> tuple:
+    """crops/s through `score_crops` and `score_crop_stacks`, and the last
+    scores of each."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(n_it):
+        p_crops = scorer.score_crops(crops)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_it):
+        p_stacks = scorer.score_crop_stacks(stacks)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = crops.shape[0]
+    return (n * n_it / (t1 - t0), len(stacks) * n * n_it / (t2 - t1), p_crops, p_stacks)
 
 
 class SeededReader:
@@ -185,6 +374,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="break one fp32 and one int8_full forward down by kernel")
     args = ap.parse_args()
 
     import torch
@@ -199,6 +390,7 @@ def main() -> int:
     from fac_fake_torch.infer.predictor import VideoScorer
     from fac_fake_torch.models import build_model
     from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.ops import quant as q
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -327,7 +519,88 @@ def main() -> int:
     if not (torch.isfinite(gpu).all() and logit_err <= LOGIT_TOL):
         raise AssertionError(f"logits differ: {logit_err} > {LOGIT_TOL}")
 
-    # ---- 7. kernels line -----------------------------------------------------
+    # ---- 7-8. K3 and K4 against their plain versions -----------------------
+    fp32_rates = crops_per_s(scorer, crops, stacks)
+    log(f"fp32 beside the int8 runs: score_crops {fp32_rates[0]:.1f} crops/s, "
+        f"score_crop_stacks {fp32_rates[1]:.1f} crops/s")
+    k3 = k3_phase(rng, dev)
+    k4 = k4_phase(rng, dev)
+
+    # ---- 9. int8 main path -----------------------------------------------------
+    n_convs = sum(op[0] == "conv" for op in scorer.model.stem_spec)
+    rates = {}
+    for mode in ("int8_full", "int8"):
+        qcfg = Config()
+        qcfg.infer.quantize = mode
+        qscorer = VideoScorer(model, qcfg, detector=det, reader=reader)
+        t_cal = time.perf_counter()
+        qscorer.score_crops(crops)           # the first batch of >= 8 crops calibrates
+        torch.cuda.synchronize()
+        n_q = sum(op[0] == "qconv" for op in qscorer.model.stem_spec)
+        log(f"{mode}: first score_crops calibrated and scored in "
+            f"{time.perf_counter() - t_cal:.2f} s: {n_q} convs quantized, "
+            f"quant_dense={qscorer.model.quant_dense}")
+        if qscorer._quant_pending or n_q != n_convs:
+            raise AssertionError(f"{mode}: the first batch did not quantize the stem")
+        qscorer.score_crop_stacks(stacks)    # warm up
+        torch.cuda.synchronize()
+        ex.frame_detections.launches = pp.normalize_imagenet.launches = 0
+        q.quant_conv3x3.launches = q.quant_dense.launches = 0
+        qprobs = []
+        if mode == "int8_full":
+            qscorer.enable_stage_stats()
+            t0 = time.perf_counter()
+            qprobs += qscorer.score_videos_batched(paths)
+            t_q = time.perf_counter() - t0
+            qprobs.append(qscorer.score_video("video_8"))
+            log(f"{mode} videos (batched): scores {qprobs[:len(paths)]} "
+                f"{len(paths) / t_q * 60:.1f} videos/min ({t_q:.2f} s); video_8 "
+                f"{qprobs[-1]}; stage stats {json.dumps(qscorer.stage_stats)}")
+        rates[mode] = crops_per_s(qscorer, crops, stacks)
+        qprobs += [rates[mode][2]] + rates[mode][3]
+        qlaunch = {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches,
+                   "K3": q.quant_conv3x3.launches, "K4": q.quant_dense.launches}
+        log(f"{mode}: score_crops {rates[mode][0]:.1f} crops/s (fp32 {fp32_rates[0]:.1f}), "
+            f"score_crop_stacks {rates[mode][1]:.1f} crops/s (fp32 {fp32_rates[1]:.1f}); "
+            f"launches {qlaunch}")
+        if not all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in qprobs):
+            raise AssertionError(f"{mode} scores out of [0, 1]: {qprobs}")
+        want = ("K1", "K2", "K3", "K4") if mode == "int8_full" else ("K2", "K3")
+        if min(qlaunch[k] for k in want) <= 0:
+            raise AssertionError(f"{mode}: a kernel of the path never launched: {qlaunch}")
+        if mode == "int8_full":
+            int8_launches, full = qlaunch, qscorer
+        with torch.inference_mode():
+            x29 = pp.normalize_imagenet(torch.from_numpy(crops).to(dev))
+            pos29 = torch.arange(29, device=dev)
+            a = scorer.model(x29, pos29).double()
+            b = qscorer.model(x29, pos29).double()
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        log(f"{mode} vs fp32 logits on 29 crops (information): max abs "
+            f"{float((a - b).abs().max()):.4g} cosine {cos:.6f} "
+            f"(|logit| max {float(a.abs().max()):.3g})")
+
+    if args.profile:
+        with torch.inference_mode():
+            x96 = pp.normalize_imagenet(torch.from_numpy(
+                np.concatenate([crops] * 4)[:QBATCH]).to(dev))
+        pos96 = torch.arange(QBATCH, device=dev) % 32
+        profile_forward(scorer.model, x96, pos96, f"fp32 forward, batch {QBATCH}")
+        profile_forward(full.model, x96, pos96, f"int8_full forward, batch {QBATCH}")
+
+    # ---- 10. full-width int8_full logits, card against CPU ------------------
+    with torch.inference_mode():
+        gpu8 = full.model(pp.normalize_imagenet(four.to(dev)), pos.to(dev)).cpu()
+        t_cpu = time.perf_counter()
+        cpu8 = copy.deepcopy(full.model).cpu()(pp.normalize_imagenet(four), pos)
+    err8 = float((gpu8 - cpu8).abs().max())
+    log(f"full-width int8_full logits card vs CPU (plain versions, "
+        f"{time.perf_counter() - t_cpu:.1f} s on the CPU): max abs {err8:.3g} "
+        f"(|logit| max {float(cpu8.abs().max()):.3g})")
+    if not (torch.isfinite(gpu8).all() and err8 <= LOGIT_TOL):
+        raise AssertionError(f"int8_full logits differ: {err8} > {LOGIT_TOL}")
+
+    # ---- 11. kernels line -----------------------------------------------------
     k2_main = k2[(96, "float32")]
     rows = [
         {"name": "K1_frame_detections", "route": "cuda",
@@ -343,9 +616,24 @@ def main() -> int:
          "ms": k2_main["ms"], "kernel_ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": None},
+        {"name": "K3_quant_conv3x3", "route": "cuda",
+         "source": "fac_fake_torch/csrc/quant_conv.cu",
+         "replaces": "fac_fake_tpu/models/layers.py:106",
+         "launches": int8_launches["K3"], "max_abs_err": k3["err"],
+         "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+         "shapes": "the 17 stem convs of one forward, batch 96, fp32"},
+        {"name": "K4_quant_dense", "route": "cuda",
+         "source": "fac_fake_torch/csrc/quant_dense.cu",
+         "replaces": "fac_fake_tpu/models/layers.py:142",
+         "launches": int8_launches["K4"], "max_abs_err": k4["err"],
+         "ms": k4["ms"], "kernel_ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": k4["library_ms"], "library": "torch._int_mm, the GEMM alone",
+         "shapes": "the 26 denses of one int8_full forward, batch 96, fp32"},
     ]
     log(json.dumps({"kernels": rows}))
-    # ---- 8. result -----------------------------------------------------------
+    # ---- 12. result -----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                     "kind": torch.cuda.get_device_name(0),
                     "count": torch.cuda.device_count()}}))

@@ -3,9 +3,12 @@
 The port's counterpart of `fac_fake_tpu/compat/torch_weights.py` and
 `torch_export.py`, with its own copy of the base-``cvit`` key map
 (`torch_weights._cvit_torch_key`) and of the layout transforms: flax HWIO
-convs → OIHW, flax (I, O) denses → (O, I). The port's module tree already
-uses the reference torch names, so a reference ``.pth`` needs no map, only
-`load_reference_pth`.
+convs → OIHW, flax (I, O) denses → (O, I). The int8 leaves of a JAX
+`quantize_cvit` output (``kernel_q``, ``w_scale``, ``x_scale``) map to the
+port's `QuantConv3x3` / `QuantLinear` buffers of the same names, with the
+same layout transforms; ``kernel_q`` stays int8. The port's module tree
+already uses the reference torch names, so a reference ``.pth`` needs no
+map, only `load_reference_pth`.
 """
 from __future__ import annotations
 
@@ -31,6 +34,18 @@ def t_id(w: np.ndarray) -> np.ndarray:
 _TFM_RE = re.compile(r"^(attn_norm|attn|ffn_norm|ffn)(\d+)$")
 
 
+def _leaf(base: str, leaf: str, kernel_tf: Callable) -> Tuple[str, Callable]:
+    """A layer's flax leaf → (torch key, transform): ``kernel`` → weight,
+    ``kernel_q`` keeps its name (both take the layer's layout transform),
+    ``w_scale``/``x_scale`` keep theirs, a norm's ``scale`` → weight, and
+    ``bias`` → bias."""
+    if leaf in ("kernel", "kernel_q"):
+        return f"{base}.{'weight' if leaf == 'kernel' else leaf}", kernel_tf
+    if leaf in ("w_scale", "x_scale"):
+        return f"{base}.{leaf}", t_id
+    return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
+
+
 def cvit_torch_key(path, variant: str = "cvit") -> Optional[Tuple[str, Callable]]:
     """flax variable path (``("params", "stem", "l0", "kernel")``) →
     (torch key, flax→torch transform) for the base CViT."""
@@ -44,18 +59,13 @@ def cvit_torch_key(path, variant: str = "cvit") -> Optional[Tuple[str, Callable]
         base = f"features.{rest[1][1:]}"  # l{i} -> i
         if col == "batch_stats":
             return f"{base}.running_{'mean' if leaf == 'mean' else 'var'}", t_id
-        if leaf == "kernel":
-            return f"{base}.weight", t_conv
-        return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
+        return _leaf(base, leaf, t_conv)
     if rest in (["pos_embedding"], ["cls_token"]):
         return rest[0], t_id
     if rest[0] == "patch_to_embedding":
-        return ("patch_to_embedding.weight", t_dense) if leaf == "kernel" \
-            else ("patch_to_embedding.bias", t_id)
+        return _leaf("patch_to_embedding", leaf, t_dense)
     if rest[0] == "mlp_head":
-        idx = "0" if rest[1] == "fc1" else "2"
-        return (f"mlp_head.{idx}.weight", t_dense) if leaf == "kernel" \
-            else (f"mlp_head.{idx}.bias", t_id)
+        return _leaf(f"mlp_head.{'0' if rest[1] == 'fc1' else '2'}", leaf, t_dense)
     if rest[0] == "transformer":
         m = _TFM_RE.match(rest[1])
         if m is None or (m.group(1) == "ffn_norm" and len(rest) != 3):
@@ -66,22 +76,23 @@ def cvit_torch_key(path, variant: str = "cvit") -> Optional[Tuple[str, Callable]
             N = f"{L}.0.fn.norm" if kind == "attn_norm" else f"{L}.1.fn.norm"
             return (f"{N}.weight", t_id) if leaf == "scale" else (f"{N}.bias", t_id)
         if kind == "attn":
-            return (f"{L}.0.fn.fn.{rest[2]}.weight", t_dense) if leaf == "kernel" \
-                else (f"{L}.0.fn.fn.{rest[2]}.bias", t_id)
-        idx = "0" if rest[2] == "fc1" else "2"
-        return (f"{L}.1.fn.fn.net.{idx}.weight", t_dense) if leaf == "kernel" \
-            else (f"{L}.1.fn.fn.net.{idx}.bias", t_id)
+            return _leaf(f"{L}.0.fn.fn.{rest[2]}", leaf, t_dense)
+        return _leaf(f"{L}.1.fn.fn.net.{'0' if rest[2] == 'fc1' else '2'}", leaf, t_dense)
     raise KeyError(f"no torch mapping for flax path {path}")
 
 
 def cvit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
                               variant: str = "cvit") -> Dict[str, torch.Tensor]:
     """JAX CViT variables flattened to ``"params/stem/l0/kernel"``-style keys
-    → the port's state_dict (float32)."""
+    → the port's state_dict: float leaves as float32, the int8 ``kernel_q``
+    of quantized variables as int8."""
     out: Dict[str, torch.Tensor] = {}
     for k, v in flat.items():
         key, tf = cvit_torch_key(k.split("/"), variant)
-        out[key] = torch.from_numpy(np.array(tf(np.asarray(v, np.float32)), order="C"))
+        arr = np.asarray(v)
+        if arr.dtype != np.int8:
+            arr = arr.astype(np.float32)
+        out[key] = torch.from_numpy(np.array(tf(arr), order="C"))
     return out
 
 

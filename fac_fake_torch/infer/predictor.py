@@ -8,7 +8,10 @@ The port of `fac_fake_tpu/infer/predictor.py` (`cvit_prediction.py:153-255`).
   * crops go to the card as uint8 and kernel K2 normalizes them there;
   * detection is BlazeFace with kernel K1 for the per-frame NMS, ≤ 5 faces
     per frame and 29 per video (`face_face_rec`'s caps, `:106-121,194`);
-  * aggregation is `aggregate_probs`.
+  * aggregation is `aggregate_probs`;
+  * ``infer.quantize="int8"|"int8_full"``: int8 post-training quantization
+    (`compat/quantize.py`), calibrated lazily on the first scored batch of
+    ≥ 8 crops (`quantize_int8`); the quantized layers run kernels K3 and K4.
 
 The per-video host work (decode, tile and crop resizes) overlaps across
 videos on a thread pool; PyTorch releases the GIL in its kernels.
@@ -54,8 +57,9 @@ class VideoScorer:
         self.model = model.to(memory_format=torch.channels_last)
         self.legacy = getattr(model, "pos_mode", "legacy") == "legacy"
         self.dtype = torch.bfloat16 if self.cfg.model.dtype == "bfloat16" else torch.float32
-        if self.cfg.infer.quantize != "none":
-            raise NotImplementedError("infer.quantize int8 is ROADMAP queue 1 item 9")
+        if self.cfg.infer.quantize not in ("none", "int8", "int8_full"):
+            raise ValueError(f"infer.quantize {self.cfg.infer.quantize!r}: "
+                             "expected none, int8 or int8_full")
         if self.cfg.infer.detector != "blazeface":
             raise NotImplementedError(
                 f"detector {self.cfg.infer.detector!r}: only blazeface is ported "
@@ -65,10 +69,37 @@ class VideoScorer:
         self._lazy_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.capacity = self.cfg.infer.batch_crops
+        # int8 PTQ: calibrated lazily on the first real crop batch
+        self._quant_pending = self.cfg.infer.quantize in ("int8", "int8_full")
         self.stage_stats: Optional[dict] = None
         self.video_latencies: List[float] = []
         #: face crops gathered per video path (after the 29-crop cap)
         self.crop_counts: Dict[str, int] = {}
+
+    def quantize_int8(self, calib_crops_u8: np.ndarray) -> int:
+        """Post-training int8 quantization of the folded model on a
+        calibration crop batch (`compat/quantize.py`): the stem's convs, and
+        under ``infer.quantize="int8_full"`` the patch embedding,
+        transformer and head fc1. Returns the number of quantized convs;
+        0 when the model was already quantized. ``infer.quantize`` set to
+        int8 does this with the first scored batch of ≥ 8 crops."""
+        from fac_fake_torch.compat.quantize import quantize_cvit
+        with self._lazy_lock:
+            already = any(op[0] == "qconv" for op in getattr(self.model, "stem_spec", ())) \
+                or getattr(self.model, "quant_dense", False)
+            if not self._quant_pending and already:
+                # racing callers, or a second explicit call: quantize_cvit on
+                # the rewritten model would find no fp weights to quantize
+                return 0
+            x = torch.from_numpy(np.ascontiguousarray(calib_crops_u8)).to(self.device)
+            self.model = quantize_cvit(self.model, normalize_imagenet(x, torch.float32),
+                                       transformer=self.cfg.infer.quantize == "int8_full")
+            self._quant_pending = False
+            return sum(op[0] == "qconv" for op in self.model.stem_spec)
+
+    def _maybe_quantize(self, crops_u8: np.ndarray) -> None:
+        if self._quant_pending and crops_u8.shape[0] >= 8:
+            self.quantize_int8(crops_u8)
 
     # --- lazily built host-side helpers -------------------------------
     @property
@@ -156,6 +187,7 @@ class VideoScorer:
         n = int(crops_u8.shape[0])
         if n == 0:
             return float(self.cfg.infer.no_face_score)
+        self._maybe_quantize(crops_u8)
         cap = self.capacity
         padded = np.zeros((cap, *crops_u8.shape[1:]), np.uint8)
         padded[: min(n, cap)] = crops_u8[:cap]
@@ -219,6 +251,7 @@ class VideoScorer:
         rows), aggregation per slot. Equal to `score_crops` per video."""
         if not stacks:
             return []
+        self._maybe_quantize(stacks[0])
         slot = self.VIDEO_SLOT
         v = len(stacks)
         packed = np.zeros((v, slot, *stacks[0].shape[1:]), np.uint8)

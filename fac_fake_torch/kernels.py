@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source in ``fac_fake_torch/csrc/`` is compiled on first use by its own
+Each ``.cu`` source in ``fac_fake_torch/csrc/`` is compiled on first use by its own
 ``nvcc`` into a shared library with a plain C interface, loaded with
 ``ctypes``. All sources build in parallel (one ``nvcc`` each, started
 together). Libraries land in ``build/fac_fake_torch_kernels/`` at the root
-of the checkout, named by a hash of their source and flags, so an edited
-source rebuilds and an unchanged one loads as built.
+of the checkout, named by a hash of their source, the shared ``.cuh``
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads as built.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that no ``a·b+c``
 is contracted into an FMA: the kernels then round every operation as their
@@ -29,7 +30,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "fac_fake_torch_kernels"
-SOURCES = ("frame_detections", "normalize")
+SOURCES = ("frame_detections", "normalize", "quant_conv", "quant_dense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,6 +41,10 @@ SIGNATURES = {
         _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P]},
     "normalize": {"fac_normalize_imagenet": [
         _P, _P, ctypes.c_longlong, _I, ctypes.POINTER(_F), _P]},
+    "quant_conv": {"fac_quant_conv3x3": [
+        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]},
+    "quant_dense": {"fac_quant_dense": [
+        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -61,6 +66,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared headers, e.g. quant_mma.cuh
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -14,6 +14,11 @@ Quirks kept:
   * ``pos_mode='patch'``: the per-position embedding;
   * patchify token order ``(h w)(p1 p2 c)``.
 
+``quant_dense`` (JAX `CViT.quant_dense`): the patch embedding, every
+attention ``to_qkv``/``to_out``, every FFN ``net.0``/``net.2`` and
+``mlp_head.0`` are int8 `QuantLinear`s, as `compat/quantize.py` writes
+them; ``mlp_head.2``, the 2-logit output, stays fp.
+
 Input is NCHW float (the first conv's input; `ops/preprocess.py` hands it
 over in ``channels_last`` memory), as the reference torch model takes it.
 """
@@ -25,7 +30,7 @@ import torch
 from torch import nn
 
 from fac_fake_torch.core.registry import register
-from fac_fake_torch.models.layers import TransformerEncoder, mlp_head
+from fac_fake_torch.models.layers import TransformerEncoder, mlp_head, quant_linear
 from fac_fake_torch.models.stems import Stem, StemSpec, vgg_stem
 
 LEGACY_POS_ROWS = 32
@@ -44,22 +49,26 @@ class CViT(nn.Module):
     def __init__(self, stem_spec: StemSpec, image_size: int = 224,
                  patch_size: int = 7, num_classes: int = 2, dim: int = 1024,
                  depth: int = 6, heads: int = 8, mlp_dim: int = 2048,
-                 pos_mode: str = "legacy", ffn_norm: str = "ln"):
+                 pos_mode: str = "legacy", ffn_norm: str = "ln",
+                 quant_dense: bool = False):
         super().__init__()
-        # constructor arguments, so `compat/fold.py` can rebuild the model
+        # constructor arguments, so `compat/fold.py` and `compat/quantize.py`
+        # can rebuild the model
         self.config = dict(stem_spec=tuple(stem_spec), image_size=image_size,
                            patch_size=patch_size, num_classes=num_classes,
                            dim=dim, depth=depth, heads=heads, mlp_dim=mlp_dim,
-                           pos_mode=pos_mode, ffn_norm=ffn_norm)
+                           pos_mode=pos_mode, ffn_norm=ffn_norm,
+                           quant_dense=quant_dense)
         self.stem_spec = tuple(stem_spec)
         self.patch_size = patch_size
         self.dim = dim
         self.pos_mode = pos_mode
+        self.quant_dense = quant_dense
         self.features = Stem(self.stem_spec)
         side = image_size // (2 ** self.features.pools) // patch_size
         num_patches = side * side
         patch_dim = self.features.out_channels * patch_size ** 2
-        self.patch_to_embedding = nn.Linear(patch_dim, dim)
+        self.patch_to_embedding = quant_linear(patch_dim, dim, quant_dense)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         if pos_mode == "legacy":
             self.pos_embedding = nn.Parameter(torch.empty(LEGACY_POS_ROWS, 1, dim))
@@ -67,8 +76,9 @@ class CViT(nn.Module):
             self.pos_embedding = nn.Parameter(torch.empty(1, num_patches + 1, dim))
         else:
             raise ValueError(f"unknown pos_mode {pos_mode}")
-        self.transformer = TransformerEncoder(dim, depth, heads, mlp_dim, ffn_norm)
-        self.mlp_head = mlp_head(dim, mlp_dim, num_classes)
+        self.transformer = TransformerEncoder(dim, depth, heads, mlp_dim, ffn_norm,
+                                              quant_dense)
+        self.mlp_head = mlp_head(dim, mlp_dim, num_classes, quant_dense)
 
     def forward(self, img: torch.Tensor,
                 pos_indices: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -6,11 +6,20 @@ Module and attribute names mirror the reference torch CViT
 package's `export_cvit` output both load with ``strict=True``:
 ``transformer.layers.{i}.0.fn.norm`` / ``.0.fn.fn.to_qkv`` /
 ``.1.fn.fn.net.{0,2}``. Eval-mode only: BatchNorm uses its running stats.
+
+`QuantConv3x3` and `QuantLinear` are the int8 post-training-quantized
+layers (`fac_fake_tpu/models/layers.py` `QuantConv3x3`, `QuantDense`):
+buffers only, written by `compat/quantize.py`, run by kernels K3 and K4
+(`ops/quant.py`). `quant_linear` swaps one in under the same attribute
+name, so state-dict paths keep the reference names
+(``transformer.layers.{i}.0.fn.fn.to_qkv.kernel_q``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from fac_fake_torch.ops.quant import quant_conv3x3, quant_dense
 
 # torch BatchNorm defaults, as the JAX package's TorchBatchNorm
 BN_EPS = 1e-5
@@ -25,17 +34,58 @@ def batch_norm(ch: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(ch, eps=BN_EPS)
 
 
+class QuantConv3x3(nn.Module):
+    """int8 3×3 pad-1 conv (inference only): ``kernel_q`` int8 (O, I, 3, 3),
+    per-output-channel ``w_scale``, per-tensor ``x_scale`` (0-d), fp32
+    ``bias``. NCHW in, NCHW ``channels_last`` out, in the input's dtype."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.register_buffer("kernel_q", torch.zeros((cout, cin, 3, 3), dtype=torch.int8))
+        self.register_buffer("w_scale", torch.ones(cout))
+        self.register_buffer("x_scale", torch.ones(()))
+        self.register_buffer("bias", torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant_conv3x3(x, self.kernel_q, self.w_scale, self.x_scale, self.bias)
+
+
+class QuantLinear(nn.Module):
+    """int8 dense (inference only): ``kernel_q`` int8 (out, in), as
+    ``nn.Linear.weight``; ``w_scale``, ``x_scale`` and the optional
+    ``bias`` as in `QuantConv3x3`. (..., in) → (..., out)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.register_buffer("kernel_q", torch.zeros((out_features, in_features),
+                                                     dtype=torch.int8))
+        self.register_buffer("w_scale", torch.ones(out_features))
+        self.register_buffer("x_scale", torch.ones(()))
+        self.register_buffer("bias", torch.zeros(out_features) if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant_dense(x, self.kernel_q, self.w_scale, self.x_scale, self.bias)
+
+
+def quant_linear(in_features: int, out_features: int, quant: bool,
+                 bias: bool = True) -> nn.Module:
+    """``nn.Linear``, or its int8 twin when ``quant`` (JAX `dense(quant=)`)."""
+    if quant:
+        return QuantLinear(in_features, out_features, bias)
+    return nn.Linear(in_features, out_features, bias=bias)
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Reference CViT attention (`model/cvit.py:34-62`). Quirk kept: the
     softmax scale is ``dim ** -0.5`` on the model dimension, not the head
     dimension; qkv unpacks as ``(b, n, 3, h, head_dim)``."""
 
-    def __init__(self, dim: int, heads: int = 8):
+    def __init__(self, dim: int, heads: int = 8, quant: bool = False):
         super().__init__()
         self.dim, self.heads = dim, heads
         self.scale = dim ** -0.5
-        self.to_qkv = nn.Linear(dim, dim * 3, bias=False)
-        self.to_out = nn.Linear(dim, dim)
+        self.to_qkv = quant_linear(dim, dim * 3, quant, bias=False)
+        self.to_out = quant_linear(dim, dim, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
@@ -51,10 +101,10 @@ class MultiHeadSelfAttention(nn.Module):
 class FeedForward(nn.Module):
     """dim → hidden (exact GELU) → dim (`model/cvit.py:22-32`)."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, quant: bool = False):
         super().__init__()
-        self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU(),
-                                 nn.Linear(hidden_dim, dim))
+        self.net = nn.Sequential(quant_linear(dim, hidden_dim, quant), nn.GELU(),
+                                 quant_linear(hidden_dim, dim, quant))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -84,15 +134,15 @@ class TransformerEncoder(nn.Module):
     (`model/cvit.py:64-78`), the ``ffn_norm="ln"`` branch."""
 
     def __init__(self, dim: int, depth: int, heads: int, mlp_dim: int,
-                 ffn_norm: str = "ln"):
+                 ffn_norm: str = "ln", quant: bool = False):
         super().__init__()
         if ffn_norm != "ln":
             raise NotImplementedError(
                 f"ffn_norm={ffn_norm!r} (LinearNorm/RepBN) is ROADMAP queue 1 "
                 "item 4, the flagship slice")
         self.layers = nn.ModuleList(
-            nn.ModuleList([Residual(PreNorm(dim, MultiHeadSelfAttention(dim, heads))),
-                           Residual(PreNorm(dim, FeedForward(dim, mlp_dim)))])
+            nn.ModuleList([Residual(PreNorm(dim, MultiHeadSelfAttention(dim, heads, quant))),
+                           Residual(PreNorm(dim, FeedForward(dim, mlp_dim, quant)))])
             for _ in range(depth))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -101,7 +151,9 @@ class TransformerEncoder(nn.Module):
         return x
 
 
-def mlp_head(dim: int, mlp_dim: int, num_classes: int) -> nn.Sequential:
-    """dim → mlp_dim (ReLU) → num_classes (`model/cvit.py:161-165`)."""
-    return nn.Sequential(nn.Linear(dim, mlp_dim), nn.ReLU(),
+def mlp_head(dim: int, mlp_dim: int, num_classes: int,
+             quant: bool = False) -> nn.Sequential:
+    """dim → mlp_dim (ReLU) → num_classes (`model/cvit.py:161-165`). Under
+    ``quant`` only the first layer is int8; the 2-logit output stays fp."""
+    return nn.Sequential(quant_linear(dim, mlp_dim, quant), nn.ReLU(),
                          nn.Linear(mlp_dim, num_classes))

@@ -2,7 +2,8 @@
 the plain op kinds.
 
 A stem is data: a tuple of ops run in order by one `Stem` module,
-``("conv", ch)`` 3×3 pad-1 conv · ``("bn", ch)`` · ``("relu",)`` ·
+``("conv", ch)`` 3×3 pad-1 conv · ``("qconv", ch)`` its int8 twin
+(`compat/quantize.py` writes it) · ``("bn", ch)`` · ``("relu",)`` ·
 ``("pool",)`` 2×2 max-pool. Op ``i`` is ``features.{i}`` in the state dict,
 as in the reference's ``nn.Sequential`` (relu and pool hold no weights).
 """
@@ -12,7 +13,7 @@ from typing import Tuple
 
 from torch import nn
 
-from fac_fake_torch.models.layers import batch_norm, conv3x3
+from fac_fake_torch.models.layers import QuantConv3x3, batch_norm, conv3x3
 
 StemSpec = Tuple[Tuple, ...]
 
@@ -21,7 +22,6 @@ _VGG_STAGES = ((32, 3), (64, 3), (128, 3), (256, 4), (512, 4))
 # op kinds of the JAX stem DSL that later slices port
 _LATER = {
     "deconv": "ROADMAP queue 1 item 4 (flagship DEConv)",
-    "qconv": "ROADMAP queue 1 item 9 (int8 serving)",
     "scconv": "ROADMAP queue 1 item 14 (variant zoo)",
     "wtconv": "ROADMAP queue 1 item 14 (variant zoo)",
     "idw": "ROADMAP queue 1 item 14 (variant zoo)",
@@ -59,8 +59,8 @@ class Stem(nn.Sequential):
         pools = 0
         for op in spec:
             kind = op[0]
-            if kind == "conv":
-                layers.append(conv3x3(ch, op[1]))
+            if kind in ("conv", "qconv"):
+                layers.append((conv3x3 if kind == "conv" else QuantConv3x3)(ch, op[1]))
                 ch = op[1]
             elif kind == "bn":
                 layers.append(batch_norm(op[1]))

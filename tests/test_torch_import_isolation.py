@@ -23,6 +23,8 @@ def _modules():
 def test_importing_every_port_module_loads_no_jax():
     mods = _modules()
     assert "fac_fake_torch.infer.predictor" in mods and len(mods) > 15
+    # the int8 serving modules (quantize_cvit; kernels K3 and K4)
+    assert {"fac_fake_torch.compat.quantize", "fac_fake_torch.ops.quant"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
