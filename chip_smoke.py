@@ -7,12 +7,13 @@ print what it measured.
     python3 chip_smoke.py [--seed N] [--profile]     # all phases, one card
 
 ``--profile`` adds a torch.profiler breakdown, by kernel, of one fp32 and
-one int8_full forward at batch 96 to phase 9.
+one int8_full CViT forward at batch 96 to phase 9, and of one fp32 and one
+int8 S3D `predict_batch` at batch 32 to phase 13.
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
-  2. build the four kernels (K1-K4) from fac_fake_torch/csrc, in parallel;
+  2. build the six kernels (K1-K6) from fac_fake_torch/csrc, in parallel;
   3. K2 (normalize) against its plain version at (96|256, 224, 224, 3), fp32
      and bf16;
   4. K1 (frame detections) against its plain version on real BlazeFace dets
@@ -40,7 +41,23 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      information;
  10. full-width int8_full logits on the card against the same quantized
      module on the CPU (plain versions);
- 11. the kernels line; 12. the result line.
+ 11. S3D fp32 main path: `S3DEvaluator` with the full-width `ca_s3d` (seeded
+     weights, one logit, 20 x 224^2 clips): `predict_batch` on 32 seeded
+     uint8 clips (clips/s), `predict_video` on one clip (no degradation: the
+     card's machine has no cv2), `evaluate` over an in-memory dataset;
+ 12. K5 (quantize + int8 3D conv) and K6 (int8 max-pool) against their
+     plain versions at every conv, quantize and pool of one ca_s3d int8
+     forward, the shapes recorded from the wrapper calls, at batch 2, fp32
+     and bf16 (bit-equal); timed over the 77 convs, 50 quantize passes and
+     9 pools of a forward at batch 32, beside torch._int_mm on the 1x1x1
+     convs' pre-quantized operands;
+ 13. S3D int8 main path: `S3DEvaluator(quantize="int8")` (its first batch
+     calibrates), then `predict_batch` at batch 32 (clips/s),
+     `predict_video` and `evaluate`; K5 and K6 must launch; int8 vs fp32
+     logits for information;
+ 14. full-width ca_s3d logits on the card against the same module on the
+     CPU, fp32 and int8 (plain versions), batch 1;
+ 15. the kernels line; 16. the result line.
 """
 from __future__ import annotations
 
@@ -74,6 +91,9 @@ STEM_CONVS = {(224, 3, 32): 1, (224, 32, 32): 2, (112, 32, 64): 1, (112, 64, 64)
 INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
                (192, 1024, 1024, True): 6, (192, 2048, 1024, True): 6,
                (192, 1024, 2048, True): 6, (96, 2048, 1024, True): 1}
+S3D_BATCH = 32                                     # clips a predict_batch
+S3D_CHECK_BATCH = 2                                # clips a K5/K6 bit-equality check
+S3D_T, S3D_HW = 20, 224                            # frames, pixels (ca_s3d's input)
 
 
 def log(msg: str) -> None:
@@ -212,27 +232,42 @@ def k4_phase(rng, dev) -> dict:
     return tot
 
 
-def profile_forward(model, x, pos, label: str, top: int = 12) -> None:
-    """Device time by kernel over one forward (torch.profiler), the busy
-    share of the forward's wall time, and the ``top`` kernels."""
+def profile_forward(fn, label: str, top: int = 12) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), the
+    busy share of its wall time, and the ``top`` kernels. A first call is
+    traced and dropped (the profiler's warm-up step): without it the trace
+    loses the kernels at the start of the window."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    rows = []
+
+    def ready(prof):
+        # the kernels' and copies' own rows: an aten op's row repeats its
+        # kernels' device time, and the step annotation spans the window
+        rows.extend((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                    and not e.key.startswith("ProfilerStep"))
+
     with torch.inference_mode():
-        model(x, pos)
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=ready) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.perf_counter()
-            model(x, pos)
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    # the kernels' own rows: an aten op's row repeats its kernels' device time
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            prof.step()
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e3
     log(f"profile {label}: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
-        f"({busy / (wall * 1e3):.1%}; kernels summed, so overlap would count twice)")
+        f"({busy / (wall * 1e3):.1%}; kernels and copies summed, so overlap would count "
+        f"twice)")
     if not rows:
         raise AssertionError(f"profile {label}: the profiler saw no kernel on the card")
     for key, us, n in rows[:top]:
@@ -370,12 +405,293 @@ def compare_k1(dets, valid, split, offsets, hw, t):
     return err, int(m.sum()), k_ms, p_ms, nbytes
 
 
+class InMemoryClips:
+    """In-memory stand-in for `ClipDataset`: ``n`` seeded uint8 (T, H, W, 3)
+    clips, labels alternating; ``load_clip`` draws the masking region order
+    from the generator first, as `ClipDataset.load_clip` does."""
+
+    def __init__(self, seed: int, n: int = 4):
+        self.seed = seed
+        self.samples = [(f"clip_{i}", i % 2, f"clip_{i}") for i in range(n)]
+
+    def load_clip(self, idx: int, rng: np.random.Generator) -> np.ndarray:
+        rng.permutation(8)
+        return np.random.default_rng([self.seed, idx]).integers(
+            0, 256, (S3D_T, S3D_HW, S3D_HW, 3), dtype=np.uint8)
+
+
+def clips_per_s(ev, clips, n_it: int = 5) -> tuple:
+    """clips/s through `predict_batch`, and the last scores."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(n_it):
+        probs = ev.predict_batch(clips)
+    torch.cuda.synchronize()
+    return clips.shape[0] * n_it / (time.perf_counter() - t0), probs
+
+
+def record_s3d_calls(engine, x) -> dict:
+    """One int8 forward of ``engine`` on ``x`` with the K5/K6 wrappers
+    wrapped: {kind: {call key: count}}, where a conv's key is (xq shape,
+    w_q shape, stride, padding, relu), a quantize's (x shape) and a pool's
+    (xq shape)."""
+    import torch
+    from fac_fake_torch.ops import quant3d as q3
+    calls = {"conv": {}, "quantize": {}, "pool": {}}
+    orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8)
+
+    def bump(kind, key):
+        calls[kind][key] = calls[kind].get(key, 0) + 1
+
+    def conv(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0):
+        bump("conv", (tuple(xq.shape), tuple(w_q.shape), tuple(stride), tuple(padding), relu))
+        return orig[0](xq, w_q, s, b, stride, padding, relu, dtype, out, c0)
+
+    def quantize(x, s_x):
+        bump("quantize", tuple(x.shape))
+        return orig[1](x, s_x)
+
+    def pool(xq):
+        bump("pool", tuple(xq.shape))
+        return orig[2](xq)
+
+    # each wrapper counts its launches on the function its module's name is
+    # bound to: here the recorder's, so that recording launches do not count
+    conv.launches = quantize.launches = pool.launches = 0
+    q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8 = conv, quantize, pool
+    try:
+        with torch.no_grad():
+            engine(x)
+    finally:
+        q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8 = orig
+    return calls
+
+
+def _at_batch(shape, b):
+    return (b,) + tuple(shape[1:])
+
+
+def k5_k6_phase(rng, dev, calls) -> tuple:
+    """K5 and K6 against their plain versions at every recorded call shape
+    (batch S3D_CHECK_BATCH, fp32 and bf16, bit-equal), then timed at batch
+    S3D_BATCH, each shape times its count in one forward. Returns the K5
+    and K6 totals."""
+    import torch
+    from fac_fake_torch.ops import quant3d as q3
+    from fac_fake_torch.ops.quant import pad16
+    k5 = dict(ms=0.0, conv_ms=0.0, quantize_ms=0.0, plain_ms=0.0, ms_1x1x1=0.0,
+              library_ms=0.0, bytes=0.0, ops=0.0, err=0.0, convs=0, quantizes=0)
+    k6 = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, err=0.0, pools=0)
+    t = lambda a: torch.from_numpy(a).to(dev)
+
+    def int8_image(shape, c):
+        """int8 values of a quantized activation, zero in the padded channels."""
+        xq = rng.integers(-127, 128, shape, dtype=np.int8)
+        xq[..., c:] = 0
+        return t(xq)
+
+    for (xs, ws, stride, padding, relu), mult in calls["conv"].items():
+        n, kt, kh, kw, cp = ws
+        w_q = t(rng.integers(-127, 128, ws, dtype=np.int8))
+        s = t(rng.uniform(1e-5, 1e-3, n).astype(np.float32))
+        b = t(rng.standard_normal(n, dtype=np.float32))
+        xq = int8_image(_at_batch(xs, S3D_CHECK_BATCH), cp)
+        for dt in (torch.float32, torch.bfloat16):
+            got = q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu, dt)
+            ref = q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu, dt)
+            torch.cuda.synchronize()
+            k5["err"] = max(k5["err"], float((got.float() - ref.float()).abs().max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K5 conv {xs} * {ws} s{stride} p{padding} {dt}: "
+                                     f"differs from plain, max abs {k5['err']}")
+        xq = int8_image(_at_batch(xs, S3D_BATCH), cp)
+        k_ms = cuda_ms(lambda: q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu,
+                                              torch.float32), iters=10)
+        p_ms = cuda_ms(lambda: q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu,
+                                                    torch.float32), iters=1, warmup=1)
+        out = q3.conv3d_out_shape(xq.shape[:4], (kt, kh, kw), stride, padding)
+        m = float(np.prod(out))
+        # real input channels: the engine pads only the 3-channel clip (to 16)
+        cin = 3 if cp == 16 and kh == 7 else cp
+        k5["ops"] += mult * 2.0 * m * n * kt * kh * kw * cin
+        k5["bytes"] += mult * (xq.numel() + w_q.numel() + 8 * n + 4 * m * n)
+        k5["conv_ms"] += mult * k_ms
+        k5["plain_ms"] += mult * p_ms
+        k5["convs"] += mult
+        if (kt, kh, kw) == (1, 1, 1):
+            xm, wm = xq.reshape(-1, cp), w_q.reshape(n, cp)
+            if not torch.equal(torch._int_mm(xm, wm.t()),
+                               q3.int_conv3d_plain(xq, w_q, stride, padding).reshape(-1, n)):
+                raise AssertionError("torch._int_mm differs from the exact int32 conv")
+            k5["library_ms"] += mult * cuda_ms(lambda: torch._int_mm(xm, wm.t()))
+            k5["ms_1x1x1"] += mult * k_ms
+        del xq, w_q
+        torch.cuda.empty_cache()
+    for xs, mult in calls["quantize"].items():
+        c = xs[-1]
+        for shape, timed in ((_at_batch(xs, S3D_CHECK_BATCH), False), (_at_batch(xs, S3D_BATCH), True)):
+            x, _, _, sx, _ = quant_inputs(rng, dev, shape, 1, 1)
+            if not timed:
+                for dt in (torch.float32, torch.bfloat16):
+                    xd = x.to(dt)
+                    if not torch.equal(q3.quantize_pad(xd, sx), q3.quantize_pad_plain(xd, sx)):
+                        raise AssertionError(f"K5 quantize {shape} {dt}: differs from plain")
+                continue
+            k_ms = cuda_ms(lambda: q3.quantize_pad(x, sx))
+            k5["quantize_ms"] += mult * k_ms
+            k5["plain_ms"] += mult * cuda_ms(lambda: q3.quantize_pad_plain(x, sx), iters=3)
+            k5["bytes"] += mult * x.numel() * (4 + pad16(c) / c)
+            k5["quantizes"] += mult
+            del x
+    for xs, mult in calls["pool"].items():
+        xq = int8_image(_at_batch(xs, S3D_CHECK_BATCH), xs[-1])
+        got, ref = q3.max_pool3d_i8(xq), q3.max_pool3d_i8_plain(xq)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K6 {tuple(xq.shape)}: differs from plain")
+        xq = int8_image(_at_batch(xs, S3D_BATCH), xs[-1])
+        k_ms = cuda_ms(lambda: q3.max_pool3d_i8(xq))
+        p_ms = cuda_ms(lambda: q3.max_pool3d_i8_plain(xq), iters=3)
+        k6["ms"] += mult * k_ms
+        k6["plain_ms"] += mult * p_ms
+        k6["bytes"] += mult * 2.0 * xq.numel()
+        k6["ops"] += mult * 26.0 * xq.numel()    # byte maxima, outside the tensor cores
+        k6["pools"] += mult
+        log(f"K6 max_pool3d_i8 {tuple(xq.shape)} x{mult}: equal; kernel {k_ms:.4f} ms "
+            f"plain {p_ms:.4f} ms bound {bound_ms(2.0 * xq.numel(), 26.0 * xq.numel())[0]:.4f} ms")
+    k5["ms"] = k5["conv_ms"] + k5["quantize_ms"]
+    k5["bound_ms"], k5["bound_by"] = bound_ms(k5["bytes"], k5["ops"], INT8_TC_OPS)
+    k6["bound_ms"], k6["bound_by"] = bound_ms(k6["bytes"], k6["ops"])
+    log(f"K5 over one forward at batch {S3D_BATCH}: {k5['convs']} convs {k5['conv_ms']:.4f} ms "
+        f"+ {k5['quantizes']} quantize passes {k5['quantize_ms']:.4f} ms = {k5['ms']:.4f} ms; "
+        f"plain {k5['plain_ms']:.4f} ms; bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}; "
+        f"{k5['ops'] / 1e12:.3f} T int8 ops, {k5['bytes'] / 1e9:.3f} GB); "
+        f"{k5['ops'] / k5['conv_ms'] / 1e9:.1f} int8 TOP/s; the 1x1x1 convs {k5['ms_1x1x1']:.4f} "
+        f"ms against torch._int_mm's GEMMs alone {k5['library_ms']:.4f} ms")
+    log(f"K6 over one forward's {k6['pools']} pools at batch {S3D_BATCH}: kernel "
+        f"{k6['ms']:.4f} ms plain {k6['plain_ms']:.4f} ms bound {k6['bound_ms']:.4f} ms "
+        f"({k6['bound_by']})")
+    return k5, k6
+
+
+def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
+    """Phases 11-14: the S3D fp32 path, K5 and K6 against their plain
+    versions, the S3D int8 path (with ``profile``, a torch.profiler
+    breakdown of one `predict_batch` in fp32 and in int8), and ca_s3d
+    logits card against CPU. Returns what the kernels line needs."""
+    import torch
+    from fac_fake_torch.compat.quantize_s3d import quantize_s3d
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.detect import extractor as ex
+    from fac_fake_torch.evaluate.s3d_eval import S3DEvaluator
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
+
+    # ---- 11. S3D fp32 main path --------------------------------------------------
+    s3d_cfg = Config().model
+    s3d_cfg.name, s3d_cfg.num_class = "ca_s3d", 1
+    s3d = build_model(s3d_cfg, device=dev, seed=seed)
+    clips = rng.integers(0, 256, (S3D_BATCH, S3D_T, S3D_HW, S3D_HW, 3), dtype=np.uint8)
+    mem = InMemoryClips(seed)
+    ev = S3DEvaluator(s3d, degrade=False, seed=seed, device=dev)
+    ev.predict_batch(clips)                     # warm cuDNN before timing
+    torch.cuda.synchronize()
+
+    def zero_counts():
+        ex.frame_detections.launches = pp.normalize_imagenet.launches = 0
+        q.quant_conv3x3.launches = q.quant_dense.launches = 0
+        q3.int8_conv3d.launches = q3.quantize_pad.launches = q3.max_pool3d_i8.launches = 0
+
+    def read_counts():
+        return {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches,
+                "K3": q.quant_conv3x3.launches, "K4": q.quant_dense.launches,
+                "K5": q3.int8_conv3d.launches, "K5_quantize": q3.quantize_pad.launches,
+                "K6": q3.max_pool3d_i8.launches}
+
+    zero_counts()
+    s3d_rate, s3d_probs = clips_per_s(ev, clips)
+    s3d_video = ev.predict_video(clips[0])
+    s3d_eval = ev.evaluate(mem)
+    s3d_launches = read_counts()
+    log(f"S3D fp32 (ca_s3d, {S3D_T}x{S3D_HW}^2): predict_batch {S3D_BATCH} clips "
+        f"{s3d_rate:.1f} clips/s; predict_video {s3d_video:.6f}; evaluate {s3d_eval}; "
+        f"launches {s3d_launches} (no hand-written kernel on the fp32 S3D path)")
+    s3d_scores = list(s3d_probs) + [s3d_video]
+    if not (all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in s3d_scores)
+            and s3d_eval["count"] == len(mem.samples) and s3d_probs.shape == (S3D_BATCH,)):
+        raise AssertionError(f"S3D fp32 scores {s3d_scores} / evaluate {s3d_eval}")
+
+    # ---- 12. K5 and K6 against their plain versions ------------------------------
+    x_check = torch.from_numpy(clips[:S3D_CHECK_BATCH]).to(dev).float().permute(0, 4, 1, 2, 3)
+    calls = record_s3d_calls(quantize_s3d(s3d, x_check), x_check)
+    log(f"S3D int8 forward: {sum(calls['conv'].values())} convs ({len(calls['conv'])} "
+        f"shapes), {sum(calls['quantize'].values())} quantize passes, "
+        f"{sum(calls['pool'].values())} int8 pools")
+    k5, k6 = k5_k6_phase(rng, dev, calls)
+    if (k5["convs"], k6["pools"]) != (77, 9):
+        raise AssertionError(f"a ca_s3d int8 forward has 77 convs and 9 int8 pools, "
+                             f"recorded {k5['convs']} and {k6['pools']}")
+    torch.cuda.empty_cache()
+
+    # ---- 13. S3D int8 main path ------------------------------------------------------
+    ev8 = S3DEvaluator(s3d, degrade=False, seed=seed, quantize="int8", device=dev)
+    t_cal = time.perf_counter()
+    ev8.predict_batch(clips)                    # calibrates on clips[:2], then scores
+    torch.cuda.synchronize()
+    log(f"S3D int8: first predict_batch calibrated and scored in "
+        f"{time.perf_counter() - t_cal:.2f} s: {len(ev8.engine.qparams)} convs quantized")
+    zero_counts()
+    s3d8_rate, s3d8_probs = clips_per_s(ev8, clips)
+    s3d8_video = ev8.predict_video(clips[0])
+    s3d8_eval = ev8.evaluate(mem)
+    s3d8_launches = read_counts()
+    log(f"S3D int8: predict_batch {S3D_BATCH} clips {s3d8_rate:.1f} clips/s (fp32 "
+        f"{s3d_rate:.1f}); predict_video {s3d8_video:.6f}; evaluate {s3d8_eval}; "
+        f"launches {s3d8_launches}")
+    s3d8_scores = list(s3d8_probs) + [s3d8_video]
+    if not (all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in s3d8_scores)
+            and s3d8_eval["count"] == len(mem.samples)):
+        raise AssertionError(f"S3D int8 scores {s3d8_scores} / evaluate {s3d8_eval}")
+    if min(s3d8_launches[k] for k in ("K5", "K5_quantize", "K6")) <= 0:
+        raise AssertionError(f"S3D int8: a kernel of the path never launched: {s3d8_launches}")
+    if profile:
+        profile_forward(lambda: ev.predict_batch(clips), f"S3D fp32 predict_batch {S3D_BATCH}")
+        profile_forward(lambda: ev8.predict_batch(clips), f"S3D int8 predict_batch {S3D_BATCH}")
+    with torch.no_grad():
+        x32 = torch.from_numpy(clips).to(dev).float().permute(0, 4, 1, 2, 3)
+        a, b = s3d(x32).double(), ev8.engine(x32).double()
+    del x32
+    ac, bc = a - a.mean(), b - b.mean()
+    log(f"S3D int8 vs fp32 logits on {S3D_BATCH} clips (information): max abs "
+        f"{float((a - b).abs().max()):.4g} cosine {float((a * b).sum() / (a.norm() * b.norm())):.6f} "
+        f"centred cosine {float((ac * bc).sum() / (ac.norm() * bc.norm())):.6f} "
+        f"(|logit| max {float(a.abs().max()):.3g}, spread {float(a.max() - a.min()):.3g})")
+
+    # ---- 14. full-width ca_s3d logits, card against CPU ------------------------------
+    one = torch.from_numpy(clips[:1]).float().permute(0, 4, 1, 2, 3)
+    s3d_errs = {}
+    for label, mod in (("fp32", s3d), ("int8", ev8.engine)):
+        with torch.no_grad():
+            gpu_l = mod(one.to(dev)).cpu()
+            t_cpu = time.perf_counter()
+            cpu_l = copy.deepcopy(mod).cpu()(one)
+        s3d_errs[label] = float((gpu_l - cpu_l).abs().max())
+        log(f"full-width ca_s3d {label} logits card vs CPU ({time.perf_counter() - t_cpu:.1f} s "
+            f"on the CPU): max abs {s3d_errs[label]:.3g} (logit {float(cpu_l[0, 0]):.6g})")
+        if not (torch.isfinite(gpu_l).all() and s3d_errs[label] <= LOGIT_TOL):
+            raise AssertionError(f"ca_s3d {label} logits differ: {s3d_errs[label]} > {LOGIT_TOL}")
+
+    return dict(k5=k5, k6=k6, launches=s3d8_launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="break one fp32 and one int8_full forward down by kernel")
+                    help="break CViT and S3D forwards down by kernel")
     args = ap.parse_args()
 
     import torch
@@ -585,8 +901,8 @@ def main() -> int:
             x96 = pp.normalize_imagenet(torch.from_numpy(
                 np.concatenate([crops] * 4)[:QBATCH]).to(dev))
         pos96 = torch.arange(QBATCH, device=dev) % 32
-        profile_forward(scorer.model, x96, pos96, f"fp32 forward, batch {QBATCH}")
-        profile_forward(full.model, x96, pos96, f"int8_full forward, batch {QBATCH}")
+        profile_forward(lambda: scorer.model(x96, pos96), f"fp32 forward, batch {QBATCH}")
+        profile_forward(lambda: full.model(x96, pos96), f"int8_full forward, batch {QBATCH}")
 
     # ---- 10. full-width int8_full logits, card against CPU ------------------
     with torch.inference_mode():
@@ -600,8 +916,13 @@ def main() -> int:
     if not (torch.isfinite(gpu8).all() and err8 <= LOGIT_TOL):
         raise AssertionError(f"int8_full logits differ: {err8} > {LOGIT_TOL}")
 
-    # ---- 11. kernels line -----------------------------------------------------
+    del scorer, qscorer, full, model
+    torch.cuda.empty_cache()
+    s3d = s3d_phases(args.seed, rng, dev, args.profile)
+
+    # ---- 15. kernels line -----------------------------------------------------
     k2_main = k2[(96, "float32")]
+    k5, k6 = s3d["k5"], s3d["k6"]
     rows = [
         {"name": "K1_frame_detections", "route": "cuda",
          "source": "fac_fake_torch/csrc/frame_detections.cu",
@@ -631,9 +952,27 @@ def main() -> int:
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": k4["library_ms"], "library": "torch._int_mm, the GEMM alone",
          "shapes": "the 26 denses of one int8_full forward, batch 96, fp32"},
+        {"name": "K5_quant_conv3d", "route": "cuda",
+         "source": "fac_fake_torch/csrc/quant_conv3d.cu",
+         "replaces": "fac_fake_tpu/compat/quantize_s3d.py:59",
+         "launches": s3d["launches"]["K5"], "quantize_launches": s3d["launches"]["K5_quantize"],
+         "max_abs_err": k5["err"], "ms": k5["ms"], "kernel_ms": k5["ms"],
+         "conv_ms": k5["conv_ms"], "quantize_ms": k5["quantize_ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": k5["library_ms"], "ms_1x1x1": k5["ms_1x1x1"],
+         "library": "torch._int_mm, the GEMMs of the 1x1x1 convs alone (pre-quantized)",
+         "shapes": f"the 77 convs and 50 quantize passes of one ca_s3d int8 forward, "
+                   f"batch {S3D_BATCH}, fp32"},
+        {"name": "K6_max_pool3d_i8", "route": "cuda",
+         "source": "fac_fake_torch/csrc/max_pool3d_i8.cu",
+         "replaces": "fac_fake_tpu/compat/quantize_s3d.py:85",
+         "launches": s3d["launches"]["K6"], "max_abs_err": k6["err"],
+         "ms": k6["ms"], "kernel_ms": k6["ms"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"], "library_ms": None,
+         "shapes": f"the 9 int8 pools of one ca_s3d int8 forward, batch {S3D_BATCH}"},
     ]
     log(json.dumps({"kernels": rows}))
-    # ---- 12. result -----------------------------------------------------------
+    # ---- 16. result -----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                     "kind": torch.cuda.get_device_name(0),
                     "count": torch.cuda.device_count()}}))

@@ -1,0 +1,236 @@
+"""Post-training int8 quantization of an S3D model (inference only) — the
+port of `fac_fake_tpu/compat/quantize_s3d.py`.
+
+A spec-walking engine, as in the JAX package: `S3DInt8` re-executes
+`S3DNet`'s op walk with every BatchNorm folded into its (bias-free) conv,
+``w' = w·γ/√(σ²+ε)``, ``b' = β − μ·γ/√(σ²+ε)``. One folded fp32 walk over a
+calibration batch records, per conv:
+
+  * ``s_x = max(max|x|, 1e-8) / 127``, the input's per-tensor scale;
+  * ``w_q``, ``s_w``: symmetric per-output-channel int8 weights,
+    ``s_w = max(max|w'| / 127, 1e-12)``;
+  * ``s = s_x·s_w`` (formed once, here) and the folded bias ``b'``,
+
+keyed as the JAX engine keys them (``l0/s``, ``l0/t``, ``l2``,
+``l4/b1b/s`` …). The int8 walk then runs each conv through K5
+(`ops/quant3d.py`): quantize, exact int32 conv, ``acc·s + b``, ReLU. An
+Inception mix quantizes its input once with the shared scale, and its
+fourth branch max-pools the int8 tensor (K6): max-pool commutes with the
+monotone quantizer, so that is exact. Each branch writes its slice of the
+mix's output. What stays fp: the SRM bank, the GCNet context blocks, the
+spec's own max-pools and the head.
+
+The walk is NDHWC inside (the kernels' layout); `S3DInt8.forward` takes
+what `S3DNet.forward` takes, (B, 3, T, H, W) in ``channels_last_3d``
+memory, and returns (B, num_class) fp32 logits. The msca family (relu6
+acts, MSCAN/iFormer blocks) is not supported yet.
+
+    engine = quantize_s3d(model, calib_clips)   # one folded fp32 walk
+    logits = engine(clips)                      # the int8 walk
+"""
+from __future__ import annotations
+
+import copy
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fac_fake_torch.compat.quantize import _act_scale, _weight_q
+from fac_fake_torch.models.s3d.blocks import INCEPTION_PLANS
+from fac_fake_torch.models.s3d.layers import act_fn, avg_pool3d, max_pool3d, srm_filter
+from fac_fake_torch.ops import quant3d as q3
+from fac_fake_torch.ops.quant import pad16
+
+Geom = Tuple[Tuple[int, int, int], Tuple[int, int, int]]   # stride, padding
+_G111: Geom = ((1, 1, 1), (0, 0, 0))
+
+
+def _ncdhw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def _ndhwc(x: torch.Tensor) -> torch.Tensor:
+    """No copy for a ``channels_last_3d`` tensor."""
+    return x.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _fold(conv: nn.Conv3d, bn: Optional[nn.BatchNorm3d]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BN folded into the bias-free conv → (w fp32 (O, I, kt, kh, kw), b (O,))."""
+    w = conv.weight.float()
+    if bn is None:
+        return w, torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+    g = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    b = bn.bias.float() - bn.running_mean.float() * g
+    return w * g.reshape(-1, 1, 1, 1, 1), b
+
+
+def folded_convs(model) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Every conv of the walk, folded, keyed as the JAX engine keys them."""
+    out = {}
+
+    def sep(key, m):
+        out[key + "/s"] = _fold(m.conv_s, m.bn_s)
+        out[key + "/t"] = _fold(m.conv_t, m.bn_t)
+
+    for i, op in enumerate(model.spec):
+        m, key = model.base[i], f"l{i}"
+        if op[0] == "sep":
+            sep(key, m)
+        elif op[0] == "basic":
+            out[key] = _fold(m.conv, m.bn)
+        elif op[0] == "mix":
+            for name, basic in (("b0", m.branch0[0]), ("b1a", m.branch1[0]),
+                                ("b2a", m.branch2[0]), ("b3", m.branch3[1])):
+                out[f"{key}/{name}"] = _fold(basic.conv, basic.bn)
+            sep(key + "/b1b", m.branch1[1])
+            sep(key + "/b2b", m.branch2[1])
+    return out
+
+
+class QConv3d(nn.Module):
+    """One quantized conv of the walk: ``w_q`` int8 (N, kt, kh, kw, Cp) with
+    the input channels padded to Cp (K5's layout), ``s = s_x·s_w`` and the
+    folded bias ``b`` (N,), the input scale ``s_x`` (0-d)."""
+
+    def __init__(self, w_q, s, b, s_x, geom: Geom, relu: bool):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("s", s)
+        self.register_buffer("b", b)
+        self.register_buffer("s_x", s_x)
+        self.stride, self.padding = geom
+        self.relu = relu
+
+    @classmethod
+    def calibrate(cls, w, b, x, s_x, geom: Geom, relu: bool) -> "QConv3d":
+        """From the folded fp32 conv ``w`` (O, I, kt, kh, kw), ``b`` and its
+        calibration input ``x`` (unless ``s_x`` is given, a mix's shared one)."""
+        if s_x is None:
+            s_x = _act_scale(x.abs().amax())
+        w_q, s_w = _weight_q(w, (1, 2, 3, 4))
+        w_q = F.pad(w_q.permute(0, 2, 3, 4, 1), (0, pad16(w.shape[1]) - w.shape[1]))
+        return cls(w_q.contiguous(), s_x * s_w, b.float(), s_x, geom, relu)
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        return q3.quantize_pad(x, self.s_x)
+
+    def forward(self, xq, dtype, out=None, c0: int = 0):
+        return q3.int8_conv3d(xq, self.w_q, self.s, self.b, self.stride, self.padding,
+                              self.relu, dtype, out, c0)
+
+
+class S3DInt8(nn.Module):
+    """The int8 inference engine for one `S3DNet` (``s3d``, ``ca_s3d``).
+    Built by `quantize_s3d`; `folded_fp_forward` is the exact-algebra fp32
+    walk the tests pin against the model."""
+
+    def __init__(self, model, calib_clips: torch.Tensor):
+        super().__init__()
+        acts = {op[5] for op in model.spec if op[0] in ("sep", "basic")}
+        acts |= {op[2] for op in model.spec if op[0] == "mix"}
+        if acts - {"relu"}:
+            raise NotImplementedError(f"acts {sorted(acts)}: only ReLU convs quantize (the "
+                                      "msca family's relu6 is ROADMAP queue 1 item 13)")
+        self.spec = model.spec
+        self.srm = model.srm
+        self.num_class = model.num_class
+        self.dtype = torch.float32
+        if self.srm == "concat30":
+            self.register_buffer("srm_weight", model.srm_weight.clone(), persistent=False)
+        self.ctx = nn.ModuleDict({f"l{i}": copy.deepcopy(model.base[i])
+                                  for i, op in enumerate(self.spec) if op[0] == "ctx"})
+        self.fc = copy.deepcopy(model.fc)
+        self.qconvs = nn.ModuleDict()
+        with torch.no_grad():
+            self._walk(calib_clips, folded_convs(model), build=True)
+
+    @property
+    def qparams(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {k: {"w_q": m.w_q, "s": m.s, "b": m.b, "s_x": m.s_x}
+                for k, m in self.qconvs.items()}
+
+    def forward(self, clips: torch.Tensor) -> torch.Tensor:
+        return self._walk(clips)
+
+    @torch.no_grad()
+    def folded_fp_forward(self, model, clips: torch.Tensor) -> torch.Tensor:
+        """The folded-BN fp32 walk of ``model``, no quantization."""
+        return self._walk(clips, folded_convs(model))
+
+    def _walk(self, clips, folded=None, build: bool = False):
+        """``folded`` given: the fp32 walk with those convs (``build``: record
+        each conv's qparams); else the int8 walk."""
+        int8 = folded is None
+        dt = self.dtype
+
+        def conv(x, key, geom: Geom, act, xq=None, s_x=None, out=None, c0=0):
+            if int8:
+                qc = self.qconvs[key]
+                return qc(qc.quantize(x) if xq is None else xq, dt, out, c0)
+            w, b = folded[key]
+            if build:
+                self.qconvs[key] = QConv3d.calibrate(w, b, x, s_x, geom, act == "relu")
+            return _ndhwc(act_fn(act)(F.conv3d(_ncdhw(x), w, b, *geom)))
+
+        def sep(x, key, strd, pad, act, sbn, out=None, c0=0):
+            x = conv(x, key + "/s", ((1, strd, strd), (0, pad, pad)), act if sbn else None)
+            return conv(x, key + "/t", ((strd, 1, 1), (pad, 0, 0)), act, out=out, c0=c0)
+
+        def mix(x, key, plan, act, sbn):
+            b0, _, o1, _, o2, b3 = plan
+            if int8:
+                out = torch.empty((*x.shape[:-1], b0 + o1 + o2 + b3), dtype=dt, device=x.device)
+                xq = self.qconvs[key + "/b0"].quantize(x)
+                conv(None, key + "/b0", _G111, act, xq=xq, out=out, c0=0)
+                y1 = conv(None, key + "/b1a", _G111, act, xq=xq)
+                y2 = conv(None, key + "/b2a", _G111, act, xq=xq)
+                conv(None, key + "/b3", _G111, act, xq=q3.max_pool3d_i8(xq), out=out,
+                     c0=b0 + o1 + o2)
+                sep(y1, key + "/b1b", 1, 1, act, sbn, out=out, c0=b0)
+                sep(y2, key + "/b2b", 1, 1, act, sbn, out=out, c0=b0 + o1)
+                return out
+            s_x = _act_scale(x.abs().amax()) if build else None
+            y0 = conv(x, key + "/b0", _G111, act, s_x=s_x)
+            y1 = conv(x, key + "/b1a", _G111, act, s_x=s_x)
+            y2 = conv(x, key + "/b2a", _G111, act, s_x=s_x)
+            pooled = _ndhwc(max_pool3d(_ncdhw(x), (3, 3, 3), (1, 1, 1), (1, 1, 1)))
+            y3 = conv(pooled, key + "/b3", _G111, act, s_x=s_x)
+            y1 = sep(y1, key + "/b1b", 1, 1, act, sbn)
+            y2 = sep(y2, key + "/b2b", 1, 1, act, sbn)
+            return torch.cat([y0, y1, y2, y3], dim=-1)
+
+        x = clips.to(dt)
+        if self.srm == "concat30":
+            x = srm_filter(x.float(), self.srm_weight).to(dt)
+        x = _ndhwc(x)
+        for i, op in enumerate(self.spec):
+            kind, key = op[0], f"l{i}"
+            if kind == "sep":
+                _, _, _, strd, pad, act, sbn = op
+                x = sep(x, key, strd, pad, act, sbn)
+            elif kind == "basic":
+                _, _, _, strd, pad, act = op
+                x = conv(x, key, ((strd,) * 3, (pad,) * 3), act)
+            elif kind == "pool":
+                x = _ndhwc(max_pool3d(_ncdhw(x), op[1], op[2], op[3]))
+            elif kind == "mix":
+                x = mix(x, key, INCEPTION_PLANS[op[1]], op[2], op[3])
+            elif kind == "ctx":
+                x = _ndhwc(self.ctx[key](_ncdhw(x)))
+            else:
+                raise NotImplementedError(f"spec op {kind!r} (msca S3D family)")
+        # head (fp, `models/s3d/model.py`): avg over (2, H, W), 1×1×1 conv, temporal mean
+        x = _ncdhw(x)
+        x = self.fc(avg_pool3d(x, (2, x.shape[3], x.shape[4])))
+        return x.flatten(2).mean(2).float()
+
+
+@torch.no_grad()
+def quantize_s3d(model, calib_clips: torch.Tensor) -> S3DInt8:
+    """The int8 engine of an `S3DNet` (on the model's device, eval mode).
+    ``calib_clips``: a representative (B, 3, T, H, W) batch in model input
+    space (raw 0–255 floats for the reference S3D pipeline,
+    `S3D-train.py:318`), on the model's device. The model is not changed."""
+    return S3DInt8(model, calib_clips.float()).eval()

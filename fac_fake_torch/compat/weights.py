@@ -1,14 +1,15 @@
 """Carry weights into the port: JAX variables and reference ``.pth`` files.
 
 The port's counterpart of `fac_fake_tpu/compat/torch_weights.py` and
-`torch_export.py`, with its own copy of the base-``cvit`` key map
-(`torch_weights._cvit_torch_key`) and of the layout transforms: flax HWIO
-convs → OIHW, flax (I, O) denses → (O, I). The int8 leaves of a JAX
+`torch_export.py`, with its own copies of the base-``cvit`` and S3D key
+maps (`torch_weights._cvit_torch_key`, ``_s3d_torch_key``) and of the
+layout transforms: flax HWIO convs → OIHW, DHWIO → OIDHW, flax (I, O)
+denses → (O, I). The int8 leaves of a JAX
 `quantize_cvit` output (``kernel_q``, ``w_scale``, ``x_scale``) map to the
 port's `QuantConv3x3` / `QuantLinear` buffers of the same names, with the
 same layout transforms; ``kernel_q`` stays int8. The port's module tree
 already uses the reference torch names, so a reference ``.pth`` needs no
-map, only `load_reference_pth`.
+map, only `load_reference_pth` (and, for S3D, `load_s3d_state_dict`).
 """
 from __future__ import annotations
 
@@ -21,6 +22,10 @@ import torch
 
 def t_conv(w: np.ndarray) -> np.ndarray:   # (kh, kw, I, O) -> (O, I, kh, kw)
     return np.transpose(w, (3, 2, 0, 1))
+
+
+def t_conv3d(w: np.ndarray) -> np.ndarray:  # (kt, kh, kw, I, O) -> (O, I, kt, kh, kw)
+    return np.transpose(w, (4, 3, 0, 1, 2))
 
 
 def t_dense(w: np.ndarray) -> np.ndarray:  # (I, O) -> (O, I)
@@ -94,6 +99,78 @@ def cvit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
             arr = arr.astype(np.float32)
         out[key] = torch.from_numpy(np.array(tf(arr), order="C"))
     return out
+
+
+_MIX_BRANCH = {"b0": "branch0.0", "b1a": "branch1.0", "b1b": "branch1.1",
+               "b2a": "branch2.0", "b2b": "branch2.1", "b3": "branch3.1"}
+_CTX = {"ca1": "channel_add_conv.0", "ln": "channel_add_conv.1",
+        "ca2": "channel_add_conv.3", "conv_mask": "conv_mask"}
+
+
+def s3d_torch_key(path, spec) -> Tuple[str, Callable]:
+    """flax S3DNet variable path (``("params", "l5", "b1b", "conv_s",
+    "kernel")``) → (torch key, flax→torch transform), for the ``sep``,
+    ``basic``, ``mix`` and ``ctx`` ops and the head — the port's copy of
+    `fac_fake_tpu/compat/torch_weights.py` ``_s3d_torch_key``. ``base.{i}``
+    lines up with spec index i. The ctx LayerNorm keeps its (planes,)
+    weight, as the port's `ChannelLayerNorm` does."""
+    col, rest = path[0], list(path[1:])
+    leaf = rest[-1]
+
+    def term(base):
+        if col == "batch_stats":
+            return f"{base}.running_{'mean' if leaf == 'mean' else 'var'}", t_id
+        if leaf == "kernel":
+            return f"{base}.weight", t_conv3d
+        return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
+
+    if rest[0] == "fc":
+        return term("fc.0")
+    m = re.match(r"^l(\d+)$", rest[0])
+    if m is None:
+        raise KeyError(f"no S3D mapping for flax path {path}")
+    i = int(m.group(1))
+    base, op = f"base.{i}", spec[i][0]
+    if op in ("sep", "basic"):
+        return term(f"{base}.{rest[1]}")
+    if op == "mix":
+        return term(f"{base}.{_MIX_BRANCH[rest[1]]}.{rest[2]}")
+    if op == "ctx":
+        return term(f"{base}.{_CTX[rest[1]]}")
+    raise NotImplementedError(f"{path}: spec op {op!r} belongs to the msca S3D family "
+                              "(ROADMAP queue 1 item 13)")
+
+
+def s3d_state_dict_from_flax(flat: Mapping[str, np.ndarray], spec) -> Dict[str, torch.Tensor]:
+    """JAX S3DNet variables flattened to ``"params/l0/conv_s/kernel"``-style
+    keys → the port's S3DNet state_dict (float32)."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in flat.items():
+        key, tf = s3d_torch_key(k.split("/"), spec)
+        out[key] = torch.from_numpy(np.array(tf(np.asarray(v, np.float32)), order="C"))
+    return out
+
+
+def load_s3d_state_dict(model, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Fill an S3DNet from a reference or exported S3D state_dict, as
+    `fac_fake_tpu/compat/torch_weights.py` ``convert_s3d`` fills the JAX
+    model: every key the model has (but BatchNorm's ``num_batches_tracked``,
+    which the JAX package does not keep) must be present with its shape,
+    and keys the model has no module for are ignored. The reference ctx
+    LayerNorm's (planes, 1, 1, 1) weight and bias load as (planes,)."""
+    new = {}
+    for key, target in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key not in state_dict:
+            raise KeyError(f"S3D checkpoint missing '{key}'")
+        v = state_dict[key]
+        if key.endswith(("channel_add_conv.1.weight", "channel_add_conv.1.bias")):
+            v = v.reshape(-1)
+        if tuple(v.shape) != tuple(target.shape):
+            raise ValueError(f"{key}: shape {tuple(v.shape)} != {tuple(target.shape)}")
+        new[key] = v
+    model.load_state_dict(new, strict=True)
 
 
 def blazeface_state_dict_from_flax(npz: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -34,7 +34,7 @@ extern "C" int fac_quant_conv3x3(const void* x, int x_bf16, const void* wq, cons
   const long long rows = static_cast<long long>(B) * H * W;
   if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   qmma::Epi e{static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
-              static_cast<const float*>(bias), out, x_bf16, nullptr};
+              static_cast<const float*>(bias), out, x_bf16, nullptr, 0, Cout, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(xq);
   const int8_t* w = static_cast<const int8_t*>(wq);

@@ -26,7 +26,7 @@ extern "C" int fac_quant_dense(const void* x, int x_bf16, const void* wq, const 
                                const void* x_scale, const void* bias, void* out, int M, int N,
                                int K, int splits, void* xq, void* ws, void* stream) {
   qmma::Epi e{static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
-              static_cast<const float*>(bias), out, x_bf16, static_cast<int*>(ws)};
+              static_cast<const float*>(bias), out, x_bf16, static_cast<int*>(ws), 0, N, 0};
   return static_cast<int>(qmma::run<2, 2, false>(
       x, x_bf16, M, K, static_cast<int8_t*>(xq), 1, 1, static_cast<const int8_t*>(wq), N, splits,
       e, static_cast<cudaStream_t>(stream)));

@@ -1,30 +1,37 @@
-// Shared core of K3 (quant_conv.cu) and K4 (quant_dense.cu): the JAX
-// quantize prologue, an int8 GEMM on the tensor cores with exact int32
-// sums, and the dequant epilogue of fac_fake_tpu/models/layers.py
-// QuantConv3x3 / QuantDense:
+// Shared core of K3 (quant_conv.cu), K4 (quant_dense.cu) and K5
+// (quant_conv3d.cu): the JAX quantize prologue, an int8 GEMM on the tensor
+// cores with exact int32 sums, and the dequant epilogue of
+// fac_fake_tpu/models/layers.py QuantConv3x3 / QuantDense and
+// fac_fake_tpu/compat/quantize_s3d.py:
 //
 //   q(v)    = clip(rint(v / s_x), -127, 127)          IEEE division, half to even
 //   C[m][o] = sum_k q(A)[m][k] * Wq[o][k]             exact int32
 //   out     = C[m][o] * (s_x * s_w[o]) (+ b[o])       fp32, then fp32 or bf16
+//           = C[m][o] * s[o] + b[o]                   (K5: s = s_x * s_w formed
+//                                                      once at calibration)
 //
-// Two kernels a call (three with a K split):
+// The kernels:
 //  1. quantize_rows: the fp32 or bf16 activations (rows x C) -> int8 (rows x
 //     Cp), Cp = C rounded up to 16 with zero channels, one division per
 //     element. (A first design quantized on the GEMM's load instead: every
 //     element was then divided again for each of the 9 taps and each column
 //     of output tiles, 72 times at Cout 512, and the divisions bound the
 //     conv at ~44 int8 TOP/s on the H100.)
-//  2. qgemm: C = A Wq^T with A the int8 rows (dense) or the 3x3 patches of
-//     the int8 NHWC image gathered on the fly (implicit-GEMM conv, k ordered
-//     (dy, dx, c)); Wq is (N, taps * Cp) int8, K-major, the `col` operand of
-//     mma.sync.m16n8k32.s32.s8.s8.s32 as stored. Tiles of BM x BN x 64 bytes
-//     stream in with 16-byte cp.async (zero-fill for the image border, the
-//     ragged edges and the padded taps) through a 3-stage ring in shared
-//     memory; fragments load with ldmatrix; each warp owns a 32 x 32 block
-//     of C as 2 x 4 mma tiles. Shared rows are padded to 80 bytes, so the
-//     8 row addresses of every ldmatrix phase hit distinct banks. The
-//     epilogue dequantizes into a C tile in the same shared memory and
-//     writes whole rows with 16-byte stores.
+//  2. qgemm: C = A Wq^T with A the int8 rows (dense) or the patches of an
+//     int8 NDHWC image gathered on the fly (implicit-GEMM conv: kernel
+//     (kt, kh, kw), strides, zero padding, k ordered (dt, dy, dx, c); K3 is
+//     the case T = kt = 1, 3 x 3, stride 1, pad 1); Wq is (N, taps * Cp)
+//     int8, K-major, the `col` operand of mma.sync.m16n8k32.s32.s8.s8.s32 as
+//     stored. Tiles of BM x BN x 64 bytes stream in with 16-byte cp.async
+//     (zero-fill for the padding border, the ragged edges and the padded
+//     taps) through a 3-stage ring in shared memory; fragments load with
+//     ldmatrix; each warp owns a 32 x 32 block of C as 2 x 4 mma tiles.
+//     Shared rows are padded to 80 bytes, so the 8 row addresses of every
+//     ldmatrix phase hit distinct banks. The epilogue dequantizes (and, for
+//     K5, applies the ReLU) into a C tile in the same shared memory and
+//     writes whole rows with 16-byte stores, at a row stride and channel
+//     offset of its own (K5 writes an Inception branch into its channel
+//     slice of the concatenated output).
 //  3. with a K split (K4 only): blockIdx.y takes a slice of the k-tiles and
 //     adds its int32 partial sums into a zeroed workspace with atomics
 //     (integer addition is exact in any order); dequant_ws applies the
@@ -33,7 +40,7 @@
 // The quantize and the epilogue use __fdiv_rn, __fmul_rn, __fadd_rn and
 // __int2float_rn, so they round as PyTorch's separate elementwise kernels
 // do whatever the contraction flags; the library is built with -fmad=false
-// besides.
+// besides. The ReLU commutes with the rounding to the output type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -129,10 +136,23 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float dequant(int acc, float sx, float sw, const float* bias, int col) {
-  float y = __fmul_rn(__int2float_rn(acc), __fmul_rn(sx, sw));
-  if (bias != nullptr) y = __fadd_rn(y, bias[col]);
-  return y;
+// Epilogue parameters shared by the kernels.
+struct Epi {
+  const float* w_scale;  // (N,): s_w, or the whole scale s when x_scale is null
+  const float* x_scale;  // 0-d, on the device, or null
+  const float* bias;     // (N,) or null
+  void* out;             // rows of ldo values, fp32 or bf16; columns c0 .. c0 + N - 1
+  int out_bf16;
+  int* ws;               // (M, N) int32 partial sums when split, else null
+  int relu;
+  int ldo, c0;
+};
+
+__device__ __forceinline__ float dequant(int acc, const Epi& e, float sx, int col) {
+  const float s = e.x_scale != nullptr ? __fmul_rn(sx, e.w_scale[col]) : e.w_scale[col];
+  float y = __fmul_rn(__int2float_rn(acc), s);
+  if (e.bias != nullptr) y = __fadd_rn(y, e.bias[col]);
+  return e.relu ? fmaxf(y, 0.0f) : y;
 }
 
 __device__ __forceinline__ void store(void* out, size_t i, float y, int out_bf16) {
@@ -143,16 +163,6 @@ __device__ __forceinline__ void store(void* out, size_t i, float y, int out_bf16
   }
 }
 
-// Epilogue parameters shared by both kernels.
-struct Epi {
-  const float* w_scale;  // (N,)
-  const float* x_scale;  // 0-d, on the device
-  const float* bias;     // (N,) or null
-  void* out;             // (M, N), fp32 or bf16
-  int out_bf16;
-  int* ws;               // (M, N) int32 partial sums when split, else null
-};
-
 // Dynamic shared memory of a BM x BN tile: the ring of A and B tiles, and
 // after the k loop the fp32 C tile (rows padded by 4 floats) in its place.
 template <int BM, int BN>
@@ -161,12 +171,62 @@ constexpr int smem_bytes() {
                                                         : BM * (BN + 4) * 4;
 }
 
-// The int8 A operand: rows of Cp channels; with CONV, the 3x3 patches of an
-// (B, H, W, Cp) image, else the rows themselves (K = Cp).
+// n / d for 0 <= n < 2^31 and d >= 1 by a multiply-high and a shift with a
+// rounded-up reciprocal (Granlund-Montgomery, as CUTLASS's FastDivmod). The
+// conv's row and tap decompositions divide by run-time sizes once a CTA;
+// as integer divisions they cost the convs with few k-tiles (the wide
+// early ones) several percent.
+struct FastDiv {
+  int d;
+  unsigned mul, shr;
+};
+
+inline FastDiv fast_div(int d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    int l = 0;
+    while ((1ll << l) < d) ++l;  // ceil(log2(d))
+    const int p = 31 + l;
+    f.mul = static_cast<unsigned>(((1ull << p) + static_cast<unsigned>(d) - 1) / d);
+    f.shr = static_cast<unsigned>(p - 32);
+  }
+  return f;
+}
+
+__device__ __forceinline__ int fdiv(int n, const FastDiv& f) {
+  return f.d == 1 ? n : static_cast<int>(__umulhi(static_cast<unsigned>(n), f.mul) >> f.shr);
+}
+
+// The int8 A operand: rows of Cp channels (K = Cp); with CONV, the patches
+// of a (B, T, H, W, Cp) image for the output (B, To, Ho, Wo): kernel (kt,
+// kh, kw), stride (st, sh, sw), zero padding (pt, ph, pw), K = kt kh kw Cp.
 struct AOperand {
   const int8_t* q;
-  int M, Cp, H, W;
+  int M, Cp;
+  int T, H, W, To, Ho, Wo;
+  int kt, kh, kw, st, sh, sw, pt, ph, pw;
+  FastDiv dWo, dHo, dTo, dCp, dkhw, dkw;
+
+  int K() const { return kt * kh * kw * Cp; }
 };
+
+inline AOperand conv_operand(const int8_t* q, int M, int Cp, int T, int H, int W, int To, int Ho,
+                             int Wo, int kt, int kh, int kw, int st, int sh, int sw, int pt,
+                             int ph, int pw) {
+  return AOperand{q,  M,  Cp, T,  H,  W,  To, Ho, Wo,
+                  kt, kh, kw, st, sh, sw, pt, ph, pw,
+                  fast_div(Wo), fast_div(Ho), fast_div(To), fast_div(Cp), fast_div(kh * kw),
+                  fast_div(kw)};
+}
+
+inline AOperand dense_rows(const int8_t* q, int rows, int Cp) {
+  return conv_operand(q, rows, Cp, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0);
+}
+
+// K3's geometry: (B, H, W) images, 3 x 3, stride 1, pad 1.
+inline AOperand conv3x3(const int8_t* q, int rows, int Cp, int H, int W) {
+  return conv_operand(q, rows, Cp, 1, H, W, 1, H, W, 1, 3, 3, 1, 1, 1, 0, 1, 1);
+}
 
 template <int WM, int WN, bool CONV>
 __global__ void __launch_bounds__(WM * WN * 32)
@@ -192,48 +252,73 @@ __global__ void __launch_bounds__(WM * WN * 32)
   const int kt1 = min(kt0 + k_tiles_per_split, k_tiles);
   const int M = a.M;
 
-  // this thread's A chunks: chunk column j (fixed), rows r_i
+  // this thread's A chunks: chunk column j (fixed), rows r_i; for CONV,
+  // each row's first input tap (t, y, x) and its pixel index (which may
+  // lie outside the image: only in-bounds taps are read)
   const int j = tid % CH;
-  int am[A_PER], ay[A_PER], ax[A_PER];
+  int am[A_PER], apix[A_PER], at[A_PER], ay[A_PER], ax[A_PER];
 #pragma unroll
   for (int i = 0; i < A_PER; ++i) {
     const int m = m0 + tid / CH + i * (NT / CH);
     am[i] = m < M ? m : -1;
+    apix[i] = at[i] = ay[i] = ax[i] = 0;
     if (CONV && m < M) {
-      ax[i] = m % a.W;
-      ay[i] = (m / a.W) % a.H;
-    } else {
-      ax[i] = ay[i] = 0;
+      const int q1 = fdiv(m, a.dWo), q2 = fdiv(q1, a.dHo), b = fdiv(q2, a.dTo);
+      const int wo = m - q1 * a.Wo, ho = q1 - q2 * a.Ho, to = q2 - b * a.To;
+      at[i] = to * a.st - a.pt;
+      ay[i] = ho * a.sh - a.ph;
+      ax[i] = wo * a.sw - a.pw;
+      apix[i] = ((b * a.T + at[i]) * a.H + ay[i]) * a.W + ax[i];
     }
+  }
+
+  // this thread's chunk of the next k-tile to load: channel c of tap (dt,
+  // dy, dx). load_tile is called for kt0, kt0 + 1, ... in order, so the tap
+  // advances by 64 channels a call with no division on the k loop's path.
+  int c = 0, dt = 0, dy = 0, dx = 0;
+  if (CONV) {
+    const int k = kt0 * kBK + 16 * j;
+    const int tap = fdiv(k, a.dCp);
+    c = k - tap * a.Cp;
+    dt = fdiv(tap, a.dkhw);
+    const int r = tap - dt * a.kh * a.kw;
+    dy = fdiv(r, a.dkw);
+    dx = r - dy * a.kw;
   }
 
   auto load_tile = [&](int stage, int kt) {
     const int k = kt * kBK + 16 * j;
-    int tap = 0, c = k, dy = 0, dx = 0;
-    if (CONV) {
-      tap = k / a.Cp;
-      c = k - tap * a.Cp;
-      dy = tap / 3 - 1;
-      dx = tap % 3 - 1;
-    }
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
       const int r = tid / CH + i * (NT / CH);
       const int8_t* src = a.q;
       int bytes = 0;
-      if (am[i] >= 0) {
+      if (am[i] >= 0 && k < K) {
         if (CONV) {
-          const int yy = ay[i] + dy, xx = ax[i] + dx;
-          if (tap < 9 && yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) {
-            src = a.q + static_cast<size_t>(am[i] + dy * a.W + dx) * a.Cp + c;
+          const int tt = at[i] + dt, yy = ay[i] + dy, xx = ax[i] + dx;
+          if (static_cast<unsigned>(tt) < static_cast<unsigned>(a.T) &&
+              static_cast<unsigned>(yy) < static_cast<unsigned>(a.H) &&
+              static_cast<unsigned>(xx) < static_cast<unsigned>(a.W)) {
+            src = a.q + static_cast<size_t>(apix[i] + (dt * a.H + dy) * a.W + dx) * a.Cp + c;
             bytes = 16;
           }
-        } else if (k < K) {
+        } else {
           src = a.q + static_cast<size_t>(am[i]) * a.Cp + k;
           bytes = 16;
         }
       }
       cp16(&As[stage][r * kRow + 16 * j], src, bytes);
+    }
+    if (CONV) {
+      for (c += kBK; c >= a.Cp; c -= a.Cp) {
+        if (++dx == a.kw) {
+          dx = 0;
+          if (++dy == a.kh) {
+            dy = 0;
+            ++dt;
+          }
+        }
+      }
     }
     for (int id = tid; id < BN * CH; id += NT) {
       const int r = id / CH, kk = kt * kBK + 16 * (id % CH);
@@ -303,7 +388,7 @@ __global__ void __launch_bounds__(WM * WN * 32)
     return;
   }
   // dequantize into a shared C tile, then write whole rows with 16-byte stores
-  const float sx = *e.x_scale;
+  const float sx = e.x_scale != nullptr ? *e.x_scale : 1.0f;
   float* cs = reinterpret_cast<float*>(smem);
   __syncthreads();  // every warp is done reading the ring
 #pragma unroll
@@ -314,19 +399,18 @@ __global__ void __launch_bounds__(WM * WN * 32)
       for (int h = 0; h < 2; ++h) {
         const int r = wm * 32 + i * 16 + g + 8 * h, c = wn * 32 + t * 8 + tq * 2;
         float2 y = make_float2(0.0f, 0.0f);
-        if (n0 + c < N) y.x = dequant(acc[i][t][2 * h], sx, e.w_scale[n0 + c], e.bias, n0 + c);
-        if (n0 + c + 1 < N)
-          y.y = dequant(acc[i][t][2 * h + 1], sx, e.w_scale[n0 + c + 1], e.bias, n0 + c + 1);
+        if (n0 + c < N) y.x = dequant(acc[i][t][2 * h], e, sx, n0 + c);
+        if (n0 + c + 1 < N) y.y = dequant(acc[i][t][2 * h + 1], e, sx, n0 + c + 1);
         *reinterpret_cast<float2*>(&cs[r * CS + c]) = y;
       }
   __syncthreads();
-  const bool vec = (N % 4 == 0);
+  const bool vec = N % 4 == 0 && e.ldo % 4 == 0 && e.c0 % 4 == 0;
   for (int idx = tid; idx < BM * (BN / 4); idx += NT) {
     const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
     const int row = m0 + r, col = n0 + c;
     if (row >= M || col >= N) continue;
     const float4 y = *reinterpret_cast<const float4*>(&cs[r * CS + c]);
-    const size_t o = static_cast<size_t>(row) * N + col;
+    const size_t o = static_cast<size_t>(row) * e.ldo + e.c0 + col;
     if (vec) {
       if (e.out_bf16) {
         __nv_bfloat162 lo = __floats2bfloat162_rn(y.x, y.y);
@@ -347,12 +431,13 @@ __global__ void __launch_bounds__(WM * WN * 32)
 
 // The epilogue over split-K partial sums.
 __global__ void dequant_ws(int M, int N, Epi e) {
-  const float sx = *e.x_scale;
+  const float sx = e.x_scale != nullptr ? *e.x_scale : 1.0f;
   const size_t total = static_cast<size_t>(M) * N;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int col = static_cast<int>(i % N);
-    store(e.out, i, dequant(e.ws[i], sx, e.w_scale[col], e.bias, col), e.out_bf16);
+    const size_t o = (i / N) * e.ldo + e.c0 + col;
+    store(e.out, o, dequant(e.ws[i], e, sx, col), e.out_bf16);
   }
 }
 
@@ -362,31 +447,37 @@ inline int grid_for(long long work, int threads) {
   return static_cast<int>(b < 1 ? 1 : b);
 }
 
-// Quantize x (rows x C, fp32 or bf16) into xq (rows x Cp), then C = A Wq^T
-// and the epilogue. wq is (N, taps * Cp); splits > 1 needs e.ws.
-template <int WM, int WN, bool CONV>
-cudaError_t run(const void* x, int x_bf16, int rows, int C, int8_t* xq, int H, int W,
-                const int8_t* wq, int N, int splits, Epi e, cudaStream_t stream) {
-  constexpr int BM = 32 * WM, BN = 32 * WN;
+// x (rows x C, fp32 or bf16) -> xq (rows x Cp) int8 with x_scale (0-d).
+inline cudaError_t quantize(const void* x, int x_bf16, int rows, int C, int8_t* xq,
+                            const float* x_scale, cudaStream_t stream) {
   const int Cp = pad16(C);
   const long long total4 = static_cast<long long>(rows) * (Cp / 4);
   if (total4 > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(xq) % 16 != 0 || reinterpret_cast<uintptr_t>(wq) % 16 != 0)
-    return cudaErrorMisalignedAddress;
+  if (reinterpret_cast<uintptr_t>(xq) % 16 != 0) return cudaErrorMisalignedAddress;
+  if (total4 == 0) return cudaSuccess;
   const int t4 = static_cast<int>(total4);
   if (x_bf16) {
     const int vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
     quantize_rows<__nv_bfloat16><<<grid_for(t4, 256), 256, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), xq, t4, C, Cp, e.x_scale, vec);
+        static_cast<const __nv_bfloat16*>(x), xq, t4, C, Cp, x_scale, vec);
   } else {
     const int vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     quantize_rows<float><<<grid_for(t4, 256), 256, 0, stream>>>(
-        static_cast<const float*>(x), xq, t4, C, Cp, e.x_scale, vec);
+        static_cast<const float*>(x), xq, t4, C, Cp, x_scale, vec);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
-  const int K = (CONV ? 9 : 1) * Cp;
+// C = A Wq^T and the epilogue. wq is (N, K) with K = a.K() (CONV) or a.Cp;
+// splits > 1 needs e.ws.
+template <int WM, int WN, bool CONV>
+cudaError_t gemm(AOperand a, const int8_t* wq, int N, int splits, Epi e, cudaStream_t stream) {
+  constexpr int BM = 32 * WM, BN = 32 * WN;
+  if (reinterpret_cast<uintptr_t>(a.q) % 16 != 0 || reinterpret_cast<uintptr_t>(wq) % 16 != 0 ||
+      a.Cp % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const int K = CONV ? a.K() : a.Cp;
+  const int rows = a.M;
   const int n_tiles = (N + BN - 1) / BN;
   const long long tiles = static_cast<long long>((rows + BM - 1) / BM) * n_tiles;
   const int k_tiles = (K + kBK - 1) / kBK;
@@ -394,6 +485,8 @@ cudaError_t run(const void* x, int x_bf16, int rows, int C, int8_t* xq, int H, i
   const int per = (k_tiles + splits - 1) / splits;
   splits = (k_tiles + per - 1) / per;
   if (tiles > 0x7fffffffLL || splits > 65535) return cudaErrorInvalidValue;
+  if (tiles == 0) return cudaSuccess;
+  cudaError_t err;
   if (splits > 1) {
     if (e.ws == nullptr) return cudaErrorInvalidValue;
     err = cudaMemsetAsync(e.ws, 0, static_cast<size_t>(rows) * N * sizeof(int), stream);
@@ -405,7 +498,6 @@ cudaError_t run(const void* x, int x_bf16, int rows, int C, int8_t* xq, int H, i
   err = cudaFuncSetAttribute(qgemm<WM, WN, CONV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  AOperand a{xq, rows, Cp, H, W};
   qgemm<WM, WN, CONV><<<dim3(static_cast<unsigned>(tiles), splits), WM * WN * 32, smem, stream>>>(
       a, wq, N, K, n_tiles, per, e);
   if (splits > 1) {
@@ -414,6 +506,19 @@ cudaError_t run(const void* x, int x_bf16, int rows, int C, int8_t* xq, int H, i
     dequant_ws<<<grid_for(static_cast<long long>(rows) * N, 256), 256, 0, stream>>>(rows, N, e);
   }
   return cudaGetLastError();
+}
+
+// Quantize x (rows x C, fp32 or bf16) into xq (rows x Cp), then C = A Wq^T
+// and the epilogue: K4 (dense rows) and K3 (3 x 3 over (B, H, W) images).
+// wq is (N, taps * Cp); splits > 1 needs e.ws.
+template <int WM, int WN, bool CONV>
+cudaError_t run(const void* x, int x_bf16, int rows, int C, int8_t* xq, int H, int W,
+                const int8_t* wq, int N, int splits, Epi e, cudaStream_t stream) {
+  cudaError_t err = quantize(x, x_bf16, rows, C, xq, e.x_scale, stream);
+  if (err != cudaSuccess) return err;
+  const int Cp = pad16(C);
+  const AOperand a = CONV ? conv3x3(xq, rows, Cp, H, W) : dense_rows(xq, rows, Cp);
+  return gemm<WM, WN, CONV>(a, wq, N, splits, e, stream);
 }
 
 }  // namespace qmma

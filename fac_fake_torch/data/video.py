@@ -1,5 +1,6 @@
-"""Video decode and the predictor's frame-sampling policy (host side) — the
-port of the scoring path's part of `fac_fake_tpu/data/video.py`.
+"""Video decode, the predictor's frame-sampling policy and the S3D snippet
+indices (host side) — the port of the scoring paths' part of
+`fac_fake_tpu/data/video.py`.
 
 `cv2` is imported only inside the decoding methods: the machine with the
 card has no cv2, and `VideoScorer` accepts any reader with ``frame_count``
@@ -26,6 +27,16 @@ def predict_indices(frame_count: int, fraction: float = 0.1,
             break
         out.append(idx)
     return out
+
+
+def first_n_indices(frame_count: int, n: int = 20) -> List[int]:
+    """The single-GPU S3D trainer's snippet: the first ``n`` crops."""
+    return list(range(min(n, frame_count)))
+
+
+def strided_indices(frame_count: int, limit: int = 200, stride: int = 10) -> List[int]:
+    """The S3D test snippet: every ``stride``-th of the first ``limit`` crops."""
+    return list(range(0, min(limit, frame_count), stride))
 
 
 class VideoReader:

@@ -183,3 +183,118 @@ def test_int8_full_video_scorer_runs_k3_and_k4_on_the_card(dev):
     cpu = VideoScorer(copy.deepcopy(scorer.model).cpu(), cfg, fold_bn=False, device="cpu")
     cpu._quant_pending = False
     assert abs(cpu.score_crops(crops) - prob) <= 1e-3
+
+
+# ---- K5 and K6 (S3D int8) -------------------------------------------------------
+
+# (kernel, stride, padding, cin, cout, (T, H, W)): the int8 conv geometries of a
+# ca_s3d forward at 224² (cut to batch 1-2 and, for the stem, fewer frames),
+# a concat30 stem, and ragged ones
+CONV3D_GEOMS = [
+    ((1, 7, 7), (1, 2, 2), (0, 3, 3), 3, 64, (4, 224, 224)),
+    ((1, 7, 7), (1, 2, 2), (0, 3, 3), 30, 64, (2, 64, 64)),
+    ((7, 1, 1), (2, 1, 1), (3, 0, 0), 64, 64, (20, 56, 56)),
+    ((1, 1, 1), (1, 1, 1), (0, 0, 0), 64, 64, (10, 56, 56)),
+    ((1, 3, 3), (1, 1, 1), (0, 1, 1), 64, 192, (10, 56, 56)),
+    ((3, 1, 1), (1, 1, 1), (1, 0, 0), 192, 192, (10, 56, 56)),
+    ((1, 1, 1), (1, 1, 1), (0, 0, 0), 192, 16, (10, 28, 28)),
+    ((1, 3, 3), (1, 1, 1), (0, 1, 1), 16, 32, (10, 28, 28)),
+    ((1, 1, 1), (1, 1, 1), (0, 0, 0), 832, 384, (2, 7, 7)),
+    ((1, 3, 3), (1, 1, 1), (0, 1, 1), 192, 384, (2, 7, 7)),
+    ((3, 1, 1), (1, 1, 1), (1, 0, 0), 48, 128, (5, 14, 14)),
+    ((1, 3, 3), (1, 1, 1), (0, 1, 1), 24, 40, (3, 5, 7)),
+    ((7, 1, 1), (2, 1, 1), (3, 0, 0), 16, 8, (5, 3, 2)),
+]
+
+
+def _conv3d_inputs(rng, dev, kernel, cin, cout, thw, b=2):
+    from fac_fake_torch.ops.quant import pad16
+    cp = pad16(cin)
+    x, _, _, x_scale, bias = _quant_inputs(rng, (b, *thw, cin), cout, 1, dev, torch.float32)
+    wq = torch.zeros((cout, *kernel, cp), dtype=torch.int8)
+    wq[..., :cin] = torch.from_numpy(rng.integers(-127, 128, (cout, *kernel, cin), dtype=np.int8))
+    s = torch.from_numpy(rng.uniform(1e-5, 1e-3, cout).astype(np.float32)).to(dev)
+    return x, x_scale, wq.to(dev), s, bias
+
+
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout,thw", CONV3D_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_quantize_and_int8_conv3d_equal_plain(dev, kernel, stride, padding, cin, cout, thw,
+                                                 dtype):
+    from fac_fake_torch.ops import quant3d as q3
+
+    rng = np.random.default_rng(cin * 1000 + cout + thw[1])
+    x, x_scale, wq, s, bias = _conv3d_inputs(rng, dev, kernel, cin, cout, thw)
+    xd = x.to(dtype)
+    before = (q3.quantize_pad.launches, q3.int8_conv3d.launches)
+    xq = q3.quantize_pad(xd, x_scale)
+    assert torch.equal(xq, q3.quantize_pad_plain(xd, x_scale))
+    for relu in (True, False):
+        got = q3.int8_conv3d(xq, wq, s, bias, stride, padding, relu, dtype)
+        ref = q3.int8_conv3d_plain(xq, wq, s, bias, stride, padding, relu, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.equal(got, ref)   # exact int32 sums; the same IEEE epilogue
+    assert (q3.quantize_pad.launches, q3.int8_conv3d.launches) == (before[0] + 1, before[1] + 2)
+    # into a channel slice of a wider output, as an Inception branch writes
+    out = torch.full((*ref.shape[:-1], cout + 24), 3.0, dtype=dtype, device=dev)
+    q3.int8_conv3d(xq, wq, s, bias, stride, padding, False, dtype, out, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(out[..., 8:8 + cout], ref)
+    assert (out[..., :8] == 3).all() and (out[..., 8 + cout:] == 3).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 10, 28, 28, 192), (2, 5, 14, 14, 480),
+                                   (2, 2, 7, 7, 832), (1, 3, 5, 4, 16), (1, 1, 1, 1, 32)])
+def test_k6_max_pool3d_i8_equals_plain(dev, shape):
+    from fac_fake_torch.ops import quant3d as q3
+
+    xq = torch.from_numpy(np.random.default_rng(shape[-1]).integers(
+        -127, 128, shape, dtype=np.int8)).to(dev)
+    before = q3.max_pool3d_i8.launches
+    got = q3.max_pool3d_i8(xq)
+    torch.cuda.synchronize()
+    assert q3.max_pool3d_i8.launches == before + 1
+    assert torch.equal(got, q3.max_pool3d_i8_plain(xq))
+
+
+def test_k5_k6_refuse_what_they_do_not_take(dev):
+    from fac_fake_torch.ops import quant3d as q3
+
+    with pytest.raises(ValueError, match="padded to 16"):
+        q3.max_pool3d_i8(torch.zeros((1, 2, 2, 2, 8), dtype=torch.int8, device=dev))
+    xq = torch.zeros((1, 2, 4, 4, 16), dtype=torch.int8, device=dev)
+    wq = torch.zeros((8, 1, 1, 1, 16), dtype=torch.int8, device=dev)
+    s = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        q3.int8_conv3d(xq[:, :, ::2], wq, s, s, (1, 1, 1), (0, 0, 0), True, torch.float32)
+    with pytest.raises(ValueError, match="outside"):
+        q3.int8_conv3d(xq, wq, s, s, (1, 1, 1), (0, 0, 0), True, torch.float32,
+                       torch.zeros((1, 2, 4, 4, 12), device=dev), 8)
+
+
+def test_s3d_int8_engine_runs_k5_and_k6_on_the_card(dev):
+    """A small ca_s3d-like engine on the card launches K5 and K6 and gives
+    the logits of the same engine on the CPU (plain versions)."""
+    import copy
+
+    from fac_fake_torch.compat.quantize_s3d import quantize_s3d
+    from fac_fake_torch.models import init_weights
+    from fac_fake_torch.models.s3d.model import S3DNet
+    from fac_fake_torch.ops import quant3d as q3
+
+    spec = (("sep", 16, 7, 2, 3, "relu", True), ("pool", (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+            ("basic", 16, 1, 1, 0, "relu"), ("mix", "3b", "relu", True),
+            ("ctx", 1.0 / 16.0, "avg"), ("pool", (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+            ("mix", "3c", "relu", True), ("pool", (2, 2, 2), (2, 2, 2), (0, 0, 0)))
+    m = init_weights(S3DNet(spec, 1).to(dev), 0).eval().to(memory_format=torch.channels_last_3d)
+    x = torch.from_numpy(np.random.default_rng(7).uniform(0, 255, (2, 20, 32, 32, 3))
+                         .astype(np.float32)).to(dev).permute(0, 4, 1, 2, 3)
+    eng = quantize_s3d(m, x)
+    k5, k6 = q3.int8_conv3d.launches, q3.max_pool3d_i8.launches
+    with torch.no_grad():
+        got = eng(x)
+    assert q3.int8_conv3d.launches == k5 + 3 + 16 and q3.max_pool3d_i8.launches == k6 + 2
+    with torch.no_grad():
+        cpu = copy.deepcopy(eng).cpu()(x.cpu())
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-3

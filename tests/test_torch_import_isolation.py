@@ -25,6 +25,13 @@ def test_importing_every_port_module_loads_no_jax():
     assert "fac_fake_torch.infer.predictor" in mods and len(mods) > 15
     # the int8 serving modules (quantize_cvit; kernels K3 and K4)
     assert {"fac_fake_torch.compat.quantize", "fac_fake_torch.ops.quant"} <= set(mods)
+    # the S3D scoring slice (kernels K5 and K6)
+    assert {"fac_fake_torch.utils.s3d", "fac_fake_torch.models.s3d.layers",
+            "fac_fake_torch.models.s3d.blocks", "fac_fake_torch.models.s3d.model",
+            "fac_fake_torch.data.clips", "fac_fake_torch.evaluate.metrics",
+            "fac_fake_torch.evaluate.s3d_eval", "fac_fake_torch.ops.quant3d",
+            "fac_fake_torch.compat.quantize_s3d", "fac_fake_torch.core.plans",
+            "fac_fake_torch.cli.evaluate"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
