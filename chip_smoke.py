@@ -47,16 +47,17 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      card's machine has no cv2), `evaluate` over an in-memory dataset;
  12. K5 (quantize + int8 3D conv) and K6 (int8 max-pool) against their
      plain versions at every conv, quantize and pool of one ca_s3d int8
-     forward, the shapes recorded from the wrapper calls, at batch 2, fp32
-     and bf16 (bit-equal); timed over the 77 convs, 50 quantize passes and
-     9 pools of a forward at batch 32, beside torch._int_mm on the 1x1x1
-     convs' pre-quantized operands;
+     forward, the shapes recorded from the wrapper calls, at batches 2 and
+     32, fp32 and bf16 (bit-equal); timed over the 77 convs, 50 quantize
+     passes and 9 pools of a forward at batch 32, beside torch._int_mm on
+     the 1x1x1 convs' pre-quantized operands;
  13. S3D int8 main path: `S3DEvaluator(quantize="int8")` (its first batch
      calibrates), then `predict_batch` at batch 32 (clips/s),
      `predict_video` and `evaluate`; K5 and K6 must launch; int8 vs fp32
      logits for information;
- 14. full-width ca_s3d logits on the card against the same module on the
-     CPU, fp32 and int8 (plain versions), batch 1;
+ 14. full-width ca_s3d on the card against the same module on the CPU,
+     fp32 and int8 (plain versions), on 2 clips: the logits, and the head's
+     input features against the difference between the two clips';
  15. the kernels line; 16. the result line.
 """
 from __future__ import annotations
@@ -94,6 +95,9 @@ INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
 S3D_BATCH = 32                                     # clips a predict_batch
 S3D_CHECK_BATCH = 2                                # clips a K5/K6 bit-equality check
 S3D_T, S3D_HW = 20, 224                            # frames, pixels (ca_s3d's input)
+# ca_s3d's head input, card vs CPU: error norm over the norm of the difference
+# between two clips' features (seeded weights give near-equal logits)
+S3D_FEATURE_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -433,27 +437,37 @@ def clips_per_s(ev, clips, n_it: int = 5) -> tuple:
 def record_s3d_calls(engine, x) -> dict:
     """One int8 forward of ``engine`` on ``x`` with the K5/K6 wrappers
     wrapped: {kind: {call key: count}}, where a conv's key is (xq shape,
-    w_q shape, stride, padding, relu), a quantize's (x shape) and a pool's
-    (xq shape)."""
+    w_q shape, stride, padding, relu, real input channels, whether its
+    input is a K6 pool's output), a quantize's (x shape) and a pool's (xq
+    shape, real channels). The real channel count of an int8 tensor is that
+    of the fp tensor its quantize pass read."""
     import torch
     from fac_fake_torch.ops import quant3d as q3
     calls = {"conv": {}, "quantize": {}, "pool": {}}
     orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8)
+    made = {}                                   # data_ptr of an int8 tensor -> (C, pooled)
 
     def bump(kind, key):
         calls[kind][key] = calls[kind].get(key, 0) + 1
 
     def conv(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0):
-        bump("conv", (tuple(xq.shape), tuple(w_q.shape), tuple(stride), tuple(padding), relu))
+        c, pooled = made[xq.data_ptr()]
+        bump("conv", (tuple(xq.shape), tuple(w_q.shape), tuple(stride), tuple(padding), relu,
+                      c, pooled))
         return orig[0](xq, w_q, s, b, stride, padding, relu, dtype, out, c0)
 
     def quantize(x, s_x):
         bump("quantize", tuple(x.shape))
-        return orig[1](x, s_x)
+        xq = orig[1](x, s_x)
+        made[xq.data_ptr()] = (x.shape[-1], False)
+        return xq
 
     def pool(xq):
-        bump("pool", tuple(xq.shape))
-        return orig[2](xq)
+        c = made[xq.data_ptr()][0]
+        bump("pool", (tuple(xq.shape), c))
+        y = orig[2](xq)
+        made[y.data_ptr()] = (c, True)
+        return y
 
     # each wrapper counts its launches on the function its module's name is
     # bound to: here the recorder's, so that recording launches do not count
@@ -467,18 +481,39 @@ def record_s3d_calls(engine, x) -> dict:
     return calls
 
 
+def head_input(mod, x) -> tuple:
+    """Logits of ``mod`` (an `S3DNet` or its int8 engine) on ``x``, and the
+    features its head's 1x1x1 conv reads (the last mix's output, pooled)."""
+    import torch
+    seen = []
+    hook = mod.fc.register_forward_pre_hook(lambda _, args: seen.append(args[0].detach()))
+    try:
+        with torch.no_grad():
+            logits = mod(x)
+    finally:
+        hook.remove()
+    return logits, seen[0]
+
+
 def _at_batch(shape, b):
     return (b,) + tuple(shape[1:])
 
 
 def k5_k6_phase(rng, dev, calls) -> tuple:
     """K5 and K6 against their plain versions at every recorded call shape
-    (batch S3D_CHECK_BATCH, fp32 and bf16, bit-equal), then timed at batch
-    S3D_BATCH, each shape times its count in one forward. Returns the K5
-    and K6 totals."""
+    (batches S3D_CHECK_BATCH and S3D_BATCH, fp32 and bf16, bit-equal), then
+    timed at batch S3D_BATCH, each shape times its count in one forward.
+    Returns the K5 and K6 totals.
+
+    The bounds count each tensor at its real channel count (the zero
+    channels K5 pads to 16 are not work the function needs). K5's bytes
+    are those of quantize + conv as one function, as K3's are: the fp32
+    inputs of the quantize passes, the pooled int8 inputs of the mixes'
+    fourth-branch convs (K6's outputs), the weights, scales, biases and
+    fp32 outputs; the int8 tensor between a quantize pass and its convs is
+    not counted."""
     import torch
     from fac_fake_torch.ops import quant3d as q3
-    from fac_fake_torch.ops.quant import pad16
     k5 = dict(ms=0.0, conv_ms=0.0, quantize_ms=0.0, plain_ms=0.0, ms_1x1x1=0.0,
               library_ms=0.0, bytes=0.0, ops=0.0, err=0.0, convs=0, quantizes=0)
     k6 = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, err=0.0, pools=0)
@@ -490,31 +525,35 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
         xq[..., c:] = 0
         return t(xq)
 
-    for (xs, ws, stride, padding, relu), mult in calls["conv"].items():
+    for (xs, ws, stride, padding, relu, cin, pooled), mult in calls["conv"].items():
         n, kt, kh, kw, cp = ws
-        w_q = t(rng.integers(-127, 128, ws, dtype=np.int8))
+        w_q = rng.integers(-127, 128, ws, dtype=np.int8)
+        w_q[..., cin:] = 0
+        w_q = t(w_q)
         s = t(rng.uniform(1e-5, 1e-3, n).astype(np.float32))
         b = t(rng.standard_normal(n, dtype=np.float32))
-        xq = int8_image(_at_batch(xs, S3D_CHECK_BATCH), cp)
-        for dt in (torch.float32, torch.bfloat16):
-            got = q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu, dt)
-            ref = q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu, dt)
-            torch.cuda.synchronize()
-            k5["err"] = max(k5["err"], float((got.float() - ref.float()).abs().max()))
-            if not torch.equal(got, ref):
-                raise AssertionError(f"K5 conv {xs} * {ws} s{stride} p{padding} {dt}: "
-                                     f"differs from plain, max abs {k5['err']}")
-        xq = int8_image(_at_batch(xs, S3D_BATCH), cp)
+        for batch in (S3D_CHECK_BATCH, S3D_BATCH):
+            xq = int8_image(_at_batch(xs, batch), cin)
+            for dt in (torch.float32, torch.bfloat16):
+                got = q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu, dt)
+                ref = q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu, dt)
+                torch.cuda.synchronize()
+                k5["err"] = max(k5["err"], float((got.float() - ref.float()).abs().max()))
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K5 conv {_at_batch(xs, batch)} * {ws} s{stride} "
+                                         f"p{padding} {dt}: differs from plain, max abs "
+                                         f"{k5['err']}")
+                del got, ref
         k_ms = cuda_ms(lambda: q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu,
                                               torch.float32), iters=10)
         p_ms = cuda_ms(lambda: q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu,
                                                     torch.float32), iters=1, warmup=1)
         out = q3.conv3d_out_shape(xq.shape[:4], (kt, kh, kw), stride, padding)
         m = float(np.prod(out))
-        # real input channels: the engine pads only the 3-channel clip (to 16)
-        cin = 3 if cp == 16 and kh == 7 else cp
-        k5["ops"] += mult * 2.0 * m * n * kt * kh * kw * cin
-        k5["bytes"] += mult * (xq.numel() + w_q.numel() + 8 * n + 4 * m * n)
+        taps = kt * kh * kw
+        k5["ops"] += mult * 2.0 * m * n * taps * cin
+        x_bytes = xq.numel() // cp * cin if pooled else 0
+        k5["bytes"] += mult * (x_bytes + n * taps * cin + 8 * n + 4 * m * n)
         k5["conv_ms"] += mult * k_ms
         k5["plain_ms"] += mult * p_ms
         k5["convs"] += mult
@@ -528,37 +567,37 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
         del xq, w_q
         torch.cuda.empty_cache()
     for xs, mult in calls["quantize"].items():
-        c = xs[-1]
-        for shape, timed in ((_at_batch(xs, S3D_CHECK_BATCH), False), (_at_batch(xs, S3D_BATCH), True)):
-            x, _, _, sx, _ = quant_inputs(rng, dev, shape, 1, 1)
-            if not timed:
-                for dt in (torch.float32, torch.bfloat16):
-                    xd = x.to(dt)
-                    if not torch.equal(q3.quantize_pad(xd, sx), q3.quantize_pad_plain(xd, sx)):
-                        raise AssertionError(f"K5 quantize {shape} {dt}: differs from plain")
-                continue
-            k_ms = cuda_ms(lambda: q3.quantize_pad(x, sx))
-            k5["quantize_ms"] += mult * k_ms
-            k5["plain_ms"] += mult * cuda_ms(lambda: q3.quantize_pad_plain(x, sx), iters=3)
-            k5["bytes"] += mult * x.numel() * (4 + pad16(c) / c)
-            k5["quantizes"] += mult
-            del x
-    for xs, mult in calls["pool"].items():
-        xq = int8_image(_at_batch(xs, S3D_CHECK_BATCH), xs[-1])
-        got, ref = q3.max_pool3d_i8(xq), q3.max_pool3d_i8_plain(xq)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K6 {tuple(xq.shape)}: differs from plain")
-        xq = int8_image(_at_batch(xs, S3D_BATCH), xs[-1])
+        for batch in (S3D_CHECK_BATCH, S3D_BATCH):
+            x, _, _, sx, _ = quant_inputs(rng, dev, _at_batch(xs, batch), 1, 1)
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                if not torch.equal(q3.quantize_pad(xd, sx), q3.quantize_pad_plain(xd, sx)):
+                    raise AssertionError(f"K5 quantize {tuple(x.shape)} {dt}: differs from plain")
+                del xd
+        k_ms = cuda_ms(lambda: q3.quantize_pad(x, sx))
+        k5["quantize_ms"] += mult * k_ms
+        k5["plain_ms"] += mult * cuda_ms(lambda: q3.quantize_pad_plain(x, sx), iters=3)
+        k5["bytes"] += mult * (4.0 * x.numel() + 4)
+        k5["quantizes"] += mult
+        del x
+    for (xs, c), mult in calls["pool"].items():
+        for batch in (S3D_CHECK_BATCH, S3D_BATCH):
+            xq = int8_image(_at_batch(xs, batch), c)
+            got, ref = q3.max_pool3d_i8(xq), q3.max_pool3d_i8_plain(xq)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K6 {tuple(xq.shape)}: differs from plain")
+            del got, ref
         k_ms = cuda_ms(lambda: q3.max_pool3d_i8(xq))
         p_ms = cuda_ms(lambda: q3.max_pool3d_i8_plain(xq), iters=3)
+        real = xq.numel() // xs[-1] * c
         k6["ms"] += mult * k_ms
         k6["plain_ms"] += mult * p_ms
-        k6["bytes"] += mult * 2.0 * xq.numel()
-        k6["ops"] += mult * 26.0 * xq.numel()    # byte maxima, outside the tensor cores
+        k6["bytes"] += mult * 2.0 * real
+        k6["ops"] += mult * 26.0 * real          # byte maxima, outside the tensor cores
         k6["pools"] += mult
         log(f"K6 max_pool3d_i8 {tuple(xq.shape)} x{mult}: equal; kernel {k_ms:.4f} ms "
-            f"plain {p_ms:.4f} ms bound {bound_ms(2.0 * xq.numel(), 26.0 * xq.numel())[0]:.4f} ms")
+            f"plain {p_ms:.4f} ms bound {bound_ms(2.0 * real, 26.0 * real)[0]:.4f} ms")
     k5["ms"] = k5["conv_ms"] + k5["quantize_ms"]
     k5["bound_ms"], k5["bound_by"] = bound_ms(k5["bytes"], k5["ops"], INT8_TC_OPS)
     k6["bound_ms"], k6["bound_by"] = bound_ms(k6["bytes"], k6["ops"])
@@ -669,19 +708,27 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
         f"centred cosine {float((ac * bc).sum() / (ac.norm() * bc.norm())):.6f} "
         f"(|logit| max {float(a.abs().max()):.3g}, spread {float(a.max() - a.min()):.3g})")
 
-    # ---- 14. full-width ca_s3d logits, card against CPU ------------------------------
-    one = torch.from_numpy(clips[:1]).float().permute(0, 4, 1, 2, 3)
-    s3d_errs = {}
+    # ---- 14. full-width ca_s3d logits and features, card against CPU -------------
+    two = torch.from_numpy(clips[:2]).float().permute(0, 4, 1, 2, 3)
     for label, mod in (("fp32", s3d), ("int8", ev8.engine)):
-        with torch.no_grad():
-            gpu_l = mod(one.to(dev)).cpu()
-            t_cpu = time.perf_counter()
-            cpu_l = copy.deepcopy(mod).cpu()(one)
-        s3d_errs[label] = float((gpu_l - cpu_l).abs().max())
-        log(f"full-width ca_s3d {label} logits card vs CPU ({time.perf_counter() - t_cpu:.1f} s "
-            f"on the CPU): max abs {s3d_errs[label]:.3g} (logit {float(cpu_l[0, 0]):.6g})")
-        if not (torch.isfinite(gpu_l).all() and s3d_errs[label] <= LOGIT_TOL):
-            raise AssertionError(f"ca_s3d {label} logits differ: {s3d_errs[label]} > {LOGIT_TOL}")
+        cpu_mod = copy.deepcopy(mod).cpu()
+        gpu_l, gpu_f = head_input(mod, two.to(dev))
+        t_cpu = time.perf_counter()
+        cpu_l, cpu_f = head_input(cpu_mod, two)
+        t_cpu = time.perf_counter() - t_cpu
+        gpu_l, gpu_f, cpu_f = gpu_l.cpu(), gpu_f.cpu().double(), cpu_f.double()
+        err = float((gpu_l - cpu_l).abs().max())
+        # the features' error against what the input moves: clip 0 against clip 1
+        f_err = float((gpu_f - cpu_f).norm() / (cpu_f[0] - cpu_f[1]).norm())
+        log(f"full-width ca_s3d {label} card vs CPU, 2 clips ({t_cpu:.1f} s on the CPU): logits "
+            f"max abs {err:.3g} (logits {cpu_l.flatten().tolist()}); head input {tuple(cpu_f.shape)} "
+            f"error norm / clip-to-clip difference norm {f_err:.3g} (/ its own norm "
+            f"{float((gpu_f - cpu_f).norm() / cpu_f.norm()):.3g})")
+        if not (torch.isfinite(gpu_l).all() and err <= LOGIT_TOL):
+            raise AssertionError(f"ca_s3d {label} logits differ: {err} > {LOGIT_TOL}")
+        if not f_err <= S3D_FEATURE_RTOL:
+            raise AssertionError(f"ca_s3d {label} head input differs: {f_err} of the clips' "
+                                 f"difference > {S3D_FEATURE_RTOL}")
 
     return dict(k5=k5, k6=k6, launches=s3d8_launches)
 
@@ -959,6 +1006,8 @@ def main() -> int:
          "max_abs_err": k5["err"], "ms": k5["ms"], "kernel_ms": k5["ms"],
          "conv_ms": k5["conv_ms"], "quantize_ms": k5["quantize_ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "bound_counts": "real channels; quantize + conv as one function (fp32 in, "
+                         "fp32 out), the int8 tensor between them not counted, as for K3",
          "library_ms": k5["library_ms"], "ms_1x1x1": k5["ms_1x1x1"],
          "library": "torch._int_mm, the GEMMs of the 1x1x1 convs alone (pre-quantized)",
          "shapes": f"the 77 convs and 50 quantize passes of one ca_s3d int8 forward, "

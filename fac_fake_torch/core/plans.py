@@ -4,9 +4,12 @@ The reference drives its experiment grid with YAML "plans"
 (`S3D/configs/*.yaml`, schema at `plan1.yaml:1-17`: training.{lr,
 weight-decay, bs, gamma, step-size, rebalancing_fake/real, frames-per-video,
 mask-method, mask-number, picture-color, aug} + model.{image-size, SRM-net}).
-This module loads that schema into the typed Config tree, keeping the
-plan-name → model-family convention (`S3D-test.py:333-351`: plan* → s3d,
-mplan* → msca_s3d, caplan* → ca_s3d). ``yaml`` is imported inside `load_plan`.
+Scoring reads the model family, its input size and SRM input, and
+``frames-per-video``; this module loads those into the typed Config tree,
+keeping the plan-name → model-family convention (`S3D-test.py:333-351`:
+plan* → s3d, mplan* → msca_s3d, caplan* → ca_s3d). The training and
+augmentation fields come with S3D training. ``yaml`` is imported inside
+`load_plan`.
 """
 from __future__ import annotations
 
@@ -38,47 +41,5 @@ def load_plan(path: str, cfg: Optional[Config] = None) -> Config:
     cfg.model.num_class = 1
     cfg.model.image_size = int(m.get("image-size", 224))
     cfg.model.srm_net = str(m.get("SRM-net", "no")).lower() in ("yes", "true")
-
-    cfg.train.loss = "bce_weighted"
-    cfg.train.optim.lr = float(t.get("lr", 1e-3))
-    cfg.train.optim.weight_decay = float(t.get("weight-decay", 1e-7))
-    cfg.train.optim.schedule = "cosine"   # S3D-train.py:204-205
-    cfg.train.optim.step_gamma = float(t.get("gamma", 0.1))
-    cfg.train.optim.step_size = int(t.get("step-size", 15))
-
-    cfg.data.batch_size = int(t.get("bs", 8))
     cfg.data.frames_per_video = int(t.get("frames-per-video", 20))
-    cfg.data.mask_method = str(t.get("mask-method", "none")).strip("'\"")
-    cfg.data.mask_number = int(t.get("mask-number", 6))
-    cfg.data.picture_color = str(t.get("picture-color", "rgb")).strip("'\"")
-    cfg.data.augment.enabled = str(t.get("aug", "no")).lower() in ("yes", "true")
-    cfg.data.augment.to_gray = cfg.data.picture_color == "gray"
-    # the S3D train transform (`deepfakes_dataset.py:32-48`): ImageCompression
-    # (60-100, p=.2) + hflip + brightness/HSV + gauss noise + SSR(rot 5°)
-    cfg.data.augment.image_compression = True
-    cfg.data.augment.gaussian_blur = True
-    cfg.data.augment.fancy_pca = True
-    cfg.data.augment.color_oneof = True   # OneOf(bc, pca, hsv) p=.4
-    if cfg.data.picture_color != "gray":
-        cfg.data.augment.to_gray_prob = 0.2   # ToGray(p=.2) random aug
-    cfg.data.augment.clahe = False
-    cfg.data.augment.rot90 = False
-    cfg.data.augment.transpose = False
-    cfg.data.augment.vflip = False
-    cfg.data.augment.sharpen = False
-    cfg.data.augment.emboss = False
-    cfg.data.augment.sharpen_oneof = False
-    # no outer Compose p (`deepfakes_dataset.py:33`), GaussNoise p=.3,
-    # ShiftScaleRotate(shift .1, scale .2, rotate 5, p=.5) (`:35,46`)
-    cfg.data.augment.compose_prob = 1.0
-    cfg.data.augment.noise_prob = 0.3
-    cfg.data.augment.affine_prob = 0.5
-    cfg.data.augment.shift_limit = 0.1
-    cfg.data.augment.scale_limit = 0.2
-    cfg.data.augment.rotation_deg = 5.0
-
-    # rebalancing: pos_weight = real / fake (S3D-train.py:264-273)
-    cfg.train.rebalance_pos_weight = True
-    cfg.train.rebalance_fake = float(t.get("rebalancing_fake", 1.0))
-    cfg.train.rebalance_real = float(t.get("rebalancing_real", 1.0))
     return cfg

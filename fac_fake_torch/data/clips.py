@@ -103,16 +103,12 @@ class ClipDataset:
         return np.stack(frames)
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
-                epoch: int = 0, drop_last: bool = True, num_workers: int = 4,
-                process_index: int = 0, process_count: int = 1,
-                ) -> Iterator[Dict[str, np.ndarray]]:
-        """Batches of ``{"image": (B, T, H, W, 3) uint8, "label", "mask"}``;
-        with ``drop_last=False`` the last batch is zero-padded and ``mask``
-        marks its real rows."""
+                epoch: int = 0, num_workers: int = 4) -> Iterator[Dict[str, np.ndarray]]:
+        """Full batches of ``{"image": (B, T, H, W, 3) uint8, "label"}``, in
+        the JAX package's order; a last incomplete batch is dropped."""
         order = np.arange(len(self.samples))
         if shuffle:
             np.random.RandomState(seed + epoch).shuffle(order)
-        order = order[process_index::process_count]
 
         # one child generator per sample: numpy Generators are not
         # thread-safe, and the pool calls load_clip concurrently
@@ -130,18 +126,8 @@ class ClipDataset:
                 buf_labels.append(label)
                 if len(buf_clips) == batch_size:
                     yield {"image": np.stack(buf_clips),
-                           "label": np.asarray(buf_labels, np.int32),
-                           "mask": np.ones(batch_size, np.float32)}
+                           "label": np.asarray(buf_labels, np.int32)}
                     buf_clips, buf_labels = [], []
-            if buf_clips and not drop_last:
-                pad = batch_size - len(buf_clips)
-                mask = np.ones(batch_size, np.float32)
-                mask[len(buf_clips):] = 0
-                buf_clips += [np.zeros_like(buf_clips[0])] * pad
-                buf_labels += [0] * pad
-                yield {"image": np.stack(buf_clips),
-                       "label": np.asarray(buf_labels, np.int32),
-                       "mask": mask}
         finally:
             # a consumer that stops early leaves loads queued: drop them
             pool.shutdown(wait=False, cancel_futures=True)
