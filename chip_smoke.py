@@ -54,10 +54,12 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
  13. S3D int8 main path: `S3DEvaluator(quantize="int8")` (its first batch
      calibrates), then `predict_batch` at batch 32 (clips/s),
      `predict_video` and `evaluate`; K5 and K6 must launch; int8 vs fp32
-     logits for information;
+     logits for information; then one more int8 forward at batch 32 in
+     which every K5 and K6 call is held bit-equal to its plain version on
+     the same real activations;
  14. full-width ca_s3d on the card against the same module on the CPU,
-     fp32 and int8 (plain versions), on 2 clips: the logits, and the head's
-     input features against the difference between the two clips';
+     fp32 and int8 (plain versions), batch 1: the logits, and the head's
+     input features (int8: against the int8-vs-fp32 difference);
  15. the kernels line; 16. the result line.
 """
 from __future__ import annotations
@@ -95,9 +97,12 @@ INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
 S3D_BATCH = 32                                     # clips a predict_batch
 S3D_CHECK_BATCH = 2                                # clips a K5/K6 bit-equality check
 S3D_T, S3D_HW = 20, 224                            # frames, pixels (ca_s3d's input)
-# ca_s3d's head input, card vs CPU: error norm over the norm of the difference
-# between two clips' features (seeded weights give near-equal logits)
-S3D_FEATURE_RTOL = 1e-3
+# ca_s3d's head input (the pooled last mix), card vs CPU, by error norm: fp32
+# over the features' norm; int8 over the CPU's int8-vs-fp32 difference, since
+# the int8 walk turns a rounding difference in its fp layers (the ctx blocks)
+# into quantization steps that flip, and those spread as int8 noise does
+S3D_FP32_FEATURE_RTOL = 1e-5
+S3D_INT8_FEATURE_RATIO = 1.0
 
 
 def log(msg: str) -> None:
@@ -481,6 +486,49 @@ def record_s3d_calls(engine, x) -> dict:
     return calls
 
 
+def check_s3d_calls(engine, x) -> dict:
+    """One int8 forward of ``engine`` on ``x`` in which every K5 and K6
+    call is also run through its plain version on the same (real,
+    calibrated) inputs and must be bit-equal: {kind: calls checked}."""
+    import torch
+    from fac_fake_torch.ops import quant3d as q3
+    n = {"conv": 0, "quantize": 0, "pool": 0}
+    orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8)
+
+    def same(kind, got, ref, what):
+        if not torch.equal(got, ref):
+            err = float((got.float() - ref.float()).abs().max())
+            raise AssertionError(f"K5/K6 {kind} {what} on real activations: differs from "
+                                 f"plain, max abs {err}")
+        n[kind] += 1
+
+    def conv(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0):
+        ref = q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu, dtype)
+        y = orig[0](xq, w_q, s, b, stride, padding, relu, dtype, out, c0)
+        same("conv", y[..., c0:c0 + ref.shape[-1]], ref, f"{tuple(xq.shape)} * {tuple(w_q.shape)}")
+        return y
+
+    def quantize(x, s_x):
+        y = orig[1](x, s_x)
+        same("quantize", y, q3.quantize_pad_plain(x, s_x), tuple(x.shape))
+        return y
+
+    def pool(xq):
+        y = orig[2](xq)
+        same("pool", y, q3.max_pool3d_i8_plain(xq), tuple(xq.shape))
+        return y
+
+    # launches made here count on the checker's functions, not the wrappers'
+    conv.launches = quantize.launches = pool.launches = 0
+    q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8 = conv, quantize, pool
+    try:
+        with torch.no_grad():
+            engine(x)
+    finally:
+        q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8 = orig
+    return n
+
+
 def head_input(mod, x) -> tuple:
     """Logits of ``mod`` (an `S3DNet` or its int8 engine) on ``x``, and the
     features its head's 1x1x1 conv reads (the last mix's output, pooled)."""
@@ -701,6 +749,11 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
     with torch.no_grad():
         x32 = torch.from_numpy(clips).to(dev).float().permute(0, 4, 1, 2, 3)
         a, b = s3d(x32).double(), ev8.engine(x32).double()
+    checked = check_s3d_calls(ev8.engine, x32)
+    log(f"S3D int8 forward at batch {S3D_BATCH} on the seeded clips: every K5/K6 call "
+        f"bit-equal to its plain version on the same activations: {checked}")
+    if checked != {"conv": 77, "quantize": 50, "pool": 9}:
+        raise AssertionError(f"S3D int8: checked {checked}, not every call of a forward")
     del x32
     ac, bc = a - a.mean(), b - b.mean()
     log(f"S3D int8 vs fp32 logits on {S3D_BATCH} clips (information): max abs "
@@ -709,26 +762,32 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
         f"(|logit| max {float(a.abs().max()):.3g}, spread {float(a.max() - a.min()):.3g})")
 
     # ---- 14. full-width ca_s3d logits and features, card against CPU -------------
-    two = torch.from_numpy(clips[:2]).float().permute(0, 4, 1, 2, 3)
+    one = torch.from_numpy(clips[:1]).float().permute(0, 4, 1, 2, 3)
+    feats = {}
     for label, mod in (("fp32", s3d), ("int8", ev8.engine)):
         cpu_mod = copy.deepcopy(mod).cpu()
-        gpu_l, gpu_f = head_input(mod, two.to(dev))
+        gpu_l, gpu_f = head_input(mod, one.to(dev))
         t_cpu = time.perf_counter()
-        cpu_l, cpu_f = head_input(cpu_mod, two)
+        cpu_l, cpu_f = head_input(cpu_mod, one)
         t_cpu = time.perf_counter() - t_cpu
         gpu_l, gpu_f, cpu_f = gpu_l.cpu(), gpu_f.cpu().double(), cpu_f.double()
+        feats[label] = gpu_f, cpu_f
         err = float((gpu_l - cpu_l).abs().max())
-        # the features' error against what the input moves: clip 0 against clip 1
-        f_err = float((gpu_f - cpu_f).norm() / (cpu_f[0] - cpu_f[1]).norm())
-        log(f"full-width ca_s3d {label} card vs CPU, 2 clips ({t_cpu:.1f} s on the CPU): logits "
-            f"max abs {err:.3g} (logits {cpu_l.flatten().tolist()}); head input {tuple(cpu_f.shape)} "
-            f"error norm / clip-to-clip difference norm {f_err:.3g} (/ its own norm "
-            f"{float((gpu_f - cpu_f).norm() / cpu_f.norm()):.3g})")
+        log(f"full-width ca_s3d {label} logits card vs CPU ({t_cpu:.1f} s on the CPU): max abs "
+            f"{err:.3g} (logit {float(cpu_l[0, 0]):.6g}); head input {tuple(cpu_f.shape)} error "
+            f"norm / its norm {float((gpu_f - cpu_f).norm() / cpu_f.norm()):.3g}")
         if not (torch.isfinite(gpu_l).all() and err <= LOGIT_TOL):
             raise AssertionError(f"ca_s3d {label} logits differ: {err} > {LOGIT_TOL}")
-        if not f_err <= S3D_FEATURE_RTOL:
-            raise AssertionError(f"ca_s3d {label} head input differs: {f_err} of the clips' "
-                                 f"difference > {S3D_FEATURE_RTOL}")
+    (g32, c32), (g8, c8) = feats["fp32"], feats["int8"]
+    f32_err = float((g32 - c32).norm() / c32.norm())
+    f8_err = float((g8 - c8).norm() / (c8 - c32).norm())
+    log(f"ca_s3d head input card vs CPU: fp32 error {f32_err:.3g} of its norm (limit "
+        f"{S3D_FP32_FEATURE_RTOL}); int8 error {f8_err:.3g} of the CPU's int8-vs-fp32 "
+        f"difference (limit {S3D_INT8_FEATURE_RATIO}; that difference is "
+        f"{float((c8 - c32).norm() / c32.norm()):.3g} of the fp32 norm)")
+    if not (f32_err <= S3D_FP32_FEATURE_RTOL and f8_err <= S3D_INT8_FEATURE_RATIO):
+        raise AssertionError(f"ca_s3d head input differs card vs CPU: fp32 {f32_err}, "
+                             f"int8 {f8_err}")
 
     return dict(k5=k5, k6=k6, launches=s3d8_launches)
 
