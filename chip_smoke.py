@@ -31,8 +31,9 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      the folded base stem at batch 96, fp32 and bf16 (bit-equal), timed
      over the 17 convs of one forward;
   8. K4 (int8 dense) against its plain version at the 26 denses of one
-     int8_full forward at batch 96 (bit-equal), beside torch._int_mm on the
-     same int8 operands (the GEMM alone);
+     int8_full forward at batch 96 (bit-equal, launched with and without
+     programmatic dependent launch), each timed both ways beside
+     torch._int_mm on the same int8 operands (the GEMM alone);
   9. int8 main path: `VideoScorer` with infer.quantize="int8_full" (it
      calibrates on its first batch) runs `score_videos_batched` over the 8
      videos, `score_video`, `score_crops` and `score_crop_stacks`; launch
@@ -47,16 +48,20 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      card's machine has no cv2), `evaluate` over an in-memory dataset;
  12. K5 (quantize + int8 3D conv) and K6 (int8 max-pool) against their
      plain versions at every conv, quantize and pool of one ca_s3d int8
-     forward, the shapes recorded from the wrapper calls, at batches 2 and
-     32, fp32 and bf16 (bit-equal); timed over the 77 convs, 50 quantize
-     passes and 9 pools of a forward at batch 32, beside torch._int_mm on
-     the 1x1x1 convs' pre-quantized operands;
+     forward (77 convs, 39 of them quantizing their output for the next
+     conv, 11 quantize passes, 9 pools: asserted), the shapes recorded from
+     the wrapper calls, at batches 2 and 32, fp32 and bf16 (bit-equal; a
+     fused conv against quantize_pad_plain(int8_conv3d_plain(...))); timed
+     over the calls of a forward at batch 32, beside torch._int_mm on the
+     1x1x1 convs' pre-quantized operands; the bound counted with and
+     without the fused epilogue;
  13. S3D int8 main path: `S3DEvaluator(quantize="int8")` (its first batch
      calibrates), then `predict_batch` at batch 32 (clips/s),
      `predict_video` and `evaluate`; K5 and K6 must launch; int8 vs fp32
-     logits for information; then one more int8 forward at batch 32 in
-     which every K5 and K6 call is held bit-equal to its plain version on
-     the same real activations;
+     logits for information; the launches are whole forwards of 77 convs,
+     11 quantize passes and 9 pools; then one more int8 forward at batch 32
+     in which every K5 and K6 call, fused ones included, is held bit-equal
+     to its plain version on the same real activations;
  14. full-width ca_s3d on the card against the same module on the CPU,
      fp32 and int8 (plain versions), batch 1: the logits, and the head's
      input features (int8: against the int8-vs-fp32 difference);
@@ -97,6 +102,9 @@ INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
 S3D_BATCH = 32                                     # clips a predict_batch
 S3D_CHECK_BATCH = 2                                # clips a K5/K6 bit-equality check
 S3D_T, S3D_HW = 20, 224                            # frames, pixels (ca_s3d's input)
+# K5 and K6 calls of one ca_s3d int8 forward: 77 convs, 39 of which quantize
+# their output for the next conv, 11 quantize passes, 9 int8 pools
+S3D_INT8_CALLS = {"conv": 77, "fused": 39, "quantize": 11, "pool": 9}
 # ca_s3d's head input (the pooled last mix), card vs CPU, by error norm: fp32
 # over the features' norm; int8 over the CPU's int8-vs-fp32 difference, since
 # the int8 walk turns a rounding difference in its fp layers (the ctx blocks)
@@ -199,42 +207,48 @@ def k4_phase(rng, dev) -> dict:
     beside torch._int_mm (the GEMM alone, on pre-quantized operands)."""
     import torch
     from fac_fake_torch.ops import quant as q
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, bound_sum=0.0,
-               err=0.0)
+    tot = dict(ms=0.0, serial_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+               bound_sum=0.0, err=0.0)
     for (m, n, k, has_bias), mult in INT8_DENSES.items():
         x, wq, sw, sx, b = quant_inputs(rng, dev, (m, k), n, k)
         b = b if has_bias else None
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
-            got = q.quant_dense(xd, wq, sw, sx, b)
             ref = q.quant_dense_plain(xd, wq, sw, sx, b)
-            torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
-            tot["err"] = max(tot["err"], err)
-            if not torch.equal(got, ref):
-                raise AssertionError(f"K4 ({m},{k})x({k},{n}) {dt}: differs from plain, "
-                                     f"max abs {err}")
+            for pdl in (True, False):
+                got = q.quant_dense(xd, wq, sw, sx, b, pdl=pdl)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                tot["err"] = max(tot["err"], err)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K4 ({m},{k})x({k},{n}) {dt} pdl={pdl}: differs from "
+                                         f"plain, max abs {err}")
         xq = q.quantize_plain(x, sx)
         wt = wq.t()
         if not torch.equal(torch._int_mm(xq, wt), q.int_matmul_plain(xq, wq)):
             raise AssertionError("torch._int_mm differs from the exact int32 product")
         k_ms = cuda_ms(lambda: q.quant_dense(x, wq, sw, sx, b))
+        serial_ms = cuda_ms(lambda: q.quant_dense(x, wq, sw, sx, b, pdl=False))
         p_ms = cuda_ms(lambda: q.quant_dense_plain(x, wq, sw, sx, b), iters=5)
         l_ms = cuda_ms(lambda: torch._int_mm(xq, wt))
         nbytes = m * k * 4 + n * k + 4 * n * (2 if has_bias else 1) + 4 + m * n * 4
         ops = 2.0 * m * n * k
         bms, by = bound_ms(nbytes, ops, INT8_TC_OPS)
         log(f"K4 quant_dense ({m},{k})x({k},{n}) bias={has_bias} x{mult} "
-            f"(splits {q.dense_splits(m, n, k)}): equal fp32+bf16; kernel {k_ms:.4f} ms "
-            f"plain {p_ms:.4f} ms torch._int_mm {l_ms:.4f} ms bound {bms:.4f} ms ({by})")
+            f"(rows tile {q.dense_rows_tile(m)}, cluster split {q.dense_splits(m, n, k)}): "
+            f"equal fp32+bf16; kernel {k_ms:.4f} ms (without programmatic dependent launch "
+            f"{serial_ms:.4f}) plain {p_ms:.4f} ms torch._int_mm {l_ms:.4f} ms bound "
+            f"{bms:.4f} ms ({by})")
         tot["ms"] += mult * k_ms
+        tot["serial_ms"] += mult * serial_ms
         tot["plain_ms"] += mult * p_ms
         tot["library_ms"] += mult * l_ms
         tot["bytes"] += mult * nbytes
         tot["ops"] += mult * ops
         tot["bound_sum"] += mult * bms
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], INT8_TC_OPS)
-    log(f"K4 over one int8_full forward's 26 denses: kernel {tot['ms']:.4f} ms plain "
+    log(f"K4 over one int8_full forward's 26 denses: kernel {tot['ms']:.4f} ms (without "
+        f"programmatic dependent launch {tot['serial_ms']:.4f}) plain "
         f"{tot['plain_ms']:.4f} ms torch._int_mm {tot['library_ms']:.4f} ms bound "
         f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}; sum of per-dense bounds "
         f"{tot['bound_sum']:.4f} ms)")
@@ -442,36 +456,41 @@ def clips_per_s(ev, clips, n_it: int = 5) -> tuple:
 def record_s3d_calls(engine, x) -> dict:
     """One int8 forward of ``engine`` on ``x`` with the K5/K6 wrappers
     wrapped: {kind: {call key: count}}, where a conv's key is (xq shape,
-    w_q shape, stride, padding, relu, real input channels, whether its
-    input is a K6 pool's output), a quantize's (x shape) and a pool's (xq
-    shape, real channels). The real channel count of an int8 tensor is that
-    of the fp tensor its quantize pass read."""
+    w_q shape, stride, padding, relu, real input channels, what made its
+    input: "quantize", "pool" (K6) or "conv" (the previous conv's fused
+    epilogue), whether it quantizes its own output for the next conv), a
+    quantize's (x shape) and a pool's (xq shape, real channels). The real
+    channel count of an int8 tensor is that of the fp tensor it stands for."""
     import torch
     from fac_fake_torch.ops import quant3d as q3
     calls = {"conv": {}, "quantize": {}, "pool": {}}
     orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8)
-    made = {}                                   # data_ptr of an int8 tensor -> (C, pooled)
+    made = {}                                   # data_ptr of an int8 tensor -> (C, source)
 
     def bump(kind, key):
         calls[kind][key] = calls[kind].get(key, 0) + 1
 
-    def conv(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0):
-        c, pooled = made[xq.data_ptr()]
+    def conv(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0, q_scale=None,
+             w_rows=None):
+        c, source = made[xq.data_ptr()]
         bump("conv", (tuple(xq.shape), tuple(w_q.shape), tuple(stride), tuple(padding), relu,
-                      c, pooled))
-        return orig[0](xq, w_q, s, b, stride, padding, relu, dtype, out, c0)
+                      c, source, q_scale is not None))
+        y = orig[0](xq, w_q, s, b, stride, padding, relu, dtype, out, c0, q_scale, w_rows)
+        if q_scale is not None:
+            made[y.data_ptr()] = (w_q.shape[0], "conv")
+        return y
 
     def quantize(x, s_x):
         bump("quantize", tuple(x.shape))
         xq = orig[1](x, s_x)
-        made[xq.data_ptr()] = (x.shape[-1], False)
+        made[xq.data_ptr()] = (x.shape[-1], "quantize")
         return xq
 
     def pool(xq):
         c = made[xq.data_ptr()][0]
         bump("pool", (tuple(xq.shape), c))
         y = orig[2](xq)
-        made[y.data_ptr()] = (c, True)
+        made[y.data_ptr()] = (c, "pool")
         return y
 
     # each wrapper counts its launches on the function its module's name is
@@ -489,10 +508,12 @@ def record_s3d_calls(engine, x) -> dict:
 def check_s3d_calls(engine, x) -> dict:
     """One int8 forward of ``engine`` on ``x`` in which every K5 and K6
     call is also run through its plain version on the same (real,
-    calibrated) inputs and must be bit-equal: {kind: calls checked}."""
+    calibrated) inputs and must be bit-equal; a conv that quantizes its
+    output for the next conv against ``quantize_pad_plain(int8_conv3d_plain
+    (...))``: {kind: calls checked}, "fused" among the convs."""
     import torch
     from fac_fake_torch.ops import quant3d as q3
-    n = {"conv": 0, "quantize": 0, "pool": 0}
+    n = {"conv": 0, "fused": 0, "quantize": 0, "pool": 0}
     orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8)
 
     def same(kind, got, ref, what):
@@ -502,10 +523,16 @@ def check_s3d_calls(engine, x) -> dict:
                                  f"plain, max abs {err}")
         n[kind] += 1
 
-    def conv(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0):
+    def conv(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0, q_scale=None,
+             w_rows=None):
         ref = q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu, dtype)
-        y = orig[0](xq, w_q, s, b, stride, padding, relu, dtype, out, c0)
-        same("conv", y[..., c0:c0 + ref.shape[-1]], ref, f"{tuple(xq.shape)} * {tuple(w_q.shape)}")
+        y = orig[0](xq, w_q, s, b, stride, padding, relu, dtype, out, c0, q_scale, w_rows)
+        what = f"{tuple(xq.shape)} * {tuple(w_q.shape)}"
+        if q_scale is not None:
+            same("conv", y, q3.quantize_pad_plain(ref, q_scale), what + " quantized")
+            n["fused"] += 1
+        else:
+            same("conv", y[..., c0:c0 + ref.shape[-1]], ref, what)
         return y
 
     def quantize(x, s_x):
@@ -549,21 +576,27 @@ def _at_batch(shape, b):
 
 def k5_k6_phase(rng, dev, calls) -> tuple:
     """K5 and K6 against their plain versions at every recorded call shape
-    (batches S3D_CHECK_BATCH and S3D_BATCH, fp32 and bf16, bit-equal), then
-    timed at batch S3D_BATCH, each shape times its count in one forward.
-    Returns the K5 and K6 totals.
+    (batches S3D_CHECK_BATCH and S3D_BATCH, fp32 and bf16, bit-equal; a
+    conv that quantizes its output for the next conv against
+    ``quantize_pad_plain(int8_conv3d_plain(...))`` at a scale of its
+    output's range), then timed at batch S3D_BATCH, each shape times its
+    count in one forward. Returns the K5 and K6 totals.
 
     The bounds count each tensor at its real channel count (the zero
     channels K5 pads to 16 are not work the function needs). K5's bytes
-    are those of quantize + conv as one function, as K3's are: the fp32
-    inputs of the quantize passes, the pooled int8 inputs of the mixes'
-    fourth-branch convs (K6's outputs), the weights, scales, biases and
-    fp32 outputs; the int8 tensor between a quantize pass and its convs is
-    not counted."""
+    are those of its quantize passes and convs as one function, as K3's
+    are: the fp32 inputs of the quantize passes, the int8 inputs the convs
+    read from K6 pools and from the convs before them, the weights, scales,
+    biases, the fp32 outputs and the int8 outputs quantized for the next
+    conv; the int8 tensor between a quantize pass and its convs is not
+    counted. ``bytes_old`` is the count for the same work without the fused
+    epilogue (PR 3's): each fused conv's output as an fp32 write and, in the
+    next conv's quantize pass, an fp32 read."""
     import torch
     from fac_fake_torch.ops import quant3d as q3
     k5 = dict(ms=0.0, conv_ms=0.0, quantize_ms=0.0, plain_ms=0.0, ms_1x1x1=0.0,
-              library_ms=0.0, bytes=0.0, ops=0.0, err=0.0, convs=0, quantizes=0)
+              library_ms=0.0, bytes=0.0, bytes_old=0.0, ops=0.0, err=0.0, convs=0, fused=0,
+              quantizes=0)
     k6 = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, err=0.0, pools=0)
     t = lambda a: torch.from_numpy(a).to(dev)
 
@@ -573,38 +606,52 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
         xq[..., c:] = 0
         return t(xq)
 
-    for (xs, ws, stride, padding, relu, cin, pooled), mult in calls["conv"].items():
+    for (xs, ws, stride, padding, relu, cin, source, fused), mult in calls["conv"].items():
         n, kt, kh, kw, cp = ws
         w_q = rng.integers(-127, 128, ws, dtype=np.int8)
         w_q[..., cin:] = 0
         w_q = t(w_q)
         s = t(rng.uniform(1e-5, 1e-3, n).astype(np.float32))
         b = t(rng.standard_normal(n, dtype=np.float32))
+        qs = None
         for batch in (S3D_CHECK_BATCH, S3D_BATCH):
             xq = int8_image(_at_batch(xs, batch), cin)
             for dt in (torch.float32, torch.bfloat16):
-                got = q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu, dt)
                 ref = q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu, dt)
+                if fused:
+                    qs = (ref.float().abs().amax().clamp_min(1e-8) / 127.0).reshape(())
+                    got = q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu, dt, q_scale=qs)
+                    ref = q3.quantize_pad_plain(ref, qs)
+                else:
+                    got = q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu, dt)
                 torch.cuda.synchronize()
                 k5["err"] = max(k5["err"], float((got.float() - ref.float()).abs().max()))
                 if not torch.equal(got, ref):
                     raise AssertionError(f"K5 conv {_at_batch(xs, batch)} * {ws} s{stride} "
-                                         f"p{padding} {dt}: differs from plain, max abs "
-                                         f"{k5['err']}")
+                                         f"p{padding} {dt} fused={fused}: differs from plain, "
+                                         f"max abs {k5['err']}")
                 del got, ref
         k_ms = cuda_ms(lambda: q3.int8_conv3d(xq, w_q, s, b, stride, padding, relu,
-                                              torch.float32), iters=10)
+                                              torch.float32, q_scale=qs), iters=10)
         p_ms = cuda_ms(lambda: q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu,
-                                                    torch.float32), iters=1, warmup=1)
+                                                    torch.float32, q_scale=qs), iters=1, warmup=1)
         out = q3.conv3d_out_shape(xq.shape[:4], (kt, kh, kw), stride, padding)
         m = float(np.prod(out))
         taps = kt * kh * kw
         k5["ops"] += mult * 2.0 * m * n * taps * cin
-        x_bytes = xq.numel() // cp * cin if pooled else 0
-        k5["bytes"] += mult * (x_bytes + n * taps * cin + 8 * n + 4 * m * n)
+        x_real = xq.numel() // xs[-1] * cin
+        params = n * taps * cin + 8 * n
+        x_new = x_real if source in ("pool", "conv") else 0
+        x_old = x_real if source == "pool" else 4 * x_real if source == "conv" else 0
+        k5["bytes"] += mult * (x_new + params + (m * n if fused else 4 * m * n))
+        k5["bytes_old"] += mult * (x_old + params + 4 * m * n)
         k5["conv_ms"] += mult * k_ms
         k5["plain_ms"] += mult * p_ms
         k5["convs"] += mult
+        k5["fused"] += mult if fused else 0
+        log(f"K5 conv {tuple(xq.shape)} * {ws} s{stride} p{padding} from {source} "
+            f"{'-> int8' if fused else '-> fp'} x{mult}: equal; kernel {k_ms:.4f} ms "
+            f"{2.0 * m * n * taps * cin / k_ms / 1e9:.1f} int8 TOP/s")
         if (kt, kh, kw) == (1, 1, 1):
             xm, wm = xq.reshape(-1, cp), w_q.reshape(n, cp)
             if not torch.equal(torch._int_mm(xm, wm.t()),
@@ -626,6 +673,7 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
         k5["quantize_ms"] += mult * k_ms
         k5["plain_ms"] += mult * cuda_ms(lambda: q3.quantize_pad_plain(x, sx), iters=3)
         k5["bytes"] += mult * (4.0 * x.numel() + 4)
+        k5["bytes_old"] += mult * (4.0 * x.numel() + 4)
         k5["quantizes"] += mult
         del x
     for (xs, c), mult in calls["pool"].items():
@@ -648,11 +696,14 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
             f"plain {p_ms:.4f} ms bound {bound_ms(2.0 * real, 26.0 * real)[0]:.4f} ms")
     k5["ms"] = k5["conv_ms"] + k5["quantize_ms"]
     k5["bound_ms"], k5["bound_by"] = bound_ms(k5["bytes"], k5["ops"], INT8_TC_OPS)
+    k5["bound_ms_old_count"] = bound_ms(k5["bytes_old"], k5["ops"], INT8_TC_OPS)[0]
     k6["bound_ms"], k6["bound_by"] = bound_ms(k6["bytes"], k6["ops"])
-    log(f"K5 over one forward at batch {S3D_BATCH}: {k5['convs']} convs {k5['conv_ms']:.4f} ms "
-        f"+ {k5['quantizes']} quantize passes {k5['quantize_ms']:.4f} ms = {k5['ms']:.4f} ms; "
-        f"plain {k5['plain_ms']:.4f} ms; bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}; "
-        f"{k5['ops'] / 1e12:.3f} T int8 ops, {k5['bytes'] / 1e9:.3f} GB); "
+    log(f"K5 over one forward at batch {S3D_BATCH}: {k5['convs']} convs ({k5['fused']} "
+        f"quantizing for the next) {k5['conv_ms']:.4f} ms + {k5['quantizes']} quantize passes "
+        f"{k5['quantize_ms']:.4f} ms = {k5['ms']:.4f} ms; plain {k5['plain_ms']:.4f} ms; "
+        f"bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}; {k5['ops'] / 1e12:.3f} T int8 ops, "
+        f"{k5['bytes'] / 1e9:.3f} GB; without the fused epilogue {k5['bytes_old'] / 1e9:.3f} GB, "
+        f"{k5['bound_ms_old_count']:.4f} ms); "
         f"{k5['ops'] / k5['conv_ms'] / 1e9:.1f} int8 TOP/s; the 1x1x1 convs {k5['ms_1x1x1']:.4f} "
         f"ms against torch._int_mm's GEMMs alone {k5['library_ms']:.4f} ms")
     log(f"K6 over one forward's {k6['pools']} pools at batch {S3D_BATCH}: kernel "
@@ -713,13 +764,16 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
     # ---- 12. K5 and K6 against their plain versions ------------------------------
     x_check = torch.from_numpy(clips[:S3D_CHECK_BATCH]).to(dev).float().permute(0, 4, 1, 2, 3)
     calls = record_s3d_calls(quantize_s3d(s3d, x_check), x_check)
-    log(f"S3D int8 forward: {sum(calls['conv'].values())} convs ({len(calls['conv'])} "
-        f"shapes), {sum(calls['quantize'].values())} quantize passes, "
-        f"{sum(calls['pool'].values())} int8 pools")
+    per_forward = {"conv": sum(calls["conv"].values()),
+                   "fused": sum(c for key, c in calls["conv"].items() if key[-1]),
+                   "quantize": sum(calls["quantize"].values()), "pool": sum(calls["pool"].values())}
+    log(f"S3D int8 forward: {per_forward['conv']} convs ({len(calls['conv'])} shapes, "
+        f"{per_forward['fused']} quantizing their output for the next conv), "
+        f"{per_forward['quantize']} quantize passes, {per_forward['pool']} int8 pools")
+    if per_forward != S3D_INT8_CALLS:
+        raise AssertionError(f"a ca_s3d int8 forward makes {S3D_INT8_CALLS}, recorded "
+                             f"{per_forward}")
     k5, k6 = k5_k6_phase(rng, dev, calls)
-    if (k5["convs"], k6["pools"]) != (77, 9):
-        raise AssertionError(f"a ca_s3d int8 forward has 77 convs and 9 int8 pools, "
-                             f"recorded {k5['convs']} and {k6['pools']}")
     torch.cuda.empty_cache()
 
     # ---- 13. S3D int8 main path ------------------------------------------------------
@@ -743,6 +797,11 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
         raise AssertionError(f"S3D int8 scores {s3d8_scores} / evaluate {s3d8_eval}")
     if min(s3d8_launches[k] for k in ("K5", "K5_quantize", "K6")) <= 0:
         raise AssertionError(f"S3D int8: a kernel of the path never launched: {s3d8_launches}")
+    forwards = s3d8_launches["K5"] / S3D_INT8_CALLS["conv"]
+    if (s3d8_launches["K5_quantize"], s3d8_launches["K6"]) != (
+            forwards * S3D_INT8_CALLS["quantize"], forwards * S3D_INT8_CALLS["pool"]):
+        raise AssertionError(f"S3D int8: launches {s3d8_launches} are not {forwards} forwards "
+                             f"of {S3D_INT8_CALLS}")
     if profile:
         profile_forward(lambda: ev.predict_batch(clips), f"S3D fp32 predict_batch {S3D_BATCH}")
         profile_forward(lambda: ev8.predict_batch(clips), f"S3D int8 predict_batch {S3D_BATCH}")
@@ -752,7 +811,7 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
     checked = check_s3d_calls(ev8.engine, x32)
     log(f"S3D int8 forward at batch {S3D_BATCH} on the seeded clips: every K5/K6 call "
         f"bit-equal to its plain version on the same activations: {checked}")
-    if checked != {"conv": 77, "quantize": 50, "pool": 9}:
+    if checked != S3D_INT8_CALLS:
         raise AssertionError(f"S3D int8: checked {checked}, not every call of a forward")
     del x32
     ac, bc = a - a.mean(), b - b.mean()
@@ -1057,6 +1116,7 @@ def main() -> int:
          "ms": k4["ms"], "kernel_ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": k4["library_ms"], "library": "torch._int_mm, the GEMM alone",
+         "ms_without_pdl": k4["serial_ms"],
          "shapes": "the 26 denses of one int8_full forward, batch 96, fp32"},
         {"name": "K5_quant_conv3d", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_conv3d.cu",
@@ -1065,12 +1125,17 @@ def main() -> int:
          "max_abs_err": k5["err"], "ms": k5["ms"], "kernel_ms": k5["ms"],
          "conv_ms": k5["conv_ms"], "quantize_ms": k5["quantize_ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
-         "bound_counts": "real channels; quantize + conv as one function (fp32 in, "
-                         "fp32 out), the int8 tensor between them not counted, as for K3",
+         "bound_counts": "real channels; the quantize passes and convs as one function "
+                         "(fp32 in, fp32 out), the int8 tensor between a quantize pass and its "
+                         "convs not counted, as for K3; the 39 tensors a conv quantizes for "
+                         "the next conv as int8, written once and read once",
+         "bound_ms_old_count": k5["bound_ms_old_count"],
+         "old_count": "the same, with those 39 tensors as an fp32 write and an fp32 read "
+                      "(PR 3's count)",
          "library_ms": k5["library_ms"], "ms_1x1x1": k5["ms_1x1x1"],
          "library": "torch._int_mm, the GEMMs of the 1x1x1 convs alone (pre-quantized)",
-         "shapes": f"the 77 convs and 50 quantize passes of one ca_s3d int8 forward, "
-                   f"batch {S3D_BATCH}, fp32"},
+         "shapes": f"the 77 convs (39 fused with the next quantize) and 11 quantize passes "
+                   f"of one ca_s3d int8 forward, batch {S3D_BATCH}, fp32"},
         {"name": "K6_max_pool3d_i8", "route": "cuda",
          "source": "fac_fake_torch/csrc/max_pool3d_i8.cu",
          "replaces": "fac_fake_tpu/compat/quantize_s3d.py:85",

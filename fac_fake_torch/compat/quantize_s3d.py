@@ -13,12 +13,18 @@ calibration batch records, per conv:
 
 keyed as the JAX engine keys them (``l0/s``, ``l0/t``, ``l2``,
 ``l4/b1b/s`` …). The int8 walk then runs each conv through K5
-(`ops/quant3d.py`): quantize, exact int32 conv, ``acc·s + b``, ReLU. An
-Inception mix quantizes its input once with the shared scale, and its
-fourth branch max-pools the int8 tensor (K6): max-pool commutes with the
-monotone quantizer, so that is exact. Each branch writes its slice of the
-mix's output. What stays fp: the SRM bank, the GCNet context blocks, the
-spec's own max-pools and the head.
+(`ops/quant3d.py`): quantize, exact int32 conv, ``acc·s + b``, ReLU. Where
+a conv's output is read by the next conv alone (a sep's spatial conv by its
+temporal one, a ``basic`` conv by the sep after it, a mix's ``b1a``/``b2a``
+by their seps: 39 edges in ca_s3d), the first conv's epilogue quantizes
+it with the next conv's ``s_x`` (K5's ``q_scale``), so no fp tensor and no
+quantize pass lies between them; the values are those of the separate
+quantize. An Inception mix quantizes its input once with the shared
+scale, and its fourth branch max-pools the int8 tensor (K6): max-pool
+commutes with the monotone quantizer, so that is exact. Each branch writes
+its slice of the mix's output. What stays fp: the SRM bank, the GCNet
+context blocks, the spec's own max-pools and the head. The 3-channel stem
+input is quantized to 4 channels (K5's stem layout).
 
 The walk is NDHWC inside (the kernels' layout); `S3DInt8.forward` takes
 what `S3DNet.forward` takes, (B, 3, T, H, W) in ``channels_last_3d``
@@ -92,14 +98,20 @@ def folded_convs(model) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
 class QConv3d(nn.Module):
     """One quantized conv of the walk: ``w_q`` int8 (N, kt, kh, kw, Cp) with
     the input channels padded to Cp (K5's layout), ``s = s_x·s_w`` and the
-    folded bias ``b`` (N,), the input scale ``s_x`` (0-d)."""
+    folded bias ``b`` (N,), the input scale ``s_x`` (0-d). A conv whose
+    input has at most 4 channels (the stem's RGB, quantized to 4) also
+    keeps ``w_rows``, ``w_q`` in K5's 32-byte row layout (`q3.stem_rows`);
+    it is made from ``w_q`` here, so whoever replaces ``w_q`` makes it
+    again."""
 
-    def __init__(self, w_q, s, b, s_x, geom: Geom, relu: bool):
+    def __init__(self, w_q, s, b, s_x, geom: Geom, relu: bool, cin: int):
         super().__init__()
         self.register_buffer("w_q", w_q)
         self.register_buffer("s", s)
         self.register_buffer("b", b)
         self.register_buffer("s_x", s_x)
+        self.register_buffer("w_rows", q3.stem_rows(w_q) if q3.quant_channels(cin) == 4
+                             else None, persistent=False)
         self.stride, self.padding = geom
         self.relu = relu
 
@@ -111,14 +123,14 @@ class QConv3d(nn.Module):
             s_x = _act_scale(x.abs().amax())
         w_q, s_w = _weight_q(w, (1, 2, 3, 4))
         w_q = F.pad(w_q.permute(0, 2, 3, 4, 1), (0, pad16(w.shape[1]) - w.shape[1]))
-        return cls(w_q.contiguous(), s_x * s_w, b.float(), s_x, geom, relu)
+        return cls(w_q.contiguous(), s_x * s_w, b.float(), s_x, geom, relu, w.shape[1])
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         return q3.quantize_pad(x, self.s_x)
 
-    def forward(self, xq, dtype, out=None, c0: int = 0):
+    def forward(self, xq, dtype, out=None, c0: int = 0, q_scale=None):
         return q3.int8_conv3d(xq, self.w_q, self.s, self.b, self.stride, self.padding,
-                              self.relu, dtype, out, c0)
+                              self.relu, dtype, out, c0, q_scale, self.w_rows)
 
 
 class S3DInt8(nn.Module):
@@ -165,18 +177,23 @@ class S3DInt8(nn.Module):
         int8 = folded is None
         dt = self.dtype
 
-        def conv(x, key, geom: Geom, act, xq=None, s_x=None, out=None, c0=0):
+        def conv(x, key, geom: Geom, act, xq=None, s_x=None, out=None, c0=0, to=None):
+            """``to``: the conv that alone reads this one's output; the int8
+            walk then returns that output quantized for it."""
             if int8:
                 qc = self.qconvs[key]
-                return qc(qc.quantize(x) if xq is None else xq, dt, out, c0)
+                q_scale = None if to is None else self.qconvs[to].s_x
+                return qc(qc.quantize(x) if xq is None else xq, dt, out, c0, q_scale)
             w, b = folded[key]
             if build:
                 self.qconvs[key] = QConv3d.calibrate(w, b, x, s_x, geom, act == "relu")
             return _ndhwc(act_fn(act)(F.conv3d(_ncdhw(x), w, b, *geom)))
 
-        def sep(x, key, strd, pad, act, sbn, out=None, c0=0):
-            x = conv(x, key + "/s", ((1, strd, strd), (0, pad, pad)), act if sbn else None)
-            return conv(x, key + "/t", ((strd, 1, 1), (pad, 0, 0)), act, out=out, c0=c0)
+        def sep(x, key, strd, pad, act, sbn, out=None, c0=0, xq=None, to=None):
+            y = conv(x, key + "/s", ((1, strd, strd), (0, pad, pad)), act if sbn else None,
+                     xq=xq, to=key + "/t")
+            return conv(None if int8 else y, key + "/t", ((strd, 1, 1), (pad, 0, 0)), act,
+                        xq=y if int8 else None, out=out, c0=c0, to=to)
 
         def mix(x, key, plan, act, sbn):
             b0, _, o1, _, o2, b3 = plan
@@ -184,12 +201,12 @@ class S3DInt8(nn.Module):
                 out = torch.empty((*x.shape[:-1], b0 + o1 + o2 + b3), dtype=dt, device=x.device)
                 xq = self.qconvs[key + "/b0"].quantize(x)
                 conv(None, key + "/b0", _G111, act, xq=xq, out=out, c0=0)
-                y1 = conv(None, key + "/b1a", _G111, act, xq=xq)
-                y2 = conv(None, key + "/b2a", _G111, act, xq=xq)
+                y1 = conv(None, key + "/b1a", _G111, act, xq=xq, to=key + "/b1b/s")
+                y2 = conv(None, key + "/b2a", _G111, act, xq=xq, to=key + "/b2b/s")
                 conv(None, key + "/b3", _G111, act, xq=q3.max_pool3d_i8(xq), out=out,
                      c0=b0 + o1 + o2)
-                sep(y1, key + "/b1b", 1, 1, act, sbn, out=out, c0=b0)
-                sep(y2, key + "/b2b", 1, 1, act, sbn, out=out, c0=b0 + o1)
+                sep(None, key + "/b1b", 1, 1, act, sbn, out=out, c0=b0, xq=y1)
+                sep(None, key + "/b2b", 1, 1, act, sbn, out=out, c0=b0 + o1, xq=y2)
                 return out
             s_x = _act_scale(x.abs().amax()) if build else None
             y0 = conv(x, key + "/b0", _G111, act, s_x=s_x)
@@ -205,14 +222,18 @@ class S3DInt8(nn.Module):
         if self.srm == "concat30":
             x = srm_filter(x.float(), self.srm_weight).to(dt)
         x = _ndhwc(x)
+        xq = None   # int8 walk: the input of conv op i, quantized by conv op i - 1
         for i, op in enumerate(self.spec):
             kind, key = op[0], f"l{i}"
+            nxt = self.spec[i + 1][0] if i + 1 < len(self.spec) else None
+            to = {"sep": f"l{i + 1}/s", "basic": f"l{i + 1}"}.get(nxt) \
+                if int8 and kind in ("sep", "basic") else None
             if kind == "sep":
                 _, _, _, strd, pad, act, sbn = op
-                x = sep(x, key, strd, pad, act, sbn)
+                x = sep(x, key, strd, pad, act, sbn, xq=xq, to=to)
             elif kind == "basic":
                 _, _, _, strd, pad, act = op
-                x = conv(x, key, ((strd,) * 3, (pad,) * 3), act)
+                x = conv(x, key, ((strd,) * 3, (pad,) * 3), act, xq=xq, to=to)
             elif kind == "pool":
                 x = _ndhwc(max_pool3d(_ncdhw(x), op[1], op[2], op[3]))
             elif kind == "mix":
@@ -221,6 +242,7 @@ class S3DInt8(nn.Module):
                 x = _ndhwc(self.ctx[key](_ncdhw(x)))
             else:
                 raise NotImplementedError(f"spec op {kind!r} (msca S3D family)")
+            xq, x = (x, None) if to is not None else (None, x)
         # head (fp, `models/s3d/model.py`): avg over (2, H, W), 1×1×1 conv, temporal mean
         x = _ncdhw(x)
         x = self.fc(avg_pool3d(x, (2, x.shape[3], x.shape[4])))

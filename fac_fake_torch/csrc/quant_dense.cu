@@ -10,24 +10,321 @@
 //
 // Bound on the H100: bytes. At M <= 192 rows a weight byte is used at most
 // 192 times, far below the card's ~590 int8 operations per byte of HBM, so
-// the time is reading Wq (25.7 MB for the patch embedding) and x. Design
-// (quant_mma.cuh): x is quantized once into an int8 (M, Kp) scratch, Kp = K
-// rounded up to 16; 64 x 64 CTA tiles stream both operands with cp.async;
-// where that gives few CTAs, K is split over blockIdx.y with exact int32
-// atomics, so that the 25088-deep patch embedding runs on 8 x 32 CTAs
-// rather than 32.
-#include "quant_mma.cuh"
+// the time is reading Wq (1-3 MB a transformer dense, 25.7 MB for the patch
+// embedding) and x; at these sizes that is a few microseconds, so fixed
+// per-launch costs and a short k loop set the time. Design (quant_wgmma.cuh):
+//  * A and B swapped: out^T = Wq xq^T, so that 128 output channels fill two
+//    consumer warpgroups' 64-row wgmma sides and the M activation rows are
+//    wgmma's N (m64n96k32 at 96 rows, m64n192k32 at 192): one CTA covers
+//    every row (up to 256) and each weight byte leaves HBM once. Both
+//    operands are K-major, as s8 wgmma requires; TMA brings Wq's (128
+//    channels x 128 B) and xq's (rows x 128 B) tiles into a 4-stage ring.
+//  * K split inside the one launch: the `splits` CTAs of a thread-block
+//    cluster (at most 8) take slices of the k-tiles, leave their int32
+//    partial tiles in shared memory, and each CTA adds every CTA's partials
+//    for its share of the rows through distributed shared memory, then
+//    applies the epilogue to them (integer sums are exact in any order). No
+//    workspace, no memset, no second kernel.
+//  * the quantize pass (one launch before) lets the GEMM launch early
+//    (programmatic dependent launch): the producer issues the first stages'
+//    weight loads, then waits on the quantize (griddepcontrol.wait) before
+//    loading xq.
+#include <cooperative_groups.h>
+
+#include "quant_wgmma.cuh"
+
+namespace {
+
+using namespace qwg;
+namespace cg = cooperative_groups;
+
+constexpr int kChan = 128;   // output channels a CTA: two consumer warpgroups of 64
+constexpr int kMaxCluster = 8;
+
+struct DenseArgs {
+  const float* w_scale;  // (N,)
+  const float* x_scale;  // 0-d
+  const float* bias;     // (N,) or null
+  void* out;             // (M, N), fp32 or bf16
+  const void* x;         // (M, K) fp32 or bf16 (quantized in the kernel: FOLD)
+  int out_bf16, x_vec;   // x_vec: four values a load
+  int M, N, K, k_tiles, per, splits;
+};
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// x[r][k .. k + 3] as floats, zero past K
+template <typename T>
+__device__ __forceinline__ void x_row4(const T* x, int r, int k, int K, int vec, float v[4]) {
+  const T* src = x + static_cast<size_t>(r) * K + k;
+  if (vec && k + 4 <= K) {
+    load4(src, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = k + j < K ? to_f(src[j]) : 0.0f;
+  }
+}
+
+template <int NR>
+__host__ __device__ constexpr int stage_bytes() {
+  return (kChan + NR) * kBK;
+}
+
+// the ring, its barriers, and room to align the ring to 1024 bytes; the
+// int32 C tile (NR x (kChan + 4)) reuses the ring after the k loop
+template <int NR>
+__host__ __device__ constexpr int smem_bytes() {
+  return kStages * stage_bytes<NR>() + 2 * kStages * 8 + 1024;
+}
+
+template <int NR, bool FOLD>
+__global__ void __launch_bounds__(384, 1)
+    dense_wgmma(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ CUtensorMap x_map,
+                DenseArgs p) {
+  constexpr int SB = stage_bytes<NR>();
+  constexpr int CS = kChan + 4;  // C tile row stride, int32
+  static_assert(NR * CS * 4 <= kStages * SB, "C tile fits the ring");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * SB);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int o0 = blockIdx.x * kChan, r0 = blockIdx.z * NR;
+  const int kt0 = blockIdx.y * p.per;
+  const int n_k = min(p.per, p.k_tiles - kt0);
+  if (tid == 256) {
+    tma_prefetch(&w_map);
+    tma_prefetch(&x_map);
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], FOLD ? 129 : 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2 && FOLD) {  // ---- producer: TMA for Wq, the quantize of x by all 128 threads
+    regs_dec<96>();
+    const int q = tid - 256, warp = q / 32, lane = q & 31;
+    const float sx = *p.x_scale, rx = __frcp_rn(sx);
+    for (int i = 0; i < n_k; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);
+      if (q == 0) {
+        mbar_expect_tx(&full[s], kChan * kBK);
+        tma_load(smem + s * SB, &w_map, &full[s], (kt0 + i) * kBK, o0);
+      }
+      const int k = (kt0 + i) * kBK + 4 * lane;
+      const uint32_t base = smem_u32(smem + s * SB + kChan * kBK);
+#pragma unroll 4
+      for (int rr = warp; rr < NR; rr += 4) {
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (r0 + rr < p.M) {
+          if (p.out_bf16)
+            x_row4(static_cast<const __nv_bfloat16*>(p.x), r0 + rr, k, p.K, p.x_vec, v);
+          else
+            x_row4(static_cast<const float*>(p.x), r0 + rr, k, p.K, p.x_vec, v);
+        }
+        const uint32_t packed = q8(v[0], sx, rx) | (q8(v[1], sx, rx) << 8) |
+                                (q8(v[2], sx, rx) << 16) | (q8(v[3], sx, rx) << 24);
+        st_shared_u32(base + rr * kBK + ((((lane >> 2) ^ (rr & 7)) << 4) | ((lane & 3) << 2)),
+                      packed);
+      }
+      fence_proxy_async();  // the generic-proxy writes, to wgmma's proxy
+      mbar_arrive(&full[s]);
+    }
+    if (p.splits > 1) {  // the consumers' two cluster barriers
+      cg::this_cluster().sync();
+      cg::this_cluster().sync();
+    }
+  } else if (wg == 2) {  // ---- producer: one thread keeps the TMA loads in flight
+    regs_dec<40>();
+    if (tid == 256) {
+      const int pre = min(n_k, kStages);
+      for (int i = 0; i < pre; ++i) {
+        mbar_expect_tx(&full[i], SB);
+        tma_load(smem + i * SB, &w_map, &full[i], (kt0 + i) * kBK, o0);
+      }
+      griddep_wait();  // the quantize pass has written xq
+      for (int i = 0; i < pre; ++i)
+        tma_load(smem + i * SB + kChan * kBK, &x_map, &full[i], (kt0 + i) * kBK, r0);
+      for (int i = pre; i < n_k; ++i) {
+        const int s = i % kStages;
+        mbar_wait(&empty[s], (i / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], SB);
+        tma_load(smem + s * SB, &w_map, &full[s], (kt0 + i) * kBK, o0);
+        tma_load(smem + s * SB + kChan * kBK, &x_map, &full[s], (kt0 + i) * kBK, r0);
+      }
+    }
+    if (p.splits > 1) {  // the consumers' two cluster barriers
+      __syncwarp();
+      cg::this_cluster().sync();
+      cg::this_cluster().sync();
+    }
+  } else {  // ---- consumers: warpgroup wg owns channels o0 + 64 wg .. + 63
+    regs_inc<FOLD ? 200 : 232>();
+    int acc[NR / 2];
+#pragma unroll
+    for (int j = 0; j < NR / 2; ++j) acc[j] = 0;
+    for (int i = 0; i < n_k; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const uint64_t da = sw128_desc(smem + s * SB + wg * 64 * kBK);
+      const uint64_t db = sw128_desc(smem + s * SB + kChan * kBK);
+      fence_regs(acc);  // the accumulators' last writes stay before the wgmmas
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk) wgmma_s8<NR>(acc, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      fence_regs(acc);
+      wgmma_wait<1>();  // the previous stage's wgmmas have retired: release it
+      if (i > 0 && (tid & 31) == 0) mbar_arrive(&empty[(i - 1) % kStages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // the int32 tile, rows (activations) x channels, in the ring's memory
+    named_sync(1, 256);  // both warpgroups are done reading the ring
+    int* ct = reinterpret_cast<int*>(smem);
+    const int warp = (tid / 32) % 4, lane = tid & 31;
+#pragma unroll
+    for (int j = 0; j < NR / 2; ++j) {
+      const int o = wg * 64 + 16 * warp + lane / 4 + 8 * ((j / 2) % 2);
+      const int r = 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
+      ct[r * CS + o] = acc[j];
+    }
+    int rb = 0, re = NR;
+    cg::cluster_group cluster = cg::this_cluster();
+    if (p.splits > 1) {
+      cluster.sync();  // every CTA's partial tile is in place
+      const int chunk = (NR + p.splits - 1) / p.splits;
+      rb = min(NR, static_cast<int>(cluster.block_rank()) * chunk);
+      re = min(NR, rb + chunk);
+    } else {
+      named_sync(1, 256);
+    }
+    const float sx = *p.x_scale;
+    const bool vec = p.N % 4 == 0;
+    for (int idx = tid; idx < (re - rb) * (kChan / 4); idx += 256) {
+      const int rr = rb + idx / (kChan / 4), cq = (idx % (kChan / 4)) * 4;
+      const int r = r0 + rr, o = o0 + cq;
+      if (r >= p.M || o >= p.N) continue;
+      int4 v = *reinterpret_cast<const int4*>(ct + rr * CS + cq);
+      if (p.splits > 1) {  // every CTA's partial sums, this one's included
+        v = make_int4(0, 0, 0, 0);
+        for (int c = 0; c < p.splits; ++c) {
+          const int4 w =
+              *reinterpret_cast<const int4*>(cluster.map_shared_rank(ct, c) + rr * CS + cq);
+          v.x += w.x;
+          v.y += w.y;
+          v.z += w.z;
+          v.w += w.w;
+        }
+      }
+      const int a[4] = {v.x, v.y, v.z, v.w};
+      float y[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int col = min(o + u, p.N - 1);
+        y[u] = epilogue(a[u], __fmul_rn(sx, p.w_scale[col]), p.bias, col, p.out_bf16, 0);
+      }
+      const size_t at = static_cast<size_t>(r) * p.N + o;
+      if (vec) {
+        store4(p.out, at, make_float4(y[0], y[1], y[2], y[3]), p.out_bf16);
+      } else {
+        for (int u = 0; u < 4 && o + u < p.N; ++u) store1(p.out, at + u, y[u], p.out_bf16);
+      }
+    }
+    if (p.splits > 1) cluster.sync();  // no CTA leaves while another reads its tile
+  }
+}
+
+template <int NR, bool FOLD>
+cudaError_t launch(const CUtensorMap& wm, const CUtensorMap& xm, const DenseArgs& p,
+                   int row_tiles, int pdl, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<NR>();
+  static cudaError_t err = cudaFuncSetAttribute(
+      dense_wgmma<NR, FOLD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[2];
+  int n_attr = 0;
+  attr[n_attr].id = cudaLaunchAttributeClusterDimension;
+  attr[n_attr].val.clusterDim.x = 1;
+  attr[n_attr].val.clusterDim.y = p.splits;
+  attr[n_attr].val.clusterDim.z = 1;
+  ++n_attr;
+  if (pdl) {
+    attr[n_attr].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n_attr].val.programmaticStreamSerializationAllowed = 1;
+    ++n_attr;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.N + kChan - 1) / kChan, p.splits, row_tiles);
+  cfg.blockDim = dim3(384);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_attr;
+  return cudaLaunchKernelEx(&cfg, dense_wgmma<NR, FOLD>, wm, xm, p);
+}
+
+// wgmma's N for M activation rows (a row tile of 256 above that)
+int rows_tile(int M) {
+  const int sizes[] = {16, 32, 64, 96, 128, 192};
+  for (int n : sizes)
+    if (M <= n) return n;
+  return 256;
+}
+
+}  // namespace
 
 // x: (M, K) fp32 (x_bf16 == 0) or bf16, contiguous; wq: (N, Kp) int8, Kp =
 // K rounded up to 16, zero past K; w_scale (N,), x_scale 0-d, bias (N,) or
 // null: fp32 device pointers; out: (M, N) in x's dtype; xq: (M, Kp) int8
-// scratch; splits > 1 needs ws: (M, N) int32 scratch.
+// scratch; splits: CTAs (one cluster) that share an output tile's k-tiles,
+// 1-8; pdl: launch the GEMM with programmatic stream serialization.
 extern "C" int fac_quant_dense(const void* x, int x_bf16, const void* wq, const void* w_scale,
                                const void* x_scale, const void* bias, void* out, int M, int N,
-                               int K, int splits, void* xq, void* ws, void* stream) {
-  qmma::Epi e{static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
-              static_cast<const float*>(bias), out, x_bf16, static_cast<int*>(ws), 0, N, 0};
-  return static_cast<int>(qmma::run<2, 2, false>(
-      x, x_bf16, M, K, static_cast<int8_t*>(xq), 1, 1, static_cast<const int8_t*>(wq), N, splits,
-      e, static_cast<cudaStream_t>(stream)));
+                               int K, int splits, void* xq, int mode, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || splits > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Kp = pad16(K);
+  const bool fold = mode == 2;
+  int8_t* q = static_cast<int8_t*>(xq);
+  cudaError_t err = cudaSuccess;
+  if (!fold) err = quantize(x, x_bf16, M, K, Kp, q, static_cast<const float*>(x_scale), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nr = rows_tile(M);
+  const int align = x_bf16 ? 8 : 16;
+  DenseArgs p{static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
+              static_cast<const float*>(bias), out, x, x_bf16,
+              K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % align == 0,
+              M, N, K, (Kp + kBK - 1) / kBK, 0, 0};
+  p.per = (p.k_tiles + splits - 1) / splits;
+  p.splits = (p.k_tiles + p.per - 1) / p.per;
+  CUtensorMap wm, xm;
+  err = tma_map(&wm, wq, N, Kp, Kp, kChan);
+  if (err == cudaSuccess) err = fold ? tma_map(&xm, wq, N, Kp, Kp, kChan) : tma_map(&xm, q, M, Kp, Kp, nr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row_tiles = (M + nr - 1) / nr;
+  const int pdl = mode == 1;
+#define DENSE_LAUNCH(NR) (fold ? launch<NR, true>(wm, xm, p, row_tiles, 0, st) : launch<NR, false>(wm, xm, p, row_tiles, pdl, st))
+  switch (nr) {
+    case 16: err = DENSE_LAUNCH(16); break;
+    case 32: err = DENSE_LAUNCH(32); break;
+    case 64: err = DENSE_LAUNCH(64); break;
+    case 96: err = DENSE_LAUNCH(96); break;
+    case 128: err = DENSE_LAUNCH(128); break;
+    case 192: err = DENSE_LAUNCH(192); break;
+    default: err = DENSE_LAUNCH(256); break;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

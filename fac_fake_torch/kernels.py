@@ -45,9 +45,9 @@ SIGNATURES = {
     "quant_conv": {"fac_quant_conv3x3": [
         _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]},
     "quant_dense": {"fac_quant_dense": [
-        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]},
-    "quant_conv3d": {"fac_quantize_pad": [_P, _I, _P, _P, _I, _I, _P],
-                     "fac_int8_conv3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P]},
+    "quant_conv3d": {"fac_quantize_pad": [_P, _I, _P, _P, _I, _I, _I, _P],
+                     "fac_int8_conv3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                          ctypes.POINTER(_I), _P]},
     "max_pool3d_i8": {"fac_max_pool3d_i8": [_P, _P, _I, _I, _I, _I, _I, _P]},
 }
@@ -71,7 +71,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):   # shared headers, e.g. quant_mma.cuh
+    for header in sorted(CSRC.glob("*.cuh")):   # shared headers: quant_mma.cuh, quant_wgmma.cuh
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

@@ -9,10 +9,11 @@ and per-output-channel weight scale ``s_w``:
     y   = acc · (s_x · s_w[o]) + b[o]                fp32, then the out dtype
 
 On the card the wrappers launch K3 (`csrc/quant_conv.cu`, implicit GEMM over
-NHWC) and K4 (`csrc/quant_dense.cu`): one pass quantizes the activations
-into an int8 scratch with the channels padded to 16, then the GEMM runs on
-the int8 tensor cores and applies the epilogue (`csrc/quant_mma.cuh`). On a CPU tensor they take the
-plain versions below, which form the integer product exactly as a float64
+NHWC, on `mma.sync` from `csrc/quant_mma.cuh`) and K4 (`csrc/quant_dense.cu`,
+on `wgmma` with TMA from `csrc/quant_wgmma.cuh`): one pass quantizes the
+activations into an int8 scratch with the channels padded to 16, then the
+GEMM runs on the int8 tensor cores and applies the epilogue. On a CPU
+tensor they take the plain versions below, which form the integer product exactly as a float64
 product of the int8 values: every sum is an integer below 2^53 (at most
 25088 · 127² ≈ 4.0e8), which float32 could not hold exactly above 2^24.
 
@@ -129,17 +130,25 @@ quant_conv3x3.launches = 0
 
 # ---- K4 -------------------------------------------------------------------
 
-DENSE_BM, DENSE_BN, DENSE_BK = 64, 64, 64   # K4's CTA tile (csrc/quant_dense.cu)
+DENSE_CHANNELS, DENSE_BK = 128, 128   # K4's CTA: output channels, K bytes a stage
+DENSE_ROWS = (16, 32, 64, 96, 128, 192, 256)   # wgmma N: activation rows a CTA
+DENSE_MAX_SPLITS = 8                  # CTAs of one thread-block cluster
+
+
+def dense_rows_tile(m: int) -> int:
+    """K4's row tile for ``m`` activation rows: the narrowest wgmma N that
+    covers them all, or 256 rows a tile above that."""
+    return next((r for r in DENSE_ROWS if m <= r), DENSE_ROWS[-1])
 
 
 def dense_splits(m: int, n: int, k: int) -> int:
-    """K-splits for K4: enough CTAs for two per SM when the output has few
-    tiles (the (96, 25088)×(25088, 1024) patch embedding has 32), each
-    split keeping at least 4 k-tiles. Partial int32 sums add exactly, in
-    any order."""
-    tiles = -(-m // DENSE_BM) * -(-n // DENSE_BN)
-    k_tiles = -(-k // DENSE_BK)
-    splits = max(1, min(2 * SM_COUNT // tiles, k_tiles // 4))
+    """K4's split of the k-tiles of each output tile over the CTAs of one
+    cluster (at most 8): enough CTAs for about one an SM where the output
+    has few tiles, each split at least one k-tile. The CTAs add their int32
+    partial sums through distributed shared memory, exact in any order."""
+    tiles = -(-n // DENSE_CHANNELS) * -(-m // dense_rows_tile(m))
+    k_tiles = -(-pad16(k) // DENSE_BK)
+    splits = max(1, min(DENSE_MAX_SPLITS, k_tiles, -(-SM_COUNT // tiles)))
     per = -(-k_tiles // splits)
     return -(-k_tiles // per)
 
@@ -153,9 +162,11 @@ def quant_dense_plain(x, kernel_q, w_scale, x_scale, bias=None):
     return y.reshape(*x.shape[:-1], kernel_q.shape[0])
 
 
-def quant_dense(x, kernel_q, w_scale, x_scale, bias=None):
+def quant_dense(x, kernel_q, w_scale, x_scale, bias=None, pdl: bool = True):
     """K4's wrapper. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise. ``pdl``: let the GEMM launch while the
+    quantize pass runs (programmatic dependent launch); the same kernel
+    either way."""
     if not x.is_cuda:
         return quant_dense_plain(x, kernel_q, w_scale, x_scale, bias)
     dtype = _out_dtype(x, "quant_dense")
@@ -172,15 +183,13 @@ def quant_dense(x, kernel_q, w_scale, x_scale, bias=None):
     if out.numel() == 0:
         return out.reshape(*x.shape[:-1], n)
     kp = pad16(k)
-    splits = dense_splits(m, n, kp)
     wq = _pad_last(kernel_q, kp)
     xq = torch.empty((m, kp), dtype=torch.int8, device=x.device)
-    ws = torch.empty((m, n), dtype=torch.int32, device=x.device) if splits > 1 else None
     err = kernels.lib("quant_dense").fac_quant_dense(
         kernels.ptr(x2), int(dtype == torch.bfloat16), kernels.ptr(wq),
         kernels.ptr(w_scale), kernels.ptr(x_scale),
         None if bias is None else kernels.ptr(bias), kernels.ptr(out),
-        m, n, k, splits, kernels.ptr(xq), None if ws is None else kernels.ptr(ws),
+        m, n, k, dense_splits(m, n, k), kernels.ptr(xq), int(pdl),
         kernels.stream_ptr(x.device))
     kernels.check(err, "quant_dense")
     quant_dense.launches += 1

@@ -5,7 +5,7 @@ the port of `fac_fake_tpu/compat/quantize_s3d.py` ``_quantize_in`` (:93),
 
 The int8 activations between these calls are channel-padded NDHWC: an
 int8 (B, T, H, W, Cp) tensor, Cp = C rounded up to 16 with zero channels,
-the unit the kernels read in.
+the unit the kernels read in; the 3-channel stem input is padded to 4.
 
   * `quantize_pad` (K5's quantize pass): x (B, T, H, W, C) fp32 or bf16 →
     ``clip(round(x / s_x), ±127)`` int8, padded to Cp; ``s_x`` is a 0-d
@@ -14,7 +14,13 @@ the unit the kernels read in.
     Cp) → exact int32, then ``acc · s[o] + b[o]`` in fp32 (``s = s_x·s_w``
     formed once at calibration, as JAX forms it), the ReLU if asked for, in
     fp32 or bf16; into a new (B, To, Ho, Wo, N) tensor or into channels
-    ``c0 … c0 + N`` of a given ``out`` (B, To, Ho, Wo, C_total);
+    ``c0 … c0 + N`` of a given ``out`` (B, To, Ho, Wo, C_total). With
+    ``q_scale`` (the next conv's ``s_x``), that value is quantized again
+    in the same launch: int8 (B, To, Ho, Wo, pad16(N)), exactly
+    ``quantize_pad(int8_conv3d(...), q_scale)``. A 4-channel input (the
+    stem's) takes a kernel whose channels are zero past 4 (the calibrated
+    16-channel layout): K5 gathers each row of kw taps as kw·4 contiguous
+    bytes;
   * `max_pool3d_i8` (K6): 3×3×3 stride-1 max-pool with padding 1 whose
     identity is −128, on int8 (B, T, H, W, Cp).
 
@@ -48,8 +54,14 @@ def conv3d_out_shape(shape: Sequence[int], kernel: Int3, stride: Int3, padding: 
 
 # ---- plain versions ---------------------------------------------------------
 
+def quant_channels(c: int) -> int:
+    """Channels of the int8 tensor `quantize_pad` makes from ``c``: 4 for
+    the stem's 3 (RGB), else ``c`` rounded up to 16."""
+    return 4 if c <= 4 else pad16(c)
+
+
 def quantize_pad_plain(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
-    return _pad_last(quantize_plain(x, x_scale), pad16(x.shape[-1]))
+    return _pad_last(quantize_plain(x, x_scale), quant_channels(x.shape[-1]))
 
 
 def int_conv3d_plain(xq: torch.Tensor, w_q: torch.Tensor, stride: Int3,
@@ -68,12 +80,31 @@ def _write(y: torch.Tensor, out: Optional[torch.Tensor], c0: int) -> torch.Tenso
     return out
 
 
+def _kernel_for(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """``w_q`` cut to ``xq``'s channels: a 4-channel input reads the first 4
+    of the calibrated kernel's 16 (zero past the image's real channels)."""
+    cp = xq.shape[-1]
+    if w_q.shape[-1] == cp:
+        return w_q
+    if cp != 4 or w_q.shape[-1] < cp:
+        raise ValueError(f"int8_conv3d: kernel channels {w_q.shape[-1]} for a {cp}-channel input")
+    return w_q[..., :cp]
+
+
 def int8_conv3d_plain(xq, w_q, s, bias, stride, padding, relu: bool, dtype: torch.dtype,
-                      out: Optional[torch.Tensor] = None, c0: int = 0) -> torch.Tensor:
+                      out: Optional[torch.Tensor] = None, c0: int = 0,
+                      q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """JAX's order: ``(acc · s + b)`` in fp32, cast to ``dtype``, then the
-    ReLU (which commutes with the cast)."""
-    y = (int_conv3d_plain(xq, w_q, stride, padding).float() * s + bias).to(dtype)
-    return _write(torch.relu(y) if relu else y, out, c0)
+    ReLU (which commutes with the cast); with ``q_scale``, that quantized
+    for the next conv."""
+    y = (int_conv3d_plain(xq, _kernel_for(xq, w_q), stride, padding).float() * s
+         + bias).to(dtype)
+    y = torch.relu(y) if relu else y
+    if q_scale is not None:
+        if out is not None:
+            raise ValueError("int8_conv3d: q_scale writes a new int8 tensor, not into out")
+        return quantize_pad_plain(y, q_scale)
+    return _write(y, out, c0)
 
 
 def max_pool3d_i8_plain(xq: torch.Tensor) -> torch.Tensor:
@@ -92,12 +123,13 @@ def quantize_pad(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
     kernels.require_cuda(x, "quantize_pad x")
     kernels.require_cuda(x_scale, "quantize_pad x_scale", torch.float32, ())
     c = x.shape[-1]
-    xq = torch.empty((*x.shape[:-1], pad16(c)), dtype=torch.int8, device=x.device)
+    cp = quant_channels(c)
+    xq = torch.empty((*x.shape[:-1], cp), dtype=torch.int8, device=x.device)
     if xq.numel() == 0:
         return xq
     err = kernels.lib("quant_conv3d").fac_quantize_pad(
         kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(x_scale), kernels.ptr(xq),
-        x.numel() // c, c, kernels.stream_ptr(x.device))
+        x.numel() // c, c, cp, kernels.stream_ptr(x.device))
     kernels.check(err, "quantize_pad")
     quantize_pad.launches += 1
     return xq
@@ -105,41 +137,72 @@ def quantize_pad(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
 
 quantize_pad.launches = 0
 
+STEM_ROW = 32   # K bytes of one (dt, dy) row of a 4-channel conv: kw <= 8 taps of 4
+
+
+def stem_rows(w_q: torch.Tensor) -> torch.Tensor:
+    """A 4-channel conv's kernel in K5's layout: (N, kt, kh, kw, ≥4) int8 →
+    (N, kt, kh, 32), each row's kw·4 bytes of (dx, c) weights, then zeros."""
+    n, kt, kh, kw = w_q.shape[:4]
+    rows = w_q[..., :4].reshape(n, kt, kh, kw * 4)
+    return F.pad(rows, (0, STEM_ROW - kw * 4)).contiguous()
+
 
 def int8_conv3d(xq, w_q, s, bias, stride: Int3, padding: Int3, relu: bool,
                 dtype: torch.dtype, out: Optional[torch.Tensor] = None,
-                c0: int = 0) -> torch.Tensor:
+                c0: int = 0, q_scale: Optional[torch.Tensor] = None,
+                w_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5's wrapper: returns the new (B, To, Ho, Wo, N) output, or ``out``
-    with channels ``c0 … c0 + N`` written. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    with channels ``c0 … c0 + N`` written, or with ``q_scale`` the new
+    int8 (B, To, Ho, Wo, pad16(N)) input of the next conv. ``w_rows``: for
+    a 4-channel input, ``stem_rows(w_q)`` made once by the caller (made
+    here when not given). CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
     if not xq.is_cuda:
-        return int8_conv3d_plain(xq, w_q, s, bias, stride, padding, relu, dtype, out, c0)
+        return int8_conv3d_plain(xq, w_q, s, bias, stride, padding, relu, dtype, out, c0,
+                                 q_scale)
     if dtype not in _DTYPES:
         raise ValueError(f"int8_conv3d: no kernel for output dtype {dtype}")
     b, t, h, w, cp = xq.shape
     n, kt, kh, kw = w_q.shape[:4]
     kernels.require_cuda(xq, "int8_conv3d xq", torch.int8)
-    kernels.require_cuda(w_q, "int8_conv3d w_q", torch.int8, (n, kt, kh, kw, cp))
+    kernels.require_cuda(w_q, "int8_conv3d w_q", torch.int8, (n, kt, kh, kw, None))
     kernels.require_cuda(s, "int8_conv3d s", torch.float32, (n,))
     kernels.require_cuda(bias, "int8_conv3d bias", torch.float32, (n,))
-    if cp % 16:
+    if cp == 4:
+        if kw * 4 > STEM_ROW:
+            raise ValueError(f"int8_conv3d: a 4-channel input takes kw <= 8, not {kw}")
+        wk = stem_rows(_kernel_for(xq, w_q)) if w_rows is None else w_rows
+        kernels.require_cuda(wk, "int8_conv3d w_rows", torch.int8, (n, kt, kh, STEM_ROW))
+    elif cp % 16:
         raise ValueError(f"int8_conv3d: channels {cp} are not padded to 16")
+    else:
+        wk = w_q
+        if w_q.shape[-1] != cp:
+            raise ValueError(f"int8_conv3d: kernel channels {w_q.shape[-1]}, input {cp}")
     oshape = conv3d_out_shape((b, t, h, w), (kt, kh, kw), stride, padding)
-    if out is None:
+    if q_scale is not None:
+        if out is not None:
+            raise ValueError("int8_conv3d: q_scale writes a new int8 tensor, not into out")
+        kernels.require_cuda(q_scale, "int8_conv3d q_scale", torch.float32, ())
+        c0, ldo = 0, pad16(n)
+        out = torch.empty((*oshape, ldo), dtype=torch.int8, device=xq.device)
+    elif out is None:
         out = torch.empty((*oshape, n), dtype=dtype, device=xq.device)
-        c0 = 0
+        c0, ldo = 0, n
     else:
         kernels.require_cuda(out, "int8_conv3d out", dtype, (*oshape, None))
         if not 0 <= c0 <= out.shape[-1] - n:
             raise ValueError(f"int8_conv3d: channels {c0}..{c0 + n} outside out's "
                              f"{out.shape[-1]}")
+        ldo = out.shape[-1]
     if out.numel() == 0:
         return out
     geom = (ctypes.c_int * 18)(b, t, h, w, cp, *oshape[1:], n, kt, kh, kw, *stride, *padding)
     err = kernels.lib("quant_conv3d").fac_int8_conv3d(
-        kernels.ptr(xq), kernels.ptr(w_q), kernels.ptr(s), kernels.ptr(bias), kernels.ptr(out),
-        int(dtype == torch.bfloat16), int(relu), out.shape[-1], c0, geom,
-        kernels.stream_ptr(xq.device))
+        kernels.ptr(xq), kernels.ptr(wk), kernels.ptr(s), kernels.ptr(bias), kernels.ptr(out),
+        int(dtype == torch.bfloat16), int(relu), ldo, c0,
+        None if q_scale is None else kernels.ptr(q_scale), geom, kernels.stream_ptr(xq.device))
     kernels.check(err, "int8_conv3d")
     int8_conv3d.launches += 1
     return out

@@ -143,6 +143,29 @@ def test_k4_quant_dense_equals_plain(dev, m, n, k, dtype):
         assert torch.equal(got, ref)
 
 
+# rows 1, 5, 96, 192, 200 (one wgmma N each, 200 in a 256-row tile); K no
+# multiple of 128 (and 40, 27 none of 16); N ragged against the 128-channel
+# CTA; the cluster split 1 to 8
+K4_WGMMA_SHAPES = [(1, 200, 1000), (5, 24, 40), (96, 1000, 1100), (192, 130, 27),
+                   (200, 1000, 1100), (192, 1024, 2000), (96, 1030, 25088)]
+
+
+@pytest.mark.parametrize("m,n,k", K4_WGMMA_SHAPES)
+@pytest.mark.parametrize("pdl", [True, False])
+def test_k4_wgmma_rows_ragged_and_split_twice(dev, m, n, k, pdl):
+    """Each shape twice in a row: a cluster split that left reduction state
+    behind would show in the second call."""
+    from fac_fake_torch.ops import quant as q
+
+    rng = np.random.default_rng(m * 7 + n + k)
+    x, wq, w_scale, x_scale, bias = _quant_inputs(rng, (m, k), n, k, dev, torch.bfloat16)
+    ref = q.quant_dense_plain(x, wq, w_scale, x_scale, bias)
+    for _ in range(2):
+        got = q.quant_dense(x, wq, w_scale, x_scale, bias, pdl=pdl)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (m, n, k, q.dense_splits(m, n, k))
+
+
 def test_k4_takes_a_3d_input_through_quant_linear(dev):
     from fac_fake_torch.models.layers import QuantLinear
     from fac_fake_torch.ops import quant as q
@@ -242,6 +265,62 @@ def test_k5_quantize_and_int8_conv3d_equal_plain(dev, kernel, stride, padding, c
     torch.cuda.synchronize()
     assert torch.equal(out[..., 8:8 + cout], ref)
     assert (out[..., :8] == 3).all() and (out[..., 8 + cout:] == 3).all()
+
+
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout,thw", CONV3D_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_fused_quantize_epilogue_equals_plain(dev, kernel, stride, padding, cin, cout, thw,
+                                                 dtype):
+    """K5 with ``q_scale``: the next conv's int8 input, channels padded to 16
+    with zeros, equal to quantize_pad_plain(int8_conv3d_plain(...))."""
+    from fac_fake_torch.ops import quant3d as q3
+    from fac_fake_torch.ops.quant import pad16
+
+    rng = np.random.default_rng(cin * 100 + cout + thw[2])
+    x, x_scale, wq, s, bias = _conv3d_inputs(rng, dev, kernel, cin, cout, thw)
+    xq = q3.quantize_pad(x.to(dtype), x_scale)
+    for relu in (True, False):
+        y = q3.int8_conv3d_plain(xq, wq, s, bias, stride, padding, relu, dtype)
+        q_scale = (y.float().abs().amax() / 150.0).reshape(())   # some values clip at ±127
+        before = q3.int8_conv3d.launches
+        got = q3.int8_conv3d(xq, wq, s, bias, stride, padding, relu, dtype, q_scale=q_scale)
+        torch.cuda.synchronize()
+        assert q3.int8_conv3d.launches == before + 1
+        assert got.dtype == torch.int8 and got.shape == (*y.shape[:-1], pad16(cout))
+        assert torch.equal(got, q3.quantize_pad_plain(y, q_scale))
+
+
+def test_k5_stem_reads_four_channels(dev):
+    """The 3-channel stem input is quantized to 4 channels, and K5's (1,7,7)
+    stride-2 conv over it gives the int32 sums of the 16-channel layout."""
+    from fac_fake_torch.ops import quant3d as q3
+
+    rng = np.random.default_rng(11)
+    x, x_scale, wq, s, bias = _conv3d_inputs(rng, dev, (1, 7, 7), 3, 64, (3, 31, 29))
+    xq = q3.quantize_pad(x, x_scale)
+    assert xq.shape[-1] == 4 and not xq[..., 3].any()
+    x16 = torch.nn.functional.pad(xq, (0, 12))
+    for dtype in (torch.float32, torch.bfloat16):
+        got = q3.int8_conv3d(xq, wq, s, bias, (1, 2, 2), (0, 3, 3), True, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, q3.int8_conv3d_plain(x16, wq, s, bias, (1, 2, 2), (0, 3, 3),
+                                                     True, dtype))
+
+
+def test_k4_k5_libraries_run_on_wgmma(dev):
+    """The built K4 and K5 libraries hold integer wgmma (IGMMA) and no
+    mma.sync (IMMA): the old route is gone."""
+    import shutil
+    import subprocess
+
+    from fac_fake_torch import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("quant_dense", "quant_conv3d"):
+        sass = subprocess.run([tool, "-sass", str(kernels.build([name])[name])],
+                              capture_output=True, text=True, check=True).stdout
+        assert "IGMMA" in sass, name
+        assert "IMMA" not in sass.replace("IGMMA", ""), name
 
 
 @pytest.mark.parametrize("shape", [(2, 10, 28, 28, 192), (2, 5, 14, 14, 480),

@@ -143,16 +143,23 @@ def test_plain_int_matmul_equals_numpy_int64():
 
 
 def test_dense_splits_cover_k_for_the_path_shapes():
-    """K4's split of K: (rows, out, in) of the int8_full path at batch 96."""
-    from fac_fake_torch.ops.quant import DENSE_BK, dense_splits
+    """K4's split of K over the CTAs of one cluster: (rows, out, in) of the
+    int8_full path at batch 96, a K that is no multiple of 16, and rows
+    past one 256-row tile. Every split has k-tiles, together all of them;
+    the row tile is the narrowest wgmma N that holds the rows."""
+    from fac_fake_torch.ops.quant import (DENSE_BK, DENSE_MAX_SPLITS, dense_rows_tile,
+                                          dense_splits, pad16)
 
-    want = {(96, 1024, 25088): 8, (192, 3072, 1024): 1, (192, 1024, 1024): 4,
-            (192, 2048, 1024): 2, (192, 1024, 2048): 5, (96, 2048, 1024): 4, (5, 24, 40): 1}
+    want = {(96, 1024, 25088): 8, (192, 3072, 1024): 4, (192, 1024, 1024): 8,
+            (192, 2048, 1024): 8, (192, 1024, 2048): 8, (96, 2048, 1024): 8, (5, 24, 40): 1,
+            (200, 1000, 1100): 5, (512, 3072, 1024): 3}
     for (m, n, k), splits in want.items():
         assert dense_splits(m, n, k) == splits, (m, n, k)
-        k_tiles = -(-k // DENSE_BK)
+        k_tiles = -(-pad16(k) // DENSE_BK)
         per = -(-k_tiles // splits)
+        assert 1 <= splits <= DENSE_MAX_SPLITS
         assert per * splits >= k_tiles > per * (splits - 1)
+    assert [dense_rows_tile(m) for m in (1, 5, 96, 192, 200, 512)] == [16, 16, 96, 192, 256, 256]
 
 
 # ---- (c) quantize_cvit ------------------------------------------------------

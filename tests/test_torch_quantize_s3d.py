@@ -105,6 +105,70 @@ def test_int8_conv3d_plain_equals_jax(kernel, stride, padding, cin, cout, thw):
         assert (out[..., :4] == 7).all() and (out[..., 4 + cout:] == 7).all()
 
 
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout,thw", GEOMS)
+def test_fused_int8_conv3d_plain_equals_jax_conv_then_quantize(kernel, stride, padding, cin,
+                                                               cout, thw):
+    """K5 with ``q_scale``: JAX's ``_conv3d(int8=True)``, its epilogue in the
+    walk's dtype, the ReLU, then ``_quantize_in`` at the next conv's scale,
+    exactly; the channels padded to 16 with zeros. The 3-channel input is
+    quantized to 4 channels and read against the 16-channel kernel."""
+    from fac_fake_tpu.compat.quantize_s3d import _conv3d, _quantize_in
+    from fac_fake_torch.ops import quant3d as q3
+    from fac_fake_torch.ops.quant import pad16
+
+    rng = np.random.default_rng(cin * 10 + cout)
+    x, sx = _int8_input(rng, (2, *thw, cin))
+    wq = rng.integers(-127, 128, (*kernel, cin, cout)).astype(np.int8)   # DHWIO
+    s = rng.uniform(1e-3, 1e-2, cout).astype(np.float32)
+    b = rng.standard_normal(cout).astype(np.float32)
+    xj = _quantize_in(jnp.asarray(x), jnp.float32(sx))
+    acc = _conv3d(xj, jnp.asarray(wq), stride, padding, int8=True)
+    xt = q3.quantize_pad(torch.from_numpy(x), torch.tensor(sx))
+    assert xt.shape[-1] == (4 if cin == 3 else pad16(cin))
+    wt = torch.nn.functional.pad(torch.from_numpy(np.ascontiguousarray(
+        wq.transpose(4, 0, 1, 2, 3))), (0, pad16(cin) - cin))
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        y = jax.nn.relu((acc.astype(jnp.float32) * s + b).astype(jdt))
+        q_scale = np.float32(float(jnp.abs(y.astype(jnp.float32)).max()) / 150.0)   # some clip
+        ref = np.asarray(_quantize_in(y, jnp.float32(q_scale)))
+        got = q3.int8_conv3d(xt, wt, torch.from_numpy(s), torch.from_numpy(b), stride, padding,
+                             True, dt, q_scale=torch.tensor(q_scale))
+        assert got.dtype == torch.int8 and got.shape == (*ref.shape[:-1], pad16(cout))
+        np.testing.assert_array_equal(got[..., :cout].numpy(), ref)
+        assert not got[..., cout:].any()
+        assert (np.abs(ref) == 127).any() and (ref == 0).any()
+
+
+def test_stem_rows_layout_gives_the_sixteen_channel_sums():
+    """K5's stem layout: each (dt, dy) row of 8 input pixels x 4 channels
+    (32 bytes) against `stem_rows`'s 32-byte weight rows gives the int32
+    sums of the 16-channel conv, the eighth pixel's weights being zero."""
+    from fac_fake_torch.ops import quant3d as q3
+
+    rng = np.random.default_rng(12)
+    n, (t, h, w) = 8, (2, 11, 9)
+    x16 = np.zeros((2, t, h, w, 16), np.int8)
+    x16[..., :3] = rng.integers(-127, 128, (2, t, h, w, 3))
+    w16 = np.zeros((n, 1, 7, 7, 16), np.int8)
+    w16[..., :3] = rng.integers(-127, 128, (n, 1, 7, 7, 3))
+    ref = q3.int_conv3d_plain(torch.from_numpy(x16), torch.from_numpy(w16), (1, 2, 2),
+                              (0, 3, 3)).numpy()
+    # the plain version on the 4-channel input, the kernel cut to 4 channels
+    x4 = torch.from_numpy(np.ascontiguousarray(x16[..., :4]))
+    assert np.array_equal(q3.int_conv3d_plain(x4, torch.from_numpy(w16)[..., :4], (1, 2, 2),
+                                              (0, 3, 3)).numpy(), ref)
+    rows = q3.stem_rows(torch.from_numpy(w16)).numpy().astype(np.int64)     # (n, 1, 7, 32)
+    assert rows.shape == (n, 1, 7, 32) and not rows[..., 28:].any()
+    xp = np.pad(x16[..., :4].astype(np.int64), ((0, 0), (0, 0), (3, 3), (3, 4), (0, 0)))
+    ho, wo = ref.shape[2:4]
+    got = np.zeros_like(ref, dtype=np.int64)
+    for dy in range(7):
+        for o in range(wo):
+            chunk = xp[:, :, 2 * np.arange(ho) + dy, 2 * o:2 * o + 8].reshape(2, t, ho, 32)
+            got[:, :, :, o] += chunk @ rows[:, 0, dy].T
+    assert np.array_equal(got, ref)
+
+
 def test_max_pool3d_i8_plain_equals_jax():
     from fac_fake_tpu.compat.quantize_s3d import _max_pool3d_i8
     from fac_fake_torch.ops import quant3d as q3
@@ -191,10 +255,14 @@ def test_qparams_match_jax(engines):
 
 def _carry_qparams(teng, jq):
     """The JAX engine's qparams into the port engine's buffers."""
+    from fac_fake_torch.ops import quant3d as q3
+
     with torch.no_grad():
         for key, qc in teng.qconvs.items():
             w = np.asarray(jq[key]["w_q"]).transpose(4, 0, 1, 2, 3)
             qc.w_q.zero_()[..., :w.shape[-1]] = torch.from_numpy(np.ascontiguousarray(w))
+            if qc.w_rows is not None:                      # the stem's K5 layout of w_q
+                qc.w_rows.copy_(q3.stem_rows(qc.w_q))
             for name in ("s", "b", "s_x"):
                 getattr(qc, name).copy_(torch.from_numpy(np.array(jq[key][name])))
 
@@ -216,6 +284,45 @@ def test_int8_logits_match_jax_engine(engines):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
     fp = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(clips))).ravel()
     assert np.abs(own - ref).max() <= 0.02 * (fp.max() - fp.min()), (own, ref)
+
+
+def test_int8_walk_with_fused_edges_equals_the_unfused_walk(engines, monkeypatch):
+    """The int8 walk quantizes a conv's output in its epilogue where the next
+    conv alone reads it (11 edges in this spec: sep → sep, basic → sep, and
+    four in each mix). Run instead as the conv's fp output and a separate
+    quantize pass, the logits are bit-equal; the quantize passes are then
+    the 4 the walk keeps (the stem input, one a mix, the pooled l2 input...)
+    plus those 11."""
+    from fac_fake_torch.ops import quant3d as q3
+
+    *_, teng, clips, x = engines
+    conv, quantize = q3.int8_conv3d, q3.quantize_pad
+    seen = {"fused": 0, "quantize": 0}
+
+    def count_quantize(x_, s_x):
+        seen["quantize"] += 1
+        return quantize(x_, s_x)
+
+    def counting(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0, q_scale=None,
+                 w_rows=None):
+        seen["fused"] += q_scale is not None
+        return conv(xq, w_q, s, b, stride, padding, relu, dtype, out, c0, q_scale, w_rows)
+
+    def unfused(xq, w_q, s, b, stride, padding, relu, dtype, out=None, c0=0, q_scale=None,
+                w_rows=None):
+        y = conv(xq, w_q, s, b, stride, padding, relu, dtype, out, c0, w_rows=w_rows)
+        return y if q_scale is None else count_quantize(y, q_scale)
+
+    monkeypatch.setattr(q3, "quantize_pad", count_quantize)
+    monkeypatch.setattr(q3, "int8_conv3d", counting)
+    with torch.no_grad():
+        fused = teng(x)
+    assert seen == {"fused": 11, "quantize": 4}, seen
+    monkeypatch.setattr(q3, "int8_conv3d", unfused)
+    with torch.no_grad():
+        separate = teng(x)
+    assert seen == {"fused": 11, "quantize": 4 + 4 + 11}, seen
+    assert torch.equal(fused, separate)
 
 
 def test_srm_bank_stays_fp_and_relu6_is_refused():
