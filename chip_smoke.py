@@ -8,7 +8,9 @@ print what it measured.
 
 ``--profile`` adds a torch.profiler breakdown, by kernel, of one fp32 and
 one int8_full CViT forward at batch 96 to phase 9, and of one fp32 and one
-int8 S3D `predict_batch` at batch 32 to phase 13.
+int8 S3D `predict_batch` at batch 32 to phase 13; the int8 breakdowns must
+name K4's and K5's `wgmma` kernels (`dense_wgmma`, `conv_wgmma`) and their
+quantize pass (`qwg::quantize_rows`).
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
@@ -255,11 +257,12 @@ def k4_phase(rng, dev) -> dict:
     return tot
 
 
-def profile_forward(fn, label: str, top: int = 12) -> None:
+def profile_forward(fn, label: str, top: int = 12, expect: tuple = ()) -> None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
-    busy share of its wall time, and the ``top`` kernels. A first call is
-    traced and dropped (the profiler's warm-up step): without it the trace
-    loses the kernels at the start of the window."""
+    busy share of its wall time, and the ``top`` kernels; each name in
+    ``expect`` must be among the kernels' names. A first call is traced and
+    dropped (the profiler's warm-up step): without it the trace loses the
+    kernels at the start of the window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -295,6 +298,12 @@ def profile_forward(fn, label: str, top: int = 12) -> None:
         raise AssertionError(f"profile {label}: the profiler saw no kernel on the card")
     for key, us, n in rows[:top]:
         log(f"  {us / 1e3:9.3f} ms  {n:4d}x  {key[:100]}")
+    for name in expect:
+        hits = [(us, n) for key, us, n in rows if name in key]
+        if not hits:
+            raise AssertionError(f"profile {label}: no kernel named {name}")
+        log(f"  {name}: {sum(us for us, _ in hits) / 1e3:.3f} ms in {sum(n for _, n in hits)} "
+            f"launches")
 
 
 def crops_per_s(scorer, crops, stacks, n_it: int = 10) -> tuple:
@@ -804,7 +813,8 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
                              f"of {S3D_INT8_CALLS}")
     if profile:
         profile_forward(lambda: ev.predict_batch(clips), f"S3D fp32 predict_batch {S3D_BATCH}")
-        profile_forward(lambda: ev8.predict_batch(clips), f"S3D int8 predict_batch {S3D_BATCH}")
+        profile_forward(lambda: ev8.predict_batch(clips), f"S3D int8 predict_batch {S3D_BATCH}",
+                        expect=("conv_wgmma", "qwg::quantize_rows"))
     with torch.no_grad():
         x32 = torch.from_numpy(clips).to(dev).float().permute(0, 4, 1, 2, 3)
         a, b = s3d(x32).double(), ev8.engine(x32).double()
@@ -1067,7 +1077,8 @@ def main() -> int:
                 np.concatenate([crops] * 4)[:QBATCH]).to(dev))
         pos96 = torch.arange(QBATCH, device=dev) % 32
         profile_forward(lambda: scorer.model(x96, pos96), f"fp32 forward, batch {QBATCH}")
-        profile_forward(lambda: full.model(x96, pos96), f"int8_full forward, batch {QBATCH}")
+        profile_forward(lambda: full.model(x96, pos96), f"int8_full forward, batch {QBATCH}",
+                        expect=("dense_wgmma", "qwg::quantize_rows"))
 
     # ---- 10. full-width int8_full logits, card against CPU ------------------
     with torch.inference_mode():

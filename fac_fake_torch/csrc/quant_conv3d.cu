@@ -24,10 +24,13 @@
 //
 // Implicit GEMM (quant_wgmma.cuh): M = B*To*Ho*Wo output positions, N =
 // Cout, K = kt*kh*kw*Cp ordered (dt, dy, dx, c); wq is the (N, K) K-major
-// matrix as stored, (N, kt, kh, kw, Cp). CTA tiles of BM = 64 NWG positions
-// (NWG consumer warpgroups, each 64 x BN on wgmma m64nBNk32) x BN channels,
-// BN from Cout (16-256); NWG = 1 where 128-row tiles would leave SMs idle
-// (the late 7 x 7 x 2 convs). TMA brings the weights' (BN x 128 B) tiles.
+// matrix as stored, (N, kt, kh, kw, Cp). Output tiles of BM = 64 NWG
+// positions (NWG consumer warpgroups, each 64 x BN on wgmma m64nBNk32) x BN
+// channels, BN from Cout (16-256); NWG = 1 where 128-row tiles would leave
+// SMs idle (the late 7 x 7 x 2 convs). One persistent CTA an SM walks the
+// tiles; its ring (4-8 stages, 192 KB) runs on from one tile into the
+// next, so loads, wgmmas and the last tile's stores overlap. TMA brings the
+// weights' (BN x 128 B) tiles.
 // The A operand:
 //  * 1x1x1 convs: the plain (M, Cp) matrix, by TMA as well;
 //  * other geometries: the producer warpgroup gathers each 16-channel chunk
@@ -47,7 +50,9 @@
 // (1,3,3) convs of the mixes. The fused epilogue keeps the 39 tensors that
 // one conv writes and only the next conv reads as int8 at real channels
 // (the stem conv's 514 M outputs at batch 32: 0.5 GB instead of 2 GB out and
-// 2 GB back in).
+// 2 GB back in). What the epilogue costs sets the early convs' time: its
+// per-value work (dequant, rounding, quantize by q8) runs after the tile's
+// wgmmas on the same warps.
 #include "quant_wgmma.cuh"
 
 namespace {

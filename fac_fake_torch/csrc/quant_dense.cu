@@ -25,10 +25,14 @@
 //    for its share of the rows through distributed shared memory, then
 //    applies the epilogue to them (integer sums are exact in any order). No
 //    workspace, no memset, no second kernel.
+//    `ops/quant.py dense_splits` keeps a launch within 96 CTAs: more
+//    clusters of 8 than that wait for free SMs.
 //  * the quantize pass (one launch before) lets the GEMM launch early
 //    (programmatic dependent launch): the producer issues the first stages'
 //    weight loads, then waits on the quantize (griddepcontrol.wait) before
-//    loading xq.
+//    loading xq. Measured against the quantize folded into the producer
+//    warpgroup (each CTA quantizing its rows of x into the ring), this is
+//    3-10x faster a dense: the fold's loads of x wait on each other.
 #include <cooperative_groups.h>
 
 #include "quant_wgmma.cuh"
@@ -40,32 +44,16 @@ namespace cg = cooperative_groups;
 
 constexpr int kChan = 128;   // output channels a CTA: two consumer warpgroups of 64
 constexpr int kMaxCluster = 8;
+constexpr int kStages = 4;   // the ring's stages
 
 struct DenseArgs {
   const float* w_scale;  // (N,)
   const float* x_scale;  // 0-d
   const float* bias;     // (N,) or null
   void* out;             // (M, N), fp32 or bf16
-  const void* x;         // (M, K) fp32 or bf16 (quantized in the kernel: FOLD)
-  int out_bf16, x_vec;   // x_vec: four values a load
-  int M, N, K, k_tiles, per, splits;
+  int out_bf16;
+  int M, N, k_tiles, per, splits;
 };
-
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// x[r][k .. k + 3] as floats, zero past K
-template <typename T>
-__device__ __forceinline__ void x_row4(const T* x, int r, int k, int K, int vec, float v[4]) {
-  const T* src = x + static_cast<size_t>(r) * K + k;
-  if (vec && k + 4 <= K) {
-    load4(src, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = k + j < K ? to_f(src[j]) : 0.0f;
-  }
-}
 
 template <int NR>
 __host__ __device__ constexpr int stage_bytes() {
@@ -79,7 +67,7 @@ __host__ __device__ constexpr int smem_bytes() {
   return kStages * stage_bytes<NR>() + 2 * kStages * 8 + 1024;
 }
 
-template <int NR, bool FOLD>
+template <int NR>
 __global__ void __launch_bounds__(384, 1)
     dense_wgmma(const __grid_constant__ CUtensorMap w_map, const __grid_constant__ CUtensorMap x_map,
                 DenseArgs p) {
@@ -102,48 +90,14 @@ __global__ void __launch_bounds__(384, 1)
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], FOLD ? 129 : 1);
+      mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2 && FOLD) {  // ---- producer: TMA for Wq, the quantize of x by all 128 threads
-    regs_dec<96>();
-    const int q = tid - 256, warp = q / 32, lane = q & 31;
-    const float sx = *p.x_scale, rx = __frcp_rn(sx);
-    for (int i = 0; i < n_k; ++i) {
-      const int s = i % kStages;
-      if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);
-      if (q == 0) {
-        mbar_expect_tx(&full[s], kChan * kBK);
-        tma_load(smem + s * SB, &w_map, &full[s], (kt0 + i) * kBK, o0);
-      }
-      const int k = (kt0 + i) * kBK + 4 * lane;
-      const uint32_t base = smem_u32(smem + s * SB + kChan * kBK);
-#pragma unroll 4
-      for (int rr = warp; rr < NR; rr += 4) {
-        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (r0 + rr < p.M) {
-          if (p.out_bf16)
-            x_row4(static_cast<const __nv_bfloat16*>(p.x), r0 + rr, k, p.K, p.x_vec, v);
-          else
-            x_row4(static_cast<const float*>(p.x), r0 + rr, k, p.K, p.x_vec, v);
-        }
-        const uint32_t packed = q8(v[0], sx, rx) | (q8(v[1], sx, rx) << 8) |
-                                (q8(v[2], sx, rx) << 16) | (q8(v[3], sx, rx) << 24);
-        st_shared_u32(base + rr * kBK + ((((lane >> 2) ^ (rr & 7)) << 4) | ((lane & 3) << 2)),
-                      packed);
-      }
-      fence_proxy_async();  // the generic-proxy writes, to wgmma's proxy
-      mbar_arrive(&full[s]);
-    }
-    if (p.splits > 1) {  // the consumers' two cluster barriers
-      cg::this_cluster().sync();
-      cg::this_cluster().sync();
-    }
-  } else if (wg == 2) {  // ---- producer: one thread keeps the TMA loads in flight
+  if (wg == 2) {  // ---- producer: one thread keeps the TMA loads in flight
     regs_dec<40>();
     if (tid == 256) {
       const int pre = min(n_k, kStages);
@@ -168,7 +122,7 @@ __global__ void __launch_bounds__(384, 1)
       cg::this_cluster().sync();
     }
   } else {  // ---- consumers: warpgroup wg owns channels o0 + 64 wg .. + 63
-    regs_inc<FOLD ? 200 : 232>();
+    regs_inc<232>();
     int acc[NR / 2];
 #pragma unroll
     for (int j = 0; j < NR / 2; ++j) acc[j] = 0;
@@ -245,12 +199,12 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-template <int NR, bool FOLD>
+template <int NR>
 cudaError_t launch(const CUtensorMap& wm, const CUtensorMap& xm, const DenseArgs& p,
                    int row_tiles, int pdl, cudaStream_t stream) {
   constexpr int smem = smem_bytes<NR>();
-  static cudaError_t err = cudaFuncSetAttribute(
-      dense_wgmma<NR, FOLD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static cudaError_t err =
+      cudaFuncSetAttribute(dense_wgmma<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[2];
   int n_attr = 0;
@@ -271,7 +225,7 @@ cudaError_t launch(const CUtensorMap& wm, const CUtensorMap& xm, const DenseArgs
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = n_attr;
-  return cudaLaunchKernelEx(&cfg, dense_wgmma<NR, FOLD>, wm, xm, p);
+  return cudaLaunchKernelEx(&cfg, dense_wgmma<NR>, wm, xm, p);
 }
 
 // wgmma's N for M activation rows (a row tile of 256 above that)
@@ -291,39 +245,32 @@ int rows_tile(int M) {
 // 1-8; pdl: launch the GEMM with programmatic stream serialization.
 extern "C" int fac_quant_dense(const void* x, int x_bf16, const void* wq, const void* w_scale,
                                const void* x_scale, const void* bias, void* out, int M, int N,
-                               int K, int splits, void* xq, int mode, void* stream) {
+                               int K, int splits, void* xq, int pdl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M < 1 || N < 1 || K < 1 || splits < 1 || splits > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const int Kp = pad16(K);
-  const bool fold = mode == 2;
   int8_t* q = static_cast<int8_t*>(xq);
-  cudaError_t err = cudaSuccess;
-  if (!fold) err = quantize(x, x_bf16, M, K, Kp, q, static_cast<const float*>(x_scale), st);
+  cudaError_t err = quantize(x, x_bf16, M, K, Kp, q, static_cast<const float*>(x_scale), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nr = rows_tile(M);
-  const int align = x_bf16 ? 8 : 16;
   DenseArgs p{static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
-              static_cast<const float*>(bias), out, x, x_bf16,
-              K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % align == 0,
-              M, N, K, (Kp + kBK - 1) / kBK, 0, 0};
+              static_cast<const float*>(bias), out, x_bf16, M, N, (Kp + kBK - 1) / kBK, 0, 0};
   p.per = (p.k_tiles + splits - 1) / splits;
   p.splits = (p.k_tiles + p.per - 1) / p.per;
   CUtensorMap wm, xm;
   err = tma_map(&wm, wq, N, Kp, Kp, kChan);
-  if (err == cudaSuccess) err = fold ? tma_map(&xm, wq, N, Kp, Kp, kChan) : tma_map(&xm, q, M, Kp, Kp, nr);
+  if (err == cudaSuccess) err = tma_map(&xm, q, M, Kp, Kp, nr);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int row_tiles = (M + nr - 1) / nr;
-  const int pdl = mode == 1;
-#define DENSE_LAUNCH(NR) (fold ? launch<NR, true>(wm, xm, p, row_tiles, 0, st) : launch<NR, false>(wm, xm, p, row_tiles, pdl, st))
   switch (nr) {
-    case 16: err = DENSE_LAUNCH(16); break;
-    case 32: err = DENSE_LAUNCH(32); break;
-    case 64: err = DENSE_LAUNCH(64); break;
-    case 96: err = DENSE_LAUNCH(96); break;
-    case 128: err = DENSE_LAUNCH(128); break;
-    case 192: err = DENSE_LAUNCH(192); break;
-    default: err = DENSE_LAUNCH(256); break;
+    case 16: err = launch<16>(wm, xm, p, row_tiles, pdl, st); break;
+    case 32: err = launch<32>(wm, xm, p, row_tiles, pdl, st); break;
+    case 64: err = launch<64>(wm, xm, p, row_tiles, pdl, st); break;
+    case 96: err = launch<96>(wm, xm, p, row_tiles, pdl, st); break;
+    case 128: err = launch<128>(wm, xm, p, row_tiles, pdl, st); break;
+    case 192: err = launch<192>(wm, xm, p, row_tiles, pdl, st); break;
+    default: err = launch<256>(wm, xm, p, row_tiles, pdl, st); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

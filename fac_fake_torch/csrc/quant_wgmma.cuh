@@ -3,7 +3,7 @@
 // dequant epilogue of fac_fake_tpu/models/layers.py QuantDense and
 // fac_fake_tpu/compat/quantize_s3d.py:
 //
-//   q(v)    = clip(rint(v / s_x), -127, 127)          IEEE division, half to even
+//   q(v)    = clip(rint(v / s_x), -127, 127)          IEEE quotient, half to even
 //   C[m][o] = sum_k q(A)[m][k] * Wq[o][k]             exact int32 (no .satfinite)
 //   out     = C[m][o] * (s_x * s_w[o]) (+ b[o])       K4, fp32, then fp32 or bf16
 //           = C[m][o] * s[o] + b[o]                   K5 (s = s_x * s_w formed at
@@ -14,7 +14,7 @@
 //    Cp = C rounded up to 16 (or 4, K5's stem) with zero channels; it lets
 //    a dependent grid launch early (programmatic dependent launch), so K4's
 //    weight stream starts while it runs.
-//  * the operand ring: kStages stages, each one 128-byte K slice of the
+//  * the operand ring: 4 (K4) to 8 (K5) stages, each one 128-byte K slice of the
 //    tile's rows in the 128B swizzle that wgmma reads (16-byte chunk j of row
 //    r at r * 128 + ((j ^ (r % 8)) * 16), tiles 1024-byte aligned). TMA
 //    (cp.async.bulk.tensor, descriptors from cuTensorMapEncodeTiled, found
@@ -28,14 +28,16 @@
 //    wgmma.mma_async m64nNk32 s8 x s8 -> s32 (A and B K-major from shared
 //    memory, the only layout s8 wgmma takes), one warpgroup after them
 //    produces; setmaxnreg moves registers from the producer to the consumers.
-//  * the epilogue through shared memory: the accumulators are dequantized
-//    (or kept as int32 partial sums) into a tile in the ring's memory and
-//    leave with 16-byte stores.
+//  * the epilogue: K4 stages its int32 partial tile in the ring's memory
+//    (the cluster adds the tiles there) and stores 16 bytes a thread; K5's
+//    CTAs are persistent, their ring already holds the next tile, so K5
+//    stores from the registers, every value computed before any store.
 //
-// The quantize and the epilogue use __fdiv_rn, __fmul_rn, __fadd_rn and
-// __int2float_rn, so they round as PyTorch's separate elementwise kernels
-// do; the libraries are built with -fmad=false besides. The ReLU commutes
-// with the rounding to the output type.
+// The quantize (q8: a reciprocal, one FMA remainder and one FMA correction,
+// the IEEE quotient bit for bit) and the epilogue (__fmul_rn, __fadd_rn,
+// __int2float_rn) round as PyTorch's separate elementwise kernels do; the
+// libraries are built with -fmad=false besides. The ReLU commutes with the
+// rounding to the output type.
 #pragma once
 
 #include <cuda.h>
@@ -46,7 +48,6 @@
 namespace qwg {
 
 constexpr int kBK = 128;   // K bytes a stage: one 128-byte swizzled row per operand row
-constexpr int kStages = 4;
 
 inline int pad16(int c) { return (c + 15) / 16 * 16; }
 

@@ -133,6 +133,10 @@ quant_conv3x3.launches = 0
 DENSE_CHANNELS, DENSE_BK = 128, 128   # K4's CTA: output channels, K bytes a stage
 DENSE_ROWS = (16, 32, 64, 96, 128, 192, 256)   # wgmma N: activation rows a CTA
 DENSE_MAX_SPLITS = 8                  # CTAs of one thread-block cluster
+# CTAs of one launch at most: more clusters of 8 than that wait for free
+# SMs on the H100 (the (192, 1024) x (1024, 2048) dense takes 0.0175 ms at
+# split 8, 128 CTAs, and 0.0112 at split 4; PERF.md, PR 4)
+DENSE_MAX_CTAS = 96
 
 
 def dense_rows_tile(m: int) -> int:
@@ -143,12 +147,16 @@ def dense_rows_tile(m: int) -> int:
 
 def dense_splits(m: int, n: int, k: int) -> int:
     """K4's split of the k-tiles of each output tile over the CTAs of one
-    cluster (at most 8): enough CTAs for about one an SM where the output
-    has few tiles, each split at least one k-tile. The CTAs add their int32
-    partial sums through distributed shared memory, exact in any order."""
+    cluster: the largest of 1, 2, 4, 8 that keeps the launch within
+    DENSE_MAX_CTAS CTAs and gives every split a k-tile. The CTAs add their
+    int32 partial sums through distributed shared memory, exact in any
+    order."""
     tiles = -(-n // DENSE_CHANNELS) * -(-m // dense_rows_tile(m))
     k_tiles = -(-pad16(k) // DENSE_BK)
-    splits = max(1, min(DENSE_MAX_SPLITS, k_tiles, -(-SM_COUNT // tiles)))
+    splits = 1
+    while (2 * splits <= min(DENSE_MAX_SPLITS, k_tiles)
+           and 2 * splits * tiles <= DENSE_MAX_CTAS):
+        splits *= 2
     per = -(-k_tiles // splits)
     return -(-k_tiles // per)
 

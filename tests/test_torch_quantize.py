@@ -151,13 +151,14 @@ def test_dense_splits_cover_k_for_the_path_shapes():
                                           dense_splits, pad16)
 
     want = {(96, 1024, 25088): 8, (192, 3072, 1024): 4, (192, 1024, 1024): 8,
-            (192, 2048, 1024): 8, (192, 1024, 2048): 8, (96, 2048, 1024): 8, (5, 24, 40): 1,
-            (200, 1000, 1100): 5, (512, 3072, 1024): 3}
+            (192, 2048, 1024): 4, (192, 1024, 2048): 8, (96, 2048, 1024): 4, (5, 24, 40): 1,
+            (200, 1000, 1100): 5, (512, 3072, 1024): 2}
     for (m, n, k), splits in want.items():
         assert dense_splits(m, n, k) == splits, (m, n, k)
         k_tiles = -(-pad16(k) // DENSE_BK)
         per = -(-k_tiles // splits)
         assert 1 <= splits <= DENSE_MAX_SPLITS
+        assert splits == 1 or splits * -(-n // 128) * -(-m // dense_rows_tile(m)) <= 96
         assert per * splits >= k_tiles > per * (splits - 1)
     assert [dense_rows_tile(m) for m in (1, 5, 96, 192, 200, 512)] == [16, 16, 96, 192, 256, 256]
 
