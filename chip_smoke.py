@@ -33,8 +33,7 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      the folded base stem at batch 96, fp32 and bf16 (bit-equal), timed
      over the 17 convs of one forward;
   8. K4 (int8 dense) against its plain version at the 26 denses of one
-     int8_full forward at batch 96 (bit-equal, launched with and without
-     programmatic dependent launch), each timed both ways beside
+     int8_full forward at batch 96 (bit-equal), each timed beside
      torch._int_mm on the same int8 operands (the GEMM alone);
   9. int8 main path: `VideoScorer` with infer.quantize="int8_full" (it
      calibrates on its first batch) runs `score_videos_batched` over the 8
@@ -209,28 +208,26 @@ def k4_phase(rng, dev) -> dict:
     beside torch._int_mm (the GEMM alone, on pre-quantized operands)."""
     import torch
     from fac_fake_torch.ops import quant as q
-    tot = dict(ms=0.0, serial_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
-               bound_sum=0.0, err=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, bound_sum=0.0,
+               err=0.0)
     for (m, n, k, has_bias), mult in INT8_DENSES.items():
         x, wq, sw, sx, b = quant_inputs(rng, dev, (m, k), n, k)
         b = b if has_bias else None
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
             ref = q.quant_dense_plain(xd, wq, sw, sx, b)
-            for pdl in (True, False):
-                got = q.quant_dense(xd, wq, sw, sx, b, pdl=pdl)
-                torch.cuda.synchronize()
-                err = float((got.float() - ref.float()).abs().max())
-                tot["err"] = max(tot["err"], err)
-                if not torch.equal(got, ref):
-                    raise AssertionError(f"K4 ({m},{k})x({k},{n}) {dt} pdl={pdl}: differs from "
-                                         f"plain, max abs {err}")
+            got = q.quant_dense(xd, wq, sw, sx, b)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            tot["err"] = max(tot["err"], err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K4 ({m},{k})x({k},{n}) {dt}: differs from plain, "
+                                     f"max abs {err}")
         xq = q.quantize_plain(x, sx)
         wt = wq.t()
         if not torch.equal(torch._int_mm(xq, wt), q.int_matmul_plain(xq, wq)):
             raise AssertionError("torch._int_mm differs from the exact int32 product")
         k_ms = cuda_ms(lambda: q.quant_dense(x, wq, sw, sx, b))
-        serial_ms = cuda_ms(lambda: q.quant_dense(x, wq, sw, sx, b, pdl=False))
         p_ms = cuda_ms(lambda: q.quant_dense_plain(x, wq, sw, sx, b), iters=5)
         l_ms = cuda_ms(lambda: torch._int_mm(xq, wt))
         nbytes = m * k * 4 + n * k + 4 * n * (2 if has_bias else 1) + 4 + m * n * 4
@@ -238,19 +235,16 @@ def k4_phase(rng, dev) -> dict:
         bms, by = bound_ms(nbytes, ops, INT8_TC_OPS)
         log(f"K4 quant_dense ({m},{k})x({k},{n}) bias={has_bias} x{mult} "
             f"(rows tile {q.dense_rows_tile(m)}, cluster split {q.dense_splits(m, n, k)}): "
-            f"equal fp32+bf16; kernel {k_ms:.4f} ms (without programmatic dependent launch "
-            f"{serial_ms:.4f}) plain {p_ms:.4f} ms torch._int_mm {l_ms:.4f} ms bound "
-            f"{bms:.4f} ms ({by})")
+            f"equal fp32+bf16; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms torch._int_mm "
+            f"{l_ms:.4f} ms bound {bms:.4f} ms ({by})")
         tot["ms"] += mult * k_ms
-        tot["serial_ms"] += mult * serial_ms
         tot["plain_ms"] += mult * p_ms
         tot["library_ms"] += mult * l_ms
         tot["bytes"] += mult * nbytes
         tot["ops"] += mult * ops
         tot["bound_sum"] += mult * bms
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], INT8_TC_OPS)
-    log(f"K4 over one int8_full forward's 26 denses: kernel {tot['ms']:.4f} ms (without "
-        f"programmatic dependent launch {tot['serial_ms']:.4f}) plain "
+    log(f"K4 over one int8_full forward's 26 denses: kernel {tot['ms']:.4f} ms plain "
         f"{tot['plain_ms']:.4f} ms torch._int_mm {tot['library_ms']:.4f} ms bound "
         f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}; sum of per-dense bounds "
         f"{tot['bound_sum']:.4f} ms)")
@@ -1127,7 +1121,6 @@ def main() -> int:
          "ms": k4["ms"], "kernel_ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": k4["library_ms"], "library": "torch._int_mm, the GEMM alone",
-         "ms_without_pdl": k4["serial_ms"],
          "shapes": "the 26 denses of one int8_full forward, batch 96, fp32"},
         {"name": "K5_quant_conv3d", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_conv3d.cu",

@@ -136,8 +136,8 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
       for (int kk = 0; kk < kBK / 32; ++kk) wgmma_s8<NR>(acc, da + 2 * kk, db + 2 * kk);
       wgmma_commit();
-      fence_regs(acc);
       wgmma_wait<1>();  // the previous stage's wgmmas have retired: release it
+      fence_regs(acc);
       if (i > 0 && (tid & 31) == 0) mbar_arrive(&empty[(i - 1) % kStages]);
     }
     wgmma_wait<0>();
@@ -201,30 +201,27 @@ __global__ void __launch_bounds__(384, 1)
 
 template <int NR>
 cudaError_t launch(const CUtensorMap& wm, const CUtensorMap& xm, const DenseArgs& p,
-                   int row_tiles, int pdl, cudaStream_t stream) {
+                   int row_tiles, cudaStream_t stream) {
   constexpr int smem = smem_bytes<NR>();
   static cudaError_t err =
       cudaFuncSetAttribute(dense_wgmma<NR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  // the cluster of the K split; programmatic stream serialization lets the
+  // grid start before the quantize pass launched just before it ends
   cudaLaunchAttribute attr[2];
-  int n_attr = 0;
-  attr[n_attr].id = cudaLaunchAttributeClusterDimension;
-  attr[n_attr].val.clusterDim.x = 1;
-  attr[n_attr].val.clusterDim.y = p.splits;
-  attr[n_attr].val.clusterDim.z = 1;
-  ++n_attr;
-  if (pdl) {
-    attr[n_attr].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[n_attr].val.programmaticStreamSerializationAllowed = 1;
-    ++n_attr;
-  }
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.splits;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.N + kChan - 1) / kChan, p.splits, row_tiles);
   cfg.blockDim = dim3(384);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
-  cfg.numAttrs = n_attr;
+  cfg.numAttrs = 2;
   return cudaLaunchKernelEx(&cfg, dense_wgmma<NR>, wm, xm, p);
 }
 
@@ -242,10 +239,10 @@ int rows_tile(int M) {
 // K rounded up to 16, zero past K; w_scale (N,), x_scale 0-d, bias (N,) or
 // null: fp32 device pointers; out: (M, N) in x's dtype; xq: (M, Kp) int8
 // scratch; splits: CTAs (one cluster) that share an output tile's k-tiles,
-// 1-8; pdl: launch the GEMM with programmatic stream serialization.
+// 1-8.
 extern "C" int fac_quant_dense(const void* x, int x_bf16, const void* wq, const void* w_scale,
                                const void* x_scale, const void* bias, void* out, int M, int N,
-                               int K, int splits, void* xq, int pdl, void* stream) {
+                               int K, int splits, void* xq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M < 1 || N < 1 || K < 1 || splits < 1 || splits > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -264,13 +261,13 @@ extern "C" int fac_quant_dense(const void* x, int x_bf16, const void* wq, const 
   if (err != cudaSuccess) return static_cast<int>(err);
   const int row_tiles = (M + nr - 1) / nr;
   switch (nr) {
-    case 16: err = launch<16>(wm, xm, p, row_tiles, pdl, st); break;
-    case 32: err = launch<32>(wm, xm, p, row_tiles, pdl, st); break;
-    case 64: err = launch<64>(wm, xm, p, row_tiles, pdl, st); break;
-    case 96: err = launch<96>(wm, xm, p, row_tiles, pdl, st); break;
-    case 128: err = launch<128>(wm, xm, p, row_tiles, pdl, st); break;
-    case 192: err = launch<192>(wm, xm, p, row_tiles, pdl, st); break;
-    default: err = launch<256>(wm, xm, p, row_tiles, pdl, st); break;
+    case 16: err = launch<16>(wm, xm, p, row_tiles, st); break;
+    case 32: err = launch<32>(wm, xm, p, row_tiles, st); break;
+    case 64: err = launch<64>(wm, xm, p, row_tiles, st); break;
+    case 96: err = launch<96>(wm, xm, p, row_tiles, st); break;
+    case 128: err = launch<128>(wm, xm, p, row_tiles, st); break;
+    case 192: err = launch<192>(wm, xm, p, row_tiles, st); break;
+    default: err = launch<256>(wm, xm, p, row_tiles, st); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

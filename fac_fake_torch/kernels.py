@@ -45,7 +45,7 @@ SIGNATURES = {
     "quant_conv": {"fac_quant_conv3x3": [
         _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]},
     "quant_dense": {"fac_quant_dense": [
-        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P]},
+        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]},
     "quant_conv3d": {"fac_quantize_pad": [_P, _I, _P, _P, _I, _I, _I, _P],
                      "fac_int8_conv3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                          ctypes.POINTER(_I), _P]},

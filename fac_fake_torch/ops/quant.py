@@ -170,11 +170,9 @@ def quant_dense_plain(x, kernel_q, w_scale, x_scale, bias=None):
     return y.reshape(*x.shape[:-1], kernel_q.shape[0])
 
 
-def quant_dense(x, kernel_q, w_scale, x_scale, bias=None, pdl: bool = True):
+def quant_dense(x, kernel_q, w_scale, x_scale, bias=None):
     """K4's wrapper. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise. ``pdl``: let the GEMM launch while the
-    quantize pass runs (programmatic dependent launch); the same kernel
-    either way."""
+    launch the kernel or raise."""
     if not x.is_cuda:
         return quant_dense_plain(x, kernel_q, w_scale, x_scale, bias)
     dtype = _out_dtype(x, "quant_dense")
@@ -197,8 +195,7 @@ def quant_dense(x, kernel_q, w_scale, x_scale, bias=None, pdl: bool = True):
         kernels.ptr(x2), int(dtype == torch.bfloat16), kernels.ptr(wq),
         kernels.ptr(w_scale), kernels.ptr(x_scale),
         None if bias is None else kernels.ptr(bias), kernels.ptr(out),
-        m, n, k, dense_splits(m, n, k), kernels.ptr(xq), int(pdl),
-        kernels.stream_ptr(x.device))
+        m, n, k, dense_splits(m, n, k), kernels.ptr(xq), kernels.stream_ptr(x.device))
     kernels.check(err, "quant_dense")
     quant_dense.launches += 1
     return out.reshape(*x.shape[:-1], n)

@@ -172,7 +172,7 @@ def int8_conv3d(xq, w_q, s, bias, stride: Int3, padding: Int3, relu: bool,
     if cp == 4:
         if kw * 4 > STEM_ROW:
             raise ValueError(f"int8_conv3d: a 4-channel input takes kw <= 8, not {kw}")
-        wk = stem_rows(_kernel_for(xq, w_q)) if w_rows is None else w_rows
+        wk = stem_rows(w_q) if w_rows is None else w_rows
         kernels.require_cuda(wk, "int8_conv3d w_rows", torch.int8, (n, kt, kh, STEM_ROW))
     elif cp % 16:
         raise ValueError(f"int8_conv3d: channels {cp} are not padded to 16")

@@ -151,8 +151,7 @@ K4_WGMMA_SHAPES = [(1, 200, 1000), (5, 24, 40), (96, 1000, 1100), (192, 130, 27)
 
 
 @pytest.mark.parametrize("m,n,k", K4_WGMMA_SHAPES)
-@pytest.mark.parametrize("pdl", [True, False])
-def test_k4_wgmma_rows_ragged_and_split_twice(dev, m, n, k, pdl):
+def test_k4_wgmma_rows_ragged_and_split_twice(dev, m, n, k):
     """Each shape twice in a row: a cluster split that left reduction state
     behind would show in the second call."""
     from fac_fake_torch.ops import quant as q
@@ -161,7 +160,7 @@ def test_k4_wgmma_rows_ragged_and_split_twice(dev, m, n, k, pdl):
     x, wq, w_scale, x_scale, bias = _quant_inputs(rng, (m, k), n, k, dev, torch.bfloat16)
     ref = q.quant_dense_plain(x, wq, w_scale, x_scale, bias)
     for _ in range(2):
-        got = q.quant_dense(x, wq, w_scale, x_scale, bias, pdl=pdl)
+        got = q.quant_dense(x, wq, w_scale, x_scale, bias)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), (m, n, k, q.dense_splits(m, n, k))
 
