@@ -593,7 +593,7 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
     biases, the fp32 outputs and the int8 outputs quantized for the next
     conv; the int8 tensor between a quantize pass and its convs is not
     counted. ``bytes_old`` is the count for the same work without the fused
-    epilogue (PR 3's): each fused conv's output as an fp32 write and, in the
+    epilogue: each fused conv's output as an fp32 write and, in the
     next conv's quantize pass, an fp32 read."""
     import torch
     from fac_fake_torch.ops import quant3d as q3
@@ -1135,7 +1135,7 @@ def main() -> int:
                          "the next conv as int8, written once and read once",
          "bound_ms_old_count": k5["bound_ms_old_count"],
          "old_count": "the same, with those 39 tensors as an fp32 write and an fp32 read "
-                      "(PR 3's count)",
+                      "(the count without the fused epilogue)",
          "library_ms": k5["library_ms"], "ms_1x1x1": k5["ms_1x1x1"],
          "library": "torch._int_mm, the GEMMs of the 1x1x1 convs alone (pre-quantized)",
          "shapes": f"the 77 convs (39 fused with the next quantize) and 11 quantize passes "

@@ -135,7 +135,7 @@ DENSE_ROWS = (16, 32, 64, 96, 128, 192, 256)   # wgmma N: activation rows a CTA
 DENSE_MAX_SPLITS = 8                  # CTAs of one thread-block cluster
 # CTAs of one launch at most: more clusters of 8 than that wait for free
 # SMs on the H100 (the (192, 1024) x (1024, 2048) dense takes 0.0175 ms at
-# split 8, 128 CTAs, and 0.0112 at split 4; PERF.md, PR 4)
+# split 8, 128 CTAs, and 0.0112 at split 4; PERF.md)
 DENSE_MAX_CTAS = 96
 
 
