@@ -9,13 +9,15 @@ print what it measured.
 ``--profile`` adds a torch.profiler breakdown, by kernel, of one fp32 and
 one int8_full CViT forward at batch 96 to phase 9, and of one fp32 and one
 int8 S3D `predict_batch` at batch 32 to phase 13; the int8 breakdowns must
-name K4's and K5's `wgmma` kernels (`dense_wgmma`, `conv_wgmma`) and their
-quantize pass (`qwg::quantize_rows`).
+name K4's and K5's `wgmma` kernels (`dense_wgmma`, `conv_wgmma`, which K3
+runs on too) and their quantize pass (`qwg::quantize_rows`), and the CViT's
+no `qmma::` kernel.
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
-  2. build the six kernels (K1-K6) from fac_fake_torch/csrc, in parallel;
+  2. build the six kernels (K1-K6; K3 and K5 are one kernel, five sources) from
+     fac_fake_torch/csrc, in parallel;
   3. K2 (normalize) against its plain version at (96|256, 224, 224, 3), fp32
      and bf16;
   4. K1 (frame detections) against its plain version on real BlazeFace dets
@@ -29,18 +31,25 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      seeded crops through `score_crops` and 8 x 29 through
      `score_crop_stacks`; launch counts of K1 and K2 must both be > 0;
   6. full-width logits on the card against the same module on the CPU;
-  7. K3 (int8 3x3 conv) against its plain version at each distinct conv of
-     the folded base stem at batch 96, fp32 and bf16 (bit-equal), timed
-     over the 17 convs of one forward;
+  7. K3 (int8 3x3 conv) against its plain versions at each distinct conv of
+     the quantized base stem at batch 96, fp32 and bf16 (bit-equal): as
+     JAX's layer and as the stem's int8 walk runs it (ReLU, and the next
+     conv's quantize, in the epilogue); timed as the walk runs the 17 convs
+     and the 1 quantize pass of one forward, the bound counted with and
+     without the fused edges, torch._int_mm beside the deep convs;
   8. K4 (int8 dense) against its plain version at the 26 denses of one
      int8_full forward at batch 96 (bit-equal), each timed beside
      torch._int_mm on the same int8 operands (the GEMM alone);
   9. int8 main path: `VideoScorer` with infer.quantize="int8_full" (it
      calibrates on its first batch) runs `score_videos_batched` over the 8
      videos, `score_video`, `score_crops` and `score_crop_stacks`; launch
-     counts of K1-K4 must all be > 0; then infer.quantize="int8" through
-     `score_crops` and `score_crop_stacks`; int8 vs fp32 logits for
-     information;
+     counts of K1-K4 must all be > 0 and K3's whole walks; then
+     infer.quantize="int8" through `score_crops` and `score_crop_stacks`;
+     in each mode one forward at batch 96 must run the stem's planned walk
+     (17 K3 launches, 1 quantize pass, no fp ReLU, 1 fp pool; 26 K4
+     launches under int8_full), and under int8_full every K3 call of one
+     forward at batch 96 is held bit-equal to its plain version on the real
+     activations; int8 vs fp32 logits for information;
  10. full-width int8_full logits on the card against the same quantized
      module on the CPU (plain versions);
  11. S3D fp32 main path: `S3DEvaluator` with the full-width `ca_s3d` (seeded
@@ -100,6 +109,9 @@ STEM_CONVS = {(224, 3, 32): 1, (224, 32, 32): 2, (112, 32, 64): 1, (112, 64, 64)
 INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
                (192, 1024, 1024, True): 6, (192, 2048, 1024, True): 6,
                (192, 1024, 2048, True): 6, (96, 2048, 1024, True): 1}
+# one forward through the quantized base stem's int8 walk: 17 K3 launches, 1
+# quantize pass, no fp ReLU, 1 fp max-pool (the other 4 pool int8 tensors)
+CVIT_INT8_WALK = {"convs": 17, "quantize": 1, "fp_relus": 0, "fp_pools": 1}
 S3D_BATCH = 32                                     # clips a predict_batch
 S3D_CHECK_BATCH = 2                                # clips a K5/K6 bit-equality check
 S3D_T, S3D_HW = 20, 224                            # frames, pixels (ca_s3d's input)
@@ -159,47 +171,142 @@ def quant_inputs(rng, dev, x_shape, n_out, k_in, x_scale=0.0625):
             torch.tensor(x_scale, device=dev), t(rng.standard_normal(n_out, dtype=np.float32)))
 
 
-def k3_phase(rng, dev) -> dict:
-    """K3 against its plain version at every distinct stem conv, batch 96;
-    totals over the 17 convs of one forward (fp32)."""
+def int8_image(rng, dev, shape, c):
+    """int8 values of a quantized activation, zero in the padded channels."""
     import torch
+    xq = rng.integers(-127, 128, shape, dtype=np.int8)
+    xq[..., c:] = 0
+    return torch.from_numpy(xq).to(dev)
+
+
+def stem_walk() -> list:
+    """(H, Cin, Cout, fused) of each K3 launch of one forward of the
+    quantized base stem, in order, from the stem's own planner; ``fused``:
+    the conv quantizes its output for the next conv."""
+    from fac_fake_torch.models.stems import plan_walk, vgg_stem
+    spec = tuple(("qconv", op[1]) if op[0] == "conv" else op for op in vgg_stem()
+                 if op[0] != "bn")
+    steps, _ = plan_walk(spec)
+    hw, cin, out = 224, 3, []
+    for st in steps:
+        cout = spec[st.conv][1]
+        out.append((hw, cin, cout, st.to is not None))
+        hw, cin = hw // (2 if st.pool else 1), cout
+    return out
+
+
+def k3_phase(rng, dev) -> dict:
+    """K3 against its plain versions at every distinct conv of the quantized
+    base stem at batch 96, fp32 and bf16, bit-equal: as JAX's layer
+    (`quant_conv3x3`: quantize pass, conv, fp out) and as the int8 walk's
+    step (`int8_conv3x3` on an int8 input, ReLU, and for 16 of the 17 the
+    next conv's quantize in the epilogue, against
+    quantize_pad_plain(int8_conv3x3_plain(...))). Timed as the walk runs
+    them: the one quantize pass and the 17 convs of one forward (fp32).
+
+    The bound counts each tensor at its real channels, K3's quantize pass
+    and convs as one function, as K5's does: the fp32 image the quantize
+    pass reads, the int8 inputs the convs read from the convs (or int8
+    pools) before them, weights, scales, biases, the 16 int8 outputs
+    quantized for the next conv and the last conv's fp32 output; the int8
+    tensor between the quantize pass and the first conv is not counted.
+    ``bytes_old`` is the count without the fused edges, each conv reading
+    fp32 and writing fp32 (the count of PRs 2-4). Beside the deep convs
+    (28² and 14²) torch._int_mm times their GEMMs alone on the im2col'd
+    int8 operands."""
+    import torch
+    import torch.nn.functional as F
     from fac_fake_torch.ops import quant as q
-    tot = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, bound_sum=0.0, err=0.0)
-    for (hw, cin, cout), mult in STEM_CONVS.items():
+    from fac_fake_torch.ops import quant3d as q3
+    tot = dict(ms=0.0, conv_ms=0.0, quantize_ms=0.0, plain_ms=0.0, ms_deep=0.0, library_ms=0.0,
+               bytes=0.0, bytes_old=0.0, ops=0.0, err=0.0, convs=0, fused=0)
+    walk = stem_walk()
+    groups = {}
+    for key in walk:
+        groups[key] = groups.get(key, 0) + 1
+    for (hw, cin, cout, fused), mult in groups.items():
+        m = QBATCH * hw * hw
         x, wq, sw, sx, b = quant_inputs(rng, dev, (QBATCH, hw, hw, cin), cout, 9 * cin)
         kq = wq.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)       # OIHW, O-HW-I memory
+        s, w_k = sx * sw, q.conv3x3_rows(kq)
+        first = cin == 3
+        xq = q3.quantize_pad(x, sx) if first else int8_image(rng, dev, (QBATCH, hw, hw,
+                                                                        q.pad16(cin)), cin)
+        qs = None
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt).permute(0, 3, 1, 2)
-            got = q.quant_conv3x3(xd, kq, sw, sx, b)
-            ref = q.quant_conv3x3_plain(xd, kq, sw, sx, b)
+            checks = [("layer", q.quant_conv3x3(xd, kq, sw, sx, b),
+                       q.quant_conv3x3_plain(xd, kq, sw, sx, b))]
+            del xd
+            ref = q.int8_conv3x3_plain(xq, kq, s, b, True, dt)
+            checks.append(("walk, fp out", q.int8_conv3x3(xq, kq, s, b, True, dt, w_k=w_k), ref))
+            qs = (ref.float().abs().amax().clamp_min(1e-8) / 127.0).reshape(())
+            checks.append(("walk, quantized for the next conv",
+                           q.int8_conv3x3(xq, kq, s, b, True, dt, qs, w_k),
+                           q3.quantize_pad_plain(ref, qs)))
             torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
-            tot["err"] = max(tot["err"], err)
-            if not torch.equal(got, ref):
-                raise AssertionError(f"K3 {hw}x{hw} {cin}->{cout} {dt}: differs from plain, "
-                                     f"max abs {err}")
-            del got, ref
-        xd = x.permute(0, 3, 1, 2)
-        k_ms = cuda_ms(lambda: q.quant_conv3x3(xd, kq, sw, sx, b), iters=10)
-        p_ms = cuda_ms(lambda: q.quant_conv3x3_plain(xd, kq, sw, sx, b), iters=2, warmup=1)
-        m = QBATCH * hw * hw
-        nbytes = m * cin * 4 + kq.numel() + 8 * cout + 4 + m * cout * 4
+            for what, got, want in checks:
+                err = float((got.float() - want.float()).abs().max())
+                tot["err"] = max(tot["err"], err)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K3 {hw}x{hw} {cin}->{cout} {dt} {what}: differs from "
+                                         f"plain, max abs {err}")
+            del checks, ref
+        qs = qs if fused else None
+        k_ms = cuda_ms(lambda: q.int8_conv3x3(xq, kq, s, b, True, torch.float32, qs, w_k),
+                       iters=10)
+        p_ms = cuda_ms(lambda: q.int8_conv3x3_plain(xq, kq, s, b, True, torch.float32, qs),
+                       iters=2, warmup=1)
         ops = 2.0 * m * cout * 9 * cin
-        bms, by = bound_ms(nbytes, ops, INT8_TC_OPS)
-        log(f"K3 quant_conv3x3 ({QBATCH},{hw},{hw},{cin})->{cout} x{mult}: equal fp32+bf16; "
-            f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bms:.4f} ms ({by}) "
-            f"{ops / k_ms / 1e9:.1f} TOP/s")
-        tot["ms"] += mult * k_ms
+        params = kq.numel() + 8 * cout
+        x_new = 0 if first else m * cin
+        tot["bytes"] += mult * (x_new + params + (m * cout if fused else 4 * m * cout))
+        tot["bytes_old"] += mult * (4 * m * cin + params + 4 + 4 * m * cout)
+        tot["conv_ms"] += mult * k_ms
         tot["plain_ms"] += mult * p_ms
-        tot["bytes"] += mult * nbytes
         tot["ops"] += mult * ops
-        tot["bound_sum"] += mult * bms
-        del x, xd, wq, kq
+        tot["convs"] += mult
+        tot["fused"] += mult if fused else 0
+        lib = ""
+        if hw <= 28:   # the deep convs: torch._int_mm on the im2col'd operands
+            xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+            cols = torch.stack([xp[:, dy:dy + hw, dx:dx + hw] for dy in range(3)
+                                for dx in range(3)], 3).reshape(m, -1)
+            if not torch.equal(torch._int_mm(cols, w_k.t()).reshape(QBATCH, hw, hw, cout),
+                               q.int_conv3x3_plain(xq[..., :cin], kq)):
+                raise AssertionError("torch._int_mm differs from the exact int32 conv")
+            l_ms = cuda_ms(lambda: torch._int_mm(cols, w_k.t()))
+            tot["library_ms"] += mult * l_ms
+            tot["ms_deep"] += mult * k_ms
+            lib = f"; torch._int_mm on the im2col'd operands {l_ms:.4f} ms"
+            del xp, cols
+        log(f"K3 int8_conv3x3 ({QBATCH},{hw},{hw},{cin})->{cout} "
+            f"{'-> int8' if fused else '-> fp'} x{mult}: equal fp32+bf16 (layer, walk fp out, "
+            f"walk quantized); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+            f"{ops / k_ms / 1e9:.1f} int8 TOP/s{lib}")
+        if first:
+            tot["quantize_ms"] += cuda_ms(lambda: q3.quantize_pad(x, sx))
+            tot["plain_ms"] += cuda_ms(lambda: q3.quantize_pad_plain(x, sx), iters=3)
+            tot["bytes"] += 4.0 * x.numel() + 4
+        del x, xq, wq, kq, w_k
         torch.cuda.empty_cache()
+    tot["ms"] = tot["conv_ms"] + tot["quantize_ms"]
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], INT8_TC_OPS)
-    log(f"K3 over one forward's 17 convs: kernel {tot['ms']:.4f} ms plain "
-        f"{tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}; "
-        f"sum of per-conv bounds {tot['bound_sum']:.4f} ms)")
+    tot["bound_ms_old_count"] = bound_ms(tot["bytes_old"], tot["ops"], INT8_TC_OPS)[0]
+    pools = [(a[0], a[2]) for a, b in zip(walk, walk[1:]) if b[0] != a[0]]   # (H, C) pooled
+    pool_ms = 0.0
+    for hw, c in pools:
+        xq = int8_image(rng, dev, (QBATCH, hw, hw, q.pad16(c)), c)
+        pool_ms += cuda_ms(lambda: q.max_pool2x2_i8(xq))
+    log(f"K3 over one forward at batch {QBATCH}: {tot['convs']} convs ({tot['fused']} quantizing "
+        f"for the next) {tot['conv_ms']:.4f} ms + 1 quantize pass {tot['quantize_ms']:.4f} ms = "
+        f"{tot['ms']:.4f} ms; plain {tot['plain_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms "
+        f"({tot['bound_by']}; {tot['ops'] / 1e12:.3f} T int8 ops, {tot['bytes'] / 1e9:.3f} GB; "
+        f"without the fused edges {tot['bytes_old'] / 1e9:.3f} GB, "
+        f"{tot['bound_ms_old_count']:.4f} ms); {tot['ops'] / tot['conv_ms'] / 1e9:.1f} int8 "
+        f"TOP/s; the deep convs {tot['ms_deep']:.4f} ms against torch._int_mm's GEMMs alone "
+        f"{tot['library_ms']:.4f} ms; the walk's {len(pools)} int8 pools (PyTorch amax) "
+        f"{pool_ms:.4f} ms")
     return tot
 
 
@@ -251,10 +358,12 @@ def k4_phase(rng, dev) -> dict:
     return tot
 
 
-def profile_forward(fn, label: str, top: int = 12, expect: tuple = ()) -> None:
+def profile_forward(fn, label: str, top: int = 12, expect: tuple = (),
+                    absent: tuple = ()) -> None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     busy share of its wall time, and the ``top`` kernels; each name in
-    ``expect`` must be among the kernels' names. A first call is traced and
+    ``expect`` must be among the kernels' names, and no name in ``absent``
+    may be part of one. A first call is traced and
     dropped (the profiler's warm-up step): without it the trace loses the
     kernels at the start of the window."""
     import torch
@@ -298,6 +407,78 @@ def profile_forward(fn, label: str, top: int = 12, expect: tuple = ()) -> None:
             raise AssertionError(f"profile {label}: no kernel named {name}")
         log(f"  {name}: {sum(us for us, _ in hits) / 1e3:.3f} ms in {sum(n for _, n in hits)} "
             f"launches")
+    for name in absent:
+        if any(name in key for key, _, _ in rows):
+            raise AssertionError(f"profile {label}: a kernel named {name} ran")
+
+
+def forward_counts(model, x, pos) -> dict:
+    """One forward of the CViT ``model``: the launches of K3 (``convs``),
+    its quantize pass and K4, and the stem's fp ReLU and max-pool modules
+    that ran."""
+    import torch
+    from torch import nn
+    from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
+    ran = {"fp_relus": 0, "fp_pools": 0}
+    hooks = []
+    for mod in model.features:
+        kind = {nn.ReLU: "fp_relus", nn.MaxPool2d: "fp_pools"}.get(type(mod))
+        if kind:
+            hooks.append(mod.register_forward_hook(
+                lambda *_, kind=kind: ran.__setitem__(kind, ran[kind] + 1)))
+    q.int8_conv3x3.launches = q3.quantize_pad.launches = q.quant_dense.launches = 0
+    try:
+        with torch.inference_mode():
+            model(x, pos)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"convs": q.int8_conv3x3.launches, "quantize": q3.quantize_pad.launches, **ran,
+            "K4": q.quant_dense.launches}
+
+
+def check_k3_calls(model, x, pos) -> dict:
+    """One forward of the quantized CViT ``model`` in which every K3 call
+    and its quantize pass also run through their plain versions on the same
+    (real, calibrated) inputs and must be bit-equal: {kind: calls checked},
+    "fused" among the convs (those that quantize for the next conv)."""
+    import torch
+    from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
+    n = {"convs": 0, "fused": 0, "quantize": 0}
+    orig = (q.int8_conv3x3, q3.quantize_pad)
+
+    def same(got, ref, what):
+        if not torch.equal(got, ref):
+            err = float((got.float() - ref.float()).abs().max())
+            raise AssertionError(f"K3 {what} on real activations: differs from plain, max abs "
+                                 f"{err}")
+
+    def conv(xq, kernel_q, s, bias, relu, dtype, q_scale=None, w_k=None):
+        y = orig[0](xq, kernel_q, s, bias, relu, dtype, q_scale, w_k)
+        same(y, q.int8_conv3x3_plain(xq, kernel_q, s, bias, relu, dtype, q_scale),
+             f"conv {tuple(xq.shape)} -> {kernel_q.shape[0]}")
+        n["convs"] += 1
+        n["fused"] += q_scale is not None
+        return y
+
+    def quantize(x, s_x):
+        y = orig[1](x, s_x)
+        same(y, q3.quantize_pad_plain(x, s_x), f"quantize {tuple(x.shape)}")
+        n["quantize"] += 1
+        return y
+
+    # launches made here count on the checker's functions, not the wrappers'
+    conv.launches = quantize.launches = 0
+    q.int8_conv3x3, q3.quantize_pad = conv, quantize
+    try:
+        with torch.inference_mode():
+            model(x, pos)
+    finally:
+        q.int8_conv3x3, q3.quantize_pad = orig
+    return n
 
 
 def crops_per_s(scorer, crops, stacks, n_it: int = 10) -> tuple:
@@ -603,12 +784,6 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
     k6 = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, err=0.0, pools=0)
     t = lambda a: torch.from_numpy(a).to(dev)
 
-    def int8_image(shape, c):
-        """int8 values of a quantized activation, zero in the padded channels."""
-        xq = rng.integers(-127, 128, shape, dtype=np.int8)
-        xq[..., c:] = 0
-        return t(xq)
-
     for (xs, ws, stride, padding, relu, cin, source, fused), mult in calls["conv"].items():
         n, kt, kh, kw, cp = ws
         w_q = rng.integers(-127, 128, ws, dtype=np.int8)
@@ -618,7 +793,7 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
         b = t(rng.standard_normal(n, dtype=np.float32))
         qs = None
         for batch in (S3D_CHECK_BATCH, S3D_BATCH):
-            xq = int8_image(_at_batch(xs, batch), cin)
+            xq = int8_image(rng, dev, _at_batch(xs, batch), cin)
             for dt in (torch.float32, torch.bfloat16):
                 ref = q3.int8_conv3d_plain(xq, w_q, s, b, stride, padding, relu, dt)
                 if fused:
@@ -681,7 +856,7 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
         del x
     for (xs, c), mult in calls["pool"].items():
         for batch in (S3D_CHECK_BATCH, S3D_BATCH):
-            xq = int8_image(_at_batch(xs, batch), c)
+            xq = int8_image(rng, dev, _at_batch(xs, batch), c)
             got, ref = q3.max_pool3d_i8(xq), q3.max_pool3d_i8_plain(xq)
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
@@ -742,12 +917,12 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
 
     def zero_counts():
         ex.frame_detections.launches = pp.normalize_imagenet.launches = 0
-        q.quant_conv3x3.launches = q.quant_dense.launches = 0
+        q.int8_conv3x3.launches = q.quant_dense.launches = 0
         q3.int8_conv3d.launches = q3.quantize_pad.launches = q3.max_pool3d_i8.launches = 0
 
     def read_counts():
         return {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches,
-                "K3": q.quant_conv3x3.launches, "K4": q.quant_dense.launches,
+                "K3": q.int8_conv3x3.launches, "K4": q.quant_dense.launches,
                 "K5": q3.int8_conv3d.launches, "K5_quantize": q3.quantize_pad.launches,
                 "K6": q3.max_pool3d_i8.launches}
 
@@ -874,8 +1049,10 @@ def main() -> int:
     from fac_fake_torch.detect.blazeface import BlazeFace
     from fac_fake_torch.infer.predictor import VideoScorer
     from fac_fake_torch.models import build_model
+    from fac_fake_torch.models.stems import walk_counts
     from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1013,6 +1190,10 @@ def main() -> int:
 
     # ---- 9. int8 main path -----------------------------------------------------
     n_convs = sum(op[0] == "conv" for op in scorer.model.stem_spec)
+    with torch.inference_mode():
+        x96 = pp.normalize_imagenet(torch.from_numpy(
+            np.concatenate([crops] * 4)[:QBATCH]).to(dev))
+    pos96 = torch.arange(QBATCH, device=dev) % 32
     rates = {}
     for mode in ("int8_full", "int8"):
         qcfg = Config()
@@ -1030,7 +1211,7 @@ def main() -> int:
         qscorer.score_crop_stacks(stacks)    # warm up
         torch.cuda.synchronize()
         ex.frame_detections.launches = pp.normalize_imagenet.launches = 0
-        q.quant_conv3x3.launches = q.quant_dense.launches = 0
+        q.int8_conv3x3.launches = q3.quantize_pad.launches = q.quant_dense.launches = 0
         qprobs = []
         if mode == "int8_full":
             qscorer.enable_stage_stats()
@@ -1044,7 +1225,8 @@ def main() -> int:
         rates[mode] = crops_per_s(qscorer, crops, stacks)
         qprobs += [rates[mode][2]] + rates[mode][3]
         qlaunch = {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches,
-                   "K3": q.quant_conv3x3.launches, "K4": q.quant_dense.launches}
+                   "K3": q.int8_conv3x3.launches, "K3_quantize": q3.quantize_pad.launches,
+                   "K4": q.quant_dense.launches}
         log(f"{mode}: score_crops {rates[mode][0]:.1f} crops/s (fp32 {fp32_rates[0]:.1f}), "
             f"score_crop_stacks {rates[mode][1]:.1f} crops/s (fp32 {fp32_rates[1]:.1f}); "
             f"launches {qlaunch}")
@@ -1053,8 +1235,26 @@ def main() -> int:
         want = ("K1", "K2", "K3", "K4") if mode == "int8_full" else ("K2", "K3")
         if min(qlaunch[k] for k in want) <= 0:
             raise AssertionError(f"{mode}: a kernel of the path never launched: {qlaunch}")
+        walk = walk_counts(qscorer.model.stem_spec)
+        if (qlaunch["K3"] % walk["convs"]
+                or qlaunch["K3_quantize"] * walk["convs"] != qlaunch["K3"] * walk["quantize"]):
+            raise AssertionError(f"{mode}: launches {qlaunch} are not whole forwards of the "
+                                 f"stem's walk {walk}")
+        one = forward_counts(qscorer.model, x96, pos96)
+        log(f"{mode}: one forward at batch {QBATCH} runs {one} (the stem's planned walk: "
+            f"{walk})")
+        want_one = dict(CVIT_INT8_WALK, K4=sum(INT8_DENSES.values()) if mode == "int8_full" else 0)
+        if one != want_one or any(walk[k] != v for k, v in CVIT_INT8_WALK.items()):
+            raise AssertionError(f"{mode}: one forward ran {one}, the walk plans {walk}; "
+                                 f"want {want_one}")
         if mode == "int8_full":
             int8_launches, full = qlaunch, qscorer
+            checked = check_k3_calls(qscorer.model, x96, pos96)
+            log(f"{mode} forward at batch {QBATCH} on the seeded crops: every K3 call and its "
+                f"quantize pass bit-equal to the plain versions on the same activations: "
+                f"{checked}")
+            if checked != {k: walk[k] for k in ("convs", "fused", "quantize")}:
+                raise AssertionError(f"{mode}: checked {checked}, not every call of a forward")
         with torch.inference_mode():
             x29 = pp.normalize_imagenet(torch.from_numpy(crops).to(dev))
             pos29 = torch.arange(29, device=dev)
@@ -1066,13 +1266,10 @@ def main() -> int:
             f"(|logit| max {float(a.abs().max()):.3g})")
 
     if args.profile:
-        with torch.inference_mode():
-            x96 = pp.normalize_imagenet(torch.from_numpy(
-                np.concatenate([crops] * 4)[:QBATCH]).to(dev))
-        pos96 = torch.arange(QBATCH, device=dev) % 32
         profile_forward(lambda: scorer.model(x96, pos96), f"fp32 forward, batch {QBATCH}")
         profile_forward(lambda: full.model(x96, pos96), f"int8_full forward, batch {QBATCH}",
-                        expect=("dense_wgmma", "qwg::quantize_rows"))
+                        expect=("dense_wgmma", "conv_wgmma", "qwg::quantize_rows"),
+                        absent=("qmma::",))
 
     # ---- 10. full-width int8_full logits, card against CPU ------------------
     with torch.inference_mode():
@@ -1108,12 +1305,23 @@ def main() -> int:
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": None},
         {"name": "K3_quant_conv3x3", "route": "cuda",
-         "source": "fac_fake_torch/csrc/quant_conv.cu",
+         "source": "fac_fake_torch/csrc/quant_conv3d.cu",
          "replaces": "fac_fake_tpu/models/layers.py:106",
-         "launches": int8_launches["K3"], "max_abs_err": k3["err"],
-         "ms": k3["ms"], "kernel_ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
-         "shapes": "the 17 stem convs of one forward, batch 96, fp32"},
+         "launches": int8_launches["K3"], "quantize_launches": int8_launches["K3_quantize"],
+         "max_abs_err": k3["err"], "ms": k3["ms"], "kernel_ms": k3["ms"],
+         "conv_ms": k3["conv_ms"], "quantize_ms": k3["quantize_ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "bound_counts": "real channels; the quantize pass and the convs as one function, the "
+                         "int8 tensor between the quantize pass and the first conv not counted; "
+                         "the 16 tensors a conv quantizes for the next conv as int8",
+         "bound_ms_old_count": k3["bound_ms_old_count"],
+         "old_count": "each conv reading fp32 and writing fp32 (the count without the fused "
+                      "edges)",
+         "library_ms": None, "int_mm_deep_ms": k3["library_ms"], "ms_deep": k3["ms_deep"],
+         "int_mm": "torch._int_mm, the GEMMs alone of the 8 deep convs (28x28 and 14x14) on "
+                   "im2col'd int8 operands",
+         "shapes": "the 17 convs (16 fused with the next quantize) and 1 quantize pass of one "
+                   "int8 forward's stem walk, batch 96, fp32"},
         {"name": "K4_quant_dense", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_dense.cu",
          "replaces": "fac_fake_tpu/models/layers.py:142",

@@ -47,7 +47,7 @@ from fac_fake_torch.compat.quantize import _act_scale, _weight_q
 from fac_fake_torch.models.s3d.blocks import INCEPTION_PLANS
 from fac_fake_torch.models.s3d.layers import act_fn, avg_pool3d, max_pool3d, srm_filter
 from fac_fake_torch.ops import quant3d as q3
-from fac_fake_torch.ops.quant import pad16
+from fac_fake_torch.ops.quant3d import pad16
 
 Geom = Tuple[Tuple[int, int, int], Tuple[int, int, int]]   # stride, padding
 _G111: Geom = ((1, 1, 1), (0, 0, 0))

@@ -1,12 +1,15 @@
-// K5: the int8 3D convs of the S3D int8 walk — a quantize pass, and an int8
-// x int8 -> exact int32 implicit-GEMM conv with the dequant epilogue, which
-// can quantize its output for the next conv.
+// K5 and K3: the int8 3D convs of the S3D int8 walk and the int8 3x3 convs
+// of the CViT stem's int8 walk (T = 1, kernel (1, 3, 3), padding (0, 1,
+// 1)) — a quantize pass, and an int8 x int8 -> exact int32 implicit-GEMM
+// conv with the dequant epilogue, which can quantize its output for the
+// next conv.
 //
 // Replaces: fac_fake_tpu/compat/quantize_s3d.py _conv3d(int8=True) (:59-62),
-// _quantize_in (:93-95) and the epilogue of conv_step (:147-149), which XLA
-// lowered to an int8 conv_general_dilated (preferred_element_type int32)
-// with the quantize and the `acc * s + b` epilogue fused around it. PyTorch
-// has no int8 convolution on CUDA.
+// _quantize_in (:93-95) and the epilogue of conv_step (:147-149) (K5), and
+// fac_fake_tpu/models/layers.py QuantConv3x3 (:106-139) with the nn.relu
+// after it (K3), which XLA lowered to an int8 conv_general_dilated
+// (preferred_element_type int32) with the quantize and the epilogue fused
+// around it. PyTorch has no int8 convolution on CUDA.
 //
 //   fac_quantize_pad:  x (rows, C) fp32 or bf16 -> xq (rows, Cp) int8,
 //                      q = clip(rint(x / s_x), -127, 127), Cp = C rounded up
@@ -38,12 +41,13 @@
 //    where the tap falls in the padding or past K, completing on the ring's
 //    mbarrier; each thread owns one chunk column and up to 8 rows, and
 //    advances its tap without dividing;
-//  * the stem ((1,7,7) stride 2 on 3 channels): the input is quantized to
-//    4 channels (RGB and a zero), and each (dt, dy) row's 7 stride-2 taps
-//    are 7 x 4 = 28 contiguous bytes, gathered with 4-byte cp.asyncs into
-//    one 32-byte K chunk (an eighth tap whose weights are zero fills it):
-//    K = kt*kh*32 = 224 instead of 7*7*16 = 784. wq is then (N, kt*kh*32),
-//    each row's 28 bytes of (dx, c) weights and 4 zeros.
+//  * a 3-channel image (K5's (1,7,7) stride-2 stem, K3's first 3x3): the
+//    input is quantized to 4 channels (RGB and a zero), and each (dt, dy)
+//    row's kw taps are kw x 4 contiguous bytes (28 for the stem), gathered
+//    with 4-byte cp.asyncs into one 32-byte K chunk (taps past kw, whose
+//    weights are zero, fill it): K = kt*kh*32 = 224 instead of 7*7*16 =
+//    784. wq is then (N, kt*kh*32), each row's kw*4 bytes of (dx, c)
+//    weights and zeros.
 //
 // Bound on the H100 at batch 32 (224 x 224, 20 frames): bytes for the wide
 // early convs and the quantize passes, operations for the deep 1x1x1 and

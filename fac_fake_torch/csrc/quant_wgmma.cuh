@@ -1,17 +1,18 @@
-// Shared core of K4 (quant_dense.cu) and K5 (quant_conv3d.cu) on Hopper:
-// the JAX quantize, an int8 GEMM on wgmma with exact int32 sums, and the
-// dequant epilogue of fac_fake_tpu/models/layers.py QuantDense and
+// Shared core of K4 (quant_dense.cu) and of K5 and K3 (quant_conv3d.cu, K3
+// being its T = 1, 3x3 case) on Hopper: the JAX quantize, an int8 GEMM on
+// wgmma with exact int32 sums, and the dequant epilogue of
+// fac_fake_tpu/models/layers.py QuantDense and QuantConv3x3 and of
 // fac_fake_tpu/compat/quantize_s3d.py:
 //
 //   q(v)    = clip(rint(v / s_x), -127, 127)          IEEE quotient, half to even
 //   C[m][o] = sum_k q(A)[m][k] * Wq[o][k]             exact int32 (no .satfinite)
 //   out     = C[m][o] * (s_x * s_w[o]) (+ b[o])       K4, fp32, then fp32 or bf16
-//           = C[m][o] * s[o] + b[o]                   K5 (s = s_x * s_w formed at
-//                                                      calibration), ReLU after
+//           = C[m][o] * s[o] + b[o]                   K5, K3 (s = s_x * s_w formed
+//                                                      once), ReLU after
 //
 // What the kernels are built from:
 //  * quantize_rows: fp32 or bf16 rows (rows x C) -> int8 rows (rows x Cp),
-//    Cp = C rounded up to 16 (or 4, K5's stem) with zero channels; it lets
+//    Cp = C rounded up to 16 (or 4, a 3-channel image) with zero channels; it lets
 //    a dependent grid launch early (programmatic dependent launch), so K4's
 //    weight stream starts while it runs.
 //  * the operand ring: 4 (K4) to 8 (K5) stages, each one 128-byte K slice of the
@@ -121,7 +122,7 @@ inline int grid_for(long long work, int threads) {
 }
 
 // x (rows x C, fp32 or bf16) -> xq (rows x Cp) int8 with x_scale (0-d);
-// Cp is C rounded up to 16, or 4 for C <= 4 (K5's stem).
+// Cp is C rounded up to 16, or 4 for C <= 4 (an image's RGB).
 inline cudaError_t quantize(const void* x, int x_bf16, int rows, int C, int Cp, int8_t* xq,
                             const float* x_scale, cudaStream_t stream) {
   const long long total4 = static_cast<long long>(rows) * (Cp / 4);

@@ -30,8 +30,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "fac_fake_torch_kernels"
-SOURCES = ("frame_detections", "normalize", "quant_conv", "quant_dense", "quant_conv3d",
-           "max_pool3d_i8")
+SOURCES = ("frame_detections", "normalize", "quant_dense", "quant_conv3d", "max_pool3d_i8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,8 +41,6 @@ SIGNATURES = {
         _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P]},
     "normalize": {"fac_normalize_imagenet": [
         _P, _P, ctypes.c_longlong, _I, ctypes.POINTER(_F), _P]},
-    "quant_conv": {"fac_quant_conv3x3": [
-        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]},
     "quant_dense": {"fac_quant_dense": [
         _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]},
     "quant_conv3d": {"fac_quantize_pad": [_P, _I, _P, _P, _I, _I, _I, _P],
@@ -71,7 +68,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):   # shared headers: quant_mma.cuh, quant_wgmma.cuh
+    for header in sorted(CSRC.glob("*.cuh")):   # the shared header, quant_wgmma.cuh
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

@@ -16,10 +16,12 @@ name, so state-dict paths keep the reference names
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from fac_fake_torch.ops.quant import quant_conv3x3, quant_dense
+from fac_fake_torch.ops import quant, quant3d
 
 # torch BatchNorm defaults, as the JAX package's TorchBatchNorm
 BN_EPS = 1e-5
@@ -37,7 +39,12 @@ def batch_norm(ch: int) -> nn.BatchNorm2d:
 class QuantConv3x3(nn.Module):
     """int8 3×3 pad-1 conv (inference only): ``kernel_q`` int8 (O, I, 3, 3),
     per-output-channel ``w_scale``, per-tensor ``x_scale`` (0-d), fp32
-    ``bias``. NCHW in, NCHW ``channels_last`` out, in the input's dtype."""
+    ``bias``. NCHW in, NCHW ``channels_last`` out, in the input's dtype.
+
+    K3's derived tensors are non-persistent buffers made from those: ``w_k``
+    (`quant.conv3x3_rows`) and ``s = x_scale · w_scale``, made again after
+    every ``load_state_dict``. `quantize` and `walk` are the steps of the
+    stem's int8 walk (`models/stems.py`)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -45,9 +52,31 @@ class QuantConv3x3(nn.Module):
         self.register_buffer("w_scale", torch.ones(cout))
         self.register_buffer("x_scale", torch.ones(()))
         self.register_buffer("bias", torch.zeros(cout))
+        self._derive()
+
+    def _derive(self) -> None:
+        self.register_buffer("w_k", quant.conv3x3_rows(self.kernel_q), persistent=False)
+        self.register_buffer("s", self.x_scale * self.w_scale, persistent=False)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        with torch.no_grad():
+            self._derive()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return quant_conv3x3(x, self.kernel_q, self.w_scale, self.x_scale, self.bias)
+        return quant.quant_conv3x3(x, self.kernel_q, self.w_scale, self.x_scale, self.bias,
+                                   self.w_k, self.s)
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW fp → this conv's int8 NHWC input (K3's quantize pass)."""
+        return quant3d.quantize_pad(x.permute(0, 2, 3, 1).contiguous(), self.x_scale)
+
+    def walk(self, xq: torch.Tensor, relu: bool, dtype: torch.dtype,
+             q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """int8 NHWC in → NHWC in ``dtype``, or with ``q_scale`` the next
+        conv's int8 input (`quant.int8_conv3x3`)."""
+        return quant.int8_conv3x3(xq, self.kernel_q, self.s, self.bias, relu, dtype, q_scale,
+                                  self.w_k)
 
 
 class QuantLinear(nn.Module):
@@ -64,7 +93,7 @@ class QuantLinear(nn.Module):
         self.register_buffer("bias", torch.zeros(out_features) if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return quant_dense(x, self.kernel_q, self.w_scale, self.x_scale, self.bias)
+        return quant.quant_dense(x, self.kernel_q, self.w_scale, self.x_scale, self.bias)
 
 
 def quant_linear(in_features: int, out_features: int, quant: bool,

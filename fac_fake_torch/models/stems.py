@@ -6,14 +6,28 @@ A stem is data: a tuple of ops run in order by one `Stem` module,
 (`compat/quantize.py` writes it) · ``("bn", ch)`` · ``("relu",)`` ·
 ``("pool",)`` 2×2 max-pool. Op ``i`` is ``features.{i}`` in the state dict,
 as in the reference's ``nn.Sequential`` (relu and pool hold no weights).
+
+A quantized stem runs its ``qconv`` chain as one int8 walk (`plan_walk`,
+value-free, at construction): each qconv is K3 (`ops/quant.py
+int8_conv3x3`) with the ReLU after it in its epilogue; where the next
+qconv reads its output, directly or through one pool, the epilogue
+quantizes it with that conv's ``x_scale``, and the pool runs on the int8
+tensor. The quantizer is monotone, so it commutes with the ReLU and the
+max: the values are those of the module-by-module chain. The first qconv
+quantizes its fp input; the last writes the activation dtype, and the
+ops after it run as modules. On the quantized `vgg_stem`: 17 convs, 16
+of them quantizing for the next (4 through a pool), 1 quantize pass, no
+fp ReLU, 4 int8 pools and 1 fp pool.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import torch
 from torch import nn
 
 from fac_fake_torch.models.layers import QuantConv3x3, batch_norm, conv3x3
+from fac_fake_torch.ops import quant
 
 StemSpec = Tuple[Tuple, ...]
 
@@ -49,6 +63,46 @@ def vgg_stem() -> StemSpec:
     return spec
 
 
+class WalkStep(NamedTuple):
+    conv: int             # op index of the qconv
+    relu: bool            # a ReLU follows it: in the epilogue
+    to: Optional[int]     # op index of the qconv that reads the output, quantized for it
+    pool: bool            # a 2×2 pool between the two, on the int8 tensor
+
+
+def plan_walk(spec: StemSpec) -> Tuple[Tuple[WalkStep, ...], int]:
+    """(steps, tail): the int8 walk over the qconv chain that starts at op
+    0; the ops from ``tail`` on run as modules. No steps (the whole stem
+    runs as modules) unless op 0 is a qconv."""
+    kind = lambda i: spec[i][0] if i < len(spec) else None
+    if kind(0) != "qconv":
+        return (), 0
+    steps, i = [], 0
+    while True:
+        relu = kind(i + 1) == "relu"
+        j = i + 1 + relu
+        pool = kind(j) == "pool" and kind(j + 1) == "qconv"
+        nxt = j + pool
+        if kind(nxt) != "qconv":
+            return tuple(steps) + (WalkStep(i, relu, None, False),), j
+        steps.append(WalkStep(i, relu, nxt, pool))
+        i = nxt
+
+
+def walk_counts(spec: StemSpec) -> dict:
+    """What one forward of the stem runs: K3 launches (``convs``, one a
+    qconv), those that quantize for the next conv (``fused``), quantize
+    passes (the walk's one, and one a qconv run as a module), pools on int8
+    and fp tensors, and fp ReLU passes."""
+    steps, tail = plan_walk(spec)
+    rest = spec[tail:]
+    count = lambda ops, kind: sum(op[0] == kind for op in ops)
+    return {"convs": count(spec, "qconv"), "fused": sum(st.to is not None for st in steps),
+            "quantize": int(bool(steps)) + count(rest, "qconv"),
+            "int8_pools": sum(st.pool for st in steps), "fp_pools": count(rest, "pool"),
+            "fp_relus": count(rest, "relu")}
+
+
 class Stem(nn.Sequential):
     """NCHW in, NCHW out. ``out_channels`` and ``pools`` describe the
     feature map the stem produces."""
@@ -76,3 +130,21 @@ class Stem(nn.Sequential):
         super().__init__(*layers)
         self.out_channels = ch
         self.pools = pools
+        self.walk, self.walk_tail = plan_walk(tuple(spec))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.walk:
+            return super().forward(x)
+        ops = list(self)
+        dtype = quant._out_dtype(x, "the stem's int8 walk")
+        xq = ops[0].quantize(x)
+        for st in self.walk:
+            if st.to is None:
+                x = ops[st.conv].walk(xq, st.relu, dtype).permute(0, 3, 1, 2)
+            else:
+                xq = ops[st.conv].walk(xq, st.relu, dtype, ops[st.to].x_scale)
+                if st.pool:
+                    xq = quant.max_pool2x2_i8(xq)
+        for op in ops[self.walk_tail:]:
+            x = op(x)
+        return x

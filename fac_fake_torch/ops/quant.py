@@ -8,14 +8,19 @@ and per-output-channel weight scale ``s_w``:
     acc = xq ⊛ kernel_q                              exact int32
     y   = acc · (s_x · s_w[o]) + b[o]                fp32, then the out dtype
 
-On the card the wrappers launch K3 (`csrc/quant_conv.cu`, implicit GEMM over
-NHWC, on `mma.sync` from `csrc/quant_mma.cuh`) and K4 (`csrc/quant_dense.cu`,
-on `wgmma` with TMA from `csrc/quant_wgmma.cuh`): one pass quantizes the
-activations into an int8 scratch with the channels padded to 16, then the
-GEMM runs on the int8 tensor cores and applies the epilogue. On a CPU
-tensor they take the plain versions below, which form the integer product exactly as a float64
-product of the int8 values: every sum is an integer below 2^53 (at most
-25088 · 127² ≈ 4.0e8), which float32 could not hold exactly above 2^24.
+On the card both run on `wgmma` from `csrc/quant_wgmma.cuh`. K3 is K5's
+persistent implicit-GEMM conv (`csrc/quant_conv3d.cu` `conv_wgmma`) at
+T = 1, kernel (1, 3, 3), padding (0, 1, 1): `quantize_pad` makes the int8
+NHWC input (4 channels from the stem's 3, else padded to 16), and the
+epilogue ``acc · s + b`` takes ``s = s_x · s_w`` formed once, the product
+JAX forms. `int8_conv3x3` is K3 on an int8 input, with the ReLU and the
+next conv's quantize in its epilogue: the stem's int8 walk
+(`models/stems.py`) runs on it. K4 (`csrc/quant_dense.cu`) quantizes its
+rows in a pass of their own, then one GEMM applies the epilogue. On a CPU
+tensor the wrappers take the plain versions below, which form the integer
+product exactly as a float64 product of the int8 values: every sum is an
+integer below 2^53 (at most 25088 · 127² ≈ 4.0e8), which float32 could not
+hold exactly above 2^24.
 
 Layouts: activations are NCHW-shaped ``channels_last`` (the conv) or
 (..., K) (the dense); ``kernel_q`` is (O, I, 3, 3) for the conv, read in
@@ -31,16 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from fac_fake_torch import kernels
-
-_DTYPES = (torch.float32, torch.bfloat16)
-SM_COUNT = 132      # H100 SXM
-
-
-def quantize_plain(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
-    """clip(round(x / s_x), ±127) as int8. ``x_scale`` is a tensor on
-    ``x``'s device, so CUDA divides (a Python or CPU scalar would turn the
-    division into a multiply by the reciprocal)."""
-    return torch.clamp(torch.round(x.float() / x_scale), -127, 127).to(torch.int8)
+from fac_fake_torch.ops import quant3d as q3
+from fac_fake_torch.ops.quant3d import _out_dtype, _pad_last, pad16, quantize_plain
 
 
 def dequant_plain(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
@@ -71,23 +68,62 @@ def int_matmul_plain(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ kernel_q.double().t()).to(torch.int32)
 
 
-def pad16(c: int) -> int:
-    """Channels (or K) rounded up to 16, the kernels' int8 row unit."""
-    return -(-c // 16) * 16
-
-
-def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
-    """Zero-pad the last dim of a contiguous int8 tensor to ``n``."""
-    return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
-
-
-def _out_dtype(x: torch.Tensor, what: str) -> torch.dtype:
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"{what}: no kernel for input dtype {x.dtype}")
-    return x.dtype
-
-
 # ---- K3 -------------------------------------------------------------------
+
+_K3 = ((1, 3, 3), (1, 1, 1), (0, 1, 1))   # K5's kernel, stride, padding for a 3×3 pad-1 conv
+
+
+def _kernel5(kernel_q: torch.Tensor) -> torch.Tensor:
+    """(O, I, 3, 3) → K5's (O, 1, 3, 3, Cp), the input channels zero-padded
+    to what `quantize_pad` makes of I (4, or I rounded up to 16)."""
+    cin = kernel_q.shape[1]
+    w = kernel_q.permute(0, 2, 3, 1)
+    return F.pad(w, (0, q3.quant_channels(cin) - cin))[:, None]
+
+
+def conv3x3_rows(kernel_q: torch.Tensor) -> torch.Tensor:
+    """K3's weights on the card, made once from ``kernel_q`` (O, I, 3, 3):
+    the (O, K) K-major matrix `conv_wgmma` reads, K = 9·Cp in (dy, dx, c)
+    order, or for I ≤ 4 the stem's rows (`quant3d.stem_rows`), K = 3·32. Two
+    dimensions, so a model's ``channels_last`` conversion leaves it as it
+    is."""
+    w = _kernel5(kernel_q)
+    if w.shape[-1] == 4:
+        w = q3.stem_rows(w)
+    return w.reshape(w.shape[0], -1).contiguous()
+
+
+def int8_conv3x3_plain(xq, kernel_q, s, bias, relu: bool, dtype: torch.dtype,
+                       q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 on the int8 walk's input: ``xq`` int8 (B, H, W, Cp) ⊛ ``kernel_q``
+    → ``acc · s + b`` in fp32, cast to ``dtype``, the ReLU if asked for:
+    (B, H, W, O); with ``q_scale``, that quantized for the next conv, int8
+    (B, H, W, pad16(O))."""
+    y = q3.int8_conv3d_plain(xq[:, None], _kernel5(kernel_q), s, bias, *_K3[1:], relu, dtype,
+                             q_scale=q_scale)
+    return y[:, 0]
+
+
+def int8_conv3x3(xq, kernel_q, s, bias, relu: bool, dtype: torch.dtype,
+                 q_scale: Optional[torch.Tensor] = None,
+                 w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3's kernel wrapper: what `int8_conv3x3_plain` returns, in one launch.
+    ``w_k``: ``conv3x3_rows(kernel_q)``, made once by the caller (made here
+    when not given). CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if not xq.is_cuda:
+        return int8_conv3x3_plain(xq, kernel_q, s, bias, relu, dtype, q_scale)
+    b, h, w, cp = xq.shape
+    wk = conv3x3_rows(kernel_q) if w_k is None else w_k
+    out = q3.conv_launch(xq.view(b, 1, h, w, cp), wk, s, bias, *_K3, relu, dtype,
+                         q_scale=q_scale, what="int8_conv3x3")
+    if out.numel():
+        int8_conv3x3.launches += 1
+    return out[:, 0]
+
+
+int8_conv3x3.launches = 0
+
 
 def quant_conv3x3_plain(x, kernel_q, w_scale, x_scale, bias):
     """(B, Cin, H, W) fp → (B, Cout, H, W) channels_last in ``x``'s dtype."""
@@ -96,36 +132,27 @@ def quant_conv3x3_plain(x, kernel_q, w_scale, x_scale, bias):
     return dequant_plain(acc, x_scale, w_scale, bias, dtype).permute(0, 3, 1, 2)
 
 
-def quant_conv3x3(x, kernel_q, w_scale, x_scale, bias):
-    """K3's wrapper. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
-    if not x.is_cuda:
-        return quant_conv3x3_plain(x, kernel_q, w_scale, x_scale, bias)
+def quant_conv3x3(x, kernel_q, w_scale, x_scale, bias, w_k: Optional[torch.Tensor] = None,
+                  s: Optional[torch.Tensor] = None):
+    """JAX's `QuantConv3x3` on NCHW fp ``x``: K3's quantize pass, then
+    `int8_conv3x3` (fp out, no ReLU), each of which takes its plain version
+    on a CPU tensor and launches its kernel or raises on a CUDA one.
+    ``w_k`` and ``s = x_scale · w_scale`` are K3's derived tensors, made
+    once by the caller (here when not given)."""
     dtype = _out_dtype(x, "quant_conv3x3")
-    b, cin, h, w = x.shape
-    cout = kernel_q.shape[0]
-    xh = x.permute(0, 2, 3, 1).contiguous()          # no copy for channels_last
-    wq = kernel_q.permute(0, 2, 3, 1).contiguous()   # O-HW-I
-    kernels.require_cuda(wq, "quant_conv3x3 kernel_q", torch.int8, (cout, 3, 3, cin))
-    kernels.require_cuda(w_scale, "quant_conv3x3 w_scale", torch.float32, (cout,))
-    kernels.require_cuda(x_scale, "quant_conv3x3 x_scale", torch.float32, ())
-    kernels.require_cuda(bias, "quant_conv3x3 bias", torch.float32, (cout,))
-    out = torch.empty((b, h, w, cout), dtype=dtype, device=x.device)
-    if out.numel() == 0:
-        return out.permute(0, 3, 1, 2)
-    cp = pad16(cin)
-    wq = _pad_last(wq, cp)
-    xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
-    err = kernels.lib("quant_conv").fac_quant_conv3x3(
-        kernels.ptr(xh), int(dtype == torch.bfloat16), kernels.ptr(wq),
-        kernels.ptr(w_scale), kernels.ptr(x_scale), kernels.ptr(bias),
-        kernels.ptr(out), b, h, w, cin, cout, kernels.ptr(xq), kernels.stream_ptr(x.device))
-    kernels.check(err, "quant_conv3x3")
-    quant_conv3x3.launches += 1
-    return out.permute(0, 3, 1, 2)
+    xq = q3.quantize_pad(x.permute(0, 2, 3, 1).contiguous(), x_scale)   # no copy for channels_last
+    s = x_scale * w_scale if s is None else s
+    return int8_conv3x3(xq, kernel_q, s, bias, False, dtype, w_k=w_k).permute(0, 3, 1, 2)
 
 
-quant_conv3x3.launches = 0
+def max_pool2x2_i8(xq: torch.Tensor) -> torch.Tensor:
+    """2×2 stride-2 max-pool of int8 NHWC (floor: an odd last row or column
+    is dropped, as `nn.MaxPool2d(2, 2)`), by one reduction. On the int8
+    walk it takes the place of the fp pool before the next conv's
+    quantize: max-pool commutes with the monotone quantizer, so the values
+    are the same."""
+    ho, wo = xq.shape[1] // 2, xq.shape[2] // 2
+    return xq[:, :2 * ho, :2 * wo].unflatten(1, (ho, 2)).unflatten(3, (wo, 2)).amax((2, 4))
 
 
 # ---- K4 -------------------------------------------------------------------

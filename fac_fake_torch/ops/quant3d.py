@@ -24,6 +24,10 @@ the unit the kernels read in; the 3-channel stem input is padded to 4.
   * `max_pool3d_i8` (K6): 3×3×3 stride-1 max-pool with padding 1 whose
     identity is −128, on int8 (B, T, H, W, Cp).
 
+K3 (`ops/quant.py`, the CViT stem's 3×3 convs) is the T = 1 case of K5's
+kernel: it takes `quantize_pad` and `conv_launch` from here, and K3 and
+K4 the scheme's plain pieces (`quantize_plain`, `pad16`).
+
 On a CUDA tensor each wrapper launches its kernel (`csrc/quant_conv3d.cu`,
 `csrc/max_pool3d_i8.cu`) or raises; on a CPU tensor it takes the plain
 version below. The plain conv forms the integer sums exactly as a float64
@@ -40,9 +44,33 @@ import torch
 import torch.nn.functional as F
 
 from fac_fake_torch import kernels
-from fac_fake_torch.ops.quant import _DTYPES, _out_dtype, _pad_last, pad16, quantize_plain
 
 Int3 = Tuple[int, int, int]
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def quantize_plain(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+    """clip(round(x / s_x), ±127) as int8. ``x_scale`` is a tensor on
+    ``x``'s device, so CUDA divides (a Python or CPU scalar would turn the
+    division into a multiply by the reciprocal)."""
+    return torch.clamp(torch.round(x.float() / x_scale), -127, 127).to(torch.int8)
+
+
+def pad16(c: int) -> int:
+    """Channels (or K) rounded up to 16, the kernels' int8 row unit."""
+    return -(-c // 16) * 16
+
+
+def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad the last dim of a contiguous int8 tensor to ``n``."""
+    return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
+
+
+def _out_dtype(x: torch.Tensor, what: str) -> torch.dtype:
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{what}: no kernel for input dtype {x.dtype}")
+    return x.dtype
 
 
 def conv3d_out_shape(shape: Sequence[int], kernel: Int3, stride: Int3, padding: Int3) -> tuple:
@@ -148,6 +176,63 @@ def stem_rows(w_q: torch.Tensor) -> torch.Tensor:
     return F.pad(rows, (0, STEM_ROW - kw * 4)).contiguous()
 
 
+def conv_launch(xq, wk, s, bias, kernel: Int3, stride: Int3, padding: Int3, relu: bool,
+                dtype: torch.dtype, out: Optional[torch.Tensor] = None, c0: int = 0,
+                q_scale: Optional[torch.Tensor] = None, what: str = "int8_conv3d"
+                ) -> torch.Tensor:
+    """One launch of `conv_wgmma` (`csrc/quant_conv3d.cu`), the kernel of K5
+    and K3, whose wrappers check their own arguments, call this and count
+    their launches. ``wk``: the conv's (N, K) K-major int8 weights, K =
+    kt·kh·kw·Cp in (dt, dy, dx, c) order, or with a 4-channel input
+    `stem_rows`' kt·kh·32; any shape that holds that matrix contiguously.
+    Returns ``out`` as `int8_conv3d` does; nothing launches when it is
+    empty."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"{what}: no kernel for output dtype {dtype}")
+    b, t, h, w, cp = xq.shape
+    n = s.shape[0]
+    kt, kh, kw = kernel
+    kernels.require_cuda(xq, f"{what} xq", torch.int8)
+    kernels.require_cuda(s, f"{what} s", torch.float32, (n,))
+    kernels.require_cuda(bias, f"{what} bias", torch.float32, (n,))
+    if cp == 4:
+        if kw * 4 > STEM_ROW:
+            raise ValueError(f"{what}: a 4-channel input takes kw <= 8, not {kw}")
+        k = kt * kh * STEM_ROW
+    elif cp % 16:
+        raise ValueError(f"{what}: channels {cp} are not padded to 16")
+    else:
+        k = kt * kh * kw * cp
+    kernels.require_cuda(wk, f"{what} weights", torch.int8)
+    if wk.shape[0] != n or wk.numel() != n * k:
+        raise ValueError(f"{what}: weights {tuple(wk.shape)} are not ({n}, {k})")
+    oshape = conv3d_out_shape((b, t, h, w), kernel, stride, padding)
+    if q_scale is not None:
+        if out is not None:
+            raise ValueError(f"{what}: q_scale writes a new int8 tensor, not into out")
+        kernels.require_cuda(q_scale, f"{what} q_scale", torch.float32, ())
+        c0, ldo = 0, pad16(n)
+        out = torch.empty((*oshape, ldo), dtype=torch.int8, device=xq.device)
+    elif out is None:
+        out = torch.empty((*oshape, n), dtype=dtype, device=xq.device)
+        c0, ldo = 0, n
+    else:
+        kernels.require_cuda(out, f"{what} out", dtype, (*oshape, None))
+        if not 0 <= c0 <= out.shape[-1] - n:
+            raise ValueError(f"{what}: channels {c0}..{c0 + n} outside out's "
+                             f"{out.shape[-1]}")
+        ldo = out.shape[-1]
+    if out.numel() == 0:
+        return out
+    geom = (ctypes.c_int * 18)(b, t, h, w, cp, *oshape[1:], n, kt, kh, kw, *stride, *padding)
+    err = kernels.lib("quant_conv3d").fac_int8_conv3d(
+        kernels.ptr(xq), kernels.ptr(wk), kernels.ptr(s), kernels.ptr(bias), kernels.ptr(out),
+        int(dtype == torch.bfloat16), int(relu), ldo, c0,
+        None if q_scale is None else kernels.ptr(q_scale), geom, kernels.stream_ptr(xq.device))
+    kernels.check(err, what)
+    return out
+
+
 def int8_conv3d(xq, w_q, s, bias, stride: Int3, padding: Int3, relu: bool,
                 dtype: torch.dtype, out: Optional[torch.Tensor] = None,
                 c0: int = 0, q_scale: Optional[torch.Tensor] = None,
@@ -161,50 +246,15 @@ def int8_conv3d(xq, w_q, s, bias, stride: Int3, padding: Int3, relu: bool,
     if not xq.is_cuda:
         return int8_conv3d_plain(xq, w_q, s, bias, stride, padding, relu, dtype, out, c0,
                                  q_scale)
-    if dtype not in _DTYPES:
-        raise ValueError(f"int8_conv3d: no kernel for output dtype {dtype}")
-    b, t, h, w, cp = xq.shape
     n, kt, kh, kw = w_q.shape[:4]
-    kernels.require_cuda(xq, "int8_conv3d xq", torch.int8)
     kernels.require_cuda(w_q, "int8_conv3d w_q", torch.int8, (n, kt, kh, kw, None))
-    kernels.require_cuda(s, "int8_conv3d s", torch.float32, (n,))
-    kernels.require_cuda(bias, "int8_conv3d bias", torch.float32, (n,))
-    if cp == 4:
-        if kw * 4 > STEM_ROW:
-            raise ValueError(f"int8_conv3d: a 4-channel input takes kw <= 8, not {kw}")
+    wk = w_q
+    if xq.shape[-1] == 4:
         wk = stem_rows(w_q) if w_rows is None else w_rows
-        kernels.require_cuda(wk, "int8_conv3d w_rows", torch.int8, (n, kt, kh, STEM_ROW))
-    elif cp % 16:
-        raise ValueError(f"int8_conv3d: channels {cp} are not padded to 16")
-    else:
-        wk = w_q
-        if w_q.shape[-1] != cp:
-            raise ValueError(f"int8_conv3d: kernel channels {w_q.shape[-1]}, input {cp}")
-    oshape = conv3d_out_shape((b, t, h, w), (kt, kh, kw), stride, padding)
-    if q_scale is not None:
-        if out is not None:
-            raise ValueError("int8_conv3d: q_scale writes a new int8 tensor, not into out")
-        kernels.require_cuda(q_scale, "int8_conv3d q_scale", torch.float32, ())
-        c0, ldo = 0, pad16(n)
-        out = torch.empty((*oshape, ldo), dtype=torch.int8, device=xq.device)
-    elif out is None:
-        out = torch.empty((*oshape, n), dtype=dtype, device=xq.device)
-        c0, ldo = 0, n
-    else:
-        kernels.require_cuda(out, "int8_conv3d out", dtype, (*oshape, None))
-        if not 0 <= c0 <= out.shape[-1] - n:
-            raise ValueError(f"int8_conv3d: channels {c0}..{c0 + n} outside out's "
-                             f"{out.shape[-1]}")
-        ldo = out.shape[-1]
-    if out.numel() == 0:
-        return out
-    geom = (ctypes.c_int * 18)(b, t, h, w, cp, *oshape[1:], n, kt, kh, kw, *stride, *padding)
-    err = kernels.lib("quant_conv3d").fac_int8_conv3d(
-        kernels.ptr(xq), kernels.ptr(wk), kernels.ptr(s), kernels.ptr(bias), kernels.ptr(out),
-        int(dtype == torch.bfloat16), int(relu), ldo, c0,
-        None if q_scale is None else kernels.ptr(q_scale), geom, kernels.stream_ptr(xq.device))
-    kernels.check(err, "int8_conv3d")
-    int8_conv3d.launches += 1
+    out = conv_launch(xq, wk, s, bias, (kt, kh, kw), stride, padding, relu, dtype, out, c0,
+                      q_scale)
+    if out.numel():
+        int8_conv3d.launches += 1
     return out
 
 

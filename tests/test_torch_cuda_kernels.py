@@ -93,31 +93,65 @@ def _quant_inputs(rng, x_shape, n_out, k_in, dev, dtype):
     return (t(x).to(dtype), t(wq), t(w_scale), torch.tensor(s, device=dev), t(bias))
 
 
-# every distinct conv of the folded base stem, (H, Cin, Cout), and two ragged ones
+# every distinct conv of the folded base stem, (H, Cin, Cout), and ragged ones;
+# at batch 2 the last two fill the card with two-warpgroup tiles (as the
+# stem's convs do at batch 96) whose rows end in no whole tile
 STEM_CONVS = [(224, 3, 32), (224, 32, 32), (112, 32, 64), (112, 64, 64), (56, 64, 128),
               (56, 128, 128), (28, 128, 256), (28, 256, 256), (14, 256, 512),
-              (14, 512, 512), ((7, 9), 3, 8), ((6, 5), 16, 40)]
+              (14, 512, 512), ((7, 9), 3, 8), ((6, 5), 16, 40), ((97, 91), 32, 40),
+              ((89, 99), 128, 72)]
 
 
 @pytest.mark.parametrize("hw,cin,cout", STEM_CONVS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_quant_conv_equals_plain(dev, hw, cin, cout, dtype):
     from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
 
     h, w = (hw, hw) if isinstance(hw, int) else hw
     rng = np.random.default_rng(cin * 1000 + cout)
     x, wq, w_scale, x_scale, bias = _quant_inputs(rng, (2, h, w, cin), cout, 9 * cin, dev, dtype)
     x = x.permute(0, 3, 1, 2)                                   # NCHW, channels_last
     kq = wq.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)        # OIHW in O-HW-I memory
-    before = q.quant_conv3x3.launches
+    before = (q.int8_conv3x3.launches, q3.quantize_pad.launches)
     got = q.quant_conv3x3(x, kq, w_scale, x_scale, bias)
     ref = q.quant_conv3x3_plain(x, kq, w_scale, x_scale, bias)
     torch.cuda.synchronize()
-    assert q.quant_conv3x3.launches == before + 1
+    assert (q.int8_conv3x3.launches, q3.quantize_pad.launches) == (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype and got.shape == (2, cout, h, w)
     assert got.is_contiguous(memory_format=torch.channels_last)
     # exact int32 sums; quantize and epilogue are the same IEEE operations
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("hw,cin,cout", STEM_CONVS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_fused_epilogue_equals_plain(dev, hw, cin, cout, dtype):
+    """K3 as the stem's int8 walk runs it: an int8 NHWC input (the 4-channel
+    quantize of the image for Cin = 3), the ReLU in the epilogue, fp out or
+    the next conv's int8 input (``q_scale``, channels padded to 16 with
+    zeros), equal to quantize_pad_plain(int8_conv3x3_plain(...))."""
+    from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
+
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    rng = np.random.default_rng(cin * 100 + cout + h)
+    x, wq, w_scale, x_scale, bias = _quant_inputs(rng, (2, h, w, cin), cout, 9 * cin, dev, dtype)
+    kq = wq.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    s, w_k = x_scale * w_scale, q.conv3x3_rows(kq)
+    xq = q3.quantize_pad(x, x_scale)
+    assert xq.shape[-1] == q3.quant_channels(cin)
+    for relu in (True, False):
+        y = q.int8_conv3x3_plain(xq, kq, s, bias, relu, dtype)
+        q_scale = (y.float().abs().amax() / 150.0).reshape(())   # some values clip at ±127
+        before = q.int8_conv3x3.launches
+        got = q.int8_conv3x3(xq, kq, s, bias, relu, dtype, w_k=w_k)
+        got_q = q.int8_conv3x3(xq, kq, s, bias, relu, dtype, q_scale, w_k)
+        torch.cuda.synchronize()
+        assert q.int8_conv3x3.launches == before + 2
+        assert got.dtype == dtype and torch.equal(got, y)
+        assert got_q.dtype == torch.int8 and got_q.shape == (2, h, w, q3.pad16(cout))
+        assert torch.equal(got_q, q3.quantize_pad_plain(y, q_scale))
 
 
 # (rows, out, in) of the int8_full path at batch 96 and 256, and tiny ones
@@ -190,6 +224,7 @@ def test_int8_full_video_scorer_runs_k3_and_k4_on_the_card(dev):
     from fac_fake_torch.models import init_weights
     from fac_fake_torch.models.cvit import CViT
     from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
 
     spec = ()
     for _ in range(5):
@@ -199,9 +234,13 @@ def test_int8_full_video_scorer_runs_k3_and_k4_on_the_card(dev):
     scorer = VideoScorer(init_weights(CViT(spec, dim=64, depth=1, heads=2, mlp_dim=64), 0),
                          cfg, device=dev)
     crops = np.random.default_rng(6).integers(0, 256, (12, 224, 224, 3), dtype=np.uint8)
-    k3, k4 = q.quant_conv3x3.launches, q.quant_dense.launches
+    # the int8 walk: 5 K3 launches, the first conv's quantize pass, the next
+    # four convs' inputs quantized and pooled (int8) in K3's epilogue
+    k3, k4 = q.int8_conv3x3.launches, q.quant_dense.launches
+    quantized = q3.quantize_pad.launches
     prob = scorer.score_crops(crops)
-    assert q.quant_conv3x3.launches == k3 + 5 and q.quant_dense.launches == k4 + 6
+    assert q.int8_conv3x3.launches == k3 + 5 and q.quant_dense.launches == k4 + 6
+    assert q3.quantize_pad.launches == quantized + 1
     cpu = VideoScorer(copy.deepcopy(scorer.model).cpu(), cfg, fold_bn=False, device="cpu")
     cpu._quant_pending = False
     assert abs(cpu.score_crops(crops) - prob) <= 1e-3
@@ -307,8 +346,9 @@ def test_k5_stem_reads_four_channels(dev):
 
 
 def test_k4_k5_libraries_run_on_wgmma(dev):
-    """The built K4 and K5 libraries hold integer wgmma (IGMMA) and no
-    mma.sync (IMMA): the old route is gone."""
+    """The built K4 and K5 libraries (K5's is K3's too) hold integer wgmma
+    (IGMMA) and no mma.sync (IMMA): the old route is gone, and no library
+    of K3's own is left to build."""
     import shutil
     import subprocess
 
@@ -320,6 +360,8 @@ def test_k4_k5_libraries_run_on_wgmma(dev):
                               capture_output=True, text=True, check=True).stdout
         assert "IGMMA" in sass, name
         assert "IMMA" not in sass.replace("IGMMA", ""), name
+    assert "quant_conv" not in kernels.SOURCES
+    assert not [p for p in ("quant_mma.cuh", "quant_conv.cu") if (kernels.CSRC / p).exists()]
 
 
 @pytest.mark.parametrize("shape", [(2, 10, 28, 28, 192), (2, 5, 14, 14, 480),
