@@ -10,8 +10,8 @@ print what it measured.
 one int8_full CViT forward at batch 96 to phase 9, and of one fp32 and one
 int8 S3D `predict_batch` at batch 32 to phase 13; the int8 breakdowns must
 name K4's and K5's `wgmma` kernels (`dense_wgmma`, `conv_wgmma`, which K3
-runs on too) and their quantize pass (`qwg::quantize_rows`), and the CViT's
-no `qmma::` kernel.
+runs on too) and their quantize pass (`qwg::quantize_rows`), the S3D one
+K6's `max_pool3d_i8_sep`, and the CViT's no `qmma::` kernel.
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
@@ -22,7 +22,8 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      and bf16;
   4. K1 (frame detections) against its plain version on real BlazeFace dets
      of seeded 1920x1080 frames and on planted dets (F=16, T=3: clusters,
-     exact score ties, a zero-area box);
+     exact score ties, a zero-area box), timed on the planted chunk
+     (`k1_phase`);
   5. main path: `VideoScorer` with the full-width `cvit` (seeded weights) and
      the packaged BlazeFace over an in-memory reader of seeded 1080p noise
      frames, most videos with a synthetic face the detector finds (made by
@@ -56,15 +57,18 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      weights, one logit, 20 x 224^2 clips): `predict_batch` on 32 seeded
      uint8 clips (clips/s), `predict_video` on one clip (no degradation: the
      card's machine has no cv2), `evaluate` over an in-memory dataset;
- 12. K5 (quantize + int8 3D conv) and K6 (int8 max-pool) against their
-     plain versions at every conv, quantize and pool of one ca_s3d int8
-     forward (77 convs, 39 of them quantizing their output for the next
-     conv, 11 quantize passes, 9 pools: asserted), the shapes recorded from
-     the wrapper calls, at batches 2 and 32, fp32 and bf16 (bit-equal; a
-     fused conv against quantize_pad_plain(int8_conv3d_plain(...))); timed
-     over the calls of a forward at batch 32, beside torch._int_mm on the
-     1x1x1 convs' pre-quantized operands; the bound counted with and
-     without the fused epilogue;
+ 12. K5 (quantize + int8 3D conv) against its plain versions at every
+     conv and quantize of one ca_s3d int8 forward (77 convs, 39 of them
+     quantizing their output for the next conv, 11 quantize passes, 9
+     pools: asserted), the shapes recorded from the wrapper calls, at
+     batches 2 and 32, fp32 and bf16 (bit-equal; a fused conv against
+     quantize_pad_plain(int8_conv3d_plain(...))); timed over the calls of a
+     forward at batch 32, beside torch._int_mm on the 1x1x1 convs'
+     pre-quantized operands; the bound counted with and without the fused
+     epilogue (`k5_phase`). K6 (int8 max-pool) at the 9 pools of the spec
+     (`s3d_pool_shapes`, which the recorded pools must equal), at batches 2
+     and 32 (bit-equal), timed at batch 32 cold (its launches rotating over
+     buffers beyond the L2) and warm (`k6_phase`);
  13. S3D int8 main path: `S3DEvaluator(quantize="int8")` (its first batch
      calibrates), then `predict_batch` at batch 32 (clips/s),
      `predict_video` and `evaluate`; K5 and K6 must launch; int8 vs fp32
@@ -118,6 +122,7 @@ S3D_T, S3D_HW = 20, 224                            # frames, pixels (ca_s3d's in
 # K5 and K6 calls of one ca_s3d int8 forward: 77 convs, 39 of which quantize
 # their output for the next conv, 11 quantize passes, 9 int8 pools
 S3D_INT8_CALLS = {"conv": 77, "fused": 39, "quantize": 11, "pool": 9}
+L2_BYTES = 50e6                                    # H100 L2: K6 is timed cold beyond it
 # ca_s3d's head input (the pooled last mix), card vs CPU, by error norm: fp32
 # over the features' norm; int8 over the CPU's int8-vs-fp32 difference, since
 # the int8 walk turns a rounding difference in its fp layers (the ctx blocks)
@@ -612,6 +617,42 @@ def compare_k1(dets, valid, split, offsets, hw, t):
     return err, int(m.sum()), k_ms, p_ms, nbytes
 
 
+def k1_phase(rng, dev, real=None) -> dict:
+    """K1 against its plain version on planted dets (`planted_dets`: 16
+    1080p frames, T = 3) and, with ``real`` = (dets, valid, split, offsets),
+    on real BlazeFace dets of 16 such frames: masks equal, faces within
+    K1_RTOL/K1_ATOL. Timed on the planted 16-frame chunk, and with no step
+    (``load_ms``: the launch and the load pass alone); the bound counts its
+    bytes (dets, valid, offsets, faces, mask) and 8 steps of 20 operations
+    an anchor."""
+    import torch
+    from fac_fake_torch.detect import extractor as ex
+    hw = (1080.0, 1920.0)
+    split, t, offs = ex.tile_geometry(1080, 1920)
+    err_a = 0.0
+    if real is not None:
+        dets, valid, split_r, offsets = real
+        err_a, n_a, ms_a, pms_a, _ = compare_k1(dets, valid, float(split_r), offsets, hw, t)
+        log(f"K1 real dets (16 frames, 8 with the synthetic face, T={t}): faces {n_a} "
+            f"max_abs_err {err_a:.3g} kernel {ms_a:.4f} ms plain {pms_a:.4f} ms")
+    offsets = torch.tensor(offs, dtype=torch.float32, device=dev)
+    pd_, pv_ = planted_dets(rng, t=t)
+    pd = torch.from_numpy(pd_).to(dev)
+    pv = torch.from_numpy(pv_).to(dev)
+    err_b, n_b, ms_b, pms_b, nbytes_b = compare_k1(pd, pv, float(split), offsets, hw, t)
+    if n_b == 0:
+        raise AssertionError("K1 planted dets produced no faces")
+    bms, by = bound_ms(nbytes_b, 8 * pd.shape[0] * 896 * 20)   # (F·T, 896) anchors
+    d = pd.reshape(-1, t * 896, 17).contiguous()
+    v = pv.reshape(-1, t * 896).contiguous()
+    load_ms = cuda_ms(lambda: ex.frame_detections(d, v, float(split), offsets, hw, 0))
+    log(f"K1 planted dets (16 frames, T={t}): faces {n_b} max_abs_err {err_b:.3g} "
+        f"kernel {ms_b:.4f} ms (with no step {load_ms:.4f} ms) plain {pms_b:.4f} ms bound "
+        f"{bms:.5f} ms ({by})")
+    return dict(ms=ms_b, load_ms=load_ms, plain_ms=pms_b, bound_ms=bms, bound_by=by,
+                err=max(err_a, err_b))
+
+
 class InMemoryClips:
     """In-memory stand-in for `ClipDataset`: ``n`` seeded uint8 (T, H, W, 3)
     clips, labels alternating; ``load_clip`` draws the masking region order
@@ -758,15 +799,112 @@ def _at_batch(shape, b):
     return (b,) + tuple(shape[1:])
 
 
-def k5_k6_phase(rng, dev, calls) -> tuple:
-    """K5 and K6 against their plain versions at every recorded call shape
-    (batches S3D_CHECK_BATCH and S3D_BATCH, fp32 and bf16, bit-equal; a
-    conv that quantizes its output for the next conv against
+def s3d_pool_shapes(batch: int) -> dict:
+    """{(B, T, H, W, Cp): count} of the int8 pools of one ca_s3d forward on
+    S3D_T x S3D_HW² clips. Each Inception mix pools its int8 input (its
+    fourth branch), so these are the mixes' input shapes, the channels
+    padded as the int8 tensors are; from the spec, by a forward on the meta
+    device (no memory, no compute)."""
+    import torch
+    from fac_fake_torch.models.s3d.blocks import InceptionMix
+    from fac_fake_torch.models.s3d.model import S3DNet, ca_s3d_spec
+    from fac_fake_torch.ops.quant3d import quant_channels
+    with torch.device("meta"):
+        net = S3DNet(ca_s3d_spec(), 1)
+    shapes = {}
+
+    def record(mod, args):
+        b, c, t, h, w = args[0].shape
+        key = (b, t, h, w, quant_channels(c))
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for mod in net.modules():
+        if isinstance(mod, InceptionMix):
+            mod.register_forward_pre_hook(record)
+    with torch.no_grad():
+        net(torch.empty((batch, 3, S3D_T, S3D_HW, S3D_HW), device="meta"))
+    return shapes
+
+
+def k6_phase(rng, dev) -> dict:
+    """K6 against its plain version at the int8 pools of one ca_s3d forward
+    (`s3d_pool_shapes`; batches S3D_CHECK_BATCH and S3D_BATCH, bit-equal),
+    timed at batch S3D_BATCH, each shape times its count in one forward.
+    Cold (``ms``): the timed launches rotate over input/output pairs that
+    together exceed twice the L2, so that each reads its input from device
+    memory, as a forward's pools do; warm (``warm_ms``): one input again and
+    again (the pools of 16 MB then read L2). The bound counts one read and
+    one write an element at real channels; its share is taken on the cold
+    time. ``copy_ms``: torch's ``copy_`` of the same tensors over the same
+    rotation, the rate a plain copy of these bytes reaches (a yardstick,
+    not the same function)."""
+    import itertools
+
+    import torch
+    from fac_fake_torch.ops import quant3d as q3
+    k6 = dict(ms=0.0, warm_ms=0.0, copy_ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, err=0.0,
+              pools=0)
+    for xs, mult in s3d_pool_shapes(S3D_BATCH).items():
+        c = xs[-1]
+        for batch in (S3D_CHECK_BATCH, S3D_BATCH):
+            xq = int8_image(rng, dev, _at_batch(xs, batch), c)
+            got, ref = q3.max_pool3d_i8(xq), q3.max_pool3d_i8_plain(xq)
+            torch.cuda.synchronize()
+            k6["err"] = max(k6["err"], float((got.int() - ref.int()).abs().max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K6 {tuple(xq.shape)}: differs from plain")
+            del got, ref
+        n_rot = int(L2_BYTES // xq.numel()) + 2      # pairs of 2·numel bytes > 2·L2
+        rot_x = [xq] + [xq.clone() for _ in range(n_rot - 1)]
+        rot_y = [None] * n_rot
+        turn = itertools.count()
+
+        def cold():
+            i = next(turn) % n_rot
+            rot_y[i] = q3.max_pool3d_i8(rot_x[i])
+
+        k_ms = cuda_ms(cold, iters=max(20, n_rot), warmup=n_rot + 2)
+        w_ms = cuda_ms(lambda: q3.max_pool3d_i8(xq))
+
+        def copy():
+            i = next(turn) % n_rot
+            rot_y[i].copy_(rot_x[i])
+
+        c_ms = cuda_ms(copy, iters=max(20, n_rot), warmup=n_rot)
+        p_ms = cuda_ms(lambda: q3.max_pool3d_i8_plain(xq), iters=3)
+        del rot_x, rot_y
+        real = xq.numel() // xs[-1] * c
+        b_ms = bound_ms(2.0 * real, 26.0 * real)[0]
+        k6["ms"] += mult * k_ms
+        k6["warm_ms"] += mult * w_ms
+        k6["copy_ms"] += mult * c_ms
+        k6["plain_ms"] += mult * p_ms
+        k6["bytes"] += mult * 2.0 * real
+        k6["ops"] += mult * 26.0 * real          # byte maxima, outside the tensor cores
+        k6["pools"] += mult
+        log(f"K6 max_pool3d_i8 {tuple(xq.shape)} x{mult}: equal; kernel {k_ms:.4f} ms cold "
+            f"({b_ms / k_ms:.1%} of the bound, {n_rot} buffer pairs), {w_ms:.4f} ms warm; "
+            f"copy_ {c_ms:.4f} ms; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms")
+        del xq
+        torch.cuda.empty_cache()
+    k6["bound_ms"], k6["bound_by"] = bound_ms(k6["bytes"], k6["ops"])
+    log(f"K6 over one forward's {k6['pools']} pools at batch {S3D_BATCH}: kernel "
+        f"{k6['ms']:.4f} ms cold ({k6['bound_ms'] / k6['ms']:.1%} of the bound), "
+        f"{k6['warm_ms']:.4f} ms warm; copy_ of the same bytes {k6['copy_ms']:.4f} ms cold; "
+        f"plain {k6['plain_ms']:.4f} ms; bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}, "
+        f"{k6['bytes'] / 1e6:.1f} MB)")
+    return k6
+
+
+def k5_phase(rng, dev, calls) -> dict:
+    """K5 against its plain versions at every recorded conv and quantize
+    shape (batches S3D_CHECK_BATCH and S3D_BATCH, fp32 and bf16, bit-equal;
+    a conv that quantizes its output for the next conv against
     ``quantize_pad_plain(int8_conv3d_plain(...))`` at a scale of its
     output's range), then timed at batch S3D_BATCH, each shape times its
-    count in one forward. Returns the K5 and K6 totals.
+    count in one forward. Returns the K5 totals.
 
-    The bounds count each tensor at its real channel count (the zero
+    The bound counts each tensor at its real channel count (the zero
     channels K5 pads to 16 are not work the function needs). K5's bytes
     are those of its quantize passes and convs as one function, as K3's
     are: the fp32 inputs of the quantize passes, the int8 inputs the convs
@@ -781,7 +919,6 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
     k5 = dict(ms=0.0, conv_ms=0.0, quantize_ms=0.0, plain_ms=0.0, ms_1x1x1=0.0,
               library_ms=0.0, bytes=0.0, bytes_old=0.0, ops=0.0, err=0.0, convs=0, fused=0,
               quantizes=0)
-    k6 = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, err=0.0, pools=0)
     t = lambda a: torch.from_numpy(a).to(dev)
 
     for (xs, ws, stride, padding, relu, cin, source, fused), mult in calls["conv"].items():
@@ -854,28 +991,9 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
         k5["bytes_old"] += mult * (4.0 * x.numel() + 4)
         k5["quantizes"] += mult
         del x
-    for (xs, c), mult in calls["pool"].items():
-        for batch in (S3D_CHECK_BATCH, S3D_BATCH):
-            xq = int8_image(rng, dev, _at_batch(xs, batch), c)
-            got, ref = q3.max_pool3d_i8(xq), q3.max_pool3d_i8_plain(xq)
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                raise AssertionError(f"K6 {tuple(xq.shape)}: differs from plain")
-            del got, ref
-        k_ms = cuda_ms(lambda: q3.max_pool3d_i8(xq))
-        p_ms = cuda_ms(lambda: q3.max_pool3d_i8_plain(xq), iters=3)
-        real = xq.numel() // xs[-1] * c
-        k6["ms"] += mult * k_ms
-        k6["plain_ms"] += mult * p_ms
-        k6["bytes"] += mult * 2.0 * real
-        k6["ops"] += mult * 26.0 * real          # byte maxima, outside the tensor cores
-        k6["pools"] += mult
-        log(f"K6 max_pool3d_i8 {tuple(xq.shape)} x{mult}: equal; kernel {k_ms:.4f} ms "
-            f"plain {p_ms:.4f} ms bound {bound_ms(2.0 * real, 26.0 * real)[0]:.4f} ms")
     k5["ms"] = k5["conv_ms"] + k5["quantize_ms"]
     k5["bound_ms"], k5["bound_by"] = bound_ms(k5["bytes"], k5["ops"], INT8_TC_OPS)
     k5["bound_ms_old_count"] = bound_ms(k5["bytes_old"], k5["ops"], INT8_TC_OPS)[0]
-    k6["bound_ms"], k6["bound_by"] = bound_ms(k6["bytes"], k6["ops"])
     log(f"K5 over one forward at batch {S3D_BATCH}: {k5['convs']} convs ({k5['fused']} "
         f"quantizing for the next) {k5['conv_ms']:.4f} ms + {k5['quantizes']} quantize passes "
         f"{k5['quantize_ms']:.4f} ms = {k5['ms']:.4f} ms; plain {k5['plain_ms']:.4f} ms; "
@@ -884,10 +1002,7 @@ def k5_k6_phase(rng, dev, calls) -> tuple:
         f"{k5['bound_ms_old_count']:.4f} ms); "
         f"{k5['ops'] / k5['conv_ms'] / 1e9:.1f} int8 TOP/s; the 1x1x1 convs {k5['ms_1x1x1']:.4f} "
         f"ms against torch._int_mm's GEMMs alone {k5['library_ms']:.4f} ms")
-    log(f"K6 over one forward's {k6['pools']} pools at batch {S3D_BATCH}: kernel "
-        f"{k6['ms']:.4f} ms plain {k6['plain_ms']:.4f} ms bound {k6['bound_ms']:.4f} ms "
-        f"({k6['bound_by']})")
-    return k5, k6
+    return k5
 
 
 def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
@@ -951,7 +1066,14 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
     if per_forward != S3D_INT8_CALLS:
         raise AssertionError(f"a ca_s3d int8 forward makes {S3D_INT8_CALLS}, recorded "
                              f"{per_forward}")
-    k5, k6 = k5_k6_phase(rng, dev, calls)
+    pools = {}
+    for (xs, _), mult in calls["pool"].items():
+        pools[xs] = pools.get(xs, 0) + mult
+    if pools != s3d_pool_shapes(S3D_CHECK_BATCH):
+        raise AssertionError(f"the int8 forward pooled {pools}, the spec gives "
+                             f"{s3d_pool_shapes(S3D_CHECK_BATCH)}")
+    k5 = k5_phase(rng, dev, calls)
+    k6 = k6_phase(rng, dev)
     torch.cuda.empty_cache()
 
     # ---- 13. S3D int8 main path ------------------------------------------------------
@@ -983,7 +1105,7 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
     if profile:
         profile_forward(lambda: ev.predict_batch(clips), f"S3D fp32 predict_batch {S3D_BATCH}")
         profile_forward(lambda: ev8.predict_batch(clips), f"S3D int8 predict_batch {S3D_BATCH}",
-                        expect=("conv_wgmma", "qwg::quantize_rows"))
+                        expect=("conv_wgmma", "qwg::quantize_rows", "max_pool3d_i8_sep"))
     with torch.no_grad():
         x32 = torch.from_numpy(clips).to(dev).float().permute(0, 4, 1, 2, 3)
         a, b = s3d(x32).double(), ev8.engine(x32).double()
@@ -1102,19 +1224,7 @@ def main() -> int:
                        for i in range(0, 40, 5)])
     tiles, split, offs = ex.make_tiles(frames)
     dets, valid = det.predict_on_batch(tiles, apply_nms=False)
-    offsets = torch.as_tensor(offs, device=dev)
-    err_a, n_a, ms_a, pms_a, _ = compare_k1(dets, valid, float(split), offsets, (1080.0, 1920.0), 3)
-    log(f"K1 real dets (16 frames, 8 with the synthetic face, T=3): faces {n_a} "
-        f"max_abs_err {err_a:.3g} kernel {ms_a:.4f} ms plain {pms_a:.4f} ms")
-    pd_, pv_ = planted_dets(rng)
-    pd = torch.from_numpy(pd_).to(dev)
-    pv = torch.from_numpy(pv_).to(dev)
-    err_b, n_b, ms_b, pms_b, nbytes_b = compare_k1(pd, pv, 1080.0, offsets, (1080.0, 1920.0), 3)
-    if n_b == 0:
-        raise AssertionError("K1 planted dets produced no faces")
-    k1_bound, k1_by = bound_ms(nbytes_b, 8 * pd.shape[0] // 3 * 2688 * 20)
-    log(f"K1 planted dets (16 frames, T=3): faces {n_b} max_abs_err {err_b:.3g} "
-        f"kernel {ms_b:.4f} ms plain {pms_b:.4f} ms bound {k1_bound:.5f} ms ({k1_by})")
+    k1 = k1_phase(rng, dev, (dets, valid, split, torch.as_tensor(offs, device=dev)))
 
     # ---- 5. main path ------------------------------------------------------
     cfg = Config()
@@ -1294,9 +1404,11 @@ def main() -> int:
         {"name": "K1_frame_detections", "route": "cuda",
          "source": "fac_fake_torch/csrc/frame_detections.cu",
          "replaces": "fac_fake_tpu/detect/extractor.py:73",
-         "launches": launches["K1"], "max_abs_err": max(err_a, err_b),
-         "ms": ms_b, "kernel_ms": ms_b, "plain_ms": pms_b, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "launches": launches["K1"], "max_abs_err": k1["err"],
+         "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
+         "load_ms": k1["load_ms"],
+         "shapes": "the planted 16-frame T=3 chunk, (16, 2688, 17); load_ms: with no step"},
         {"name": "K2_normalize_imagenet", "route": "cuda",
          "source": "fac_fake_torch/csrc/normalize.cu",
          "replaces": "fac_fake_tpu/ops/preprocess.py:25",
@@ -1354,6 +1466,10 @@ def main() -> int:
          "launches": s3d["launches"]["K6"], "max_abs_err": k6["err"],
          "ms": k6["ms"], "kernel_ms": k6["ms"], "plain_ms": k6["plain_ms"],
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"], "library_ms": None,
+         "warm_ms": k6["warm_ms"], "copy_ms": k6["copy_ms"],
+         "timing": "ms: cold, the launches rotating over buffers of more than twice the L2; "
+                   "warm_ms: one input again and again; copy_ms: torch copy_ of the same "
+                   "tensors, cold (a yardstick, not the same function)",
          "shapes": f"the 9 int8 pools of one ca_s3d int8 forward, batch {S3D_BATCH}"},
     ]
     log(json.dumps({"kernels": rows}))

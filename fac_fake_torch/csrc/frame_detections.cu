@@ -8,14 +8,35 @@
 //
 // Bound on the H100: latency. One chunk of 16 landscape frames reads
 // 16 x 2688 x 17 x 4 B = 2.9 MB, about 1 us at 3.35 TB/s; the 8 steps are
-// sequential, each a block-wide argmax and a block-wide sum. Design: one
-// 512-thread CTA per frame keeps the frame's boxes and scores in shared
-// memory (24 B per anchor) for all 8 steps, so after the first read every
-// step costs two block reductions and no trip to device memory except the
-// cluster members' 16 coordinates.
+// sequential, each an argmax and a cluster sum over the frame, and the chain
+// of barriers between them sets the time. Design: one 512-thread CTA per
+// frame, one barrier a step.
+//  * Load pass: the frame's detector rows come into dynamic shared memory
+//    once, by 16-byte cp.async copies (68 bytes an anchor; an odd stride of
+//    17 words, so a warp reading one column of 32 anchors hits 32 banks).
+//    Each thread keeps its anchors' frame boxes, areas and working scores in
+//    registers (anchors tid + k * 512, k < 6), and computes its candidate for
+//    the first seed in the same pass.
+//  * A step: every thread tests its anchors that can still join a cluster
+//    (score > 0) against the seed, adds its cluster members' 16 frame
+//    coordinates (from shared memory) times their scores in fp64,
+//    suppresses them, and takes its candidate for the next seed over its
+//    anchors' new scores. The keys of anchors that can join no cluster
+//    (invalid, suppressed, NaN, <= 0) do not change, so a thread folds each
+//    into one running key once, when it loads or suppresses the anchor, and
+//    a step costs the frame's live anchors, not all of its anchors. One
+//    combined reduction gives this step's sums and the next seed: warp
+//    shuffles (a warp with no
+//    member skips the fp64 shuffles of its 17 sums, which would add exact
+//    zeros), one exchange through shared memory (double-buffered by step),
+//    one barrier. Then 17 lanes of warp 0 form the cross-warp sums at once,
+//    each lane its column over the warps in warp order, and write the
+//    step's row; every warp reads the next seed from the same exchange.
 //
 // Semantics kept from the JAX scan:
-//  * argmax: NaN first, then the largest score, ties to the lowest index;
+//  * argmax: NaN first, then the largest score, ties to the lowest index
+//    (an order key: the score's bits mapped to an unsigned order above the
+//    complemented index, -0 taken as +0);
 //  * IoU = inter / (area_a + area_b - inter) in IEEE fp32, so a zero-area
 //    seed gets 0/0 = NaN against itself, falls out of its own cluster
 //    (n = 0), is not suppressed and is picked again next step;
@@ -37,8 +58,11 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 6;                           // anchors a thread
+constexpr int kMaxAnchors = kThreads * kPer;      // 3072; a frame has T x 896 <= 2688
 constexpr int kCols = 17;
 constexpr int kCoords = 16;
+constexpr int kMaxSmem = kMaxAnchors * kCols * static_cast<int>(sizeof(float));
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -49,12 +73,35 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return (isnan(a) || isnan(b)) ? nanf("") : fminf(a, b);
 }
 
-// jnp.argmax order: NaN beats everything, then larger, ties -> lower index.
-__device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
-  const bool an = isnan(a), bn = isnan(b);
-  if (an != bn) return an;
-  if (!an && a != b) return a > b;
-  return ia < ib;
+// jnp.argmax order as one unsigned 64-bit key, larger = better: NaN above
+// every number, then the score's order (-0 as +0), then the lower index.
+// 0 is below every anchor's key.
+__device__ __forceinline__ unsigned long long order_key(float v, int idx) {
+  unsigned u = 0xffffffffu;
+  if (!isnan(v)) {
+    u = __float_as_uint(v == 0.0f ? 0.0f : v);
+    u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  }
+  return (static_cast<unsigned long long>(u) << 32) | (~static_cast<unsigned>(idx));
+}
+
+__device__ __forceinline__ int key_index(unsigned long long key) {
+  return static_cast<int>(~static_cast<unsigned>(key));
+}
+
+// the keyed score is > 0 (not NaN, above the key of +0)
+__device__ __forceinline__ bool key_positive(unsigned long long key) {
+  const unsigned u = static_cast<unsigned>(key >> 32);
+  return u != 0xffffffffu && u > 0x80000000u;
+}
+
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long k) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long ok = __shfl_xor_sync(kFull, k, o);
+    k = ok > k ? ok : k;
+  }
+  return k;
 }
 
 // Box columns 0..3: even = y, odd = x. Keypoint columns 4..15: even = x, odd = y.
@@ -63,148 +110,173 @@ __device__ __forceinline__ float frame_coord(float raw, int col, float split, fl
   return raw * split + (is_y ? yo : xo);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 frame_detections_kernel(const float* __restrict__ dets, const uint8_t* __restrict__ valid,
                         const float* __restrict__ offsets, float split, float fh, float fw,
                         int T, int A, int max_out, float iou_thresh, float margin,
                         int apply_margin, float* __restrict__ faces, uint8_t* __restrict__ mask) {
-  extern __shared__ float4 smem[];
+  extern __shared__ __align__(16) float s_rows[];   // the frame's N x 17 detector rows
+  __shared__ double s_sum[2][kWarps][kCols];          // a warp's 16 coordinate sums, total
+  __shared__ int s_n[2][kWarps];                      // a warp's cluster members
+  __shared__ unsigned long long s_key[2][kWarps];     // a warp's next-seed candidate
+
   const int N = T * A;
-  float4* s_box = smem;                                   // (y0, x0, y1, x1) in frame coords
-  float* s_score = reinterpret_cast<float*>(s_box + N);  // working scores (-1 = gone)
-  float* s_raw = s_score + N;                             // detector scores
-
-  __shared__ float s_wv[kWarps];
-  __shared__ int s_wi[kWarps];
-  __shared__ int s_seed;
-  __shared__ double s_red[kWarps][kCoords + 1];
-  __shared__ int s_n[kWarps];
-
   const int f = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* D = dets + static_cast<size_t>(f) * N * kCols;
   const uint8_t* V = valid + static_cast<size_t>(f) * N;
 
-  for (int a = tid; a < N; a += kThreads) {
-    const int t = a / A;
-    const float yo = offsets[2 * t], xo = offsets[2 * t + 1];
-    const float* r = D + static_cast<size_t>(a) * kCols;
-    s_box[a] = make_float4(r[0] * split + yo, r[1] * split + xo, r[2] * split + yo,
-                           r[3] * split + xo);
-    const float s = r[kCoords];
-    s_raw[a] = s;
-    s_score[a] = V[a] ? s : -1.0f;
+  // --- load pass --------------------------------------------------------------
+  const int words = N * kCols;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(D) & 15) == 0) {
+    done = words & ~3;
+    for (int i = 4 * tid; i < done; i += 4 * kThreads) cp_async16(s_rows + i, D + i);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
+  for (int i = done + tid; i < words; i += kThreads) s_rows[i] = D[i];
   __syncthreads();
 
-  for (int step = 0; step < max_out; ++step) {
-    // --- seed: block-wide argmax -----------------------------------------
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int a = tid; a < N; a += kThreads) {
-      const float v = s_score[a];
-      if (better(v, a, bv, bi)) { bv = v; bi = a; }
+  float y0[kPer], x0[kPer], y1[kPer], x1[kPer], area[kPer], score[kPer];
+  unsigned long long fixed = 0;   // the best key of this thread's anchors that cannot join
+  unsigned long long best = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int a = tid + k * kThreads;
+    score[k] = -1.0f;
+    if (a < N) {
+      const int t = a / A;
+      const float yo = offsets[2 * t], xo = offsets[2 * t + 1];
+      const float* r = s_rows + a * kCols;
+      y0[k] = r[0] * split + yo;
+      x0[k] = r[1] * split + xo;
+      y1[k] = r[2] * split + yo;
+      x1[k] = r[3] * split + xo;
+      area[k] = (y1[k] - y0[k]) * (x1[k] - x0[k]);
+      score[k] = V[a] ? r[kCoords] : -1.0f;
+      const unsigned long long key = order_key(score[k], a);
+      if (score[k] > 0.0f)
+        best = key > best ? key : best;
+      else
+        fixed = key > fixed ? key : fixed;
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, o);
-      const int oi = __shfl_xor_sync(kFull, bi, o);
-      if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
-    if (lane == 0) { s_wv[warp] = bv; s_wi[warp] = bi; }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < kWarps ? s_wv[lane] : -INFINITY;
-      bi = lane < kWarps ? s_wi[lane] : 0x7fffffff;
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(kFull, bv, o);
-        const int oi = __shfl_xor_sync(kFull, bi, o);
-        if (better(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-      }
-      if (lane == 0) s_seed = bi;
-    }
-    __syncthreads();
-    const int idx = s_seed;
-    const float seed_score = s_score[idx];
-    const float4 sb = s_box[idx];
-    __syncthreads();  // every thread holds the seed before any suppression
+  }
+  best = fixed > best ? fixed : best;
 
-    // --- cluster, its weighted sums, suppression ---------------------------
-    const float area_a = (sb.z - sb.x) * (sb.w - sb.y);
-    double acc[kCoords];
+  // The combined reduction of round `p` (0: the first seed; step s: s + 1):
+  // this thread's cluster sums (n members) and its next-seed candidate.
+  double acc[kCoords + 1];
+  int n = 0;
+  int p = 0;
+  {
+    best = warp_max(best);
+    if (lane == 0) s_key[0][warp] = best;
+    __syncthreads();
+  }
+  for (int step = 0; step < max_out; ++step) {
+    // every warp: the seed from round p's candidates
+    unsigned long long seed = warp_max(lane < kWarps ? s_key[p][lane] : 0ull);
+    const int idx = key_index(seed);
+    const int ts = idx / A;
+    const float syo = offsets[2 * ts], sxo = offsets[2 * ts + 1];
+    const float* sr = s_rows + idx * kCols;
+    const float sy0 = sr[0] * split + syo, sx0 = sr[1] * split + sxo;
+    const float sy1 = sr[2] * split + syo, sx1 = sr[3] * split + sxo;
+    const float area_a = (sy1 - sy0) * (sx1 - sx0);
+
+    // --- cluster, its weighted sums, suppression, the next seed's candidate --
 #pragma unroll
-    for (int c = 0; c < kCoords; ++c) acc[c] = 0.0;
-    double tot = 0.0;
-    int n = 0;
-    for (int a = tid; a < N; a += kThreads) {
-      const float4 b = s_box[a];
-      const float ih = nan_max(nan_min(sb.z, b.z) - nan_max(sb.x, b.x), 0.0f);
-      const float iw = nan_max(nan_min(sb.w, b.w) - nan_max(sb.y, b.y), 0.0f);
-      const float inter = ih * iw;
-      const float area_b = (b.z - b.x) * (b.w - b.y);
-      const float iou = inter / (area_a + area_b - inter);
-      if (iou > iou_thresh && s_score[a] > 0.0f) {
-        const float wgt = s_raw[a];
-        const int t = a / A;
-        const float yo = offsets[2 * t], xo = offsets[2 * t + 1];
-        const float* r = D + static_cast<size_t>(a) * kCols;
+    for (int c = 0; c <= kCoords; ++c) acc[c] = 0.0;
+    n = 0;
+    best = fixed;
 #pragma unroll
-        for (int c = 0; c < kCoords; ++c)
-          acc[c] += static_cast<double>(frame_coord(r[c], c, split, yo, xo)) *
-                    static_cast<double>(wgt);
-        tot += static_cast<double>(wgt);
-        ++n;
-        s_score[a] = -1.0f;
+    for (int k = 0; k < kPer; ++k) {
+      const int a = tid + k * kThreads;
+      if (a < N && score[k] > 0.0f) {
+        const float ih = nan_max(nan_min(sy1, y1[k]) - nan_max(sy0, y0[k]), 0.0f);
+        const float iw = nan_max(nan_min(sx1, x1[k]) - nan_max(sx0, x0[k]), 0.0f);
+        const float inter = ih * iw;
+        const float iou = inter / (area_a + area[k] - inter);
+        if (iou > iou_thresh) {
+          const double wgt = static_cast<double>(score[k]);
+          const int t = a / A;
+          const float yo = offsets[2 * t], xo = offsets[2 * t + 1];
+          const float* r = s_rows + a * kCols;
+#pragma unroll
+          for (int c = 0; c < kCoords; ++c)
+            acc[c] += static_cast<double>(frame_coord(r[c], c, split, yo, xo)) * wgt;
+          acc[kCoords] += wgt;
+          ++n;
+          score[k] = -1.0f;
+          const unsigned long long key = order_key(-1.0f, a);
+          fixed = key > fixed ? key : fixed;
+        } else {
+          const unsigned long long key = order_key(score[k], a);
+          best = key > best ? key : best;
+        }
       }
     }
-    for (int o = 16; o > 0; o >>= 1) {
+    best = fixed > best ? fixed : best;
+
+    // --- one combined reduction -------------------------------------------------
+    p ^= 1;
+    best = warp_max(best);
+    const int wn = __reduce_add_sync(kFull, n);
+    if (wn > 0) {   // warp-uniform: only a warp holding a member shuffles its sums
+      for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
-      for (int c = 0; c < kCoords; ++c) acc[c] += __shfl_xor_sync(kFull, acc[c], o);
-      tot += __shfl_xor_sync(kFull, tot, o);
-      n += __shfl_xor_sync(kFull, n, o);
+        for (int c = 0; c <= kCoords; ++c) acc[c] += __shfl_xor_sync(kFull, acc[c], o);
+      }
     }
     if (lane == 0) {
+      s_key[p][warp] = best;
+      s_n[p][warp] = wn;
 #pragma unroll
-      for (int c = 0; c < kCoords; ++c) s_red[warp][c] = acc[c];
-      s_red[warp][kCoords] = tot;
-      s_n[warp] = n;
+      for (int c = 0; c <= kCoords; ++c) s_sum[p][warp][c] = acc[c];
     }
     __syncthreads();
 
-    // --- output row --------------------------------------------------------
-    if (tid == 0) {
-      float row[kCols];
+    // --- this step's row: 17 lanes of warp 0, one column each -----------------
+    if (warp == 0) {
       int nt = 0;
-      double tt = 0.0;
-      for (int w = 0; w < kWarps; ++w) { nt += s_n[w]; tt += s_red[w][kCoords]; }
+      double sc = 0.0;
+      const int c = lane < kCols ? lane : kCoords;
+      for (int w = 0; w < kWarps; ++w) {
+        nt += s_n[p][w];
+        sc += s_sum[p][w][c];
+      }
+      float v;
       if (nt > 1) {
-        const float total = static_cast<float>(tt);
+        const float total = static_cast<float>(__shfl_sync(kFull, sc, kCoords));
         const float denom = nan_max(total, 1e-20f);
-        for (int c = 0; c < kCoords; ++c) {
-          double sc = 0.0;
-          for (int w = 0; w < kWarps; ++w) sc += s_red[w][c];
-          row[c] = static_cast<float>(sc) / denom;
-        }
-        row[kCoords] = total / static_cast<float>(nt);  // nt > 1 = max(n, 1)
+        v = c < kCoords ? static_cast<float>(sc) / denom
+                        : total / static_cast<float>(nt);   // nt > 1 = max(n, 1)
       } else {
-        const int t = idx / A;
-        const float yo = offsets[2 * t], xo = offsets[2 * t + 1];
-        const float* r = D + static_cast<size_t>(idx) * kCols;
-        for (int c = 0; c < kCoords; ++c) row[c] = frame_coord(r[c], c, split, yo, xo);
-        row[kCoords] = r[kCoords];
+        v = c < kCoords ? frame_coord(sr[c], c, split, syo, sxo) : sr[kCoords];
       }
       if (apply_margin) {
-        const float off = rintf(margin * (row[2] - row[0]));
-        row[0] = nan_max(row[0] - off * 2.0f, 0.0f);
-        row[1] = nan_max(row[1] - off, 0.0f);
-        row[2] = nan_min(row[2] + off, fh);
-        row[3] = nan_min(row[3] + off, fw);
+        const float r0 = __shfl_sync(kFull, v, 0), r2 = __shfl_sync(kFull, v, 2);
+        const float off = rintf(margin * (r2 - r0));
+        if (lane == 0) v = nan_max(v - off * 2.0f, 0.0f);
+        if (lane == 1) v = nan_max(v - off, 0.0f);
+        if (lane == 2) v = nan_min(v + off, fh);
+        if (lane == 3) v = nan_min(v + off, fw);
       }
-      float* out = faces + (static_cast<size_t>(f) * max_out + step) * kCols;
-      for (int c = 0; c < kCols; ++c) out[c] = row[c];
-      mask[static_cast<size_t>(f) * max_out + step] = seed_score > 0.0f ? 1 : 0;
+      if (lane < kCols) faces[(static_cast<size_t>(f) * max_out + step) * kCols + lane] = v;
+      if (lane == 0) mask[static_cast<size_t>(f) * max_out + step] = key_positive(seed) ? 1 : 0;
     }
-    __syncthreads();  // suppression and s_red reads done before the next step
   }
+}
+
+cudaError_t set_smem_once() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      frame_detections_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  return err;
 }
 
 }  // namespace
@@ -212,16 +284,18 @@ frame_detections_kernel(const float* __restrict__ dets, const uint8_t* __restric
 // dets (F, T*A, 17) fp32, valid (F, T*A) bool, offsets (T, 2) fp32 [y, x],
 // all on the device; faces (F, max_out, 17) fp32 and mask (F, max_out) bool
 // written. apply_margin == 0 skips the margin clamp (plain weighted NMS).
+// T * A <= 3072 (512 threads x 6 anchors in registers).
 extern "C" int fac_frame_detections(const float* dets, const uint8_t* valid,
                                     const float* offsets, float split, float fh, float fw,
                                     int F, int T, int A, int max_out, float iou_thresh,
                                     float margin, int apply_margin, float* faces,
                                     uint8_t* mask, void* stream) {
-  const size_t smem = static_cast<size_t>(T) * A * (sizeof(float4) + 2 * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      frame_detections_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const long long n = static_cast<long long>(T) * A;
+  if (n <= 0 || n > kMaxAnchors) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = set_smem_once();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (F > 0) {
+    const size_t smem = static_cast<size_t>(n) * kCols * sizeof(float);
     frame_detections_kernel<<<F, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         dets, valid, offsets, split, fh, fw, T, A, max_out, iou_thresh, margin, apply_margin,
         faces, mask);

@@ -160,6 +160,8 @@ def weighted_nms_plain(coords: torch.Tensor, score: torch.Tensor, valid: torch.T
         scores = torch.where(cluster, torch.full_like(scores, -1.0), scores)
         faces.append(out)
         mask.append(seed_score > 0.0)
+    if not faces:                                 # max_out = 0
+        return rows[:, :0], valid[:, :0]
     return torch.stack(faces, dim=1), torch.stack(mask, dim=1)
 
 

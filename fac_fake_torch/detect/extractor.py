@@ -26,6 +26,9 @@ from fac_fake_torch.ops.resize import resize_area
 
 MAX_FACES = 8
 MARGIN = 0.2
+# K1 holds a frame in one CTA: 512 threads keep 6 anchors each in registers,
+# and the anchors' 68-byte rows fill 204 KiB of its shared memory
+K1_MAX_ANCHORS = 512 * 6
 
 
 def tile_geometry(h: int, w: int) -> Tuple[int, int, List[Tuple[int, int]]]:
@@ -110,9 +113,9 @@ def frame_detections(dets: torch.Tensor, valid: torch.Tensor, split: float = 1.0
     kernels.require_cuda(dets, "frame_detections dets", torch.float32, (None, None, 17))
     kernels.require_cuda(valid, "frame_detections valid", torch.bool, (f, n))
     kernels.require_cuda(offsets, "frame_detections offsets", torch.float32, (None, 2))
-    if n % t or n * 24 > 200_000:
+    if n % t or n > K1_MAX_ANCHORS:
         raise ValueError(f"frame_detections: {n} anchors over {t} tiles does not "
-                         "fit one CTA's shared memory")
+                         f"fit one CTA (at most {K1_MAX_ANCHORS} anchors a frame)")
     faces = torch.empty((f, max_out, 17), dtype=torch.float32, device=dets.device)
     mask = torch.empty((f, max_out), dtype=torch.bool, device=dets.device)
     fh, fw = frame_hw

@@ -3,12 +3,17 @@
 share shows against the spread between runs:
 
     python3 -m fac_fake_torch.utils.kernel_pairs PARENT_ROOT [--root .] [--phase k3]
+        [--phases-from ROOT]
 
 PARENT_ROOT is an unpacked checkout of the other tree (``git archive``).
-Each turn is a process of its own that imports ``chip_smoke`` and
-``fac_fake_torch`` from its tree, builds that tree's kernels into its own
-build directory, runs ``chip_smoke.<phase>_phase`` on the seeded inputs of
-seed 0 and prints the phase's total kernel ms. Needs a card.
+Each turn is a process of its own that imports ``fac_fake_torch`` from its
+tree, builds that tree's kernels into its own build directory, runs
+``chip_smoke.<phase>_phase`` on the seeded inputs of seed 0 and prints the
+phase's total kernel ms. The phase code is each tree's own
+``chip_smoke.py``, or with ``--phases-from`` the one in ROOT for both
+turns: a parent that predates a phase, or times it another way, then runs
+the same checks and timing on its own kernels (the kernels' C interfaces
+must be the same). Needs a card.
 """
 from __future__ import annotations
 
@@ -19,26 +24,32 @@ import sys
 from pathlib import Path
 
 TURN = """
-import json, sys
+import importlib.util, json, sys
 sys.path.insert(0, {root!r})
 import numpy as np, torch
-import chip_smoke as cs
+spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import fac_fake_torch
+print("turn: fac_fake_torch from " + fac_fake_torch.__file__ + ", phases from " + cs.__file__,
+      flush=True)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 tot = getattr(cs, {phase!r} + "_phase")(np.random.default_rng(0), torch.device("cuda"))
-print("TOTAL " + json.dumps({{"ms": tot["ms"]}}), flush=True)
+print("TOTAL " + json.dumps({{k: v for k, v in tot.items() if isinstance(v, float)}}), flush=True)
 """
 
 
-def turn(root: Path, phase: str) -> float:
-    out = subprocess.run([sys.executable, "-c", TURN.format(root=str(root), phase=phase)],
-                         cwd=root, capture_output=True, text=True, timeout=900)
+def turn(root: Path, phase: str, smoke: Path) -> dict:
+    code = TURN.format(root=str(root), phase=phase, smoke=str(smoke))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=900)
     sys.stdout.write(out.stdout)
     if out.returncode != 0:
         sys.stdout.write(out.stderr)
         raise SystemExit(f"{phase} from {root}: exit {out.returncode}")
     last = [line for line in out.stdout.splitlines() if line.startswith("TOTAL ")][-1]
-    return json.loads(last[len("TOTAL "):])["ms"]
+    return json.loads(last[len("TOTAL "):])
 
 
 def main() -> int:
@@ -47,16 +58,23 @@ def main() -> int:
     ap.add_argument("parent", type=Path)
     ap.add_argument("--root", type=Path, default=Path("."))
     ap.add_argument("--phase", default="k3")
+    ap.add_argument("--phases-from", type=Path, default=None,
+                    help="the tree whose chip_smoke.py both turns run (default: each its own)")
     args = ap.parse_args()
     order = [("parent", args.parent), ("change", args.root), ("change", args.root),
              ("parent", args.parent)]
     ms = {"parent": [], "change": []}
+    totals = {"parent": [], "change": []}
     for name, root in order:
-        ms[name].append(turn(root.resolve(), args.phase))
-        print(f"{args.phase} pairs: {name} {ms[name][-1]:.4f} ms", flush=True)
+        root = root.resolve()
+        smoke = (args.phases_from.resolve() if args.phases_from else root) / "chip_smoke.py"
+        tot = turn(root, args.phase, smoke)
+        ms[name].append(tot["ms"])
+        totals[name].append(tot)
+        print(f"{args.phase} pairs: {name} {tot['ms']:.4f} ms", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"phase": args.phase, "card": smi, **ms}))
+    print(json.dumps({"phase": args.phase, "card": smi, **ms, "totals": totals}))
     return 0
 
 

@@ -100,6 +100,23 @@ def test_weighted_nms_single_image_matches_jax():
     np.testing.assert_allclose(tf_.numpy()[jm], jf[jm], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("steps", [0, 1, 3])
+def test_frame_detections_plain_steps_are_a_prefix(steps):
+    """The scan's first k steps are the first k rows of a longer run, down to
+    no step at all ((F, 0, 17) faces and (F, 0) mask, as K1 writes them)."""
+    from fac_fake_torch.detect import extractor as tex
+
+    dets, valid = planted(3, 4, 3)
+    d = torch.from_numpy(dets).reshape(4, 3 * 896, 17)
+    v = torch.from_numpy(valid).reshape(4, 3 * 896)
+    offs = torch.tensor([[0.0, 0.0], [0.0, 420.0], [0.0, 840.0]])
+    args = (1080.0, offs, (1080.0, 1920.0))
+    f8, m8 = tex.frame_detections(d, v, *args, max_out=8)
+    fk, mk = tex.frame_detections(d, v, *args, max_out=steps)
+    assert fk.shape == (4, steps, 17) and mk.shape == (4, steps) and mk.dtype == torch.bool
+    assert torch.equal(fk, f8[:, :steps]) and torch.equal(mk, m8[:, :steps])
+
+
 def test_kernel_wrappers_raise_on_bad_cuda_input_not_fall_back():
     """A CUDA tensor never takes the plain path: the wrappers check it and
     launch or raise. Here (no card) a non-CUDA tensor the CUDA checks would

@@ -79,6 +79,101 @@ def test_k1_frame_detections_equals_plain(dev, t, margin):
     torch.testing.assert_close(kf[km], pf[km], rtol=1e-5, atol=1e-3)
 
 
+def _k1_frame(rng, kind, t=3):
+    """One frame's (T·896, 17) dets and validity: planted clusters, or one
+    edge case: no valid anchor; valid NaN scores; a zero-area seed above a
+    cluster (picked at every step); a cluster whose members lie in several
+    warps of K1's CTA (anchor a is thread a % 512)."""
+    n = t * 896
+    d = rng.uniform(0, 0.8, (n, 17)).astype(np.float32)
+    d[:, 2:4] = d[:, 0:2] + 0.15
+    d[:, 16] = rng.uniform(0.0, 0.7, n)
+    for c, a0 in enumerate((40, 300)):          # two clusters, 5 members each
+        y, x = rng.uniform(0.05, 0.6, 2)
+        for j in range(5):
+            a = a0 + 7 * j
+            jy, jx = rng.normal(0, 0.01, 2)
+            d[a, :4] = [y + jy, x + jx, y + 0.3 + jy, x + 0.3 + jx]
+            d[a, 16] = 0.9 if j < 2 else rng.uniform(0.75, 0.95)
+    v = d[:, 16] >= 0.75
+    if kind == "no_valid":
+        v[:] = False
+    elif kind == "nan":
+        d[[41, n - 2], 16] = np.nan
+        v[[41, n - 2]] = True
+        d[[5, 6], 16] = np.nan                   # invalid: their score is not read
+        v[[5, 6]] = False
+    elif kind == "zero_area":
+        d[500, :4] = [0.5, 0.5, 0.5, 0.5]
+        d[500, 16] = 0.99
+        v[500] = True
+    elif kind == "across_warps":
+        y, x = 0.2, 0.3
+        for j, a in enumerate(a for a in (7, 45, 200, 511, 545, 1500, n - 1) if a < n):
+            d[a, :4] = [y + 0.002 * j, x, y + 0.3, x + 0.3 - 0.001 * j]
+            d[a, 16] = 0.8 + 0.02 * j
+            v[a] = True
+    return d, v
+
+
+@pytest.mark.parametrize("kind", ["planted", "no_valid", "nan", "zero_area", "across_warps"])
+def test_k1_edge_frames_equal_plain(dev, kind):
+    """One frame (F = 1) of each kind: masks equal, and every row (masked
+    or not, NaN where both are NaN) within the smoke's tolerance."""
+    from fac_fake_torch.detect import extractor as ex
+
+    d, v = _k1_frame(np.random.default_rng(11), kind)
+    dets = torch.from_numpy(d[None]).to(dev)
+    valid = torch.from_numpy(v[None]).to(dev)
+    offsets = torch.tensor([[0.0, 420.0 * i] for i in range(3)], device=dev)
+    args = (1080.0, offsets, (1080.0, 1920.0), 8, 0.3, 0.2)
+    kf, km = ex.frame_detections(dets, valid, *args)
+    pf, pm = ex.frame_detections_plain(dets, valid, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(km, pm)
+    torch.testing.assert_close(kf, pf, rtol=1e-5, atol=1e-3, equal_nan=True)
+    if kind == "zero_area":                      # picked again: its row at every step
+        assert torch.equal(kf[0, :, 0], torch.full_like(kf[0, :, 0], kf[0, 0, 0]))
+    if kind in ("no_valid", "nan"):
+        assert not bool(km.any())
+    if kind == "across_warps":
+        assert bool(km[0, 0])
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_k1_33_frames_of_every_kind_equal_plain(dev, t):
+    """33 frames (more than one chunk), 8, 3 and no steps."""
+    from fac_fake_torch.detect import extractor as ex
+
+    rng = np.random.default_rng(12 + t)
+    kinds = ["planted", "no_valid", "nan", "zero_area", "across_warps"]
+    frames = [_k1_frame(rng, kinds[i % len(kinds)], t) for i in range(33)]
+    dets = torch.from_numpy(np.stack([d for d, _ in frames])).to(dev)
+    valid = torch.from_numpy(np.stack([v for _, v in frames])).to(dev)
+    offsets = torch.tensor([[0.0, 420.0 * i] for i in range(t)], device=dev)
+    for steps, margin in ((8, 0.2), (8, None), (3, 0.2), (0, 0.2)):
+        args = (1080.0, offsets, (1080.0, 1920.0), steps, 0.3, margin)
+        kf, km = ex.frame_detections(dets, valid, *args)
+        pf, pm = ex.frame_detections_plain(dets, valid, *args)
+        torch.cuda.synchronize()
+        assert kf.shape == (33, steps, 17) and torch.equal(km, pm)
+        assert steps == 0 or bool(km.any())
+        torch.testing.assert_close(kf, pf, rtol=1e-5, atol=1e-3, equal_nan=True)
+
+
+def test_k1_refuses_more_anchors_than_a_cta_holds(dev):
+    from fac_fake_torch.detect import extractor as ex
+
+    n = ex.K1_MAX_ANCHORS + 4
+    dets = torch.zeros((1, n, 17), device=dev)
+    valid = torch.zeros((1, n), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="does not fit one CTA"):
+        ex.frame_detections(dets, valid, offsets=torch.zeros((4, 2), device=dev))
+    faces, mask = ex.frame_detections(dets[:, :ex.K1_MAX_ANCHORS], valid[:, :ex.K1_MAX_ANCHORS])
+    torch.cuda.synchronize()
+    assert faces.shape == (1, 8, 17) and not bool(mask.any())
+
+
 def _quant_inputs(rng, x_shape, n_out, k_in, dev, dtype):
     """Activations with exact .5 quantization ties and values past ±127
     quanta (x_scale = 2^-4), int8 weights, per-channel scales and bias."""
@@ -364,8 +459,17 @@ def test_k4_k5_libraries_run_on_wgmma(dev):
     assert not [p for p in ("quant_mma.cuh", "quant_conv.cu") if (kernels.CSRC / p).exists()]
 
 
-@pytest.mark.parametrize("shape", [(2, 10, 28, 28, 192), (2, 5, 14, 14, 480),
-                                   (2, 2, 7, 7, 832), (1, 3, 5, 4, 16), (1, 1, 1, 1, 32)])
+# the 9 pools of a ca_s3d int8 forward at batch 2 (6 distinct shapes; 480 and
+# 528 channels end in a short chunk of 6 and 1 groups of 16); H not a
+# multiple of K6's 7-row band; T = 1 and 2; W over two column tiles (70
+# columns at 4 groups a chunk, 40 at 8); a chunk of 3 groups (48 channels)
+K6_SHAPES = [(2, 10, 28, 28, 192), (2, 10, 28, 28, 256), (2, 5, 14, 14, 480),
+             (2, 5, 14, 14, 512), (2, 5, 14, 14, 528), (2, 2, 7, 7, 832),
+             (2, 3, 1, 9, 64), (2, 2, 2, 5, 32), (1, 3, 13, 6, 48), (1, 1, 13, 40, 208),
+             (2, 1, 7, 7, 64), (1, 2, 5, 70, 64), (1, 3, 5, 4, 16), (1, 1, 1, 1, 32)]
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES)
 def test_k6_max_pool3d_i8_equals_plain(dev, shape):
     from fac_fake_torch.ops import quant3d as q3
 
@@ -376,6 +480,26 @@ def test_k6_max_pool3d_i8_equals_plain(dev, shape):
     torch.cuda.synchronize()
     assert q3.max_pool3d_i8.launches == before + 1
     assert torch.equal(got, q3.max_pool3d_i8_plain(xq))
+
+
+@pytest.mark.parametrize("shape", [(2, 10, 28, 28, 192), (1, 2, 13, 9, 48), (1, 1, 1, 3, 16)])
+def test_k6_all_negative_with_minus_127_borders(dev, shape):
+    """Every value negative and the border planes, rows and columns at -127:
+    a window at an edge must give -127 or its inner values, never 0 (what a
+    zero fill would give) nor the identity -128."""
+    from fac_fake_torch.ops import quant3d as q3
+
+    x = np.random.default_rng(3).integers(-127, 0, shape, dtype=np.int8)
+    for axis in (1, 2, 3):
+        idx = [slice(None)] * 5
+        for edge in (0, -1):
+            idx[axis] = edge
+            x[tuple(idx)] = -127
+    xq = torch.from_numpy(x).to(dev)
+    got = q3.max_pool3d_i8(xq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, q3.max_pool3d_i8_plain(xq))
+    assert int(got.max()) < 0 and int(got.min()) >= -127
 
 
 def test_k5_k6_refuse_what_they_do_not_take(dev):
