@@ -10,16 +10,24 @@ print what it measured.
 one int8_full CViT forward at batch 96 to phase 9, and of one fp32 and one
 int8 S3D `predict_batch` at batch 32 to phase 13; the int8 breakdowns must
 name K4's and K5's `wgmma` kernels (`dense_wgmma`, `conv_wgmma`, which K3
-runs on too) and their quantize pass (`qwg::quantize_rows`), the S3D one
-K6's `max_pool3d_i8_sep`, and the CViT's no `qmma::` kernel.
+runs on too), their quantize pass (`qwg::quantize_rows`) and K2's
+`normalize_table`, the S3D one K6's `max_pool3d_i8_sep`, and the CViT's no
+`qmma::` kernel.
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
   2. build the six kernels (K1-K6; K3 and K5 are one kernel, five sources) from
      fac_fake_torch/csrc, in parallel;
-  3. K2 (normalize) against its plain version at (96|256, 224, 224, 3), fp32
-     and bf16;
+  3. K2 (`k2_phase`) in its five modes against their plain versions: the
+     normalize to fp32 and bf16 (within K2_TOL), the CViT walk's int8 entry
+     of both (bit-equal to the normalize and quantize pass it replaces) at
+     (96|256, 224, 224, 3), and the raw int8 entry of S3D's stem at
+     (32, 20, 224, 224, 3) (bit-equal to the cast and quantize pass); each
+     on an image of every byte in every channel too; timed cold (launches
+     rotating over buffers beyond the L2) and warm, beside a yardstick of
+     the same bytes (the u8 cast for the fp modes, copy_ of the output's
+     bytes for the int8 ones) and the bound;
   4. K1 (frame detections) against its plain version on real BlazeFace dets
      of seeded 1920x1080 frames and on planted dets (F=16, T=3: clusters,
      exact score ties, a zero-area box), timed on the planted chunk
@@ -36,8 +44,8 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      the quantized base stem at batch 96, fp32 and bf16 (bit-equal): as
      JAX's layer and as the stem's int8 walk runs it (ReLU, and the next
      conv's quantize, in the epilogue); timed as the walk runs the 17 convs
-     and the 1 quantize pass of one forward, the bound counted with and
-     without the fused edges, torch._int_mm beside the deep convs;
+     of one forward (its input from K2's int8 entry), the bound counted with
+     and without the fused edges, torch._int_mm beside the deep convs;
   8. K4 (int8 dense) against its plain version at the 26 denses of one
      int8_full forward at batch 96 (bit-equal), each timed beside
      torch._int_mm on the same int8 operands (the GEMM alone);
@@ -46,11 +54,12 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      videos, `score_video`, `score_crops` and `score_crop_stacks`; launch
      counts of K1-K4 must all be > 0 and K3's whole walks; then
      infer.quantize="int8" through `score_crops` and `score_crop_stacks`;
-     in each mode one forward at batch 96 must run the stem's planned walk
-     (17 K3 launches, 1 quantize pass, no fp ReLU, 1 fp pool; 26 K4
-     launches under int8_full), and under int8_full every K3 call of one
-     forward at batch 96 is held bit-equal to its plain version on the real
-     activations; int8 vs fp32 logits for information;
+     in each mode one forward from the uint8 crops at batch 96 must run the
+     stem's planned walk (K2's int8 entry, no K2 fp launch, 17 K3 launches,
+     0 quantize passes, no fp ReLU, 1 fp pool; 26 K4 launches under
+     int8_full), and under int8_full every K3 call of one such forward, and
+     its K2 int8 entry, is held bit-equal to its plain version on the real
+     crops and activations; int8 vs fp32 logits for information;
  10. full-width int8_full logits on the card against the same quantized
      module on the CPU (plain versions);
  11. S3D fp32 main path: `S3DEvaluator` with the full-width `ca_s3d` (seeded
@@ -58,9 +67,10 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      uint8 clips (clips/s), `predict_video` on one clip (no degradation: the
      card's machine has no cv2), `evaluate` over an in-memory dataset;
  12. K5 (quantize + int8 3D conv) against its plain versions at every
-     conv and quantize of one ca_s3d int8 forward (77 convs, 39 of them
-     quantizing their output for the next conv, 11 quantize passes, 9
-     pools: asserted), the shapes recorded from the wrapper calls, at
+     conv and quantize of one ca_s3d int8 forward from uint8 clips (77
+     convs, 39 of them quantizing their output for the next conv, 10
+     quantize passes, 1 K2 raw entry for the stem conv's input, 9 pools:
+     asserted), the shapes recorded from the wrapper calls, at
      batches 2 and 32, fp32 and bf16 (bit-equal; a fused conv against
      quantize_pad_plain(int8_conv3d_plain(...))); timed over the calls of a
      forward at batch 32, beside torch._int_mm on the 1x1x1 convs'
@@ -73,12 +83,14 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      calibrates), then `predict_batch` at batch 32 (clips/s),
      `predict_video` and `evaluate`; K5 and K6 must launch; int8 vs fp32
      logits for information; the launches are whole forwards of 77 convs,
-     11 quantize passes and 9 pools; then one more int8 forward at batch 32
-     in which every K5 and K6 call, fused ones included, is held bit-equal
-     to its plain version on the same real activations;
+     10 quantize passes, 1 K2 raw entry and 9 pools; then one more int8
+     forward at batch 32 in which every K5 and K6 call, fused ones
+     included, and the K2 raw entry are held bit-equal to their plain
+     versions on the same real clips and activations;
  14. full-width ca_s3d on the card against the same module on the CPU,
-     fp32 and int8 (plain versions), batch 1: the logits, and the head's
-     input features (int8: against the int8-vs-fp32 difference);
+     fp32 and int8 (plain versions; int8 from the uint8 clip), batch 1: the
+     logits, and the head's input features (int8: against the
+     int8-vs-fp32 difference);
  15. the kernels line; 16. the result line.
 """
 from __future__ import annotations
@@ -113,16 +125,20 @@ STEM_CONVS = {(224, 3, 32): 1, (224, 32, 32): 2, (112, 32, 64): 1, (112, 64, 64)
 INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
                (192, 1024, 1024, True): 6, (192, 2048, 1024, True): 6,
                (192, 1024, 2048, True): 6, (96, 2048, 1024, True): 1}
-# one forward through the quantized base stem's int8 walk: 17 K3 launches, 1
-# quantize pass, no fp ReLU, 1 fp max-pool (the other 4 pool int8 tensors)
-CVIT_INT8_WALK = {"convs": 17, "quantize": 1, "fp_relus": 0, "fp_pools": 1}
+# one forward from uint8 crops through the quantized base stem's int8 walk:
+# K2's int8 entry (no K2 fp launch), 17 K3 launches, 0 quantize passes, no
+# fp ReLU, 1 fp max-pool (the other 4 pool int8 tensors)
+CVIT_INT8_WALK = {"convs": 17, "quantize": 0, "k2_int8": 1, "k2_fp": 0, "fp_relus": 0,
+                  "fp_pools": 1}
 S3D_BATCH = 32                                     # clips a predict_batch
 S3D_CHECK_BATCH = 2                                # clips a K5/K6 bit-equality check
 S3D_T, S3D_HW = 20, 224                            # frames, pixels (ca_s3d's input)
-# K5 and K6 calls of one ca_s3d int8 forward: 77 convs, 39 of which quantize
-# their output for the next conv, 11 quantize passes, 9 int8 pools
-S3D_INT8_CALLS = {"conv": 77, "fused": 39, "quantize": 11, "pool": 9}
-L2_BYTES = 50e6                                    # H100 L2: K6 is timed cold beyond it
+# K5, K6 and K2 calls of one ca_s3d int8 forward from uint8 clips: 77 convs,
+# 39 of which quantize their output for the next conv, 10 quantize passes, 1
+# K2 raw entry (the stem conv's input), 9 int8 pools
+S3D_INT8_CALLS = {"conv": 77, "fused": 39, "quantize": 10, "raw": 1, "pool": 9}
+L2_BYTES = 50e6                                    # H100 L2: K2, K6 timed cold beyond it
+K2_CROP_BATCHES = (96, 256)                        # K2's CViT modes: batch_crops, and 256
 # ca_s3d's head input (the pooled last mix), card vs CPU, by error norm: fp32
 # over the features' norm; int8 over the CPU's int8-vs-fp32 difference, since
 # the int8 walk turns a rounding difference in its fp layers (the ctx blocks)
@@ -184,6 +200,160 @@ def int8_image(rng, dev, shape, c):
     return torch.from_numpy(xq).to(dev)
 
 
+def digest(t) -> float:
+    """A tensor's bytes as a number (48 bits of their SHA-256, exact in a
+    float): equal outputs give equal digests across processes and trees."""
+    import hashlib
+
+    import torch
+    data = t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()
+    return float(int.from_bytes(hashlib.sha256(data).digest()[:6], "little"))
+
+
+def rotated_ms(fn, xs) -> float:
+    """Device ms a call of ``fn`` on inputs that rotate over ``xs``, each
+    call's output kept until its input comes round again: with ``xs`` and
+    their outputs beyond twice the L2, every call reads its input from
+    device memory (cold)."""
+    import itertools
+    turn = itertools.count()
+    keep = [None] * len(xs)
+
+    def cold():
+        i = next(turn) % len(xs)
+        keep[i] = fn(xs[i])
+
+    return cuda_ms(cold, iters=max(20, len(xs)), warmup=len(xs) + 2)
+
+
+def k2_phase(rng, dev) -> dict:
+    """K2 in its five modes against their plain versions: the normalize to
+    fp32 and bf16 (within K2_TOL), the CViT walk's int8 entry of each
+    (``int8_fp32``, ``int8_bf16``: bit-equal to the normalize and then the
+    quantize pass, `quantize_pad_plain`) at (B, 224, 224, 3) for B in
+    K2_CROP_BATCHES, and S3D's raw int8 entry (``raw``: bit-equal to the
+    cast and the quantize pass) at (S3D_BATCH, S3D_T, S3D_HW, S3D_HW, 3);
+    each also on an image of every byte value in every channel, at scales
+    that clip and tie. The int8 scales are the calibrated ones (the input's
+    max / 127).
+
+    Timed cold (``ms``: launches rotating over inputs and outputs beyond
+    twice the L2, as `k6_phase` times K6) and warm (one input again and
+    again), beside a yardstick of the same bytes, cold: the fp modes beside
+    the cast of the uint8 input (``copy_`` into a tensor of the output
+    dtype, the kernel ``u8.to(dtype)`` runs), the int8 modes beside
+    ``copy_`` of their output's bytes. The bound counts each input byte read
+    once and each output byte written once (3 bytes a pixel in; 12, 6 or 4
+    out; the scale), and 3 fp32 operations a value for the normalize, 7
+    with the quantize, 4 for the raw quantize.
+
+    A tree whose K2 has no int8 entries (a parent's, through
+    `utils/kernel_pairs.py --phases-from`) times in their place the chains
+    they replace, K2's fp launch or the cast and then the quantize pass.
+    Returns the totals of the fp32 mode at batch 96 (``ms``: what the fp32
+    main path runs) and, for each mode and batch, its numbers (``modes``,
+    and flat ``{mode}_{batch}_{what}`` keys for `utils/kernel_pairs.py`),
+    with the digest of its output on the seeded input."""
+    import torch
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.ops import quant3d as q3
+    entries = hasattr(pp, "quantize_crops")
+    dts = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8_fp32": torch.float32,
+           "int8_bf16": torch.bfloat16}
+
+    def fns(mode, s):
+        """(kernel, plain) of a mode: x (uint8) -> the output"""
+        dt = dts.get(mode)
+        if mode in ("fp32", "bf16"):
+            return (lambda x: pp.normalize_imagenet(x, dt),
+                    lambda x: pp.normalize_imagenet_plain(x, dt))
+        if mode == "raw":
+            kern = (lambda x: pp.quantize_clips(x, s)) if entries else \
+                (lambda x: q3.quantize_pad(x.float(), s))
+            return kern, lambda x: q3.quantize_pad_plain(x.float(), s)
+        kern = (lambda x: pp.quantize_crops(x, s, dt)) if entries else \
+            (lambda x: q3.quantize_pad(pp.normalize_imagenet(x, dt).permute(0, 2, 3, 1), s))
+        return kern, lambda x: q3.quantize_pad_plain(
+            pp.normalize_imagenet_plain(x, dt).permute(0, 2, 3, 1), s)
+
+    def check(mode, got, ref, what):
+        if mode in ("fp32", "bf16"):
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f"K2 {mode} {what}: output is not channels_last")
+            err = float((got.float() - ref.float()).abs().max())
+            if err > K2_TOL[str(got.dtype).split(".")[1]]:
+                raise AssertionError(f"K2 {mode} {what}: max abs err {err} > {K2_TOL}")
+            return err
+        if got.dtype != torch.int8 or not torch.equal(got, ref):
+            raise AssertionError(f"K2 {mode} {what}: differs from plain, max abs "
+                                 f"{float((got.float() - ref.float()).abs().max())}")
+        return 0.0
+
+    b = np.arange(256)
+    every = torch.from_numpy(np.stack([b, (b + 85) % 256, (b + 170) % 256], -1)
+                             .astype(np.uint8).reshape(1, 16, 16, 3)).to(dev)
+    res = {"err": 0.0, "bit_equal": True, "modes": {}}
+    cases = [(m, bb) for bb in K2_CROP_BATCHES for m in ("fp32", "bf16", "int8_fp32",
+                                                         "int8_bf16")]
+    cases.append(("raw", S3D_BATCH))
+    for mode, batch in cases:
+        shape = ((batch, S3D_T, S3D_HW, S3D_HW, 3) if mode == "raw" else (batch, 224, 224, 3))
+        u8 = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        if mode == "raw":
+            s = (u8.amax().float() / 127.0).reshape(())
+        else:
+            s = (pp.normalize_imagenet_plain(u8).abs().amax() / 127.0).reshape(())
+        kern, plain = fns(mode, s)
+        for scale in (0.011131090112030506, 2.0 ** -6, 2.0):   # clips, ties (fp32, bf16, raw)
+            k_e, p_e = fns(mode, torch.tensor(scale, device=dev))
+            x = every if mode != "raw" else every[None]
+            check(mode, k_e(x), p_e(x), f"every byte, scale {scale}")
+        got, ref = kern(u8), plain(u8)
+        torch.cuda.synchronize()
+        err = check(mode, got, ref, f"{tuple(shape)}")
+        res["err"] = max(res["err"], err)
+        res["bit_equal"] &= bool(torch.equal(got, ref))
+        out_bytes = got.numel() * got.element_size()
+        dig = digest(got)
+        del got, ref
+        n_rot = int(2 * L2_BYTES // (u8.numel() + out_bytes)) + 2
+        xs = [u8] + [u8.clone() for _ in range(n_rot - 1)]
+        k_ms = rotated_ms(kern, xs)
+        w_ms = cuda_ms(lambda: kern(u8))
+        if mode in ("fp32", "bf16"):
+            sinks = [torch.empty(shape, dtype=dts[mode], device=dev) for _ in xs]
+            pairs = list(zip(sinks, xs))
+        else:
+            srcs = [kern(x) for x in xs]
+            pairs = list(zip([torch.empty_like(y) for y in srcs], srcs))
+        y_ms = rotated_ms(lambda pair: pair[0].copy_(pair[1]), pairs)
+        del pairs
+        p_ms = cuda_ms(lambda: plain(u8), iters=3, warmup=1)
+        per_value = {"fp32": 3, "bf16": 3, "raw": 4}.get(mode, 7)
+        bms, by = bound_ms(u8.numel() + out_bytes + 4, per_value * u8.numel())
+        row = dict(ms=k_ms, warm_ms=w_ms, yardstick_ms=y_ms, plain_ms=p_ms, bound_ms=bms,
+                   bound_by=by, bytes=float(u8.numel() + out_bytes + 4), digest=dig,
+                   shape=list(shape), rotation=n_rot)
+        res["modes"][f"{mode}_{batch}"] = row
+        for k in ("ms", "warm_ms", "yardstick_ms", "plain_ms", "bound_ms", "digest"):
+            res[f"{mode}_{batch}_{k}"] = row[k]
+        yard = "the u8 cast" if mode in ("fp32", "bf16") else "copy_ of the output"
+        log(f"K2 {mode} {tuple(shape)}{'' if entries or mode in ('fp32', 'bf16') else ' (chain)'}"
+            f": {'max_abs_err %.3g' % err if err else 'equal'}; kernel {k_ms:.4f} ms cold "
+            f"({bms / k_ms:.1%} of the bound, {n_rot} buffers), {w_ms:.4f} ms warm; {yard} "
+            f"{y_ms:.4f} ms cold; plain {p_ms:.4f} ms; bound {bms:.4f} ms ({by}, "
+            f"{row['bytes'] / 1e6:.2f} MB); digest {dig:.0f}")
+        del xs, u8
+        torch.cuda.empty_cache()
+    main = res["modes"][f"fp32_{K2_CROP_BATCHES[0]}"]
+    res.update(ms=main["ms"], warm_ms=main["warm_ms"], yardstick_ms=main["yardstick_ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"])
+    log(f"K2 fp32 at batch {K2_CROP_BATCHES[0]} (the fp32 main path's): {res['ms']:.4f} ms cold, "
+        f"{res['warm_ms']:.4f} ms warm, bound {res['bound_ms']:.4f} ms; every mode "
+        f"bit-equal to its plain version: {res['bit_equal']}")
+    return res
+
+
 def stem_walk() -> list:
     """(H, Cin, Cout, fused) of each K3 launch of one forward of the
     quantized base stem, in order, from the stem's own planner; ``fused``:
@@ -207,14 +377,14 @@ def k3_phase(rng, dev) -> dict:
     step (`int8_conv3x3` on an int8 input, ReLU, and for 16 of the 17 the
     next conv's quantize in the epilogue, against
     quantize_pad_plain(int8_conv3x3_plain(...))). Timed as the walk runs
-    them: the one quantize pass and the 17 convs of one forward (fp32).
+    them from the crops: the 17 convs of one forward (fp32), the first
+    conv's int8 input made by K2's int8 entry (timed in `k2_phase`; up to
+    PR 6 a quantize pass here).
 
-    The bound counts each tensor at its real channels, K3's quantize pass
-    and convs as one function, as K5's does: the fp32 image the quantize
-    pass reads, the int8 inputs the convs read from the convs (or int8
-    pools) before them, weights, scales, biases, the 16 int8 outputs
-    quantized for the next conv and the last conv's fp32 output; the int8
-    tensor between the quantize pass and the first conv is not counted.
+    The bound counts each tensor at its real channels: the int8 inputs the
+    convs read (the first from K2's entry, the others from the convs, or
+    int8 pools, before them), weights, scales, biases, the 16 int8 outputs
+    quantized for the next conv and the last conv's fp32 output.
     ``bytes_old`` is the count without the fused edges, each conv reading
     fp32 and writing fp32 (the count of PRs 2-4). Beside the deep convs
     (28² and 14²) torch._int_mm times their GEMMs alone on the im2col'd
@@ -223,8 +393,8 @@ def k3_phase(rng, dev) -> dict:
     import torch.nn.functional as F
     from fac_fake_torch.ops import quant as q
     from fac_fake_torch.ops import quant3d as q3
-    tot = dict(ms=0.0, conv_ms=0.0, quantize_ms=0.0, plain_ms=0.0, ms_deep=0.0, library_ms=0.0,
-               bytes=0.0, bytes_old=0.0, ops=0.0, err=0.0, convs=0, fused=0)
+    tot = dict(ms=0.0, conv_ms=0.0, plain_ms=0.0, ms_deep=0.0, library_ms=0.0, bytes=0.0,
+               bytes_old=0.0, ops=0.0, err=0.0, convs=0, fused=0)
     walk = stem_walk()
     groups = {}
     for key in walk:
@@ -264,7 +434,7 @@ def k3_phase(rng, dev) -> dict:
                        iters=2, warmup=1)
         ops = 2.0 * m * cout * 9 * cin
         params = kq.numel() + 8 * cout
-        x_new = 0 if first else m * cin
+        x_new = m * cin
         tot["bytes"] += mult * (x_new + params + (m * cout if fused else 4 * m * cout))
         tot["bytes_old"] += mult * (4 * m * cin + params + 4 + 4 * m * cout)
         tot["conv_ms"] += mult * k_ms
@@ -289,13 +459,9 @@ def k3_phase(rng, dev) -> dict:
             f"{'-> int8' if fused else '-> fp'} x{mult}: equal fp32+bf16 (layer, walk fp out, "
             f"walk quantized); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
             f"{ops / k_ms / 1e9:.1f} int8 TOP/s{lib}")
-        if first:
-            tot["quantize_ms"] += cuda_ms(lambda: q3.quantize_pad(x, sx))
-            tot["plain_ms"] += cuda_ms(lambda: q3.quantize_pad_plain(x, sx), iters=3)
-            tot["bytes"] += 4.0 * x.numel() + 4
         del x, xq, wq, kq, w_k
         torch.cuda.empty_cache()
-    tot["ms"] = tot["conv_ms"] + tot["quantize_ms"]
+    tot["ms"] = tot["conv_ms"]
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], INT8_TC_OPS)
     tot["bound_ms_old_count"] = bound_ms(tot["bytes_old"], tot["ops"], INT8_TC_OPS)[0]
     pools = [(a[0], a[2]) for a, b in zip(walk, walk[1:]) if b[0] != a[0]]   # (H, C) pooled
@@ -304,8 +470,8 @@ def k3_phase(rng, dev) -> dict:
         xq = int8_image(rng, dev, (QBATCH, hw, hw, q.pad16(c)), c)
         pool_ms += cuda_ms(lambda: q.max_pool2x2_i8(xq))
     log(f"K3 over one forward at batch {QBATCH}: {tot['convs']} convs ({tot['fused']} quantizing "
-        f"for the next) {tot['conv_ms']:.4f} ms + 1 quantize pass {tot['quantize_ms']:.4f} ms = "
-        f"{tot['ms']:.4f} ms; plain {tot['plain_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms "
+        f"for the next) {tot['ms']:.4f} ms; plain {tot['plain_ms']:.4f} ms; bound "
+        f"{tot['bound_ms']:.4f} ms "
         f"({tot['bound_by']}; {tot['ops'] / 1e12:.3f} T int8 ops, {tot['bytes'] / 1e9:.3f} GB; "
         f"without the fused edges {tot['bytes_old'] / 1e9:.3f} GB, "
         f"{tot['bound_ms_old_count']:.4f} ms); {tot['ops'] / tot['conv_ms'] / 1e9:.1f} int8 "
@@ -417,12 +583,14 @@ def profile_forward(fn, label: str, top: int = 12, expect: tuple = (),
             raise AssertionError(f"profile {label}: a kernel named {name} ran")
 
 
-def forward_counts(model, x, pos) -> dict:
-    """One forward of the CViT ``model``: the launches of K3 (``convs``),
-    its quantize pass and K4, and the stem's fp ReLU and max-pool modules
-    that ran."""
+def forward_counts(model, u8, pos) -> dict:
+    """One fp32 forward of the CViT ``model`` from the uint8 crops ``u8``
+    (`forward_crops`, as `VideoScorer` runs it): the launches of K3
+    (``convs``), its quantize pass, K2's int8 entry and its fp launches, K4,
+    and the stem's fp ReLU and max-pool modules that ran."""
     import torch
     from torch import nn
+    from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant as q
     from fac_fake_torch.ops import quant3d as q3
     ran = {"fp_relus": 0, "fp_pools": 0}
@@ -433,56 +601,68 @@ def forward_counts(model, x, pos) -> dict:
             hooks.append(mod.register_forward_hook(
                 lambda *_, kind=kind: ran.__setitem__(kind, ran[kind] + 1)))
     q.int8_conv3x3.launches = q3.quantize_pad.launches = q.quant_dense.launches = 0
+    pp.normalize_imagenet.launches = pp.quantize_crops.launches = 0
     try:
         with torch.inference_mode():
-            model(x, pos)
+            model.forward_crops(u8, torch.float32, pos)
         torch.cuda.synchronize()
     finally:
         for h in hooks:
             h.remove()
-    return {"convs": q.int8_conv3x3.launches, "quantize": q3.quantize_pad.launches, **ran,
+    return {"convs": q.int8_conv3x3.launches, "quantize": q3.quantize_pad.launches,
+            "k2_int8": pp.quantize_crops.launches,
+            "k2_fp": pp.normalize_imagenet.launches - pp.quantize_crops.launches, **ran,
             "K4": q.quant_dense.launches}
 
 
-def check_k3_calls(model, x, pos) -> dict:
-    """One forward of the quantized CViT ``model`` in which every K3 call
-    and its quantize pass also run through their plain versions on the same
-    (real, calibrated) inputs and must be bit-equal: {kind: calls checked},
-    "fused" among the convs (those that quantize for the next conv)."""
+def check_k3_calls(model, u8, pos) -> dict:
+    """One fp32 forward of the quantized CViT ``model`` from the uint8 crops
+    ``u8`` in which K2's int8 entry, every K3 call and any quantize pass also
+    run through their plain versions on the same (real, calibrated) inputs
+    and must be bit-equal: {kind: calls checked}, "fused" among the convs
+    (those that quantize for the next conv)."""
     import torch
+    from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant as q
     from fac_fake_torch.ops import quant3d as q3
-    n = {"convs": 0, "fused": 0, "quantize": 0}
-    orig = (q.int8_conv3x3, q3.quantize_pad)
+    n = {"convs": 0, "fused": 0, "quantize": 0, "k2_int8": 0}
+    orig = (q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops)
 
     def same(got, ref, what):
         if not torch.equal(got, ref):
             err = float((got.float() - ref.float()).abs().max())
-            raise AssertionError(f"K3 {what} on real activations: differs from plain, max abs "
+            raise AssertionError(f"{what} on real activations: differs from plain, max abs "
                                  f"{err}")
 
     def conv(xq, kernel_q, s, bias, relu, dtype, q_scale=None, w_k=None):
         y = orig[0](xq, kernel_q, s, bias, relu, dtype, q_scale, w_k)
         same(y, q.int8_conv3x3_plain(xq, kernel_q, s, bias, relu, dtype, q_scale),
-             f"conv {tuple(xq.shape)} -> {kernel_q.shape[0]}")
+             f"K3 conv {tuple(xq.shape)} -> {kernel_q.shape[0]}")
         n["convs"] += 1
         n["fused"] += q_scale is not None
         return y
 
     def quantize(x, s_x):
         y = orig[1](x, s_x)
-        same(y, q3.quantize_pad_plain(x, s_x), f"quantize {tuple(x.shape)}")
+        same(y, q3.quantize_pad_plain(x, s_x), f"K3 quantize {tuple(x.shape)}")
         n["quantize"] += 1
         return y
 
+    def entry(crops_u8, x_scale, dtype=torch.float32):
+        y = orig[2](crops_u8, x_scale, dtype)
+        same(y, pp.quantize_crops_plain(crops_u8, x_scale, dtype),
+             f"K2 int8 entry {tuple(crops_u8.shape)}")
+        n["k2_int8"] += 1
+        return y
+
     # launches made here count on the checker's functions, not the wrappers'
-    conv.launches = quantize.launches = 0
-    q.int8_conv3x3, q3.quantize_pad = conv, quantize
+    conv.launches = quantize.launches = entry.launches = 0
+    q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops = conv, quantize, entry
     try:
         with torch.inference_mode():
-            model(x, pos)
+            model.forward_crops(u8, torch.float32, pos)
     finally:
-        q.int8_conv3x3, q3.quantize_pad = orig
+        q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops = orig
     return n
 
 
@@ -682,14 +862,16 @@ def record_s3d_calls(engine, x) -> dict:
     """One int8 forward of ``engine`` on ``x`` with the K5/K6 wrappers
     wrapped: {kind: {call key: count}}, where a conv's key is (xq shape,
     w_q shape, stride, padding, relu, real input channels, what made its
-    input: "quantize", "pool" (K6) or "conv" (the previous conv's fused
-    epilogue), whether it quantizes its own output for the next conv), a
-    quantize's (x shape) and a pool's (xq shape, real channels). The real
-    channel count of an int8 tensor is that of the fp tensor it stands for."""
+    input: "quantize", "raw" (K2's raw entry), "pool" (K6) or "conv" (the
+    previous conv's fused epilogue), whether it quantizes its own output for
+    the next conv), a quantize's or a raw entry's (x shape) and a pool's (xq
+    shape, real channels). The real channel count of an int8 tensor is that
+    of the fp tensor it stands for."""
     import torch
+    from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant3d as q3
-    calls = {"conv": {}, "quantize": {}, "pool": {}}
-    orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8)
+    calls = {"conv": {}, "quantize": {}, "raw": {}, "pool": {}}
+    orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8, pp.quantize_clips)
     made = {}                                   # data_ptr of an int8 tensor -> (C, source)
 
     def bump(kind, key):
@@ -718,33 +900,41 @@ def record_s3d_calls(engine, x) -> dict:
         made[y.data_ptr()] = (c, "pool")
         return y
 
+    def raw(x, s_x):
+        bump("raw", tuple(x.shape))
+        xq = orig[3](x, s_x)
+        made[xq.data_ptr()] = (x.shape[-1], "raw")
+        return xq
+
     # each wrapper counts its launches on the function its module's name is
     # bound to: here the recorder's, so that recording launches do not count
-    conv.launches = quantize.launches = pool.launches = 0
-    q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8 = conv, quantize, pool
+    conv.launches = quantize.launches = pool.launches = raw.launches = 0
+    q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8, pp.quantize_clips = conv, quantize, pool, raw
     try:
         with torch.no_grad():
             engine(x)
     finally:
-        q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8 = orig
+        q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8, pp.quantize_clips = orig
     return calls
 
 
 def check_s3d_calls(engine, x) -> dict:
     """One int8 forward of ``engine`` on ``x`` in which every K5 and K6
-    call is also run through its plain version on the same (real,
-    calibrated) inputs and must be bit-equal; a conv that quantizes its
-    output for the next conv against ``quantize_pad_plain(int8_conv3d_plain
-    (...))``: {kind: calls checked}, "fused" among the convs."""
+    call, and K2's raw entry, is also run through its plain version on the
+    same (real, calibrated) inputs and must be bit-equal; a conv that
+    quantizes its output for the next conv against
+    ``quantize_pad_plain(int8_conv3d_plain(...))``: {kind: calls checked},
+    "fused" among the convs."""
     import torch
+    from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant3d as q3
-    n = {"conv": 0, "fused": 0, "quantize": 0, "pool": 0}
-    orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8)
+    n = {"conv": 0, "fused": 0, "quantize": 0, "raw": 0, "pool": 0}
+    orig = (q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8, pp.quantize_clips)
 
     def same(kind, got, ref, what):
         if not torch.equal(got, ref):
             err = float((got.float() - ref.float()).abs().max())
-            raise AssertionError(f"K5/K6 {kind} {what} on real activations: differs from "
+            raise AssertionError(f"K2/K5/K6 {kind} {what} on real activations: differs from "
                                  f"plain, max abs {err}")
         n[kind] += 1
 
@@ -770,14 +960,19 @@ def check_s3d_calls(engine, x) -> dict:
         same("pool", y, q3.max_pool3d_i8_plain(xq), tuple(xq.shape))
         return y
 
+    def raw(x, s_x):
+        y = orig[3](x, s_x)
+        same("raw", y, pp.quantize_clips_plain(x, s_x), tuple(x.shape))
+        return y
+
     # launches made here count on the checker's functions, not the wrappers'
-    conv.launches = quantize.launches = pool.launches = 0
-    q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8 = conv, quantize, pool
+    conv.launches = quantize.launches = pool.launches = raw.launches = 0
+    q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8, pp.quantize_clips = conv, quantize, pool, raw
     try:
         with torch.no_grad():
             engine(x)
     finally:
-        q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8 = orig
+        q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8, pp.quantize_clips = orig
     return n
 
 
@@ -906,9 +1101,10 @@ def k5_phase(rng, dev, calls) -> dict:
 
     The bound counts each tensor at its real channel count (the zero
     channels K5 pads to 16 are not work the function needs). K5's bytes
-    are those of its quantize passes and convs as one function, as K3's
-    are: the fp32 inputs of the quantize passes, the int8 inputs the convs
-    read from K6 pools and from the convs before them, the weights, scales,
+    are those of its quantize passes and convs as one function: the fp32
+    inputs of the quantize passes, the int8 inputs the convs read from K2's
+    raw entry (the stem conv's), K6 pools and the convs before them, the
+    weights, scales,
     biases, the fp32 outputs and the int8 outputs quantized for the next
     conv; the int8 tensor between a quantize pass and its convs is not
     counted. ``bytes_old`` is the count for the same work without the fused
@@ -956,8 +1152,8 @@ def k5_phase(rng, dev, calls) -> dict:
         k5["ops"] += mult * 2.0 * m * n * taps * cin
         x_real = xq.numel() // xs[-1] * cin
         params = n * taps * cin + 8 * n
-        x_new = x_real if source in ("pool", "conv") else 0
-        x_old = x_real if source == "pool" else 4 * x_real if source == "conv" else 0
+        x_new = x_real if source in ("pool", "conv", "raw") else 0
+        x_old = x_real if source in ("pool", "raw") else 4 * x_real if source == "conv" else 0
         k5["bytes"] += mult * (x_new + params + (m * n if fused else 4 * m * n))
         k5["bytes_old"] += mult * (x_old + params + 4 * m * n)
         k5["conv_ms"] += mult * k_ms
@@ -1032,12 +1228,14 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
 
     def zero_counts():
         ex.frame_detections.launches = pp.normalize_imagenet.launches = 0
+        pp.quantize_clips.launches = 0
         q.int8_conv3x3.launches = q.quant_dense.launches = 0
         q3.int8_conv3d.launches = q3.quantize_pad.launches = q3.max_pool3d_i8.launches = 0
 
     def read_counts():
         return {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches,
-                "K3": q.int8_conv3x3.launches, "K4": q.quant_dense.launches,
+                "K2_raw": pp.quantize_clips.launches, "K3": q.int8_conv3x3.launches,
+                "K4": q.quant_dense.launches,
                 "K5": q3.int8_conv3d.launches, "K5_quantize": q3.quantize_pad.launches,
                 "K6": q3.max_pool3d_i8.launches}
 
@@ -1055,14 +1253,17 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
         raise AssertionError(f"S3D fp32 scores {s3d_scores} / evaluate {s3d_eval}")
 
     # ---- 12. K5 and K6 against their plain versions ------------------------------
-    x_check = torch.from_numpy(clips[:S3D_CHECK_BATCH]).to(dev).float().permute(0, 4, 1, 2, 3)
-    calls = record_s3d_calls(quantize_s3d(s3d, x_check), x_check)
+    # uint8 clips, as `S3DEvaluator` hands them to the engine
+    x_check = torch.from_numpy(clips[:S3D_CHECK_BATCH]).to(dev).permute(0, 4, 1, 2, 3)
+    calls = record_s3d_calls(quantize_s3d(s3d, x_check.float()), x_check)
     per_forward = {"conv": sum(calls["conv"].values()),
                    "fused": sum(c for key, c in calls["conv"].items() if key[-1]),
-                   "quantize": sum(calls["quantize"].values()), "pool": sum(calls["pool"].values())}
+                   "quantize": sum(calls["quantize"].values()), "raw": sum(calls["raw"].values()),
+                   "pool": sum(calls["pool"].values())}
     log(f"S3D int8 forward: {per_forward['conv']} convs ({len(calls['conv'])} shapes, "
         f"{per_forward['fused']} quantizing their output for the next conv), "
-        f"{per_forward['quantize']} quantize passes, {per_forward['pool']} int8 pools")
+        f"{per_forward['quantize']} quantize passes, {per_forward['raw']} K2 raw entry, "
+        f"{per_forward['pool']} int8 pools")
     if per_forward != S3D_INT8_CALLS:
         raise AssertionError(f"a ca_s3d int8 forward makes {S3D_INT8_CALLS}, recorded "
                              f"{per_forward}")
@@ -1095,23 +1296,27 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
     if not (all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in s3d8_scores)
             and s3d8_eval["count"] == len(mem.samples)):
         raise AssertionError(f"S3D int8 scores {s3d8_scores} / evaluate {s3d8_eval}")
-    if min(s3d8_launches[k] for k in ("K5", "K5_quantize", "K6")) <= 0:
+    if min(s3d8_launches[k] for k in ("K2", "K5", "K5_quantize", "K6")) <= 0:
         raise AssertionError(f"S3D int8: a kernel of the path never launched: {s3d8_launches}")
     forwards = s3d8_launches["K5"] / S3D_INT8_CALLS["conv"]
-    if (s3d8_launches["K5_quantize"], s3d8_launches["K6"]) != (
-            forwards * S3D_INT8_CALLS["quantize"], forwards * S3D_INT8_CALLS["pool"]):
+    if (s3d8_launches["K5_quantize"], s3d8_launches["K6"], s3d8_launches["K2_raw"],
+            s3d8_launches["K2"]) != (
+            forwards * S3D_INT8_CALLS["quantize"], forwards * S3D_INT8_CALLS["pool"],
+            forwards * S3D_INT8_CALLS["raw"], forwards * S3D_INT8_CALLS["raw"]):
         raise AssertionError(f"S3D int8: launches {s3d8_launches} are not {forwards} forwards "
                              f"of {S3D_INT8_CALLS}")
     if profile:
         profile_forward(lambda: ev.predict_batch(clips), f"S3D fp32 predict_batch {S3D_BATCH}")
         profile_forward(lambda: ev8.predict_batch(clips), f"S3D int8 predict_batch {S3D_BATCH}",
-                        expect=("conv_wgmma", "qwg::quantize_rows", "max_pool3d_i8_sep"))
+                        expect=("conv_wgmma", "qwg::quantize_rows", "max_pool3d_i8_sep",
+                                "normalize_table"))
     with torch.no_grad():
-        x32 = torch.from_numpy(clips).to(dev).float().permute(0, 4, 1, 2, 3)
-        a, b = s3d(x32).double(), ev8.engine(x32).double()
+        x32 = torch.from_numpy(clips).to(dev).permute(0, 4, 1, 2, 3)      # uint8
+        a, b = s3d(x32.float()).double(), ev8.engine(x32).double()
     checked = check_s3d_calls(ev8.engine, x32)
-    log(f"S3D int8 forward at batch {S3D_BATCH} on the seeded clips: every K5/K6 call "
-        f"bit-equal to its plain version on the same activations: {checked}")
+    log(f"S3D int8 forward at batch {S3D_BATCH} on the seeded clips: K2's raw entry and "
+        f"every K5/K6 call bit-equal to their plain versions on the same clips and "
+        f"activations: {checked}")
     if checked != S3D_INT8_CALLS:
         raise AssertionError(f"S3D int8: checked {checked}, not every call of a forward")
     del x32
@@ -1122,9 +1327,11 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
         f"(|logit| max {float(a.abs().max()):.3g}, spread {float(a.max() - a.min()):.3g})")
 
     # ---- 14. full-width ca_s3d logits and features, card against CPU -------------
-    one = torch.from_numpy(clips[:1]).float().permute(0, 4, 1, 2, 3)
+    u1 = torch.from_numpy(clips[:1]).permute(0, 4, 1, 2, 3)
     feats = {}
     for label, mod in (("fp32", s3d), ("int8", ev8.engine)):
+        # as `S3DEvaluator` runs them: fp32 on the cast clip, int8 on the uint8 one
+        one = u1.float() if label == "fp32" else u1
         cpu_mod = copy.deepcopy(mod).cpu()
         gpu_l, gpu_f = head_input(mod, one.to(dev))
         t_cpu = time.perf_counter()
@@ -1191,27 +1398,8 @@ def main() -> int:
     kernels.build(verbose=True)
     log(f"build: {kernels.last_build_s:.1f} s for {', '.join(kernels.SOURCES)}")
 
-    # ---- 3. K2 against its plain version ---------------------------------
-    k2 = {}
-    for b in (96, 256):
-        u8 = torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8)).to(dev)
-        for dt in (torch.float32, torch.bfloat16):
-            name = str(dt).split(".")[1]
-            got = pp.normalize_imagenet(u8, dt)
-            ref = pp.normalize_imagenet_plain(u8, dt)
-            torch.cuda.synchronize()
-            if not got.is_contiguous(memory_format=torch.channels_last):
-                raise AssertionError("K2 output is not channels_last")
-            err = float((got.float() - ref.float()).abs().max())
-            if err > K2_TOL[name]:
-                raise AssertionError(f"K2 {b} {name}: max abs err {err} > {K2_TOL[name]}")
-            k_ms = cuda_ms(lambda: pp.normalize_imagenet(u8, dt))
-            p_ms = cuda_ms(lambda: pp.normalize_imagenet_plain(u8, dt))
-            nbytes = u8.numel() * (1 + got.element_size())
-            bms, by = bound_ms(nbytes, 3 * u8.numel())
-            k2[(b, name)] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by)
-            log(f"K2 normalize ({b},224,224,3)->{name}: max_abs_err {err:.3g} "
-                f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bms:.4f} ms ({by})")
+    # ---- 3. K2 in its five modes against their plain versions -------------
+    k2 = k2_phase(rng, dev)
 
     # ---- 4. K1 against its plain version ---------------------------------
     det = BlazeFace.from_packaged_assets(dev)
@@ -1282,9 +1470,9 @@ def main() -> int:
     four = torch.from_numpy(rng.integers(0, 256, (4, 224, 224, 3), dtype=np.uint8))
     pos = torch.arange(4)
     with torch.inference_mode():
-        gpu = scorer.model(pp.normalize_imagenet(four.to(dev)), pos.to(dev)).cpu()
+        gpu = scorer.model.forward_crops(four.to(dev), torch.float32, pos.to(dev)).cpu()
         cpu_model = copy.deepcopy(scorer.model).cpu()
-        cpu = cpu_model(pp.normalize_imagenet(four), pos)
+        cpu = cpu_model.forward_crops(four, torch.float32, pos)
     logit_err = float((gpu - cpu).abs().max())
     log(f"full-width logits card vs CPU: max abs {logit_err:.3g} "
         f"(|logit| max {float(cpu.abs().max()):.3g})")
@@ -1300,9 +1488,7 @@ def main() -> int:
 
     # ---- 9. int8 main path -----------------------------------------------------
     n_convs = sum(op[0] == "conv" for op in scorer.model.stem_spec)
-    with torch.inference_mode():
-        x96 = pp.normalize_imagenet(torch.from_numpy(
-            np.concatenate([crops] * 4)[:QBATCH]).to(dev))
+    u96 = torch.from_numpy(np.concatenate([crops] * 4)[:QBATCH]).to(dev)
     pos96 = torch.arange(QBATCH, device=dev) % 32
     rates = {}
     for mode in ("int8_full", "int8"):
@@ -1322,6 +1508,7 @@ def main() -> int:
         torch.cuda.synchronize()
         ex.frame_detections.launches = pp.normalize_imagenet.launches = 0
         q.int8_conv3x3.launches = q3.quantize_pad.launches = q.quant_dense.launches = 0
+        pp.quantize_crops.launches = 0
         qprobs = []
         if mode == "int8_full":
             qscorer.enable_stage_stats()
@@ -1335,8 +1522,8 @@ def main() -> int:
         rates[mode] = crops_per_s(qscorer, crops, stacks)
         qprobs += [rates[mode][2]] + rates[mode][3]
         qlaunch = {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches,
-                   "K3": q.int8_conv3x3.launches, "K3_quantize": q3.quantize_pad.launches,
-                   "K4": q.quant_dense.launches}
+                   "K2_int8": pp.quantize_crops.launches, "K3": q.int8_conv3x3.launches,
+                   "K3_quantize": q3.quantize_pad.launches, "K4": q.quant_dense.launches}
         log(f"{mode}: score_crops {rates[mode][0]:.1f} crops/s (fp32 {fp32_rates[0]:.1f}), "
             f"score_crop_stacks {rates[mode][1]:.1f} crops/s (fp32 {fp32_rates[1]:.1f}); "
             f"launches {qlaunch}")
@@ -1345,12 +1532,14 @@ def main() -> int:
         want = ("K1", "K2", "K3", "K4") if mode == "int8_full" else ("K2", "K3")
         if min(qlaunch[k] for k in want) <= 0:
             raise AssertionError(f"{mode}: a kernel of the path never launched: {qlaunch}")
-        walk = walk_counts(qscorer.model.stem_spec)
-        if (qlaunch["K3"] % walk["convs"]
-                or qlaunch["K3_quantize"] * walk["convs"] != qlaunch["K3"] * walk["quantize"]):
+        walk = walk_counts(qscorer.model.stem_spec, crops=True)
+        fwd = qlaunch["K3"] // walk["convs"]
+        if (qlaunch["K3"] % walk["convs"] or qlaunch["K3_quantize"] != fwd * walk["quantize"]
+                or qlaunch["K2_int8"] != fwd * walk["k2_int8"]
+                or qlaunch["K2"] != qlaunch["K2_int8"]):
             raise AssertionError(f"{mode}: launches {qlaunch} are not whole forwards of the "
-                                 f"stem's walk {walk}")
-        one = forward_counts(qscorer.model, x96, pos96)
+                                 f"stem's walk from the crops {walk}")
+        one = forward_counts(qscorer.model, u96, pos96)
         log(f"{mode}: one forward at batch {QBATCH} runs {one} (the stem's planned walk: "
             f"{walk})")
         want_one = dict(CVIT_INT8_WALK, K4=sum(INT8_DENSES.values()) if mode == "int8_full" else 0)
@@ -1359,33 +1548,35 @@ def main() -> int:
                                  f"want {want_one}")
         if mode == "int8_full":
             int8_launches, full = qlaunch, qscorer
-            checked = check_k3_calls(qscorer.model, x96, pos96)
-            log(f"{mode} forward at batch {QBATCH} on the seeded crops: every K3 call and its "
-                f"quantize pass bit-equal to the plain versions on the same activations: "
-                f"{checked}")
-            if checked != {k: walk[k] for k in ("convs", "fused", "quantize")}:
+            checked = check_k3_calls(qscorer.model, u96, pos96)
+            log(f"{mode} forward at batch {QBATCH} on the seeded crops: K2's int8 entry and "
+                f"every K3 call bit-equal to the plain versions on the same crops and "
+                f"activations: {checked}")
+            if checked != {k: walk[k] for k in ("convs", "fused", "quantize", "k2_int8")}:
                 raise AssertionError(f"{mode}: checked {checked}, not every call of a forward")
         with torch.inference_mode():
-            x29 = pp.normalize_imagenet(torch.from_numpy(crops).to(dev))
+            u29 = torch.from_numpy(crops).to(dev)
             pos29 = torch.arange(29, device=dev)
-            a = scorer.model(x29, pos29).double()
-            b = qscorer.model(x29, pos29).double()
+            a = scorer.model.forward_crops(u29, torch.float32, pos29).double()
+            b = qscorer.model.forward_crops(u29, torch.float32, pos29).double()
         cos = float((a * b).sum() / (a.norm() * b.norm()))
         log(f"{mode} vs fp32 logits on 29 crops (information): max abs "
             f"{float((a - b).abs().max()):.4g} cosine {cos:.6f} "
             f"(|logit| max {float(a.abs().max()):.3g})")
 
     if args.profile:
-        profile_forward(lambda: scorer.model(x96, pos96), f"fp32 forward, batch {QBATCH}")
-        profile_forward(lambda: full.model(x96, pos96), f"int8_full forward, batch {QBATCH}",
-                        expect=("dense_wgmma", "conv_wgmma", "qwg::quantize_rows"),
-                        absent=("qmma::",))
+        profile_forward(lambda: scorer.model.forward_crops(u96, torch.float32, pos96),
+                        f"fp32 forward, batch {QBATCH}", expect=("normalize_table",))
+        profile_forward(lambda: full.model.forward_crops(u96, torch.float32, pos96),
+                        f"int8_full forward, batch {QBATCH}",
+                        expect=("dense_wgmma", "conv_wgmma", "qwg::quantize_rows",
+                                "normalize_table"), absent=("qmma::",))
 
     # ---- 10. full-width int8_full logits, card against CPU ------------------
     with torch.inference_mode():
-        gpu8 = full.model(pp.normalize_imagenet(four.to(dev)), pos.to(dev)).cpu()
+        gpu8 = full.model.forward_crops(four.to(dev), torch.float32, pos.to(dev)).cpu()
         t_cpu = time.perf_counter()
-        cpu8 = copy.deepcopy(full.model).cpu()(pp.normalize_imagenet(four), pos)
+        cpu8 = copy.deepcopy(full.model).cpu().forward_crops(four, torch.float32, pos)
     err8 = float((gpu8 - cpu8).abs().max())
     log(f"full-width int8_full logits card vs CPU (plain versions, "
         f"{time.perf_counter() - t_cpu:.1f} s on the CPU): max abs {err8:.3g} "
@@ -1398,7 +1589,6 @@ def main() -> int:
     s3d = s3d_phases(args.seed, rng, dev, args.profile)
 
     # ---- 15. kernels line -----------------------------------------------------
-    k2_main = k2[(96, "float32")]
     k5, k6 = s3d["k5"], s3d["k6"]
     rows = [
         {"name": "K1_frame_detections", "route": "cuda",
@@ -1412,28 +1602,37 @@ def main() -> int:
         {"name": "K2_normalize_imagenet", "route": "cuda",
          "source": "fac_fake_torch/csrc/normalize.cu",
          "replaces": "fac_fake_tpu/ops/preprocess.py:25",
-         "launches": launches["K2"], "max_abs_err": max(v["err"] for v in k2.values()),
-         "ms": k2_main["ms"], "kernel_ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
-         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-         "library_ms": None},
+         "launches": launches["K2"], "int8_launches": int8_launches["K2_int8"],
+         "raw_launches": s3d["launches"]["K2_raw"], "max_abs_err": k2["err"],
+         "ms": k2["ms"], "kernel_ms": k2["ms"], "warm_ms": k2["warm_ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None, "yardstick_ms": k2["yardstick_ms"],
+         "modes": {k: {f: v[f] for f in ("ms", "warm_ms", "yardstick_ms", "plain_ms",
+                                         "bound_ms")} for k, v in k2["modes"].items()},
+         "timing": "ms: cold, the launches rotating over buffers beyond twice the L2; warm_ms: "
+                   "one input again and again; yardstick_ms: cold, the u8 cast to the output "
+                   "dtype (fp modes) or copy_ of the output's bytes (int8 modes), the same "
+                   "bytes, not the same function",
+         "shapes": "ms: fp32 (96, 224, 224, 3), the fp32 main path's; modes: fp32, bf16 and "
+                   "the int8 CViT entry of each at batches 96 and 256, the raw int8 entry at "
+                   f"({S3D_BATCH}, {S3D_T}, {S3D_HW}, {S3D_HW}, 3); launches: the fp32 path; "
+                   "int8_launches: int8 entries on int8_full; raw_launches: the S3D int8 path"},
         {"name": "K3_quant_conv3x3", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_conv3d.cu",
          "replaces": "fac_fake_tpu/models/layers.py:106",
          "launches": int8_launches["K3"], "quantize_launches": int8_launches["K3_quantize"],
          "max_abs_err": k3["err"], "ms": k3["ms"], "kernel_ms": k3["ms"],
-         "conv_ms": k3["conv_ms"], "quantize_ms": k3["quantize_ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-         "bound_counts": "real channels; the quantize pass and the convs as one function, the "
-                         "int8 tensor between the quantize pass and the first conv not counted; "
-                         "the 16 tensors a conv quantizes for the next conv as int8",
+         "bound_counts": "real channels; the first conv's int8 input (K2's int8 entry makes it) "
+                         "read once; the 16 tensors a conv quantizes for the next conv as int8",
          "bound_ms_old_count": k3["bound_ms_old_count"],
          "old_count": "each conv reading fp32 and writing fp32 (the count without the fused "
                       "edges)",
          "library_ms": None, "int_mm_deep_ms": k3["library_ms"], "ms_deep": k3["ms_deep"],
          "int_mm": "torch._int_mm, the GEMMs alone of the 8 deep convs (28x28 and 14x14) on "
                    "im2col'd int8 operands",
-         "shapes": "the 17 convs (16 fused with the next quantize) and 1 quantize pass of one "
-                   "int8 forward's stem walk, batch 96, fp32"},
+         "shapes": "the 17 convs (16 fused with the next quantize) of one int8 forward's stem "
+                   "walk from the crops, batch 96, fp32; quantize_launches: 0 on that path"},
         {"name": "K4_quant_dense", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_dense.cu",
          "replaces": "fac_fake_tpu/models/layers.py:142",
@@ -1451,15 +1650,16 @@ def main() -> int:
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "bound_counts": "real channels; the quantize passes and convs as one function "
                          "(fp32 in, fp32 out), the int8 tensor between a quantize pass and its "
-                         "convs not counted, as for K3; the 39 tensors a conv quantizes for "
-                         "the next conv as int8, written once and read once",
+                         "convs not counted; the stem conv's int8 input (K2's raw entry makes "
+                         "it) read once; the 39 tensors a conv quantizes for the next conv as "
+                         "int8, written once and read once",
          "bound_ms_old_count": k5["bound_ms_old_count"],
          "old_count": "the same, with those 39 tensors as an fp32 write and an fp32 read "
                       "(the count without the fused epilogue)",
          "library_ms": k5["library_ms"], "ms_1x1x1": k5["ms_1x1x1"],
          "library": "torch._int_mm, the GEMMs of the 1x1x1 convs alone (pre-quantized)",
-         "shapes": f"the 77 convs (39 fused with the next quantize) and 11 quantize passes "
-                   f"of one ca_s3d int8 forward, batch {S3D_BATCH}, fp32"},
+         "shapes": f"the 77 convs (39 fused with the next quantize) and 10 quantize passes "
+                   f"of one ca_s3d int8 forward from uint8 clips, batch {S3D_BATCH}, fp32"},
         {"name": "K6_max_pool3d_i8", "route": "cuda",
          "source": "fac_fake_torch/csrc/max_pool3d_i8.cu",
          "replaces": "fac_fake_tpu/compat/quantize_s3d.py:85",

@@ -24,11 +24,15 @@ scale, and its fourth branch max-pools the int8 tensor (K6): max-pool
 commutes with the monotone quantizer, so that is exact. Each branch writes
 its slice of the mix's output. What stays fp: the SRM bank, the GCNet
 context blocks, the spec's own max-pools and the head. The 3-channel stem
-input is quantized to 4 channels (K5's stem layout).
+input is quantized to 4 channels (K5's stem layout); given as uint8 clips
+(what `S3DEvaluator` passes) and with no SRM bank, by K2's raw entry
+(`ops/preprocess.py quantize_clips`) straight from the bytes, the same
+int8 values as the fp32 cast and the quantize pass, so a ca_s3d forward
+runs 10 quantize passes, not 11.
 
 The walk is NDHWC inside (the kernels' layout); `S3DInt8.forward` takes
 what `S3DNet.forward` takes, (B, 3, T, H, W) in ``channels_last_3d``
-memory, and returns (B, num_class) fp32 logits. The msca family (relu6
+memory, fp or uint8, and returns (B, num_class) fp32 logits. The msca family (relu6
 acts, MSCAN/iFormer blocks) is not supported yet.
 
     engine = quantize_s3d(model, calib_clips)   # one folded fp32 walk
@@ -46,6 +50,7 @@ from torch import nn
 from fac_fake_torch.compat.quantize import _act_scale, _weight_q
 from fac_fake_torch.models.s3d.blocks import INCEPTION_PLANS
 from fac_fake_torch.models.s3d.layers import act_fn, avg_pool3d, max_pool3d, srm_filter
+from fac_fake_torch.ops import preprocess as pp
 from fac_fake_torch.ops import quant3d as q3
 from fac_fake_torch.ops.quant3d import pad16
 
@@ -218,11 +223,16 @@ class S3DInt8(nn.Module):
             y2 = sep(y2, key + "/b2b", 1, 1, act, sbn)
             return torch.cat([y0, y1, y2, y3], dim=-1)
 
-        x = clips.to(dt)
-        if self.srm == "concat30":
-            x = srm_filter(x.float(), self.srm_weight).to(dt)
-        x = _ndhwc(x)
         xq = None   # int8 walk: the input of conv op i, quantized by conv op i - 1
+        first = {"sep": "l0/s", "basic": "l0"}.get(self.spec[0][0])
+        if int8 and clips.dtype == torch.uint8 and self.srm == "none" and first:
+            # the first conv's input straight from the uint8 clips (K2's raw entry)
+            xq, x = pp.quantize_clips(_ndhwc(clips), self.qconvs[first].s_x), None
+        else:
+            x = clips.to(dt)
+            if self.srm == "concat30":
+                x = srm_filter(x.float(), self.srm_weight).to(dt)
+            x = _ndhwc(x)
         for i, op in enumerate(self.spec):
             kind, key = op[0], f"l{i}"
             nxt = self.spec[i + 1][0] if i + 1 < len(self.spec) else None

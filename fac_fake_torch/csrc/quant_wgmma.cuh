@@ -34,8 +34,8 @@
 //    CTAs are persistent, their ring already holds the next tile, so K5
 //    stores from the registers, every value computed before any store.
 //
-// The quantize (q8: a reciprocal, one FMA remainder and one FMA correction,
-// the IEEE quotient bit for bit) and the epilogue (__fmul_rn, __fadd_rn,
+// The quantize (q8, q8.cuh: a reciprocal, one FMA remainder and one FMA
+// correction, the IEEE quotient bit for bit) and the epilogue (__fmul_rn, __fadd_rn,
 // __int2float_rn) round as PyTorch's separate elementwise kernels do; the
 // libraries are built with -fmad=false besides. The ReLU commutes with the
 // rounding to the output type.
@@ -45,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "q8.cuh"
 
 namespace qwg {
 
@@ -73,20 +75,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   v[1] = __high2float(lo);
   v[2] = __low2float(hi);
   v[3] = __high2float(hi);
-}
-
-// clip(rint(v / s), -127, 127) as an int8 byte, from r = 1/s rounded
-// (__frcp_rn), bit for bit what the IEEE division gives, with no division:
-// q0 = v·r is within an ulp of v/s, the remainder v - q0·s is exact in one
-// FMA, and q0 + rem·r rounded is the correctly rounded quotient (Markstein's
-// theorem; r within half an ulp of 1/s). From |q0| >= 128 on both clip to
-// ±127 (and a NaN stays a NaN either way).
-__device__ __forceinline__ uint32_t q8(float v, float s, float r) {
-  const float q0 = __fmul_rn(v, r);
-  float t = __fmaf_rn(__fmaf_rn(-q0, s, v), r, q0);
-  t = fabsf(q0) < 128.0f ? t : q0;
-  t = fminf(fmaxf(rintf(t), -127.0f), 127.0f);
-  return static_cast<uint32_t>(static_cast<int>(t)) & 0xFFu;
 }
 
 // x (rows, C) -> q (rows, Cp), four channels a thread; vec: C % 4 == 0 and x

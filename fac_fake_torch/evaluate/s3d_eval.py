@@ -42,7 +42,8 @@ class S3DEvaluator:
 
     ``quantize="int8"`` scores through the int8 engine
     (`compat/quantize_s3d.py`, kernels K5 and K6 on the card), calibrated
-    on the first two clips of the first batch it scores. The model moves to
+    on the first two clips of the first batch it scores; the engine takes
+    the uint8 clips, and K2's raw entry quantizes them for its first conv. The model moves to
     ``device``: the card unless the caller names the CPU.
     """
 
@@ -61,14 +62,15 @@ class S3DEvaluator:
     def _probs(self, clips_u8: np.ndarray) -> np.ndarray:
         """(B, T, H, W, 3) uint8 → (B, num_class) probabilities."""
         x = torch.from_numpy(np.ascontiguousarray(clips_u8)).to(self.device)
-        x = x.float().permute(0, 4, 1, 2, 3)          # channels_last_3d, no copy
+        x = x.permute(0, 4, 1, 2, 3)                  # channels_last_3d, no copy
         if self.quantize == "int8":
             if self.engine is None:
                 from fac_fake_torch.compat.quantize_s3d import quantize_s3d
-                self.engine = quantize_s3d(self.model, x[:2])
+                self.engine = quantize_s3d(self.model, x[:2].float())
+            # uint8: the engine quantizes them for its first conv in one pass
             logits = self.engine(x)
         else:
-            logits = self.model(x)
+            logits = self.model(x.float())
         return torch.sigmoid(logits).cpu().numpy()
 
     def predict_batch(self, clips_u8: np.ndarray) -> np.ndarray:

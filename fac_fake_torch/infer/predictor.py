@@ -5,7 +5,9 @@ The port of `fac_fake_tpu/infer/predictor.py` (`cvit_prediction.py:153-255`).
     batch-indexed pos-embedding) is ONE padded forward over ``batch_crops``
     rows with pos rows ``arange(capacity) % 32``; ``UPPER_BOUND`` 90 caps
     the count;
-  * crops go to the card as uint8 and kernel K2 normalizes them there;
+  * crops go to the card as uint8 and kernel K2 normalizes them there
+    (`CViT.forward_crops`); under int8, K2 turns them into the stem's int8
+    input in the same pass;
   * detection is BlazeFace with kernel K1 for the per-frame NMS, ≤ 5 faces
     per frame and 29 per video (`face_face_rec`'s caps, `:106-121,194`);
   * aggregation is `aggregate_probs`;
@@ -176,10 +178,12 @@ class VideoScorer:
 
     @torch.inference_mode()
     def _forward(self, crops_u8: np.ndarray, pos_idx: torch.Tensor) -> torch.Tensor:
+        # uint8 to the card; there K2 normalizes them (or, for a stem with an
+        # int8 walk, makes the walk's int8 input in the same pass)
         x = torch.from_numpy(crops_u8).to(self.device, non_blocking=True)
-        x = normalize_imagenet(x, self.dtype)
         with self._autocast():
-            return self.model(x, pos_indices=pos_idx if self.legacy else None)
+            return self.model.forward_crops(x, self.dtype,
+                                            pos_indices=pos_idx if self.legacy else None)
 
     def score_crops(self, crops_u8: np.ndarray) -> float:
         """Score a stack of uint8 RGB 224² crops (B, 224, 224, 3), padded to

@@ -40,7 +40,7 @@ SIGNATURES = {
     "frame_detections": {"fac_frame_detections": [
         _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P]},
     "normalize": {"fac_normalize_imagenet": [
-        _P, _P, ctypes.c_longlong, _I, ctypes.POINTER(_F), _P]},
+        _P, _P, ctypes.c_longlong, _I, ctypes.POINTER(_F), _P, _P]},
     "quant_dense": {"fac_quant_dense": [
         _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]},
     "quant_conv3d": {"fac_quantize_pad": [_P, _I, _P, _P, _I, _I, _I, _P],
@@ -68,7 +68,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):   # the shared header, quant_wgmma.cuh
+    for header in sorted(CSRC.glob("*.cuh")):   # the shared headers
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

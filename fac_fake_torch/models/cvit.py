@@ -82,7 +82,18 @@ class CViT(nn.Module):
 
     def forward(self, img: torch.Tensor,
                 pos_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.features(img)
+        return self._head(self.features(img), pos_indices)
+
+    def forward_crops(self, crops_u8: torch.Tensor, dtype: torch.dtype = torch.float32,
+                      pos_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """uint8 NHWC (B, H, W, 3) crops → what `forward` gives for their
+        ImageNet normalize in ``dtype`` (`Stem.forward_crops`: on the card,
+        K2 makes the stem's input, and a quantized stem's int8 walk starts
+        from K2's int8 entry)."""
+        return self._head(self.features.forward_crops(crops_u8, dtype), pos_indices)
+
+    def _head(self, x: torch.Tensor, pos_indices: Optional[torch.Tensor]) -> torch.Tensor:
+        """The stem's NCHW output → logits."""
         y = self.patch_to_embedding(patchify(x, self.patch_size))
         b = y.shape[0]
         tokens = torch.cat([self.cls_token.expand(b, 1, self.dim).to(y.dtype), y], dim=1)

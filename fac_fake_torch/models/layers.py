@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from fac_fake_torch.ops import quant, quant3d
+from fac_fake_torch.ops import preprocess, quant, quant3d
 
 # torch BatchNorm defaults, as the JAX package's TorchBatchNorm
 BN_EPS = 1e-5
@@ -43,8 +43,9 @@ class QuantConv3x3(nn.Module):
 
     K3's derived tensors are non-persistent buffers made from those: ``w_k``
     (`quant.conv3x3_rows`) and ``s = x_scale · w_scale``, made again after
-    every ``load_state_dict``. `quantize` and `walk` are the steps of the
-    stem's int8 walk (`models/stems.py`)."""
+    every ``load_state_dict``. `quantize` (or, from uint8 crops,
+    `quantize_crops`) and `walk` are the steps of the stem's int8 walk
+    (`models/stems.py`)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -70,6 +71,11 @@ class QuantConv3x3(nn.Module):
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW fp → this conv's int8 NHWC input (K3's quantize pass)."""
         return quant3d.quantize_pad(x.permute(0, 2, 3, 1).contiguous(), self.x_scale)
+
+    def quantize_crops(self, crops_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """uint8 NHWC crops → this conv's int8 NHWC input, normalized in
+        ``dtype`` and quantized in one pass (K2's int8 entry)."""
+        return preprocess.quantize_crops(crops_u8, self.x_scale, dtype)
 
     def walk(self, xq: torch.Tensor, relu: bool, dtype: torch.dtype,
              q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -16,8 +16,14 @@ tensor. The quantizer is monotone, so it commutes with the ReLU and the
 max: the values are those of the module-by-module chain. The first qconv
 quantizes its fp input; the last writes the activation dtype, and the
 ops after it run as modules. On the quantized `vgg_stem`: 17 convs, 16
-of them quantizing for the next (4 through a pool), 1 quantize pass, no
-fp ReLU, 4 int8 pools and 1 fp pool.
+of them quantizing for the next (4 through a pool), 1 quantize pass (from
+an fp input), no fp ReLU, 4 int8 pools and 1 fp pool.
+
+`Stem.forward_crops` starts from the uint8 NHWC crops: a walk's first
+step is then K2's int8 entry (`ops/preprocess.py quantize_crops`, the
+ImageNet normalize and the first qconv's quantize in one pass, the same
+bytes), so the quantized `vgg_stem` runs no quantize pass; a stem without
+a walk normalizes the crops with K2 and runs as modules.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 from torch import nn
 
 from fac_fake_torch.models.layers import QuantConv3x3, batch_norm, conv3x3
-from fac_fake_torch.ops import quant
+from fac_fake_torch.ops import preprocess, quant
 
 StemSpec = Tuple[Tuple, ...]
 
@@ -89,18 +95,24 @@ def plan_walk(spec: StemSpec) -> Tuple[Tuple[WalkStep, ...], int]:
         i = nxt
 
 
-def walk_counts(spec: StemSpec) -> dict:
+def walk_counts(spec: StemSpec, crops: bool = False) -> dict:
     """What one forward of the stem runs: K3 launches (``convs``, one a
     qconv), those that quantize for the next conv (``fused``), quantize
     passes (the walk's one, and one a qconv run as a module), pools on int8
-    and fp tensors, and fp ReLU passes."""
+    and fp tensors, and fp ReLU passes. With ``crops``, the forward of
+    `Stem.forward_crops`: the walk's quantize pass is then K2's int8 entry
+    (``k2_int8``), and a stem without a walk normalizes the crops in K2's
+    fp mode (``k2_fp``)."""
     steps, tail = plan_walk(spec)
     rest = spec[tail:]
     count = lambda ops, kind: sum(op[0] == kind for op in ops)
+    entry = {"quantize": int(bool(steps)) + count(rest, "qconv")}
+    if crops:
+        entry = {"quantize": count(rest, "qconv"), "k2_int8": int(bool(steps)),
+                 "k2_fp": int(not steps)}
     return {"convs": count(spec, "qconv"), "fused": sum(st.to is not None for st in steps),
-            "quantize": int(bool(steps)) + count(rest, "qconv"),
-            "int8_pools": sum(st.pool for st in steps), "fp_pools": count(rest, "pool"),
-            "fp_relus": count(rest, "relu")}
+            **entry, "int8_pools": sum(st.pool for st in steps),
+            "fp_pools": count(rest, "pool"), "fp_relus": count(rest, "relu")}
 
 
 class Stem(nn.Sequential):
@@ -135,9 +147,20 @@ class Stem(nn.Sequential):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.walk:
             return super().forward(x)
-        ops = list(self)
         dtype = quant._out_dtype(x, "the stem's int8 walk")
-        xq = ops[0].quantize(x)
+        return self._walk(self[0].quantize(x), dtype)
+
+    def forward_crops(self, crops_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """uint8 NHWC (B, H, W, 3) crops → what `forward` gives for their
+        ImageNet normalize in ``dtype``: the walk from K2's int8 entry, or
+        without a walk K2's normalize, then the modules."""
+        if not self.walk:
+            return self(preprocess.normalize_imagenet(crops_u8, dtype))
+        return self._walk(self[0].quantize_crops(crops_u8, dtype), dtype)
+
+    def _walk(self, xq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The int8 walk from op 0's int8 NHWC input, then the ops after it."""
+        ops = list(self)
         for st in self.walk:
             if st.to is None:
                 x = ops[st.conv].walk(xq, st.relu, dtype).permute(0, 3, 1, 2)

@@ -5,6 +5,8 @@ share shows against the spread between runs:
     python3 -m fac_fake_torch.utils.kernel_pairs PARENT_ROOT [--root .] [--phase k3]
         [--phases-from ROOT]
 
+(``--phase`` names any ``chip_smoke.<phase>_phase``: k1, k2, k3, k4, k6.)
+
 PARENT_ROOT is an unpacked checkout of the other tree (``git archive``).
 Each turn is a process of its own that imports ``fac_fake_torch`` from its
 tree, builds that tree's kernels into its own build directory, runs
@@ -12,8 +14,11 @@ tree, builds that tree's kernels into its own build directory, runs
 phase's total kernel ms. The phase code is each tree's own
 ``chip_smoke.py``, or with ``--phases-from`` the one in ROOT for both
 turns: a parent that predates a phase, or times it another way, then runs
-the same checks and timing on its own kernels (the kernels' C interfaces
-must be the same). Needs a card.
+the same checks and timing on its own kernels through its own wrappers
+(`chip_smoke.k2_phase` times a parent's K2, which has no int8 entries, as
+the chains they replace). A phase's ``*_digest`` numbers (a hash of an
+output on the seeded input) are compared across the four turns: equal
+digests are outputs equal bit for bit between the trees. Needs a card.
 """
 from __future__ import annotations
 
@@ -72,9 +77,14 @@ def main() -> int:
         ms[name].append(tot["ms"])
         totals[name].append(tot)
         print(f"{args.phase} pairs: {name} {tot['ms']:.4f} ms", flush=True)
+    digests = {k: len({t[k] for ts in totals.values() for t in ts}) == 1
+               for k in totals["change"][0] if k.endswith("_digest")}
+    if digests:
+        print(f"{args.phase} pairs: outputs bit-equal between the trees: {digests}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"phase": args.phase, "card": smi, **ms, "totals": totals}))
+    print(json.dumps({"phase": args.phase, "card": smi, **ms, "digests_equal": digests,
+                      "totals": totals}))
     return 0
 
 

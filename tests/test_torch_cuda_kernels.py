@@ -52,6 +52,109 @@ def test_k2_refuses_non_contiguous(dev):
     u8 = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=dev)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         pp.normalize_imagenet(u8)
+    s = torch.tensor(0.02, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        pp.quantize_crops(u8, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        pp.quantize_clips(u8, s)
+
+
+# K2's five modes: fp32, bf16 (`normalize_imagenet`), int8 of the fp32 or bf16
+# normalize (`quantize_crops`), int8 of the raw bytes (`quantize_clips`)
+K2_MODES = ["fp32", "bf16", "int8_fp32", "int8_bf16", "raw"]
+# ragged pixel counts: 35, 429, 513 (one whole 512-pixel step and one pixel),
+# 512, and 96 crops of 224² (9408 whole steps)
+K2_SHAPES = [(1, 5, 7, 3), (3, 11, 13, 3), (1, 1, 513, 3), (2, 16, 16, 3), (96, 224, 224, 3)]
+
+
+def _k2(pp, mode, u8, s):
+    """(kernel, plain) of one K2 mode on ``u8``; ``s``: the int8 modes' scale."""
+    dt = torch.bfloat16 if "bf16" in mode else torch.float32
+    if mode in ("fp32", "bf16"):
+        return pp.normalize_imagenet(u8, dt), pp.normalize_imagenet_plain(u8, dt)
+    if mode == "raw":
+        return pp.quantize_clips(u8, s), pp.quantize_clips_plain(u8, s)
+    return pp.quantize_crops(u8, s, dt), pp.quantize_crops_plain(u8, s, dt)
+
+
+def _k2_scale(mode, dev):
+    # about the calibrated scales (2.64 / 127 normalized, 255 / 127 raw), a
+    # little below them, so that the largest values clip to ±127
+    return torch.tensor(2.0 if mode == "raw" else 0.019, device=dev)
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+@pytest.mark.parametrize("mode", K2_MODES)
+def test_k2_modes_equal_plain(dev, shape, mode):
+    from fac_fake_torch.ops import preprocess as pp
+
+    u8 = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, shape, dtype=np.uint8)).to(dev)
+    launches = pp.normalize_imagenet.launches
+    got, ref = _k2(pp, mode, u8, _k2_scale(mode, dev))
+    torch.cuda.synchronize()
+    assert pp.normalize_imagenet.launches == launches + 1
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref)
+    if got.dtype == torch.int8:
+        assert got.is_contiguous() and not got[..., 3].any()
+
+
+@pytest.mark.parametrize("mode", K2_MODES)
+@pytest.mark.parametrize("scale", [0.019, 2.0 ** -6, 2.0, 1.0])
+def test_k2_every_byte_of_every_channel_equals_plain(dev, mode, scale):
+    """An image of all 256 byte values in each channel; the scales make the
+    ±127 clip and exact .5 quotients (2⁻⁶ on bf16 values, 2 on raw bytes)
+    happen."""
+    from fac_fake_torch.ops import preprocess as pp
+
+    b = np.arange(256)
+    img = np.stack([b, (b + 85) % 256, (b + 170) % 256], -1).astype(np.uint8)
+    u8 = torch.from_numpy(img.reshape(1, 16, 16, 3)).to(dev)
+    got, ref = _k2(pp, mode, u8, torch.tensor(scale, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_fp_modes_equal_the_two_division_arithmetic(dev, dtype):
+    """fp32: x / 255, then (x − mean) / std, each an IEEE fp32 operation
+    (numpy on the host); bf16: that rounded to nearest even."""
+    from fac_fake_torch.ops import preprocess as pp
+
+    u8 = np.random.default_rng(3).integers(0, 256, (4, 31, 29, 3), dtype=np.uint8)
+    x = u8.astype(np.float32) / np.float32(255.0)
+    want = torch.from_numpy((x - pp.IMAGENET_MEAN) / pp.IMAGENET_STD).to(dtype)
+    got = pp.normalize_imagenet(torch.from_numpy(u8).to(dev), dtype)
+    assert torch.equal(got.permute(0, 2, 3, 1).cpu(), want)
+
+
+@pytest.mark.parametrize("mode", ["int8_fp32", "int8_bf16", "raw"])
+def test_k2_int8_modes_take_a_misaligned_input(dev, mode):
+    from fac_fake_torch.ops import preprocess as pp
+
+    flat = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, 5 + 3 * 700, dtype=np.uint8)).to(dev)
+    u8 = flat[5:].view(1, 7, 100, 3)          # data pointer off by five bytes
+    got, ref = _k2(pp, mode, u8, _k2_scale(mode, dev))
+    assert torch.equal(got, ref)
+
+
+def test_k2_int8_entries_count_their_launches_and_check_the_scale(dev):
+    from fac_fake_torch.ops import preprocess as pp
+
+    u8 = torch.zeros((2, 4, 4, 3), dtype=torch.uint8, device=dev)
+    s = torch.tensor(0.02, device=dev)
+    k2, crops, clips = (pp.normalize_imagenet.launches, pp.quantize_crops.launches,
+                        pp.quantize_clips.launches)
+    pp.quantize_crops(u8, s, torch.bfloat16)
+    pp.quantize_clips(u8[None], s)
+    assert (pp.normalize_imagenet.launches, pp.quantize_crops.launches,
+            pp.quantize_clips.launches) == (k2 + 2, crops + 1, clips + 1)
+    with pytest.raises(ValueError, match="x_scale"):
+        pp.quantize_crops(u8, s.reshape(1))
+    with pytest.raises(ValueError, match="no kernel"):
+        pp.quantize_crops(u8, s, torch.float16)
 
 
 @pytest.mark.parametrize("t,margin", [(3, 0.2), (1, 0.2), (1, None)])
@@ -318,6 +421,7 @@ def test_int8_full_video_scorer_runs_k3_and_k4_on_the_card(dev):
     from fac_fake_torch.infer.predictor import VideoScorer
     from fac_fake_torch.models import init_weights
     from fac_fake_torch.models.cvit import CViT
+    from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant as q
     from fac_fake_torch.ops import quant3d as q3
 
@@ -329,13 +433,15 @@ def test_int8_full_video_scorer_runs_k3_and_k4_on_the_card(dev):
     scorer = VideoScorer(init_weights(CViT(spec, dim=64, depth=1, heads=2, mlp_dim=64), 0),
                          cfg, device=dev)
     crops = np.random.default_rng(6).integers(0, 256, (12, 224, 224, 3), dtype=np.uint8)
-    # the int8 walk: 5 K3 launches, the first conv's quantize pass, the next
-    # four convs' inputs quantized and pooled (int8) in K3's epilogue
+    # the int8 walk: 5 K3 launches, the first conv's input made by K2's int8
+    # entry (no quantize pass), the next four convs' inputs quantized and
+    # pooled (int8) in K3's epilogue
     k3, k4 = q.int8_conv3x3.launches, q.quant_dense.launches
-    quantized = q3.quantize_pad.launches
+    quantized, entries = q3.quantize_pad.launches, pp.quantize_crops.launches
     prob = scorer.score_crops(crops)
     assert q.int8_conv3x3.launches == k3 + 5 and q.quant_dense.launches == k4 + 6
-    assert q3.quantize_pad.launches == quantized + 1
+    assert q3.quantize_pad.launches == quantized
+    assert pp.quantize_crops.launches == entries + 1
     cpu = VideoScorer(copy.deepcopy(scorer.model).cpu(), cfg, fold_bn=False, device="cpu")
     cpu._quant_pending = False
     assert abs(cpu.score_crops(crops) - prob) <= 1e-3
@@ -542,3 +648,28 @@ def test_s3d_int8_engine_runs_k5_and_k6_on_the_card(dev):
     with torch.no_grad():
         cpu = copy.deepcopy(eng).cpu()(x.cpu())
     assert float((got.cpu() - cpu).abs().max()) <= 1e-3
+
+
+def test_s3d_int8_engine_takes_uint8_clips_through_k2(dev):
+    """uint8 clips: K2's raw entry makes the stem conv's int8 input, one
+    quantize pass fewer, and the logits are those of the fp32 clips."""
+    from fac_fake_torch.compat.quantize_s3d import quantize_s3d
+    from fac_fake_torch.models import init_weights
+    from fac_fake_torch.models.s3d.model import S3DNet
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.ops import quant3d as q3
+
+    spec = (("sep", 16, 7, 2, 3, "relu", True), ("pool", (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+            ("mix", "3b", "relu", True), ("pool", (2, 2, 2), (2, 2, 2), (0, 0, 0)))
+    m = init_weights(S3DNet(spec, 1).to(dev), 0).eval().to(memory_format=torch.channels_last_3d)
+    u8 = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (2, 8, 32, 32, 3), dtype=np.uint8)).to(dev).permute(0, 4, 1, 2, 3)
+    eng = quantize_s3d(m, u8.float())
+    with torch.no_grad():
+        quantized, raw = q3.quantize_pad.launches, pp.quantize_clips.launches
+        fp = eng(u8.float())
+        assert (q3.quantize_pad.launches, pp.quantize_clips.launches) == (quantized + 2, raw)
+        got = eng(u8)
+        assert (q3.quantize_pad.launches, pp.quantize_clips.launches) == (quantized + 3,
+                                                                          raw + 1)
+    assert torch.equal(got, fp)
