@@ -1033,8 +1033,6 @@ def k6_phase(rng, dev) -> dict:
     time. ``copy_ms``: torch's ``copy_`` of the same tensors over the same
     rotation, the rate a plain copy of these bytes reaches (a yardstick,
     not the same function)."""
-    import itertools
-
     import torch
     from fac_fake_torch.ops import quant3d as q3
     k6 = dict(ms=0.0, warm_ms=0.0, copy_ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, err=0.0,
@@ -1051,23 +1049,12 @@ def k6_phase(rng, dev) -> dict:
             del got, ref
         n_rot = int(L2_BYTES // xq.numel()) + 2      # pairs of 2·numel bytes > 2·L2
         rot_x = [xq] + [xq.clone() for _ in range(n_rot - 1)]
-        rot_y = [None] * n_rot
-        turn = itertools.count()
-
-        def cold():
-            i = next(turn) % n_rot
-            rot_y[i] = q3.max_pool3d_i8(rot_x[i])
-
-        k_ms = cuda_ms(cold, iters=max(20, n_rot), warmup=n_rot + 2)
+        k_ms = rotated_ms(q3.max_pool3d_i8, rot_x)
         w_ms = cuda_ms(lambda: q3.max_pool3d_i8(xq))
-
-        def copy():
-            i = next(turn) % n_rot
-            rot_y[i].copy_(rot_x[i])
-
-        c_ms = cuda_ms(copy, iters=max(20, n_rot), warmup=n_rot)
+        pairs = [(torch.empty_like(x), x) for x in rot_x]
+        c_ms = rotated_ms(lambda pair: pair[0].copy_(pair[1]), pairs)
         p_ms = cuda_ms(lambda: q3.max_pool3d_i8_plain(xq), iters=3)
-        del rot_x, rot_y
+        del rot_x, pairs
         real = xq.numel() // xs[-1] * c
         b_ms = bound_ms(2.0 * real, 26.0 * real)[0]
         k6["ms"] += mult * k_ms

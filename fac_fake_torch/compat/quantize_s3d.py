@@ -32,8 +32,8 @@ runs 10 quantize passes, not 11.
 
 The walk is NDHWC inside (the kernels' layout); `S3DInt8.forward` takes
 what `S3DNet.forward` takes, (B, 3, T, H, W) in ``channels_last_3d``
-memory, fp or uint8, and returns (B, num_class) fp32 logits. The msca family (relu6
-acts, MSCAN/iFormer blocks) is not supported yet.
+memory, fp or uint8, and returns (B, num_class) fp32 logits. The msca
+family (relu6 acts, MSCAN/iFormer blocks) is not supported yet.
 
     engine = quantize_s3d(model, calib_clips)   # one folded fp32 walk
     logits = engine(clips)                      # the int8 walk

@@ -39,8 +39,11 @@
 // byte at a time as far as it reaches.
 //
 // The int8 modes let a grid launched after them start early
-// (griddepcontrol.launch_dependents, as quantize_rows does): the first int8
-// conv waits (griddepcontrol.wait) for this grid's completion.
+// (griddepcontrol.launch_dependents), as quantize_rows, whose place they take,
+// does: a grid launched with programmatic stream serialization (K4's) may
+// then start while they run and waits (griddepcontrol.wait) before reading
+// their output. conv_wgmma (K3, K5), their reader, launches without that
+// attribute, so today it starts when this grid ends.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -43,8 +43,8 @@ class S3DEvaluator:
     ``quantize="int8"`` scores through the int8 engine
     (`compat/quantize_s3d.py`, kernels K5 and K6 on the card), calibrated
     on the first two clips of the first batch it scores; the engine takes
-    the uint8 clips, and K2's raw entry quantizes them for its first conv. The model moves to
-    ``device``: the card unless the caller names the CPU.
+    the uint8 clips, and K2's raw entry quantizes them for its first conv.
+    The model moves to ``device``: the card unless the caller names the CPU.
     """
 
     def __init__(self, model, degrade: bool = True, seed: int = 0,

@@ -161,14 +161,15 @@ def test_table_model_of_the_kernel_equals_the_entries(shape, mode):
 # ---- the CViT: forward_crops ---------------------------------------------------
 
 def _tiny_cvit(seed):
-    """The tiny CViT of `tests/test_torch_quantize.py` (two stages of
-    8 and 16 channels, one transformer layer of width 32) on 32² crops."""
+    """Base `cvit` at small width: `vgg_stem`'s 17 convs in 5 stages with 4,
+    4, 8, 8 and 8 channels, on 32² crops, one transformer layer of width
+    32. Quantized, its walk has the real stem's shape: 16 fused edges, 4
+    int8 pools, 1 fp pool."""
     from fac_fake_torch.models import init_weights
     from fac_fake_torch.models.cvit import CViT
-    spec = ()
-    for ch in (8, 16):
-        spec += (("conv", ch), ("bn", ch), ("relu",),
-                 ("conv", ch), ("bn", ch), ("relu",), ("pool",))
+    from fac_fake_torch.models.stems import vgg_stem
+    narrow = {32: 4, 64: 4, 128: 8, 256: 8, 512: 8}
+    spec = tuple((op[0], narrow[op[1]]) if len(op) > 1 else op for op in vgg_stem())
     return init_weights(CViT(spec, image_size=32, pos_mode="legacy", patch_size=1, dim=32,
                              depth=1, heads=2, mlp_dim=32), seed).eval()
 
