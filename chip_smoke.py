@@ -242,14 +242,13 @@ def k2_phase(rng, dev) -> dict:
     again), beside a yardstick of the same bytes, cold: the fp modes beside
     the cast of the uint8 input (``copy_`` into a tensor of the output
     dtype, the kernel ``u8.to(dtype)`` runs), the int8 modes beside
-    ``copy_`` of their output's bytes. The bound counts each input byte read
-    once and each output byte written once (3 bytes a pixel in; 12, 6 or 4
-    out; the scale), and 3 fp32 operations a value for the normalize, 7
-    with the quantize, 4 for the raw quantize.
+    ``copy_`` of their output's bytes. The bound counts each value at its
+    real channels, read once and written once (3 bytes a pixel in; 12, 6 or
+    3 out: the int8 modes' zero fourth channel is padding, not work the
+    function needs, as K5 and K6 count it; the scale), and 3 fp32
+    operations a value for the normalize, 7 with the quantize, 4 for the raw
+    quantize.
 
-    A tree whose K2 has no int8 entries (a parent's, through
-    `utils/kernel_pairs.py --phases-from`) times in their place the chains
-    they replace, K2's fp launch or the cast and then the quantize pass.
     Returns the totals of the fp32 mode at batch 96 (``ms``: what the fp32
     main path runs) and, for each mode and batch, its numbers (``modes``,
     and flat ``{mode}_{batch}_{what}`` keys for `utils/kernel_pairs.py`),
@@ -257,7 +256,6 @@ def k2_phase(rng, dev) -> dict:
     import torch
     from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant3d as q3
-    entries = hasattr(pp, "quantize_crops")
     dts = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8_fp32": torch.float32,
            "int8_bf16": torch.bfloat16}
 
@@ -268,13 +266,11 @@ def k2_phase(rng, dev) -> dict:
             return (lambda x: pp.normalize_imagenet(x, dt),
                     lambda x: pp.normalize_imagenet_plain(x, dt))
         if mode == "raw":
-            kern = (lambda x: pp.quantize_clips(x, s)) if entries else \
-                (lambda x: q3.quantize_pad(x.float(), s))
-            return kern, lambda x: q3.quantize_pad_plain(x.float(), s)
-        kern = (lambda x: pp.quantize_crops(x, s, dt)) if entries else \
-            (lambda x: q3.quantize_pad(pp.normalize_imagenet(x, dt).permute(0, 2, 3, 1), s))
-        return kern, lambda x: q3.quantize_pad_plain(
-            pp.normalize_imagenet_plain(x, dt).permute(0, 2, 3, 1), s)
+            return (lambda x: pp.quantize_clips(x, s),
+                    lambda x: q3.quantize_pad_plain(x.float(), s))
+        return (lambda x: pp.quantize_crops(x, s, dt),
+                lambda x: q3.quantize_pad_plain(
+                    pp.normalize_imagenet_plain(x, dt).permute(0, 2, 3, 1), s))
 
     def check(mode, got, ref, what):
         if mode in ("fp32", "bf16"):
@@ -330,19 +326,19 @@ def k2_phase(rng, dev) -> dict:
         del pairs
         p_ms = cuda_ms(lambda: plain(u8), iters=3, warmup=1)
         per_value = {"fp32": 3, "bf16": 3, "raw": 4}.get(mode, 7)
-        bms, by = bound_ms(u8.numel() + out_bytes + 4, per_value * u8.numel())
+        nbytes = u8.numel() + (out_bytes if mode in ("fp32", "bf16") else u8.numel()) + 4
+        bms, by = bound_ms(nbytes, per_value * u8.numel())
         row = dict(ms=k_ms, warm_ms=w_ms, yardstick_ms=y_ms, plain_ms=p_ms, bound_ms=bms,
-                   bound_by=by, bytes=float(u8.numel() + out_bytes + 4), digest=dig,
-                   shape=list(shape), rotation=n_rot)
+                   bound_by=by, bytes=float(nbytes), digest=dig, shape=list(shape),
+                   rotation=n_rot)
         res["modes"][f"{mode}_{batch}"] = row
         for k in ("ms", "warm_ms", "yardstick_ms", "plain_ms", "bound_ms", "digest"):
             res[f"{mode}_{batch}_{k}"] = row[k]
         yard = "the u8 cast" if mode in ("fp32", "bf16") else "copy_ of the output"
-        log(f"K2 {mode} {tuple(shape)}{'' if entries or mode in ('fp32', 'bf16') else ' (chain)'}"
-            f": {'max_abs_err %.3g' % err if err else 'equal'}; kernel {k_ms:.4f} ms cold "
-            f"({bms / k_ms:.1%} of the bound, {n_rot} buffers), {w_ms:.4f} ms warm; {yard} "
-            f"{y_ms:.4f} ms cold; plain {p_ms:.4f} ms; bound {bms:.4f} ms ({by}, "
-            f"{row['bytes'] / 1e6:.2f} MB); digest {dig:.0f}")
+        log(f"K2 {mode} {tuple(shape)}: {'max_abs_err %.3g' % err if err else 'equal'}; "
+            f"kernel {k_ms:.4f} ms cold ({bms / k_ms:.1%} of the bound, {n_rot} buffers), "
+            f"{w_ms:.4f} ms warm; {yard} {y_ms:.4f} ms cold; plain {p_ms:.4f} ms; bound "
+            f"{bms:.4f} ms ({by}, {row['bytes'] / 1e6:.2f} MB); digest {dig:.0f}")
         del xs, u8
         torch.cuda.empty_cache()
     main = res["modes"][f"fp32_{K2_CROP_BATCHES[0]}"]
@@ -1594,6 +1590,8 @@ def main() -> int:
          "ms": k2["ms"], "kernel_ms": k2["ms"], "warm_ms": k2["warm_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None, "yardstick_ms": k2["yardstick_ms"],
+         "bound_counts": "real channels: 3 bytes a pixel in; 12 (fp32), 6 (bf16) or 3 (int8 "
+                         "modes, their zero fourth channel not counted) out; the scale",
          "modes": {k: {f: v[f] for f in ("ms", "warm_ms", "yardstick_ms", "plain_ms",
                                          "bound_ms")} for k, v in k2["modes"].items()},
          "timing": "ms: cold, the launches rotating over buffers beyond twice the L2; warm_ms: "

@@ -23,27 +23,20 @@
 // therefore bit for bit those of the normalize and quantize passes they
 // replace. x_scale is read from device memory as the table is built.
 //
-// Bound on the H100: bytes. In, 3 bytes a pixel; out, 12 (fp32), 6 (bf16)
-// or 4 (int8). Design: a warp's step is 512 pixels (16 a lane), so every step
-// starts at channel 0. The lanes load the step's 1536 input bytes as three
-// 16-byte loads each, neighbouring lanes on neighbouring addresses, into the
-// warp's stage in shared memory; the next step's three loads are issued
-// before this step's values are made, so they are in flight during it. Each
-// lane then takes 16-byte output chunks of the step, neighbouring lanes on
-// neighbouring chunks (4 fp32 values, 8 bf16 values or 4 int8 pixels), reads
-// their input bytes from the stage, looks each value up and stores the
-// chunk, 16 bytes a lane. A chunk's channels follow from its index with no
-// division. The grid is the CTAs the card holds at once, and its warps
-// stride over the steps. A misaligned input is read a byte at a time, and so
-// is the ragged last step, whose chunks past the tensor's end are stored a
-// byte at a time as far as it reaches.
-//
-// The int8 modes let a grid launched after them start early
-// (griddepcontrol.launch_dependents), as quantize_rows, whose place they take,
-// does: a grid launched with programmatic stream serialization (K4's) may
-// then start while they run and waits (griddepcontrol.wait) before reading
-// their output. conv_wgmma (K3, K5), their reader, launches without that
-// attribute, so today it starts when this grid ends.
+// Bound on the H100: bytes. In, 3 bytes a pixel; out, 12 (fp32), 6 (bf16) or 3
+// (int8; it writes 4, the fourth a zero pad). Design: a warp's step is 512
+// pixels (16 a lane), so every step starts at channel 0. The lanes load the
+// step's 1536 input bytes as three 16-byte loads each, neighbouring lanes on
+// neighbouring addresses, into the warp's stage in shared memory; the next
+// step's three loads are issued before this step's values are made, so they are
+// in flight during it. Each lane then takes 16-byte output chunks of the step,
+// neighbouring lanes on neighbouring chunks (4 fp32 values, 8 bf16 values or 4
+// int8 pixels), reads their input bytes from the stage, looks each value up and
+// stores the chunk, 16 bytes a lane. A chunk's channels follow from its index
+// with no division. The grid is the CTAs the card holds at once, and its warps
+// stride over the steps. A misaligned input is read a byte at a time, and so is
+// the ragged last step, whose chunks past the tensor's end are stored a byte at
+// a time as far as it reaches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -155,7 +148,6 @@ template <int M>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
     normalize_table(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, long long npix,
                     Norm nm, const float* __restrict__ x_scale, int vec) {
-  if constexpr (M >= kI8F32) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   __shared__ uint32_t tab[3 * 256];
   __shared__ uint4 stages[kWarps][kStepVecs];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

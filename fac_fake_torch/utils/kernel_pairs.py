@@ -15,10 +15,10 @@ phase's total kernel ms. The phase code is each tree's own
 ``chip_smoke.py``, or with ``--phases-from`` the one in ROOT for both
 turns: a parent that predates a phase, or times it another way, then runs
 the same checks and timing on its own kernels through its own wrappers
-(`chip_smoke.k2_phase` times a parent's K2, which has no int8 entries, as
-the chains they replace). A phase's ``*_digest`` numbers (a hash of an
-output on the seeded input) are compared across the four turns: equal
-digests are outputs equal bit for bit between the trees. Needs a card.
+(the wrappers the phase calls must exist in both trees). A phase's
+``*_digest`` numbers (a hash of an output on the seeded input) are
+compared across the four turns: equal digests are outputs equal bit for
+bit between the trees. Needs a card.
 """
 from __future__ import annotations
 
