@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
 """Drive fac_fake_torch on one NVIDIA H100: build the hand-written kernels,
 hold each against its plain PyTorch version, score videos end to end with the
-full-width base CViT in fp32 and under int8 post-training quantization, and
-print what it measured.
+full-width base CViT and the flagship cvit_repbn8 in fp32 and under int8
+post-training quantization, score S3D clips, and print what it measured.
 
     python3 chip_smoke.py [--seed N] [--profile]     # all phases, one card
 
 ``--profile`` adds a torch.profiler breakdown, by kernel, of one fp32 and
-one int8_full CViT forward at batch 96 to phase 9, and of one fp32 and one
-int8 S3D `predict_batch` at batch 32 to phase 13; the int8 breakdowns must
-name K4's and K5's `wgmma` kernels (`dense_wgmma`, `conv_wgmma`, which K3
-runs on too), their quantize pass (`qwg::quantize_rows`) and K2's
-`normalize_table`, the S3D one K6's `max_pool3d_i8_sep`, and the CViT's no
-`qmma::` kernel.
+one int8_full CViT forward at batch 96 to phase 9 and to F3 (the flagship),
+and of one fp32 and one int8 S3D `predict_batch` at batch 32 to phase 13;
+the int8 breakdowns must name K4's and K5's `wgmma` kernels (`dense_wgmma`,
+`conv_wgmma`, which K3 runs on too), their quantize pass
+(`qwg::quantize_rows`) and K2's `normalize_table`, the S3D one K6's
+`max_pool3d_i8_sep`, and the CViTs' no `qmma::` kernel.
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
@@ -62,6 +62,16 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      crops and activations; int8 vs fp32 logits for information;
  10. full-width int8_full logits on the card against the same quantized
      module on the CPU (plain versions);
+ F1-F4. the flagship cvit_repbn8 at its published widths (seeded weights,
+     each DEConv at He scale): F1 its fp32 path as phase 5 runs the base's;
+     F2 its fp32 logits card vs CPU; F3 int8_full and int8 as phase 9, one
+     forward from the crops running FLAGSHIP_INT8_WALK (1 K2 int8 entry, 18
+     K3 launches over its two stems, 16 fused, one of them the 56^2 conv ->
+     deconv edge with no ReLU, 1 quantize pass for stem 2's fp input, 3
+     int8 and 2 fp pools; 26 K4 under int8_full), every K3 call of an
+     int8_full forward held bit-equal, and K3 at every distinct conv of the
+     flagship's walk (timed as one forward's 18 convs and its quantize pass);
+     F4 its int8_full logits card vs CPU;
  11. S3D fp32 main path: `S3DEvaluator` with the full-width `ca_s3d` (seeded
      weights, one logit, 20 x 224^2 clips): `predict_batch` on 32 seeded
      uint8 clips (clips/s), `predict_video` on one clip (no degradation: the
@@ -126,10 +136,19 @@ INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
                (192, 1024, 1024, True): 6, (192, 2048, 1024, True): 6,
                (192, 1024, 2048, True): 6, (96, 2048, 1024, True): 1}
 # one forward from uint8 crops through the quantized base stem's int8 walk:
-# K2's int8 entry (no K2 fp launch), 17 K3 launches, 0 quantize passes, no
-# fp ReLU, 1 fp max-pool (the other 4 pool int8 tensors)
-CVIT_INT8_WALK = {"convs": 17, "quantize": 0, "k2_int8": 1, "k2_fp": 0, "fp_relus": 0,
-                  "fp_pools": 1}
+# K2's int8 entry (no K2 fp launch), 17 K3 launches (16 quantizing for the
+# next conv), 0 quantize passes, no fp ReLU, 4 int8 pools and 1 fp max-pool
+CVIT_INT8_WALK = {"convs": 17, "fused": 16, "no_relu_fused": 0, "quantize": 0, "k2_int8": 1,
+                  "k2_fp": 0, "int8_pools": 4, "fp_pools": 1, "fp_relus": 0}
+# the same for the flagship cvit_repbn8's two quantized stems: 18 K3 launches
+# (14 + 4), 16 quantizing for the next conv, one of them with no ReLU between
+# (the 56^2 conv -> deconv), 1 quantize pass (stem 2's fp input), 3 int8
+# pools, 2 fp pools
+FLAGSHIP_INT8_WALK = {"convs": 18, "fused": 16, "no_relu_fused": 1, "quantize": 1,
+                      "k2_int8": 1, "k2_fp": 0, "int8_pools": 3, "fp_pools": 2, "fp_relus": 0}
+# what forward_counts and check_k3_calls read of a walk
+FORWARD_KEYS = ("convs", "quantize", "k2_int8", "k2_fp", "int8_pools", "fp_pools", "fp_relus")
+CHECKED_KEYS = ("convs", "fused", "no_relu_fused", "quantize", "k2_int8")
 S3D_BATCH = 32                                     # clips a predict_batch
 S3D_CHECK_BATCH = 2                                # clips a K5/K6 bit-equality check
 S3D_T, S3D_HW = 20, 224                            # frames, pixels (ca_s3d's input)
@@ -350,37 +369,49 @@ def k2_phase(rng, dev) -> dict:
     return res
 
 
-def stem_walk() -> list:
-    """(H, Cin, Cout, fused) of each K3 launch of one forward of the
-    quantized base stem, in order, from the stem's own planner; ``fused``:
-    the conv quantizes its output for the next conv."""
-    from fac_fake_torch.models.stems import plan_walk, vgg_stem
-    spec = tuple(("qconv", op[1]) if op[0] == "conv" else op for op in vgg_stem()
-                 if op[0] != "bn")
-    steps, _ = plan_walk(spec)
+def stem_walk(name: str = "cvit") -> list:
+    """(H, Cin, Cout, fused, relu, source) of each K3 launch of one forward
+    of the quantized CViT ``name`` from the crops, in order, from the
+    stems' own planner (value-free: DEConvs fold to convs, BNs drop out);
+    ``fused``: the conv quantizes its output for the next conv; ``source``
+    of its int8 input: "k2" (K2's int8 entry), "quantize" (a later stem's
+    quantize pass of its fp input), "conv" or "pool"."""
+    from fac_fake_torch.models.stems import plan_walk, repbn8_stem1, repbn8_stem2, vgg_stem
+    specs = {"cvit": [vgg_stem()], "cvit_repbn8": [repbn8_stem1(), repbn8_stem2()]}[name]
     hw, cin, out = 224, 3, []
-    for st in steps:
-        cout = spec[st.conv][1]
-        out.append((hw, cin, cout, st.to is not None))
-        hw, cin = hw // (2 if st.pool else 1), cout
+    for k, spec in enumerate(specs):
+        spec = tuple(("qconv", op[1]) if op[0] in ("conv", "deconv") else op for op in spec
+                     if op[0] != "bn")
+        steps, _ = plan_walk(spec)
+        source = "k2" if k == 0 else "quantize"
+        for st in steps:
+            cout = spec[st.conv][1]
+            out.append((hw, cin, cout, st.to is not None, st.relu, source))
+            source = "pool" if st.pool else "conv"
+            hw, cin = hw // (2 if st.pool else 1), cout
+        hw //= 2 ** sum(op[0] == "pool" for op in spec[steps[-1].conv:])   # the fp tail
     return out
 
 
-def k3_phase(rng, dev) -> dict:
+def k3_phase(rng, dev, name: str = "cvit") -> dict:
     """K3 against its plain versions at every distinct conv of the quantized
-    base stem at batch 96, fp32 and bf16, bit-equal: as JAX's layer
-    (`quant_conv3x3`: quantize pass, conv, fp out) and as the int8 walk's
-    step (`int8_conv3x3` on an int8 input, ReLU, and for 16 of the 17 the
-    next conv's quantize in the epilogue, against
+    CViT ``name``'s stem walk (`stem_walk`) at batch 96, fp32 and bf16,
+    bit-equal: as JAX's layer (`quant_conv3x3`: quantize pass, conv, fp
+    out) and as the int8 walk's step (`int8_conv3x3` on an int8 input, the
+    ReLU where the walk has one, and where the walk fuses it the next
+    conv's quantize in the epilogue, against
     quantize_pad_plain(int8_conv3x3_plain(...))). Timed as the walk runs
-    them from the crops: the 17 convs of one forward (fp32), the first
-    conv's int8 input made by K2's int8 entry (timed in `k2_phase`; up to
-    PR 6 a quantize pass here).
+    them from the crops: the convs of one forward (fp32; 17 for cvit, 18
+    for cvit_repbn8), the first conv's int8 input made by K2's int8 entry
+    (timed in `k2_phase`), a later stem's first by its quantize pass (timed
+    here, as K3's).
 
     The bound counts each tensor at its real channels: the int8 inputs the
     convs read (the first from K2's entry, the others from the convs, or
-    int8 pools, before them), weights, scales, biases, the 16 int8 outputs
-    quantized for the next conv and the last conv's fp32 output.
+    int8 pools, before them), a later stem's fp32 input read by its
+    quantize pass (the int8 tensor between that pass and its conv not
+    counted, as K5 counts it), weights, scales, biases, the int8 outputs
+    quantized for the next conv and the fp32 outputs.
     ``bytes_old`` is the count without the fused edges, each conv reading
     fp32 and writing fp32 (the count of PRs 2-4). Beside the deep convs
     (28² and 14²) torch._int_mm times their GEMMs alone on the im2col'd
@@ -389,48 +420,56 @@ def k3_phase(rng, dev) -> dict:
     import torch.nn.functional as F
     from fac_fake_torch.ops import quant as q
     from fac_fake_torch.ops import quant3d as q3
-    tot = dict(ms=0.0, conv_ms=0.0, plain_ms=0.0, ms_deep=0.0, library_ms=0.0, bytes=0.0,
-               bytes_old=0.0, ops=0.0, err=0.0, convs=0, fused=0)
-    walk = stem_walk()
+    tot = dict(ms=0.0, conv_ms=0.0, quantize_ms=0.0, plain_ms=0.0, ms_deep=0.0, library_ms=0.0,
+               bytes=0.0, bytes_old=0.0, ops=0.0, err=0.0, convs=0, fused=0, no_relu_fused=0)
+    walk = stem_walk(name)
     groups = {}
     for key in walk:
         groups[key] = groups.get(key, 0) + 1
-    for (hw, cin, cout, fused), mult in groups.items():
+    for (hw, cin, cout, fused, relu, source), mult in groups.items():
         m = QBATCH * hw * hw
         x, wq, sw, sx, b = quant_inputs(rng, dev, (QBATCH, hw, hw, cin), cout, 9 * cin)
         kq = wq.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)       # OIHW, O-HW-I memory
         s, w_k = sx * sw, q.conv3x3_rows(kq)
-        first = cin == 3
-        xq = q3.quantize_pad(x, sx) if first else int8_image(rng, dev, (QBATCH, hw, hw,
-                                                                        q.pad16(cin)), cin)
+        from_fp = source in ("k2", "quantize")
+        xq = q3.quantize_pad(x, sx) if from_fp else int8_image(rng, dev, (QBATCH, hw, hw,
+                                                                          q.pad16(cin)), cin)
         qs = None
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt).permute(0, 3, 1, 2)
             checks = [("layer", q.quant_conv3x3(xd, kq, sw, sx, b),
                        q.quant_conv3x3_plain(xd, kq, sw, sx, b))]
+            if source == "quantize":
+                checks.append(("quantize pass", q3.quantize_pad(x.to(dt), sx),
+                               q3.quantize_pad_plain(x.to(dt), sx)))
             del xd
-            ref = q.int8_conv3x3_plain(xq, kq, s, b, True, dt)
-            checks.append(("walk, fp out", q.int8_conv3x3(xq, kq, s, b, True, dt, w_k=w_k), ref))
+            ref = q.int8_conv3x3_plain(xq, kq, s, b, relu, dt)
+            checks.append(("walk, fp out", q.int8_conv3x3(xq, kq, s, b, relu, dt, w_k=w_k), ref))
             qs = (ref.float().abs().amax().clamp_min(1e-8) / 127.0).reshape(())
             checks.append(("walk, quantized for the next conv",
-                           q.int8_conv3x3(xq, kq, s, b, True, dt, qs, w_k),
+                           q.int8_conv3x3(xq, kq, s, b, relu, dt, qs, w_k),
                            q3.quantize_pad_plain(ref, qs)))
             torch.cuda.synchronize()
             for what, got, want in checks:
                 err = float((got.float() - want.float()).abs().max())
                 tot["err"] = max(tot["err"], err)
                 if not torch.equal(got, want):
-                    raise AssertionError(f"K3 {hw}x{hw} {cin}->{cout} {dt} {what}: differs from "
-                                         f"plain, max abs {err}")
+                    raise AssertionError(f"K3 {hw}x{hw} {cin}->{cout} relu={relu} {dt} {what}: "
+                                         f"differs from plain, max abs {err}")
             del checks, ref
         qs = qs if fused else None
-        k_ms = cuda_ms(lambda: q.int8_conv3x3(xq, kq, s, b, True, torch.float32, qs, w_k),
+        k_ms = cuda_ms(lambda: q.int8_conv3x3(xq, kq, s, b, relu, torch.float32, qs, w_k),
                        iters=10)
-        p_ms = cuda_ms(lambda: q.int8_conv3x3_plain(xq, kq, s, b, True, torch.float32, qs),
+        p_ms = cuda_ms(lambda: q.int8_conv3x3_plain(xq, kq, s, b, relu, torch.float32, qs),
                        iters=2, warmup=1)
         ops = 2.0 * m * cout * 9 * cin
         params = kq.numel() + 8 * cout
         x_new = m * cin
+        if source == "quantize":
+            qp_ms = cuda_ms(lambda: q3.quantize_pad(x, sx))
+            tot["quantize_ms"] += mult * qp_ms
+            tot["plain_ms"] += mult * cuda_ms(lambda: q3.quantize_pad_plain(x, sx), iters=3)
+            x_new = 4 * m * cin + 4
         tot["bytes"] += mult * (x_new + params + (m * cout if fused else 4 * m * cout))
         tot["bytes_old"] += mult * (4 * m * cin + params + 4 + 4 * m * cout)
         tot["conv_ms"] += mult * k_ms
@@ -438,6 +477,7 @@ def k3_phase(rng, dev) -> dict:
         tot["ops"] += mult * ops
         tot["convs"] += mult
         tot["fused"] += mult if fused else 0
+        tot["no_relu_fused"] += mult if fused and not relu else 0
         lib = ""
         if hw <= 28:   # the deep convs: torch._int_mm on the im2col'd operands
             xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
@@ -451,22 +491,26 @@ def k3_phase(rng, dev) -> dict:
             tot["ms_deep"] += mult * k_ms
             lib = f"; torch._int_mm on the im2col'd operands {l_ms:.4f} ms"
             del xp, cols
+        if source == "quantize":
+            lib += f"; its input's quantize pass {qp_ms:.4f} ms (equal fp32+bf16)"
         log(f"K3 int8_conv3x3 ({QBATCH},{hw},{hw},{cin})->{cout} "
-            f"{'-> int8' if fused else '-> fp'} x{mult}: equal fp32+bf16 (layer, walk fp out, "
-            f"walk quantized); kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-            f"{ops / k_ms / 1e9:.1f} int8 TOP/s{lib}")
+            f"{'-> int8' if fused else '-> fp'}{'' if relu else ' (no ReLU)'} x{mult}: equal "
+            f"fp32+bf16 (layer, walk fp out, walk quantized); kernel {k_ms:.4f} ms plain "
+            f"{p_ms:.4f} ms {ops / k_ms / 1e9:.1f} int8 TOP/s{lib}")
         del x, xq, wq, kq, w_k
         torch.cuda.empty_cache()
-    tot["ms"] = tot["conv_ms"]
+    tot["ms"] = tot["conv_ms"] + tot["quantize_ms"]
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], INT8_TC_OPS)
     tot["bound_ms_old_count"] = bound_ms(tot["bytes_old"], tot["ops"], INT8_TC_OPS)[0]
-    pools = [(a[0], a[2]) for a, b in zip(walk, walk[1:]) if b[0] != a[0]]   # (H, C) pooled
+    pools = [(a[0], a[2]) for a, b in zip(walk, walk[1:]) if b[5] == "pool"]   # (H, C) pooled
     pool_ms = 0.0
     for hw, c in pools:
         xq = int8_image(rng, dev, (QBATCH, hw, hw, q.pad16(c)), c)
         pool_ms += cuda_ms(lambda: q.max_pool2x2_i8(xq))
-    log(f"K3 over one forward at batch {QBATCH}: {tot['convs']} convs ({tot['fused']} quantizing "
-        f"for the next) {tot['ms']:.4f} ms; plain {tot['plain_ms']:.4f} ms; bound "
+    quantize = f" + its quantize pass {tot['quantize_ms']:.4f} ms" if tot["quantize_ms"] else ""
+    log(f"K3 over one {name} forward at batch {QBATCH}: {tot['convs']} convs ({tot['fused']} "
+        f"quantizing for the next, {tot['no_relu_fused']} of them with no ReLU) "
+        f"{tot['conv_ms']:.4f} ms{quantize}; plain {tot['plain_ms']:.4f} ms; bound "
         f"{tot['bound_ms']:.4f} ms "
         f"({tot['bound_by']}; {tot['ops'] / 1e12:.3f} T int8 ops, {tot['bytes'] / 1e9:.3f} GB; "
         f"without the fused edges {tot['bytes_old'] / 1e9:.3f} GB, "
@@ -583,26 +627,36 @@ def forward_counts(model, u8, pos) -> dict:
     """One fp32 forward of the CViT ``model`` from the uint8 crops ``u8``
     (`forward_crops`, as `VideoScorer` runs it): the launches of K3
     (``convs``), its quantize pass, K2's int8 entry and its fp launches, K4,
-    and the stem's fp ReLU and max-pool modules that ran."""
+    the walks' int8 pools and the stems' fp ReLU and max-pool modules that
+    ran, over every stem."""
     import torch
     from torch import nn
     from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant as q
     from fac_fake_torch.ops import quant3d as q3
-    ran = {"fp_relus": 0, "fp_pools": 0}
+    ran = {"int8_pools": 0, "fp_relus": 0, "fp_pools": 0}
     hooks = []
-    for mod in model.features:
-        kind = {nn.ReLU: "fp_relus", nn.MaxPool2d: "fp_pools"}.get(type(mod))
-        if kind:
-            hooks.append(mod.register_forward_hook(
-                lambda *_, kind=kind: ran.__setitem__(kind, ran[kind] + 1)))
+    for _, _, stem in model.stems():
+        for mod in stem:
+            kind = {nn.ReLU: "fp_relus", nn.MaxPool2d: "fp_pools"}.get(type(mod))
+            if kind:
+                hooks.append(mod.register_forward_hook(
+                    lambda *_, kind=kind: ran.__setitem__(kind, ran[kind] + 1)))
+    pool = q.max_pool2x2_i8
+
+    def int8_pool(xq):
+        ran["int8_pools"] += 1
+        return pool(xq)
+
     q.int8_conv3x3.launches = q3.quantize_pad.launches = q.quant_dense.launches = 0
     pp.normalize_imagenet.launches = pp.quantize_crops.launches = 0
+    q.max_pool2x2_i8 = int8_pool
     try:
         with torch.inference_mode():
             model.forward_crops(u8, torch.float32, pos)
         torch.cuda.synchronize()
     finally:
+        q.max_pool2x2_i8 = pool
         for h in hooks:
             h.remove()
     return {"convs": q.int8_conv3x3.launches, "quantize": q3.quantize_pad.launches,
@@ -611,17 +665,19 @@ def forward_counts(model, u8, pos) -> dict:
             "K4": q.quant_dense.launches}
 
 
-def check_k3_calls(model, u8, pos) -> dict:
+def check_k3_calls(model, u8, pos) -> tuple:
     """One fp32 forward of the quantized CViT ``model`` from the uint8 crops
     ``u8`` in which K2's int8 entry, every K3 call and any quantize pass also
     run through their plain versions on the same (real, calibrated) inputs
-    and must be bit-equal: {kind: calls checked}, "fused" among the convs
-    (those that quantize for the next conv)."""
+    and must be bit-equal: ({kind: calls checked}, "fused" among the convs
+    those that quantize for the next conv, "no_relu_fused" those of them
+    with no ReLU; the shapes of the latter)."""
     import torch
     from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant as q
     from fac_fake_torch.ops import quant3d as q3
-    n = {"convs": 0, "fused": 0, "quantize": 0, "k2_int8": 0}
+    n = {"convs": 0, "fused": 0, "no_relu_fused": 0, "quantize": 0, "k2_int8": 0}
+    no_relu = []
     orig = (q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops)
 
     def same(got, ref, what):
@@ -632,10 +688,14 @@ def check_k3_calls(model, u8, pos) -> dict:
 
     def conv(xq, kernel_q, s, bias, relu, dtype, q_scale=None, w_k=None):
         y = orig[0](xq, kernel_q, s, bias, relu, dtype, q_scale, w_k)
-        same(y, q.int8_conv3x3_plain(xq, kernel_q, s, bias, relu, dtype, q_scale),
-             f"K3 conv {tuple(xq.shape)} -> {kernel_q.shape[0]}")
+        what = f"K3 conv {tuple(xq.shape)} -> {kernel_q.shape[0]}, relu={relu}"
+        same(y, q.int8_conv3x3_plain(xq, kernel_q, s, bias, relu, dtype, q_scale), what)
         n["convs"] += 1
         n["fused"] += q_scale is not None
+        if q_scale is not None and not relu:
+            n["no_relu_fused"] += 1
+            no_relu.append(f"{tuple(xq.shape)} -> {kernel_q.shape[0]}, quantized for the next "
+                           f"conv")
         return y
 
     def quantize(x, s_x):
@@ -659,7 +719,7 @@ def check_k3_calls(model, u8, pos) -> dict:
             model.forward_crops(u8, torch.float32, pos)
     finally:
         q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops = orig
-    return n
+    return n, no_relu
 
 
 def crops_per_s(scorer, crops, stacks, n_it: int = 10) -> tuple:
@@ -1342,6 +1402,232 @@ def s3d_phases(seed: int, rng, dev, profile: bool = False) -> dict:
     return dict(k5=k5, k6=k6, launches=s3d8_launches)
 
 
+def crops_96(crops, dev) -> tuple:
+    """A batch of QBATCH uint8 crops on the card (the 29 seeded crops
+    repeated) and its legacy pos rows."""
+    import torch
+    u96 = torch.from_numpy(np.concatenate([crops] * 4)[:QBATCH]).to(dev)
+    return u96, torch.arange(QBATCH, device=dev) % 32
+
+
+def fp32_path(scorer, paths, crops, stacks, with_faces, name: str = "cvit") -> dict:
+    """Phase 5 (base cvit) and F1 (the flagship): ``score_videos_batched``
+    over ``paths``, ``score_video`` over video_8, then the crops through
+    ``score_crops`` and the stacks through ``score_crop_stacks``; scores in
+    [0, 1], faces found where the synthetic face is and nowhere else, K1 and
+    K2 launched. Returns the launches of K1 and K2."""
+    import torch
+    from fac_fake_torch.detect import extractor as ex
+    from fac_fake_torch.ops import preprocess as pp
+    tag = "" if name == "cvit" else f"{name} "
+    scorer.enable_stage_stats()
+    scorer.score_crops(crops)                    # warm cuDNN/cuBLAS before timing
+    scorer.score_crop_stacks(stacks)
+    torch.cuda.synchronize()
+
+    ex.frame_detections.launches = 0
+    pp.normalize_imagenet.launches = 0
+    t0 = time.perf_counter()
+    batched = scorer.score_videos_batched(paths)
+    t_batched = time.perf_counter() - t0
+    single = scorer.score_video("video_8")
+    t1 = time.perf_counter()
+    n_it = 10
+    for _ in range(n_it):
+        p_crops = scorer.score_crops(crops)
+    torch.cuda.synchronize()
+    t_crops = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    for _ in range(n_it):
+        p_stacks = scorer.score_crop_stacks(stacks)
+    torch.cuda.synchronize()
+    t_stacks = time.perf_counter() - t2
+    launches = {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches}
+
+    log(f"{tag}videos (batched): scores {batched} faces "
+        f"{[scorer.crop_counts[p] for p in paths]} "
+        f"{len(paths) / t_batched * 60:.1f} videos/min ({t_batched:.2f} s)")
+    log(f"{tag}video_8 (score_video): score {single} faces {scorer.crop_counts['video_8']}")
+    log(f"{tag}stage stats: {json.dumps(scorer.stage_stats)}")
+    log(f"{tag}score_crops {len(crops)} crops (capacity {scorer.capacity}): score {p_crops} "
+        f"{len(crops) * n_it / t_crops:.1f} crops/s")
+    log(f"{tag}score_crop_stacks {len(stacks)}x{len(crops)} crops: scores {p_stacks} "
+        f"{len(stacks) * len(crops) * n_it / t_stacks:.1f} crops/s")
+    log(f"{tag}main-path launches: {launches}")
+    probs = batched + [single, p_crops] + p_stacks
+    if not all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in probs):
+        raise AssertionError(f"{tag}scores out of [0, 1]: {probs}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{tag}a kernel of the path never launched: {launches}")
+    found = {p: scorer.crop_counts[p] for p in paths + ["video_8"]}
+    faces = [p for p in with_faces if p in found]
+    if not (all(found[p] > 0 for p in faces)
+            and all(found[p] == 0 for p in found if p not in with_faces)):
+        raise AssertionError(f"faces found per video {found}; the synthetic face is "
+                             f"in {with_faces} only")
+    return launches
+
+
+def logits_vs_cpu(model, four, what: str, plain: bool = False) -> float:
+    """Phases 6 and 10 (and F2, F4): ``model``'s fp32 logits from the uint8
+    crops ``four`` (on the CPU) on the card and on a copy of it on the CPU
+    (``plain``: the kernels' plain versions run there), within LOGIT_TOL and
+    finite."""
+    import torch
+    pos = torch.arange(four.shape[0])
+    dev = model.cls_token.device
+    with torch.inference_mode():
+        gpu = model.forward_crops(four.to(dev), torch.float32, pos.to(dev)).cpu()
+        t_cpu = time.perf_counter()
+        cpu = copy.deepcopy(model).cpu().forward_crops(four, torch.float32, pos)
+        t_cpu = time.perf_counter() - t_cpu
+    err = float((gpu - cpu).abs().max())
+    log(f"{what} card vs CPU ({'plain versions, ' if plain else ''}{t_cpu:.1f} s on the CPU): "
+        f"max abs {err:.3g} (|logit| max {float(cpu.abs().max()):.3g})")
+    if not (torch.isfinite(gpu).all() and err <= LOGIT_TOL):
+        raise AssertionError(f"{what} differ: {err} > {LOGIT_TOL}")
+    return err
+
+
+def int8_modes(model, scorer, det, reader, crops, stacks, paths, fp32_rates, want,
+               name: str = "cvit") -> tuple:
+    """Phase 9 (base cvit) and F3 (the flagship): `VideoScorer` of ``model``
+    with infer.quantize="int8_full" (it calibrates on its first batch) runs
+    ``score_videos_batched`` over ``paths``, ``score_video``, ``score_crops``
+    and ``score_crop_stacks``; then infer.quantize="int8" the last two. In
+    each mode every stem's convs quantize, the launches are whole forwards
+    of the planned walk, and one forward from the uint8 crops at batch
+    QBATCH runs ``want`` (`forward_counts`; 26 K4 launches under
+    int8_full); under int8_full every K3 call of one such forward, the
+    quantize pass and K2's int8 entry are held bit-equal to their plain
+    versions on the real crops and activations. int8 vs fp32 logits for
+    information. Returns the int8_full launches and scorer."""
+    import torch
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.detect import extractor as ex
+    from fac_fake_torch.infer.predictor import VideoScorer
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
+    tag = "" if name == "cvit" else f"{name} "
+    dev = scorer.device
+    n_convs = sum(op[0] == "conv" for op in scorer.model.stem_ops())
+    u96, pos96 = crops_96(crops, dev)
+    for mode in ("int8_full", "int8"):
+        qcfg = Config()
+        qcfg.infer.quantize = mode
+        qscorer = VideoScorer(model, qcfg, detector=det, reader=reader)
+        t_cal = time.perf_counter()
+        qscorer.score_crops(crops)           # the first batch of >= 8 crops calibrates
+        torch.cuda.synchronize()
+        n_q = sum(op[0] == "qconv" for op in qscorer.model.stem_ops())
+        log(f"{tag}{mode}: first score_crops calibrated and scored in "
+            f"{time.perf_counter() - t_cal:.2f} s: {n_q} convs quantized, "
+            f"quant_dense={qscorer.model.quant_dense}")
+        if qscorer._quant_pending or n_q != n_convs:
+            raise AssertionError(f"{tag}{mode}: the first batch did not quantize the stems")
+        qscorer.score_crop_stacks(stacks)    # warm up
+        torch.cuda.synchronize()
+        ex.frame_detections.launches = pp.normalize_imagenet.launches = 0
+        q.int8_conv3x3.launches = q3.quantize_pad.launches = q.quant_dense.launches = 0
+        pp.quantize_crops.launches = 0
+        qprobs = []
+        if mode == "int8_full":
+            qscorer.enable_stage_stats()
+            t0 = time.perf_counter()
+            qprobs += qscorer.score_videos_batched(paths)
+            t_q = time.perf_counter() - t0
+            qprobs.append(qscorer.score_video("video_8"))
+            log(f"{tag}{mode} videos (batched): scores {qprobs[:len(paths)]} "
+                f"{len(paths) / t_q * 60:.1f} videos/min ({t_q:.2f} s); video_8 "
+                f"{qprobs[-1]}; stage stats {json.dumps(qscorer.stage_stats)}")
+        rates = crops_per_s(qscorer, crops, stacks)
+        qprobs += [rates[2]] + rates[3]
+        qlaunch = {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches,
+                   "K2_int8": pp.quantize_crops.launches, "K3": q.int8_conv3x3.launches,
+                   "K3_quantize": q3.quantize_pad.launches, "K4": q.quant_dense.launches}
+        log(f"{tag}{mode}: score_crops {rates[0]:.1f} crops/s (fp32 {fp32_rates[0]:.1f}), "
+            f"score_crop_stacks {rates[1]:.1f} crops/s (fp32 {fp32_rates[1]:.1f}); "
+            f"launches {qlaunch}")
+        if not all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in qprobs):
+            raise AssertionError(f"{tag}{mode} scores out of [0, 1]: {qprobs}")
+        need = ("K1", "K2", "K3", "K4") if mode == "int8_full" else ("K2", "K3")
+        if min(qlaunch[k] for k in need) <= 0:
+            raise AssertionError(f"{tag}{mode}: a kernel of the path never launched: {qlaunch}")
+        walk = qscorer.model.walk_counts()
+        fwd = qlaunch["K3"] // walk["convs"]
+        if (qlaunch["K3"] % walk["convs"] or qlaunch["K3_quantize"] != fwd * walk["quantize"]
+                or qlaunch["K2_int8"] != fwd * walk["k2_int8"]
+                or qlaunch["K2"] != qlaunch["K2_int8"]):
+            raise AssertionError(f"{tag}{mode}: launches {qlaunch} are not whole forwards of "
+                                 f"the stems' walk from the crops {walk}")
+        one = forward_counts(qscorer.model, u96, pos96)
+        log(f"{tag}{mode}: one forward at batch {QBATCH} runs {one} (the stems' planned walk: "
+            f"{walk})")
+        want_one = dict({k: want[k] for k in FORWARD_KEYS},
+                        K4=sum(INT8_DENSES.values()) if mode == "int8_full" else 0)
+        if one != want_one or walk != want:
+            raise AssertionError(f"{tag}{mode}: one forward ran {one}, the walk plans {walk}; "
+                                 f"want {want_one}, {want}")
+        if mode == "int8_full":
+            full_launches, full = qlaunch, qscorer
+            checked, no_relu = check_k3_calls(qscorer.model, u96, pos96)
+            log(f"{tag}{mode} forward at batch {QBATCH} on the seeded crops: K2's int8 entry and "
+                f"every K3 call bit-equal to the plain versions on the same crops and "
+                f"activations: {checked}; the no-ReLU fused edges among them: {no_relu}")
+            if checked != {k: want[k] for k in CHECKED_KEYS}:
+                raise AssertionError(f"{tag}{mode}: checked {checked}, not every call of a "
+                                     f"forward")
+        with torch.inference_mode():
+            u29 = torch.from_numpy(crops).to(dev)
+            pos29 = torch.arange(29, device=dev)
+            a = scorer.model.forward_crops(u29, torch.float32, pos29).double()
+            b = qscorer.model.forward_crops(u29, torch.float32, pos29).double()
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        log(f"{tag}{mode} vs fp32 logits on 29 crops (information): max abs "
+            f"{float((a - b).abs().max()):.4g} cosine {cos:.6f} "
+            f"(|logit| max {float(a.abs().max()):.3g})")
+    return full_launches, full
+
+
+def flagship_phases(seed, rng, dev, det, reader, crops, stacks, paths, with_faces, four,
+                    profile: bool = False) -> dict:
+    """F1-F4: the flagship cvit_repbn8 at its published widths (seeded
+    weights): F1 its fp32 path as phase 5 runs the base's (`fp32_path`);
+    F2 its fp32 logits card vs CPU; F3 `int8_modes` with the flagship's walk
+    (FLAGSHIP_INT8_WALK), and K3 at every distinct conv of that walk
+    (`k3_phase`), with ``profile`` a breakdown of one fp32 and one int8_full
+    forward; F4 its int8_full logits card vs CPU. Returns the launches of
+    the fp32 and int8_full paths and K3's numbers on the walk."""
+    import torch
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.infer.predictor import VideoScorer
+    from fac_fake_torch.models import build_model
+    name = "cvit_repbn8"
+    cfg = Config()
+    cfg.model.name = name
+    model = build_model(cfg.model, device=dev, seed=seed)
+    scorer = VideoScorer(model, cfg, detector=det, reader=reader)
+    launches = fp32_path(scorer, paths, crops, stacks, with_faces, name)
+    logits_vs_cpu(scorer.model, four, f"{name} fp32 logits")
+    fp32_rates = crops_per_s(scorer, crops, stacks)
+    log(f"{name} fp32 beside the int8 runs: score_crops {fp32_rates[0]:.1f} crops/s, "
+        f"score_crop_stacks {fp32_rates[1]:.1f} crops/s")
+    int8_launches, full = int8_modes(model, scorer, det, reader, crops, stacks, paths,
+                                     fp32_rates, FLAGSHIP_INT8_WALK, name)
+    k3 = k3_phase(rng, dev, name)
+    if profile:
+        u96, pos96 = crops_96(crops, dev)
+        profile_forward(lambda: scorer.model.forward_crops(u96, torch.float32, pos96),
+                        f"{name} fp32 forward, batch {QBATCH}", expect=("normalize_table",))
+        profile_forward(lambda: full.model.forward_crops(u96, torch.float32, pos96),
+                        f"{name} int8_full forward, batch {QBATCH}",
+                        expect=("dense_wgmma", "conv_wgmma", "qwg::quantize_rows",
+                                "normalize_table"), absent=("qmma::",))
+    logits_vs_cpu(full.model, four, f"{name} int8_full logits", plain=True)
+    return dict(launches=launches, int8_launches=int8_launches, k3=k3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1361,10 +1647,6 @@ def main() -> int:
     from fac_fake_torch.detect.blazeface import BlazeFace
     from fac_fake_torch.infer.predictor import VideoScorer
     from fac_fake_torch.models import build_model
-    from fac_fake_torch.models.stems import walk_counts
-    from fac_fake_torch.ops import preprocess as pp
-    from fac_fake_torch.ops import quant as q
-    from fac_fake_torch.ops import quant3d as q3
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1401,66 +1683,14 @@ def main() -> int:
     cfg = Config()
     model = build_model(cfg.model, device=dev, seed=args.seed)
     scorer = VideoScorer(model, cfg, detector=det, reader=reader)
-    scorer.enable_stage_stats()
     crops = rng.integers(0, 256, (29, 224, 224, 3), dtype=np.uint8)
     stacks = [rng.integers(0, 256, (29, 224, 224, 3), dtype=np.uint8) for _ in range(8)]
-    scorer.score_crops(crops)                    # warm cuDNN/cuBLAS before timing
-    scorer.score_crop_stacks(stacks)
-    torch.cuda.synchronize()
-
-    ex.frame_detections.launches = 0
-    pp.normalize_imagenet.launches = 0
-    t0 = time.perf_counter()
     paths = [f"video_{i}" for i in range(8)]
-    batched = scorer.score_videos_batched(paths)
-    t_batched = time.perf_counter() - t0
-    single = scorer.score_video("video_8")
-    t1 = time.perf_counter()
-    n_it = 10
-    for _ in range(n_it):
-        p_crops = scorer.score_crops(crops)
-    torch.cuda.synchronize()
-    t_crops = time.perf_counter() - t1
-    t2 = time.perf_counter()
-    for _ in range(n_it):
-        p_stacks = scorer.score_crop_stacks(stacks)
-    torch.cuda.synchronize()
-    t_stacks = time.perf_counter() - t2
-    launches = {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches}
-
-    log(f"videos (batched): scores {batched} faces "
-        f"{[scorer.crop_counts[p] for p in paths]} "
-        f"{len(paths) / t_batched * 60:.1f} videos/min ({t_batched:.2f} s)")
-    log(f"video_8 (score_video): score {single} faces {scorer.crop_counts['video_8']}")
-    log(f"stage stats: {json.dumps(scorer.stage_stats)}")
-    log(f"score_crops 29 crops (capacity {scorer.capacity}): score {p_crops} "
-        f"{29 * n_it / t_crops:.1f} crops/s")
-    log(f"score_crop_stacks 8x29 crops: scores {p_stacks} "
-        f"{8 * 29 * n_it / t_stacks:.1f} crops/s")
-    log(f"main-path launches: {launches}")
-    probs = batched + [single, p_crops] + p_stacks
-    if not all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in probs):
-        raise AssertionError(f"scores out of [0, 1]: {probs}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-    found = {p: scorer.crop_counts[p] for p in paths + ["video_8"]}
-    if not (all(found[p] > 0 for p in with_faces)
-            and all(found[p] == 0 for p in found if p not in with_faces)):
-        raise AssertionError(f"faces found per video {found}; the synthetic face is "
-                             f"in {with_faces} only")
+    launches = fp32_path(scorer, paths, crops, stacks, with_faces)
 
     # ---- 6. full-width logits, card against CPU ---------------------------
     four = torch.from_numpy(rng.integers(0, 256, (4, 224, 224, 3), dtype=np.uint8))
-    pos = torch.arange(4)
-    with torch.inference_mode():
-        gpu = scorer.model.forward_crops(four.to(dev), torch.float32, pos.to(dev)).cpu()
-        cpu_model = copy.deepcopy(scorer.model).cpu()
-        cpu = cpu_model.forward_crops(four, torch.float32, pos)
-    logit_err = float((gpu - cpu).abs().max())
-    log(f"full-width logits card vs CPU: max abs {logit_err:.3g} "
-        f"(|logit| max {float(cpu.abs().max()):.3g})")
-    if not (torch.isfinite(gpu).all() and logit_err <= LOGIT_TOL):
-        raise AssertionError(f"logits differ: {logit_err} > {LOGIT_TOL}")
+    logits_vs_cpu(scorer.model, four, "full-width logits")
 
     # ---- 7-8. K3 and K4 against their plain versions -----------------------
     fp32_rates = crops_per_s(scorer, crops, stacks)
@@ -1470,84 +1700,10 @@ def main() -> int:
     k4 = k4_phase(rng, dev)
 
     # ---- 9. int8 main path -----------------------------------------------------
-    n_convs = sum(op[0] == "conv" for op in scorer.model.stem_spec)
-    u96 = torch.from_numpy(np.concatenate([crops] * 4)[:QBATCH]).to(dev)
-    pos96 = torch.arange(QBATCH, device=dev) % 32
-    rates = {}
-    for mode in ("int8_full", "int8"):
-        qcfg = Config()
-        qcfg.infer.quantize = mode
-        qscorer = VideoScorer(model, qcfg, detector=det, reader=reader)
-        t_cal = time.perf_counter()
-        qscorer.score_crops(crops)           # the first batch of >= 8 crops calibrates
-        torch.cuda.synchronize()
-        n_q = sum(op[0] == "qconv" for op in qscorer.model.stem_spec)
-        log(f"{mode}: first score_crops calibrated and scored in "
-            f"{time.perf_counter() - t_cal:.2f} s: {n_q} convs quantized, "
-            f"quant_dense={qscorer.model.quant_dense}")
-        if qscorer._quant_pending or n_q != n_convs:
-            raise AssertionError(f"{mode}: the first batch did not quantize the stem")
-        qscorer.score_crop_stacks(stacks)    # warm up
-        torch.cuda.synchronize()
-        ex.frame_detections.launches = pp.normalize_imagenet.launches = 0
-        q.int8_conv3x3.launches = q3.quantize_pad.launches = q.quant_dense.launches = 0
-        pp.quantize_crops.launches = 0
-        qprobs = []
-        if mode == "int8_full":
-            qscorer.enable_stage_stats()
-            t0 = time.perf_counter()
-            qprobs += qscorer.score_videos_batched(paths)
-            t_q = time.perf_counter() - t0
-            qprobs.append(qscorer.score_video("video_8"))
-            log(f"{mode} videos (batched): scores {qprobs[:len(paths)]} "
-                f"{len(paths) / t_q * 60:.1f} videos/min ({t_q:.2f} s); video_8 "
-                f"{qprobs[-1]}; stage stats {json.dumps(qscorer.stage_stats)}")
-        rates[mode] = crops_per_s(qscorer, crops, stacks)
-        qprobs += [rates[mode][2]] + rates[mode][3]
-        qlaunch = {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches,
-                   "K2_int8": pp.quantize_crops.launches, "K3": q.int8_conv3x3.launches,
-                   "K3_quantize": q3.quantize_pad.launches, "K4": q.quant_dense.launches}
-        log(f"{mode}: score_crops {rates[mode][0]:.1f} crops/s (fp32 {fp32_rates[0]:.1f}), "
-            f"score_crop_stacks {rates[mode][1]:.1f} crops/s (fp32 {fp32_rates[1]:.1f}); "
-            f"launches {qlaunch}")
-        if not all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in qprobs):
-            raise AssertionError(f"{mode} scores out of [0, 1]: {qprobs}")
-        want = ("K1", "K2", "K3", "K4") if mode == "int8_full" else ("K2", "K3")
-        if min(qlaunch[k] for k in want) <= 0:
-            raise AssertionError(f"{mode}: a kernel of the path never launched: {qlaunch}")
-        walk = walk_counts(qscorer.model.stem_spec, crops=True)
-        fwd = qlaunch["K3"] // walk["convs"]
-        if (qlaunch["K3"] % walk["convs"] or qlaunch["K3_quantize"] != fwd * walk["quantize"]
-                or qlaunch["K2_int8"] != fwd * walk["k2_int8"]
-                or qlaunch["K2"] != qlaunch["K2_int8"]):
-            raise AssertionError(f"{mode}: launches {qlaunch} are not whole forwards of the "
-                                 f"stem's walk from the crops {walk}")
-        one = forward_counts(qscorer.model, u96, pos96)
-        log(f"{mode}: one forward at batch {QBATCH} runs {one} (the stem's planned walk: "
-            f"{walk})")
-        want_one = dict(CVIT_INT8_WALK, K4=sum(INT8_DENSES.values()) if mode == "int8_full" else 0)
-        if one != want_one or any(walk[k] != v for k, v in CVIT_INT8_WALK.items()):
-            raise AssertionError(f"{mode}: one forward ran {one}, the walk plans {walk}; "
-                                 f"want {want_one}")
-        if mode == "int8_full":
-            int8_launches, full = qlaunch, qscorer
-            checked = check_k3_calls(qscorer.model, u96, pos96)
-            log(f"{mode} forward at batch {QBATCH} on the seeded crops: K2's int8 entry and "
-                f"every K3 call bit-equal to the plain versions on the same crops and "
-                f"activations: {checked}")
-            if checked != {k: walk[k] for k in ("convs", "fused", "quantize", "k2_int8")}:
-                raise AssertionError(f"{mode}: checked {checked}, not every call of a forward")
-        with torch.inference_mode():
-            u29 = torch.from_numpy(crops).to(dev)
-            pos29 = torch.arange(29, device=dev)
-            a = scorer.model.forward_crops(u29, torch.float32, pos29).double()
-            b = qscorer.model.forward_crops(u29, torch.float32, pos29).double()
-        cos = float((a * b).sum() / (a.norm() * b.norm()))
-        log(f"{mode} vs fp32 logits on 29 crops (information): max abs "
-            f"{float((a - b).abs().max()):.4g} cosine {cos:.6f} "
-            f"(|logit| max {float(a.abs().max()):.3g})")
-
+    int8_launches, full = int8_modes(model, scorer, det, reader, crops, stacks, paths,
+                                     fp32_rates, CVIT_INT8_WALK)
     if args.profile:
+        u96, pos96 = crops_96(crops, dev)
         profile_forward(lambda: scorer.model.forward_crops(u96, torch.float32, pos96),
                         f"fp32 forward, batch {QBATCH}", expect=("normalize_table",))
         profile_forward(lambda: full.model.forward_crops(u96, torch.float32, pos96),
@@ -1556,36 +1712,36 @@ def main() -> int:
                                 "normalize_table"), absent=("qmma::",))
 
     # ---- 10. full-width int8_full logits, card against CPU ------------------
-    with torch.inference_mode():
-        gpu8 = full.model.forward_crops(four.to(dev), torch.float32, pos.to(dev)).cpu()
-        t_cpu = time.perf_counter()
-        cpu8 = copy.deepcopy(full.model).cpu().forward_crops(four, torch.float32, pos)
-    err8 = float((gpu8 - cpu8).abs().max())
-    log(f"full-width int8_full logits card vs CPU (plain versions, "
-        f"{time.perf_counter() - t_cpu:.1f} s on the CPU): max abs {err8:.3g} "
-        f"(|logit| max {float(cpu8.abs().max()):.3g})")
-    if not (torch.isfinite(gpu8).all() and err8 <= LOGIT_TOL):
-        raise AssertionError(f"int8_full logits differ: {err8} > {LOGIT_TOL}")
+    logits_vs_cpu(full.model, four, "full-width int8_full logits", plain=True)
+    del scorer, full, model
+    torch.cuda.empty_cache()
 
-    del scorer, qscorer, full, model
+    # ---- F1-F4. the flagship cvit_repbn8 -----------------------------------------
+    flag = flagship_phases(args.seed, rng, dev, det, reader, crops, stacks, paths, with_faces,
+                           four, args.profile)
     torch.cuda.empty_cache()
     s3d = s3d_phases(args.seed, rng, dev, args.profile)
 
     # ---- 15. kernels line -----------------------------------------------------
     k5, k6 = s3d["k5"], s3d["k6"]
+    # the base's and the flagship's paths together
+    fp_launches = {k: v + flag["launches"][k] for k, v in launches.items()}
+    q_launches = {k: v + flag["int8_launches"][k] for k, v in int8_launches.items()}
+    fk3 = flag["k3"]
     rows = [
         {"name": "K1_frame_detections", "route": "cuda",
          "source": "fac_fake_torch/csrc/frame_detections.cu",
          "replaces": "fac_fake_tpu/detect/extractor.py:73",
-         "launches": launches["K1"], "max_abs_err": k1["err"],
+         "launches": fp_launches["K1"], "max_abs_err": k1["err"],
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
          "load_ms": k1["load_ms"],
-         "shapes": "the planted 16-frame T=3 chunk, (16, 2688, 17); load_ms: with no step"},
+         "shapes": "the planted 16-frame T=3 chunk, (16, 2688, 17); load_ms: with no step; "
+                   "launches: the fp32 paths of cvit and cvit_repbn8"},
         {"name": "K2_normalize_imagenet", "route": "cuda",
          "source": "fac_fake_torch/csrc/normalize.cu",
          "replaces": "fac_fake_tpu/ops/preprocess.py:25",
-         "launches": launches["K2"], "int8_launches": int8_launches["K2_int8"],
+         "launches": fp_launches["K2"], "int8_launches": q_launches["K2_int8"],
          "raw_launches": s3d["launches"]["K2_raw"], "max_abs_err": k2["err"],
          "ms": k2["ms"], "kernel_ms": k2["ms"], "warm_ms": k2["warm_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -1600,12 +1756,13 @@ def main() -> int:
                    "bytes, not the same function",
          "shapes": "ms: fp32 (96, 224, 224, 3), the fp32 main path's; modes: fp32, bf16 and "
                    "the int8 CViT entry of each at batches 96 and 256, the raw int8 entry at "
-                   f"({S3D_BATCH}, {S3D_T}, {S3D_HW}, {S3D_HW}, 3); launches: the fp32 path; "
-                   "int8_launches: int8 entries on int8_full; raw_launches: the S3D int8 path"},
+                   f"({S3D_BATCH}, {S3D_T}, {S3D_HW}, {S3D_HW}, 3); launches: the fp32 paths "
+                   "of cvit and cvit_repbn8; int8_launches: int8 entries on their int8_full "
+                   "paths; raw_launches: the S3D int8 path"},
         {"name": "K3_quant_conv3x3", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_conv3d.cu",
          "replaces": "fac_fake_tpu/models/layers.py:106",
-         "launches": int8_launches["K3"], "quantize_launches": int8_launches["K3_quantize"],
+         "launches": q_launches["K3"], "quantize_launches": q_launches["K3_quantize"],
          "max_abs_err": k3["err"], "ms": k3["ms"], "kernel_ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "bound_counts": "real channels; the first conv's int8 input (K2's int8 entry makes it) "
@@ -1616,16 +1773,25 @@ def main() -> int:
          "library_ms": None, "int_mm_deep_ms": k3["library_ms"], "ms_deep": k3["ms_deep"],
          "int_mm": "torch._int_mm, the GEMMs alone of the 8 deep convs (28x28 and 14x14) on "
                    "im2col'd int8 operands",
-         "shapes": "the 17 convs (16 fused with the next quantize) of one int8 forward's stem "
-                   "walk from the crops, batch 96, fp32; quantize_launches: 0 on that path"},
+         "shapes": "the 17 convs (16 fused with the next quantize) of one cvit int8 "
+                   "forward's stem walk from the crops, batch 96, fp32; launches: cvit's and "
+                   "cvit_repbn8's int8_full paths; quantize_launches: cvit_repbn8's stem 2",
+         "flagship_ms": fk3["ms"], "flagship_conv_ms": fk3["conv_ms"],
+         "flagship_quantize_ms": fk3["quantize_ms"], "flagship_plain_ms": fk3["plain_ms"],
+         "flagship_bound_ms": fk3["bound_ms"], "flagship_bound_by": fk3["bound_by"],
+         "flagship_launches": flag["int8_launches"]["K3"],
+         "flagship_shapes": "the 18 convs (16 fused with the next quantize, 1 of them with no "
+                            "ReLU) and 1 quantize pass of one cvit_repbn8 int8 forward from "
+                            "the crops, batch 96, fp32"},
         {"name": "K4_quant_dense", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_dense.cu",
          "replaces": "fac_fake_tpu/models/layers.py:142",
-         "launches": int8_launches["K4"], "max_abs_err": k4["err"],
+         "launches": q_launches["K4"], "max_abs_err": k4["err"],
          "ms": k4["ms"], "kernel_ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": k4["library_ms"], "library": "torch._int_mm, the GEMM alone",
-         "shapes": "the 26 denses of one int8_full forward, batch 96, fp32"},
+         "shapes": "the 26 denses of one int8_full forward, batch 96, fp32 (the same on cvit "
+                   "and cvit_repbn8); launches: both int8_full paths"},
         {"name": "K5_quant_conv3d", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_conv3d.cu",
          "replaces": "fac_fake_tpu/compat/quantize_s3d.py:59",

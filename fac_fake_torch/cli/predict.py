@@ -1,7 +1,7 @@
 """Video scoring CLI — the port of `fac_fake_tpu/cli/predict.py`.
 
   python -m fac_fake_torch.cli.predict --videos dir/ --weights cvit.pth \
-      --save-csv out.csv [--device cuda]
+      --save-csv out.csv [--device cuda] [--model cvit_repbn8]
 
 Input a folder of mp4s (decoded with cv2, which must be installed), output a
 ``filename,label`` CSV of fake-probabilities; prob < 0.5 → REAL, ≥ 0.5 → FAKE.

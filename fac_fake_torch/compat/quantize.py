@@ -12,11 +12,15 @@ Scheme, as in the JAX package:
 
 Only the plain conv/relu/pool prefix of a folded stem quantizes: the first
 other op ends it, because the calibration walk models only those ops and
-advances the activations with the fp convs. With ``transformer=True`` the
-patch embedding, every attention ``to_qkv``/``to_out``, every FFN
-``net.0``/``net.2`` and the head's ``mlp_head.0`` quantize too; their input
-ranges come from one fp forward, read by forward pre-hooks where JAX reads
-its ``sow`` taps. LayerNorm, softmax and the 2-logit output stay fp.
+advances the activations with the fp convs. Every stem quantizes (the
+flagship's ``features1`` and ``features2``), each calibrated from its own
+fp input: a later stem's comes from one fp forward of the folded model,
+read by a forward pre-hook where JAX reads its ``stem2_input`` sow. With
+``transformer=True`` the patch embedding, every attention
+``to_qkv``/``to_out``, every FFN ``net.0``/``net.2`` and the head's
+``mlp_head.0`` quantize too; their input ranges come from the same
+forward. LayerNorm, LinearNorm, GGCA, softmax and the 2-logit output stay
+fp.
 
     model = fold_cvit(model)
     qmodel = quantize_cvit(model, calib_x, transformer=True)
@@ -93,15 +97,6 @@ def _rewrite_stem(spec: Tuple, sd: Dict[str, torch.Tensor], calib_x: torch.Tenso
     return new_sd
 
 
-def quantize_stem(spec: Tuple, sd: Dict[str, torch.Tensor], calib_x: torch.Tensor):
-    """Quantize the conv/relu/pool prefix of a folded stem. Returns
-    (new_spec, new_sd, n_quantized)."""
-    new_spec, q_idx = _plan_stem(spec)
-    if not q_idx:
-        return tuple(spec), dict(sd), 0
-    return new_spec, _rewrite_stem(spec, sd, calib_x, q_idx), len(q_idx)
-
-
 def _dense_names(model) -> List[str]:
     """The ``nn.Linear``s that ``transformer=True`` quantizes."""
     names = ["patch_to_embedding"]
@@ -114,13 +109,13 @@ def _dense_names(model) -> List[str]:
 
 
 @torch.no_grad()
-def _capture_amax(model, calib_x: torch.Tensor, names: List[str]) -> Dict[str, torch.Tensor]:
-    """One fp forward; the absolute maximum of each named module's input."""
-    amax: Dict[str, torch.Tensor] = {}
+def _capture_inputs(model, calib_x: torch.Tensor, names: List[str]) -> Dict[str, torch.Tensor]:
+    """One fp forward; the input of each named module."""
+    seen: Dict[str, torch.Tensor] = {}
     hooks = []
     for name in names:
         def hook(_mod, args, name=name):
-            amax[name] = args[0].detach().abs().amax().float()
+            seen[name] = args[0].detach()
         hooks.append(model.get_submodule(name).register_forward_pre_hook(hook))
     kw = {}
     if model.pos_mode == "legacy":
@@ -132,45 +127,51 @@ def _capture_amax(model, calib_x: torch.Tensor, names: List[str]) -> Dict[str, t
     finally:
         for h in hooks:
             h.remove()
-    return amax
+    return seen
 
 
 @torch.no_grad()
 def quantize_cvit(model, calib_x: torch.Tensor, transformer: bool = False):
     """A new CViT (on the model's device, eval mode, ``channels_last``) with
-    the stem's conv prefix as `QuantConv3x3` and, with ``transformer``, the
+    each stem's conv prefix as `QuantConv3x3` and, with ``transformer``, the
     big denses as `QuantLinear`. ``calib_x`` is a normalized NCHW batch,
     what the model's forward takes. The model must be BN-folded
     (`compat/fold.py`); the model itself is not changed."""
     from fac_fake_torch.models.cvit import CViT
 
-    spec = getattr(model, "stem_spec", None)
-    if spec is None:
-        raise ValueError("model has no foldable stem to quantize")
-    if any(op[0] == "bn" for op in spec):
+    stems = model.stems()
+    if any(op[0] == "bn" for field, _, _ in stems for op in model.config[field]):
         raise ValueError("quantize_cvit expects a folded stem (run fold_cvit first)")
-    calib_x = calib_x.float()
-    sd = dict(model.state_dict())
-    stem = {k[len("features."):]: v for k, v in sd.items() if k.startswith("features.")}
-    new_spec, stem, n_q = quantize_stem(spec, stem, calib_x)
-    if n_q == 0 and not transformer:
+    plans = {name: _plan_stem(model.config[field]) for field, name, _ in stems}
+    if not any(q_idx for _, q_idx in plans.values()) and not transformer:
         return model
+    calib_x = calib_x.float()
+    dense = _dense_names(model) if transformer else []
+    # the later stems' inputs, and the denses', from one fp forward
+    later = [name for _, name, _ in stems[1:] if plans[name][1]]
+    inputs = _capture_inputs(model, calib_x, later + dense) if later or dense else {}
+    inputs[stems[0][1]] = calib_x
 
-    if transformer:
-        names = _dense_names(model)
-        amax = _capture_amax(model, calib_x, names)
-        for name in names:
-            w_q, s_w = _weight_q(sd.pop(f"{name}.weight"), (1,))
-            sd.update({f"{name}.kernel_q": w_q, f"{name}.w_scale": s_w,
-                       f"{name}.x_scale": _act_scale(amax[name])})
-            if f"{name}.bias" in sd:
-                sd[f"{name}.bias"] = sd[f"{name}.bias"].float()
-    sd = {k: v for k, v in sd.items() if not k.startswith("features.")}
-    sd.update({f"features.{k}": v for k, v in stem.items()})
+    sd = dict(model.state_dict())
+    config = dict(model.config, quant_dense=transformer or model.quant_dense)
+    for field, name, _ in stems:
+        new_spec, q_idx = plans[name]
+        if not q_idx:
+            continue
+        pre = f"{name}."
+        own = {k[len(pre):]: sd.pop(k) for k in list(sd) if k.startswith(pre)}
+        own = _rewrite_stem(model.config[field], own, inputs[name].float(), q_idx)
+        sd.update({pre + k: v for k, v in own.items()})
+        config[field] = new_spec
+    for name in dense:
+        w_q, s_w = _weight_q(sd.pop(f"{name}.weight"), (1,))
+        sd.update({f"{name}.kernel_q": w_q, f"{name}.w_scale": s_w,
+                   f"{name}.x_scale": _act_scale(inputs[name].abs().amax())})
+        if f"{name}.bias" in sd:
+            sd[f"{name}.bias"] = sd[f"{name}.bias"].float()
 
     with torch.device("meta"):
-        qmodel = CViT(**{**model.config, "stem_spec": new_spec,
-                         "quant_dense": transformer or model.quant_dense})
+        qmodel = CViT(**config)
     qmodel = qmodel.to_empty(device=model.cls_token.device)
     qmodel.load_state_dict(sd, strict=True)
     return qmodel.to(memory_format=torch.channels_last).eval()

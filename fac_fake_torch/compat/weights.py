@@ -1,10 +1,10 @@
 """Carry weights into the port: JAX variables and reference ``.pth`` files.
 
 The port's counterpart of `fac_fake_tpu/compat/torch_weights.py` and
-`torch_export.py`, with its own copies of the base-``cvit`` and S3D key
-maps (`torch_weights._cvit_torch_key`, ``_s3d_torch_key``) and of the
-layout transforms: flax HWIO convs → OIHW, DHWIO → OIDHW, flax (I, O)
-denses → (O, I). The int8 leaves of a JAX
+`torch_export.py`, with its own copies of the ``cvit``/``cvit_repbn8`` and
+S3D key maps (`torch_weights._cvit_torch_key`, ``_s3d_torch_key``) and of
+the layout transforms: flax HWIO convs → OIHW, DHWIO → OIDHW, 1-D (k, I, O)
+taps → (O, I, k), flax (I, O) denses → (O, I). The int8 leaves of a JAX
 `quantize_cvit` output (``kernel_q``, ``w_scale``, ``x_scale``) map to the
 port's `QuantConv3x3` / `QuantLinear` buffers of the same names, with the
 same layout transforms; ``kernel_q`` stays int8. The port's module tree
@@ -14,7 +14,7 @@ map, only `load_reference_pth` (and, for S3D, `load_s3d_state_dict`).
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,10 @@ def t_conv(w: np.ndarray) -> np.ndarray:   # (kh, kw, I, O) -> (O, I, kh, kw)
 
 def t_conv3d(w: np.ndarray) -> np.ndarray:  # (kt, kh, kw, I, O) -> (O, I, kt, kh, kw)
     return np.transpose(w, (4, 3, 0, 1, 2))
+
+
+def t_conv1d(w: np.ndarray) -> np.ndarray:  # (k, I, O) -> (O, I, k)
+    return np.transpose(w, (2, 1, 0))
 
 
 def t_dense(w: np.ndarray) -> np.ndarray:  # (I, O) -> (O, I)
@@ -51,20 +55,52 @@ def _leaf(base: str, leaf: str, kernel_tf: Callable) -> Tuple[str, Callable]:
     return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
 
 
-def cvit_torch_key(path, variant: str = "cvit") -> Optional[Tuple[str, Callable]]:
+_DECONV = {"cd": "conv1_1.conv", "hd": "conv1_2.conv", "vd": "conv1_3.conv",
+           "ad": "conv1_4.conv", "std": "conv1_5"}
+_GGCA = {"conv1": "0", "bn": "1", "conv2": "3"}
+CVIT_VARIANTS = ("cvit", "cvit_repbn8")
+
+
+def _norm_key(base: str, col: str, leaf: str) -> Tuple[str, Callable]:
+    """A BatchNorm's or LayerNorm's leaf under ``base``."""
+    if col == "batch_stats":
+        return f"{base}.running_{'mean' if leaf == 'mean' else 'var'}", t_id
+    return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
+
+
+def cvit_torch_key(path, variant: str = "cvit") -> Tuple[str, Callable]:
     """flax variable path (``("params", "stem", "l0", "kernel")``) →
-    (torch key, flax→torch transform) for the base CViT."""
-    if variant != "cvit":
+    (torch key, flax→torch transform) for base ``cvit`` and the flagship
+    ``cvit_repbn8`` — the port's copy of JAX `torch_weights._cvit_torch_key`
+    (:69-157). The flagship's stems are ``features1``/``features2``; a
+    DEConv's ``w_*``/``b_*`` leaves map to its branches (the hd/vd taps by
+    `t_conv1d`); GGCA's ``conv1``/``bn``/``conv2`` to
+    ``ggca.shared_conv.{0,1,3}``; a LinearNorm's ``norm1`` (LayerNorm),
+    ``norm2`` (RepBN: ``alpha``, ``bn``) and its ``schedule`` counters
+    ``warm``/``iter``."""
+    if variant not in CVIT_VARIANTS:
         raise NotImplementedError(
-            f"variant {variant!r}: multi-stem CViTs are ROADMAP queue 1 "
-            "items 4 and 14")
+            f"variant {variant!r}: the CViT variant zoo is ROADMAP queue 1 item 14")
     col, rest = path[0], list(path[1:])
     leaf = rest[-1]
-    if rest[0] == "stem" and len(rest) == 3:
-        base = f"features.{rest[1][1:]}"  # l{i} -> i
-        if col == "batch_stats":
-            return f"{base}.running_{'mean' if leaf == 'mean' else 'var'}", t_id
+    if rest[0] in ("stem", "stem2", "stem3"):
+        name = "features" if variant == "cvit" else \
+            {"stem": "features1", "stem2": "features2", "stem3": "features3"}[rest[0]]
+        base = f"{name}.{rest[1][1:]}"  # l{i} -> i
+        m = re.match(r"^([wb])_(cd|hd|vd|ad|std)$", leaf)
+        if m:
+            key = f"{base}.{_DECONV[m.group(2)]}"
+            if m.group(1) == "b":
+                return f"{key}.bias", t_id
+            return f"{key}.weight", t_conv1d if m.group(2) in ("hd", "vd") else t_conv
+        if len(rest) != 3:
+            raise KeyError(f"no torch mapping for flax path {path}")
+        if col == "batch_stats" or leaf == "scale":
+            return _norm_key(base, col, leaf)
         return _leaf(base, leaf, t_conv)
+    if rest[0] == "ggca":
+        base = f"ggca.shared_conv.{_GGCA[rest[1]]}"
+        return _norm_key(base, col, leaf) if rest[1] == "bn" else _leaf(base, leaf, t_conv)
     if rest in (["pos_embedding"], ["cls_token"]):
         return rest[0], t_id
     if rest[0] == "patch_to_embedding":
@@ -72,25 +108,32 @@ def cvit_torch_key(path, variant: str = "cvit") -> Optional[Tuple[str, Callable]
     if rest[0] == "mlp_head":
         return _leaf(f"mlp_head.{'0' if rest[1] == 'fc1' else '2'}", leaf, t_dense)
     if rest[0] == "transformer":
-        m = _TFM_RE.match(rest[1])
-        if m is None or (m.group(1) == "ffn_norm" and len(rest) != 3):
-            raise NotImplementedError(f"{path}: LinearNorm is ROADMAP queue 1 item 4")
-        kind, i = m.group(1), m.group(2)
+        kind, i = _TFM_RE.match(rest[1]).groups()
         L = f"transformer.layers.{i}"
-        if kind in ("attn_norm", "ffn_norm"):
-            N = f"{L}.0.fn.norm" if kind == "attn_norm" else f"{L}.1.fn.norm"
-            return (f"{N}.weight", t_id) if leaf == "scale" else (f"{N}.bias", t_id)
+        if kind == "attn_norm":
+            return _norm_key(f"{L}.0.fn.norm", col, leaf)
         if kind == "attn":
             return _leaf(f"{L}.0.fn.fn.{rest[2]}", leaf, t_dense)
-        return _leaf(f"{L}.1.fn.fn.net.{'0' if rest[2] == 'fc1' else '2'}", leaf, t_dense)
+        if kind == "ffn":
+            return _leaf(f"{L}.1.fn.fn.net.{'0' if rest[2] == 'fc1' else '2'}", leaf, t_dense)
+        N = f"{L}.1.fn.norm"    # ffn_norm: a LayerNorm, or a LinearNorm
+        if col == "schedule":
+            return f"{N}.{leaf}", t_id          # warm, iter
+        if len(rest) == 3:
+            return _norm_key(N, col, leaf)
+        if rest[2] == "norm1":
+            return _norm_key(f"{N}.norm1", col, leaf)
+        if leaf == "alpha":
+            return f"{N}.norm2.alpha", t_id
+        return _norm_key(f"{N}.norm2.bn", col, leaf)
     raise KeyError(f"no torch mapping for flax path {path}")
 
 
 def cvit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
                               variant: str = "cvit") -> Dict[str, torch.Tensor]:
     """JAX CViT variables flattened to ``"params/stem/l0/kernel"``-style keys
-    → the port's state_dict: float leaves as float32, the int8 ``kernel_q``
-    of quantized variables as int8."""
+    → the port's state_dict: float leaves (and LinearNorm's int32 counters)
+    as float32, the int8 ``kernel_q`` of quantized variables as int8."""
     out: Dict[str, torch.Tensor] = {}
     for k, v in flat.items():
         key, tf = cvit_torch_key(k.split("/"), variant)

@@ -80,15 +80,16 @@ class VideoScorer:
 
     def quantize_int8(self, calib_crops_u8: np.ndarray) -> int:
         """Post-training int8 quantization of the folded model on a
-        calibration crop batch (`compat/quantize.py`): the stem's convs, and
+        calibration crop batch (`compat/quantize.py`): every stem's convs
+        (18 on the flagship ``cvit_repbn8``, 17 on ``cvit``), and
         under ``infer.quantize="int8_full"`` the patch embedding,
         transformer and head fc1. Returns the number of quantized convs;
         0 when the model was already quantized. ``infer.quantize`` set to
         int8 does this with the first scored batch of ≥ 8 crops."""
         from fac_fake_torch.compat.quantize import quantize_cvit
         with self._lazy_lock:
-            already = any(op[0] == "qconv" for op in getattr(self.model, "stem_spec", ())) \
-                or getattr(self.model, "quant_dense", False)
+            already = any(op[0] == "qconv" for op in self.model.stem_ops()) \
+                or self.model.quant_dense
             if not self._quant_pending and already:
                 # racing callers, or a second explicit call: quantize_cvit on
                 # the rewritten model would find no fp weights to quantize
@@ -97,7 +98,7 @@ class VideoScorer:
             self.model = quantize_cvit(self.model, normalize_imagenet(x, torch.float32),
                                        transformer=self.cfg.infer.quantize == "int8_full")
             self._quant_pending = False
-            return sum(op[0] == "qconv" for op in self.model.stem_spec)
+            return sum(op[0] == "qconv" for op in self.model.stem_ops())
 
     def _maybe_quantize(self, crops_u8: np.ndarray) -> None:
         if self._quant_pending and crops_u8.shape[0] >= 8:

@@ -9,7 +9,9 @@ from torch import nn
 from fac_fake_torch.core.device import DeviceLike, resolve_device
 from fac_fake_torch.core.registry import get
 
-from . import cvit  # noqa: F401  (registers cvit)
+from . import cvit  # noqa: F401  (registers cvit, cvit_repbn8)
+from .blocks.deconv import DEConv
+from .layers import LinearNorm, RepBN
 from .s3d.layers import srm_weight
 from .s3d import model as s3d_model  # noqa: F401  (registers the S3D family)
 
@@ -18,15 +20,36 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter and buffer from one explicit `torch.Generator`
     on the model's device: 2D convs He-normal, 3D convs and linears
     LeCun-normal, biases 0, norms identity (BatchNorm running mean 0, var
-    1), the CViT's cls token and legacy pos-embedding N(0, 1) (patch mode
-    N(0, 0.02)), as the JAX package initialises them; an S3DNet's frozen SRM
-    bank is written anew (``to_empty`` leaves buffers unset)."""
+    1; RepBN's ``alpha`` 1), LinearNorm's schedule at its start, the CViT's
+    cls token and legacy pos-embedding N(0, 1) (patch mode N(0, 0.02)), as
+    the JAX package initialises them; an S3DNet's frozen SRM bank is written
+    anew (``to_empty`` leaves buffers unset).
+
+    A DEConv departs from the JAX package on purpose: its five branches are
+    drawn N(0, 1), then all five are scaled by one factor, so that the
+    kernel they compose into has the He-normal std √(2/fan_in) of a plain
+    conv (composition is linear, so one factor does it). The JAX init draws
+    each branch U(±1/√fan_in) with the 1-D hd/vd taps' fan_in taken as 3,
+    whatever the width, and the flagship's twelve DEConvs multiply that
+    scale: its logits are NaN at the JAX init."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     done = set()
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            if isinstance(m, DEConv):
+                branches = [c for c in m.modules() if isinstance(c, (nn.Conv1d, nn.Conv2d))]
+                for c in branches:
+                    c.weight.normal_(0.0, 1.0, generator=gen)
+                    c.bias.zero_()
+                    done.update((id(c.weight), id(c.bias)))
+                w = m.composed()[0]
+                scale = math.sqrt(2.0 / w[0].numel()) / float(w.square().mean().sqrt())
+                for c in branches:
+                    c.weight.mul_(scale)
+            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+                if id(m.weight) in done:   # a DEConv branch
+                    continue
                 fan_in = m.weight[0].numel()
                 gain = math.sqrt(2.0) if isinstance(m, nn.Conv2d) else 1.0
                 m.weight.normal_(0.0, gain / math.sqrt(fan_in), generator=gen)
@@ -34,7 +57,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 if m.bias is not None:
                     m.bias.zero_()
                     done.add(id(m.bias))
-            elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm)):
+            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 done.update((id(m.weight), id(m.bias)))
@@ -42,6 +65,12 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                     m.running_mean.zero_()
                     m.running_var.fill_(1.0)
                     m.num_batches_tracked.zero_()
+            elif isinstance(m, RepBN):
+                m.alpha.fill_(1.0)
+                done.add(id(m.alpha))
+            elif isinstance(m, LinearNorm):
+                m.warm.fill_(0)
+                m.iter.fill_(m.total_step)
             elif isinstance(m, cvit.CViT):
                 m.cls_token.normal_(0.0, 1.0, generator=gen)
                 std = 1.0 if m.pos_mode == "legacy" else 0.02

@@ -1,10 +1,16 @@
 """CViT — Convolutional Vision Transformer, the port of
-`fac_fake_tpu/models/cvit.py` for slot-free specs (base ``cvit``).
+`fac_fake_tpu/models/cvit.py` for base ``cvit`` and the flagship
+``cvit_repbn8``.
 
 The module tree mirrors the reference torch CViT
 (`CViT-main/model/cvit.py:80-179`): ``features.{i}``,
 ``patch_to_embedding``, ``cls_token``, ``pos_embedding``,
-``transformer.layers.{i}``, ``mlp_head.{0,2}``.
+``transformer.layers.{i}``, ``mlp_head.{0,2}``. A model of several stems
+names them ``features1``, ``features2`` (``features3``), as the reference
+variants do (JAX `compat/torch_weights.py:76-81`), and runs them in order;
+``use_ggca`` then takes ``x · ggca(x)`` of the last stem's map (the
+flagship, `cvit_GGCA_ADD_DEConv_RepBn8.py:438-439`): GGCA returns x·gates,
+so the net effect is x²·gates.
 
 Quirks kept:
   * ``pos_mode='legacy'``: the (32, 1, dim) *batch-indexed* positional
@@ -24,16 +30,20 @@ over in ``channels_last`` memory), as the reference torch model takes it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from fac_fake_torch.core.registry import register
+from fac_fake_torch.models.blocks.ggca import GGCA
 from fac_fake_torch.models.layers import TransformerEncoder, mlp_head, quant_linear
-from fac_fake_torch.models.stems import Stem, StemSpec, vgg_stem
+from fac_fake_torch.models.stems import (Stem, StemSpec, plan_walk, repbn8_stem1,
+                                         repbn8_stem2, vgg_stem, walk_counts)
 
 LEGACY_POS_ROWS = 32
+# the constructor's stem arguments, in the order the stems run
+STEM_FIELDS = ("stem_spec", "stem2_spec", "stem3_spec")
 
 
 def patchify(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -50,24 +60,38 @@ class CViT(nn.Module):
                  patch_size: int = 7, num_classes: int = 2, dim: int = 1024,
                  depth: int = 6, heads: int = 8, mlp_dim: int = 2048,
                  pos_mode: str = "legacy", ffn_norm: str = "ln",
-                 quant_dense: bool = False):
+                 quant_dense: bool = False, stem2_spec: Optional[StemSpec] = None,
+                 stem3_spec: Optional[StemSpec] = None, use_ggca: bool = False):
         super().__init__()
+        specs = {f: tuple(s) for f, s in zip(STEM_FIELDS, (stem_spec, stem2_spec, stem3_spec))
+                 if s is not None}
+        if list(specs) != list(STEM_FIELDS[:len(specs)]):
+            raise ValueError("stem3_spec needs a stem2_spec")
         # constructor arguments, so `compat/fold.py` and `compat/quantize.py`
         # can rebuild the model
-        self.config = dict(stem_spec=tuple(stem_spec), image_size=image_size,
-                           patch_size=patch_size, num_classes=num_classes,
-                           dim=dim, depth=depth, heads=heads, mlp_dim=mlp_dim,
-                           pos_mode=pos_mode, ffn_norm=ffn_norm,
-                           quant_dense=quant_dense)
-        self.stem_spec = tuple(stem_spec)
+        self.config = dict(image_size=image_size, patch_size=patch_size,
+                           num_classes=num_classes, dim=dim, depth=depth, heads=heads,
+                           mlp_dim=mlp_dim, pos_mode=pos_mode, ffn_norm=ffn_norm,
+                           quant_dense=quant_dense, use_ggca=use_ggca, **specs)
+        self.stem_spec = specs["stem_spec"]
         self.patch_size = patch_size
         self.dim = dim
         self.pos_mode = pos_mode
         self.quant_dense = quant_dense
-        self.features = Stem(self.stem_spec)
-        side = image_size // (2 ** self.features.pools) // patch_size
+        self.use_ggca = use_ggca
+        #: {constructor field: module name}: ``features``, or ``features1``...
+        self.stem_names = ({"stem_spec": "features"} if len(specs) == 1 else
+                           {f: f"features{i + 1}" for i, f in enumerate(specs)})
+        ch, pools = 3, 0
+        for field, name in self.stem_names.items():
+            stem = Stem(specs[field], ch)
+            setattr(self, name, stem)
+            ch, pools = stem.out_channels, pools + stem.pools
+        if use_ggca:
+            self.ggca = GGCA(ch)
+        side = image_size // (2 ** pools) // patch_size
         num_patches = side * side
-        patch_dim = self.features.out_channels * patch_size ** 2
+        patch_dim = ch * patch_size ** 2
         self.patch_to_embedding = quant_linear(patch_dim, dim, quant_dense)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         if pos_mode == "legacy":
@@ -80,17 +104,50 @@ class CViT(nn.Module):
                                               quant_dense)
         self.mlp_head = mlp_head(dim, mlp_dim, num_classes, quant_dense)
 
+    def stems(self) -> List[Tuple[str, str, Stem]]:
+        """(constructor field, module name, `Stem`) of each stem, in order."""
+        return [(f, n, getattr(self, n)) for f, n in self.stem_names.items()]
+
+    def stem_ops(self) -> List[Tuple]:
+        """The ops of every stem's spec, in the order they run."""
+        return [op for f in self.stem_names for op in self.config[f]]
+
+    def walk_counts(self) -> Dict[str, int]:
+        """What one `forward_crops` runs in its stems, summed over them
+        (`stems.walk_counts`: the first stem from the crops, each later one
+        from the fp map before it), and ``no_relu_fused``: the walk's edges
+        that quantize for the next conv with no ReLU between the two."""
+        out: Dict[str, int] = {}
+        for i, field in enumerate(self.stem_names):
+            spec = self.config[field]
+            counts = walk_counts(spec, crops=i == 0)
+            counts["no_relu_fused"] = sum(st.to is not None and not st.relu
+                                          for st in plan_walk(spec)[0])
+            for k, v in counts.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
     def forward(self, img: torch.Tensor,
                 pos_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self._head(self.features(img), pos_indices)
+        return self._head(self._after_first_stem(self.stems()[0][2](img)), pos_indices)
 
     def forward_crops(self, crops_u8: torch.Tensor, dtype: torch.dtype = torch.float32,
                       pos_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
         """uint8 NHWC (B, H, W, 3) crops → what `forward` gives for their
         ImageNet normalize in ``dtype`` (`Stem.forward_crops`: on the card,
-        K2 makes the stem's input, and a quantized stem's int8 walk starts
-        from K2's int8 entry)."""
-        return self._head(self.features.forward_crops(crops_u8, dtype), pos_indices)
+        K2 makes the first stem's input, and a quantized stem's int8 walk
+        starts from K2's int8 entry; a later stem's walk quantizes its fp
+        input in one pass)."""
+        x = self.stems()[0][2].forward_crops(crops_u8, dtype)
+        return self._head(self._after_first_stem(x), pos_indices)
+
+    def _after_first_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The later stems, then ``x · ggca(x)`` with ``use_ggca``."""
+        for _, _, stem in self.stems()[1:]:
+            x = stem(x)
+        if self.use_ggca:
+            x = x * self.ggca(x)
+        return x
 
     def _head(self, x: torch.Tensor, pos_indices: Optional[torch.Tensor]) -> torch.Tensor:
         """The stem's NCHW output → logits."""
@@ -124,3 +181,11 @@ def _common(cfg) -> dict:
 def _build_cvit(cfg) -> CViT:
     """canonical CViT(224,7,2,512,1024,6,8,2048) — model/cvit.py"""
     return CViT(vgg_stem(), **_common(cfg))
+
+
+@register("model", "cvit_repbn8")
+def _build_cvit_repbn8(cfg) -> CViT:
+    """flagship cvit_GGCA_ADD_DEConv_RepBn8.py: two DEConv stems, x·GGCA(x),
+    LinearNorm FFN pre-norms"""
+    return CViT(repbn8_stem1(), stem2_spec=repbn8_stem2(), use_ggca=True,
+                ffn_norm="linearnorm", **_common(cfg))

@@ -1,5 +1,6 @@
-"""Model building blocks of the base CViT — the port of the parts of
-`fac_fake_tpu/models/layers.py` that base ``cvit`` uses.
+"""Model building blocks of the CViT — the port of the parts of
+`fac_fake_tpu/models/layers.py` that base ``cvit`` and the flagship
+``cvit_repbn8`` use.
 
 Module and attribute names mirror the reference torch CViT
 (`CViT-main/model/cvit.py:5-78`), so a reference ``.pth`` and the JAX
@@ -26,6 +27,7 @@ from fac_fake_torch.ops import preprocess, quant, quant3d
 # torch BatchNorm defaults, as the JAX package's TorchBatchNorm
 BN_EPS = 1e-5
 LN_EPS = 1e-5
+LINEAR_NORM_EPS = 1e-6   # the reference's partial(nn.LayerNorm, eps=1e-6)
 
 
 def conv3x3(cin: int, cout: int) -> nn.Conv2d:
@@ -154,10 +156,48 @@ class Residual(nn.Module):
         return x + self.fn(x)
 
 
-class PreNorm(nn.Module):
-    def __init__(self, dim: int, fn: nn.Module):
+class RepBN(nn.Module):
+    """Re-parameterizable BatchNorm over the token sequence,
+    ``BN1d(xᵀ)ᵀ + α·x`` (`cvit_GGCA_ADD_DEConv_RepBn8.py:9-19`): the model
+    dim is the BN's channels, normalized over (batch, tokens)."""
+
+    def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.alpha = nn.Parameter(torch.empty(1))
+        self.bn = nn.BatchNorm1d(dim, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(x.transpose(1, 2)).transpose(1, 2) + self.alpha * x
+
+
+class LinearNorm(nn.Module):
+    """The schedule-blended LayerNorm → RepBN of the RepBN variants
+    (`cvit_GGCA_ADD_DEConv_RepBn8.py:22-46`). In eval it is ``norm1`` alone,
+    a LayerNorm with eps 1e-6. ``norm2`` and the ``warm``/``iter`` buffers
+    (the blend's schedule, which ticks in training) are there so that
+    reference checkpoints load strict; the reference's ``total_step`` is a
+    constant here, as in the JAX package."""
+
+    def __init__(self, dim: int, warm: int = 0, step: int = 300000, r0: float = 1.0):
+        super().__init__()
+        self.total_step, self.r0 = step, r0
+        self.register_buffer("warm", torch.tensor(warm))
+        self.register_buffer("iter", torch.tensor(step))
+        self.norm1 = nn.LayerNorm(dim, eps=LINEAR_NORM_EPS)
+        self.norm2 = RepBN(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "LinearNorm's training blend comes with CViT training (ROADMAP queue 1 "
+                "item 11); call .eval() to score")
+        return self.norm1(x)
+
+
+class PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module, norm: Optional[nn.Module] = None):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS) if norm is None else norm
         self.fn = fn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -166,18 +206,19 @@ class PreNorm(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """depth × (PreNorm-Attention + PreNorm-FFN) with residuals
-    (`model/cvit.py:64-78`), the ``ffn_norm="ln"`` branch."""
+    (`model/cvit.py:64-78`). ``ffn_norm="linearnorm"`` (the RepBN variants,
+    `cvit_GGCA_ADD_DEConv_RepBn8.py:126-134`) takes `LinearNorm` for the
+    FFN's pre-norm; the attention keeps its LayerNorm."""
 
     def __init__(self, dim: int, depth: int, heads: int, mlp_dim: int,
                  ffn_norm: str = "ln", quant: bool = False):
         super().__init__()
-        if ffn_norm != "ln":
-            raise NotImplementedError(
-                f"ffn_norm={ffn_norm!r} (LinearNorm/RepBN) is ROADMAP queue 1 "
-                "item 4, the flagship slice")
+        if ffn_norm not in ("ln", "linearnorm"):
+            raise ValueError(f"unknown ffn_norm {ffn_norm!r}")
+        ffn_pre = lambda: LinearNorm(dim) if ffn_norm == "linearnorm" else None
         self.layers = nn.ModuleList(
             nn.ModuleList([Residual(PreNorm(dim, MultiHeadSelfAttention(dim, heads, quant))),
-                           Residual(PreNorm(dim, FeedForward(dim, mlp_dim, quant)))])
+                           Residual(PreNorm(dim, FeedForward(dim, mlp_dim, quant), ffn_pre()))])
             for _ in range(depth))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

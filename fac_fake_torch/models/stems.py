@@ -3,7 +3,8 @@ the plain op kinds.
 
 A stem is data: a tuple of ops run in order by one `Stem` module,
 ``("conv", ch)`` 3×3 pad-1 conv · ``("qconv", ch)`` its int8 twin
-(`compat/quantize.py` writes it) · ``("bn", ch)`` · ``("relu",)`` ·
+(`compat/quantize.py` writes it) · ``("deconv", ch)`` a `DEConv`
+(`models/blocks/deconv.py`) · ``("bn", ch)`` · ``("relu",)`` ·
 ``("pool",)`` 2×2 max-pool. Op ``i`` is ``features.{i}`` in the state dict,
 as in the reference's ``nn.Sequential`` (relu and pool hold no weights).
 
@@ -17,7 +18,9 @@ max: the values are those of the module-by-module chain. The first qconv
 quantizes its fp input; the last writes the activation dtype, and the
 ops after it run as modules. On the quantized `vgg_stem`: 17 convs, 16
 of them quantizing for the next (4 through a pool), 1 quantize pass (from
-an fp input), no fp ReLU, 4 int8 pools and 1 fp pool.
+an fp input), no fp ReLU, 4 int8 pools and 1 fp pool. A qconv read
+directly by the next, with no ReLU between them (the flagship's 128-stage
+conv → deconv, `repbn8_stem1`), quantizes for it all the same.
 
 `Stem.forward_crops` starts from the uint8 NHWC crops: a walk's first
 step is then K2's int8 entry (`ops/preprocess.py quantize_crops`, the
@@ -32,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from fac_fake_torch.models.blocks.deconv import DEConv
 from fac_fake_torch.models.layers import QuantConv3x3, batch_norm, conv3x3
 from fac_fake_torch.ops import preprocess, quant
 
@@ -41,7 +45,6 @@ _VGG_STAGES = ((32, 3), (64, 3), (128, 3), (256, 4), (512, 4))
 
 # op kinds of the JAX stem DSL that later slices port
 _LATER = {
-    "deconv": "ROADMAP queue 1 item 4 (flagship DEConv)",
     "scconv": "ROADMAP queue 1 item 14 (variant zoo)",
     "wtconv": "ROADMAP queue 1 item 14 (variant zoo)",
     "idw": "ROADMAP queue 1 item 14 (variant zoo)",
@@ -67,6 +70,26 @@ def vgg_stem() -> StemSpec:
     for ch, n in _VGG_STAGES:
         spec += _stage(ch, ["conv"] * n)
     return spec
+
+
+def repbn8_stem1() -> StemSpec:
+    """Flagship ``features1`` (`cvit_GGCA_ADD_DEConv_RepBn8.py:349-396`):
+    14 convs, 4 pools, 224→14×14×256. The 128 stage keeps the reference's
+    quirk: its last conv feeds a deconv with no BN or ReLU between them,
+    and that deconv has no BN."""
+    spec: Tuple = ()
+    for ch in (32, 64):
+        spec += _stage(ch, ["conv", "deconv", "deconv"])
+    spec += _cbr(128) + _cbr(128, "deconv")
+    spec += (("conv", 128), ("deconv", 128), ("relu",), ("pool",))
+    spec += _stage(256, ["conv", "deconv", "deconv", "deconv"])
+    return spec
+
+
+def repbn8_stem2() -> StemSpec:
+    """Flagship ``features2`` (`cvit_GGCA_ADD_DEConv_RepBn8.py:397-412`):
+    4 convs, 1 pool, 14²×256 → 7×7×512."""
+    return _stage(512, ["conv", "deconv", "deconv", "deconv"])
 
 
 class WalkStep(NamedTuple):
@@ -127,6 +150,9 @@ class Stem(nn.Sequential):
             kind = op[0]
             if kind in ("conv", "qconv"):
                 layers.append((conv3x3 if kind == "conv" else QuantConv3x3)(ch, op[1]))
+                ch = op[1]
+            elif kind == "deconv":
+                layers.append(DEConv(op[1]))
                 ch = op[1]
             elif kind == "bn":
                 layers.append(batch_norm(op[1]))

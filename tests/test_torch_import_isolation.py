@@ -32,6 +32,8 @@ def test_importing_every_port_module_loads_no_jax():
             "fac_fake_torch.evaluate.s3d_eval", "fac_fake_torch.ops.quant3d",
             "fac_fake_torch.compat.quantize_s3d", "fac_fake_torch.core.plans",
             "fac_fake_torch.cli.evaluate"} <= set(mods)
+    # the flagship cvit_repbn8's blocks
+    assert {"fac_fake_torch.models.blocks.deconv", "fac_fake_torch.models.blocks.ggca"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -211,3 +211,50 @@ def test_k3_derived_tensors_follow_load_state_dict(cin, k):
         assert torch.equal(rows, want)
     m.to(memory_format=torch.channels_last)
     assert m.w_k.is_contiguous()
+
+
+# the flagship's edge kind: qconv → qconv with no ReLU between (its 56² conv →
+# deconv), quantized for the next conv all the same
+NO_RELU_SPEC = (("qconv", 8), ("relu",), ("qconv", 16), ("qconv", 16), ("relu",), ("pool",),
+                ("qconv", 16), ("relu",), ("pool",))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_walk_equals_the_module_chain_over_a_no_relu_edge(dtype):
+    from torch import nn
+
+    stem = _stem(NO_RELU_SPEC, 31)
+    assert [(st.relu, st.to) for st in stem.walk] == [(True, 2), (False, 3), (True, 6),
+                                                      (True, None)]
+    x = _input(np.random.default_rng(31), (2, 3, 9, 10), float(stem[0].x_scale)).to(dtype)
+    with torch.no_grad():
+        got = stem(x)
+        want = nn.Sequential.forward(stem, x)
+    assert got.dtype == want.dtype == dtype and got.shape == (2, 16, 2, 2)
+    assert torch.equal(got, want)
+
+
+def test_walk_plan_of_the_quantized_flagship_stems():
+    """The folded flagship stems (DEConvs composed into convs, BNs folded),
+    quantized: stem 1 from the crops, 14 convs, 13 quantizing for the next
+    (one with no ReLU between: the 56² conv → deconv), 3 int8 pools and 1
+    fp pool; stem 2 from stem 1's fp map, one quantize pass, 4 convs, 3
+    fused, 1 fp pool."""
+    from fac_fake_torch.compat.quantize import _plan_stem
+    from fac_fake_torch.models.stems import plan_walk, repbn8_stem1, repbn8_stem2, walk_counts
+
+    def quantized(spec):
+        return _plan_stem(tuple(("conv", op[1]) if op[0] == "deconv" else op for op in spec
+                                if op[0] != "bn"))[0]
+
+    s1, s2 = quantized(repbn8_stem1()), quantized(repbn8_stem2())
+    assert walk_counts(s1, crops=True) == {"convs": 14, "fused": 13, "quantize": 0,
+                                           "k2_int8": 1, "k2_fp": 0, "int8_pools": 3,
+                                           "fp_pools": 1, "fp_relus": 0}
+    assert walk_counts(s2) == {"convs": 4, "fused": 3, "quantize": 1, "int8_pools": 0,
+                               "fp_pools": 1, "fp_relus": 0}
+    steps1, steps2 = plan_walk(s1)[0], plan_walk(s2)[0]
+    no_relu = [st for st in steps1 if not st.relu]
+    assert len(no_relu) == 1 and no_relu[0].to == no_relu[0].conv + 1
+    assert s1[no_relu[0].conv] == s1[no_relu[0].to] == ("qconv", 128)
+    assert all(st.relu for st in steps2)
