@@ -1724,24 +1724,26 @@ def main() -> int:
 
     # ---- 15. kernels line -----------------------------------------------------
     k5, k6 = s3d["k5"], s3d["k6"]
-    # the base's and the flagship's paths together
-    fp_launches = {k: v + flag["launches"][k] for k, v in launches.items()}
-    q_launches = {k: v + flag["int8_launches"][k] for k, v in int8_launches.items()}
+    # launches: the base cvit's paths; flagship_*: cvit_repbn8's, each path
+    # counted in its own run
+    fl, fq = flag["launches"], flag["int8_launches"]
     fk3 = flag["k3"]
     rows = [
         {"name": "K1_frame_detections", "route": "cuda",
          "source": "fac_fake_torch/csrc/frame_detections.cu",
          "replaces": "fac_fake_tpu/detect/extractor.py:73",
-         "launches": fp_launches["K1"], "max_abs_err": k1["err"],
+         "launches": launches["K1"], "flagship_launches": fl["K1"], "max_abs_err": k1["err"],
          "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
          "load_ms": k1["load_ms"],
          "shapes": "the planted 16-frame T=3 chunk, (16, 2688, 17); load_ms: with no step; "
-                   "launches: the fp32 paths of cvit and cvit_repbn8"},
+                   "launches: the cvit fp32 path; flagship_launches: the cvit_repbn8 fp32 "
+                   "path"},
         {"name": "K2_normalize_imagenet", "route": "cuda",
          "source": "fac_fake_torch/csrc/normalize.cu",
          "replaces": "fac_fake_tpu/ops/preprocess.py:25",
-         "launches": fp_launches["K2"], "int8_launches": q_launches["K2_int8"],
+         "launches": launches["K2"], "int8_launches": int8_launches["K2_int8"],
+         "flagship_launches": fl["K2"], "flagship_int8_launches": fq["K2_int8"],
          "raw_launches": s3d["launches"]["K2_raw"], "max_abs_err": k2["err"],
          "ms": k2["ms"], "kernel_ms": k2["ms"], "warm_ms": k2["warm_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -1756,13 +1758,14 @@ def main() -> int:
                    "bytes, not the same function",
          "shapes": "ms: fp32 (96, 224, 224, 3), the fp32 main path's; modes: fp32, bf16 and "
                    "the int8 CViT entry of each at batches 96 and 256, the raw int8 entry at "
-                   f"({S3D_BATCH}, {S3D_T}, {S3D_HW}, {S3D_HW}, 3); launches: the fp32 paths "
-                   "of cvit and cvit_repbn8; int8_launches: int8 entries on their int8_full "
-                   "paths; raw_launches: the S3D int8 path"},
+                   f"({S3D_BATCH}, {S3D_T}, {S3D_HW}, {S3D_HW}, 3); launches: the cvit fp32 "
+                   "path; int8_launches: int8 entries on the cvit int8_full path; "
+                   "flagship_launches, flagship_int8_launches: the same on cvit_repbn8's; "
+                   "raw_launches: the S3D int8 path"},
         {"name": "K3_quant_conv3x3", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_conv3d.cu",
          "replaces": "fac_fake_tpu/models/layers.py:106",
-         "launches": q_launches["K3"], "quantize_launches": q_launches["K3_quantize"],
+         "launches": int8_launches["K3"], "quantize_launches": int8_launches["K3_quantize"],
          "max_abs_err": k3["err"], "ms": k3["ms"], "kernel_ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "bound_counts": "real channels; the first conv's int8 input (K2's int8 entry makes it) "
@@ -1774,24 +1777,28 @@ def main() -> int:
          "int_mm": "torch._int_mm, the GEMMs alone of the 8 deep convs (28x28 and 14x14) on "
                    "im2col'd int8 operands",
          "shapes": "the 17 convs (16 fused with the next quantize) of one cvit int8 "
-                   "forward's stem walk from the crops, batch 96, fp32; launches: cvit's and "
-                   "cvit_repbn8's int8_full paths; quantize_launches: cvit_repbn8's stem 2",
+                   "forward's stem walk from the crops, batch 96, fp32; launches, "
+                   "quantize_launches: the cvit int8_full path (no quantize pass there); "
+                   "flagship_launches, flagship_quantize_launches: the cvit_repbn8 int8_full "
+                   "path (stem 2's quantize pass)",
          "flagship_ms": fk3["ms"], "flagship_conv_ms": fk3["conv_ms"],
          "flagship_quantize_ms": fk3["quantize_ms"], "flagship_plain_ms": fk3["plain_ms"],
          "flagship_bound_ms": fk3["bound_ms"], "flagship_bound_by": fk3["bound_by"],
-         "flagship_launches": flag["int8_launches"]["K3"],
+         "flagship_launches": fq["K3"], "flagship_quantize_launches": fq["K3_quantize"],
          "flagship_shapes": "the 18 convs (16 fused with the next quantize, 1 of them with no "
                             "ReLU) and 1 quantize pass of one cvit_repbn8 int8 forward from "
                             "the crops, batch 96, fp32"},
         {"name": "K4_quant_dense", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_dense.cu",
          "replaces": "fac_fake_tpu/models/layers.py:142",
-         "launches": q_launches["K4"], "max_abs_err": k4["err"],
+         "launches": int8_launches["K4"], "flagship_launches": fq["K4"],
+         "max_abs_err": k4["err"],
          "ms": k4["ms"], "kernel_ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": k4["library_ms"], "library": "torch._int_mm, the GEMM alone",
          "shapes": "the 26 denses of one int8_full forward, batch 96, fp32 (the same on cvit "
-                   "and cvit_repbn8); launches: both int8_full paths"},
+                   "and cvit_repbn8); launches: the cvit int8_full path; flagship_launches: "
+                   "the cvit_repbn8 int8_full path"},
         {"name": "K5_quant_conv3d", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_conv3d.cu",
          "replaces": "fac_fake_tpu/compat/quantize_s3d.py:59",

@@ -109,13 +109,16 @@ def _dense_names(model) -> List[str]:
 
 
 @torch.no_grad()
-def _capture_inputs(model, calib_x: torch.Tensor, names: List[str]) -> Dict[str, torch.Tensor]:
-    """One fp forward; the input of each named module."""
+def _capture_inputs(model, calib_x: torch.Tensor, whole: List[str],
+                    amax: List[str]) -> Dict[str, torch.Tensor]:
+    """One fp forward; the input of each module named in ``whole`` and the
+    absolute maximum of the input of each named in ``amax``."""
     seen: Dict[str, torch.Tensor] = {}
     hooks = []
-    for name in names:
-        def hook(_mod, args, name=name):
-            seen[name] = args[0].detach()
+    for name in whole + amax:
+        def hook(_mod, args, name=name, keep=name in whole):
+            x = args[0].detach()
+            seen[name] = x if keep else x.abs().amax()
         hooks.append(model.get_submodule(name).register_forward_pre_hook(hook))
     kw = {}
     if model.pos_mode == "legacy":
@@ -149,7 +152,7 @@ def quantize_cvit(model, calib_x: torch.Tensor, transformer: bool = False):
     dense = _dense_names(model) if transformer else []
     # the later stems' inputs, and the denses', from one fp forward
     later = [name for _, name, _ in stems[1:] if plans[name][1]]
-    inputs = _capture_inputs(model, calib_x, later + dense) if later or dense else {}
+    inputs = _capture_inputs(model, calib_x, later, dense) if later or dense else {}
     inputs[stems[0][1]] = calib_x
 
     sd = dict(model.state_dict())
@@ -166,7 +169,7 @@ def quantize_cvit(model, calib_x: torch.Tensor, transformer: bool = False):
     for name in dense:
         w_q, s_w = _weight_q(sd.pop(f"{name}.weight"), (1,))
         sd.update({f"{name}.kernel_q": w_q, f"{name}.w_scale": s_w,
-                   f"{name}.x_scale": _act_scale(inputs[name].abs().amax())})
+                   f"{name}.x_scale": _act_scale(inputs[name])})
         if f"{name}.bias" in sd:
             sd[f"{name}.bias"] = sd[f"{name}.bias"].float()
 

@@ -11,7 +11,7 @@ from fac_fake_torch.core.registry import get
 
 from . import cvit  # noqa: F401  (registers cvit, cvit_repbn8)
 from .blocks.deconv import DEConv
-from .layers import LinearNorm, RepBN
+from .layers import LINEAR_NORM_STEPS, LinearNorm, RepBN
 from .s3d.layers import srm_weight
 from .s3d import model as s3d_model  # noqa: F401  (registers the S3D family)
 
@@ -70,7 +70,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 done.add(id(m.alpha))
             elif isinstance(m, LinearNorm):
                 m.warm.fill_(0)
-                m.iter.fill_(m.total_step)
+                m.iter.fill_(LINEAR_NORM_STEPS)
             elif isinstance(m, cvit.CViT):
                 m.cls_token.normal_(0.0, 1.0, generator=gen)
                 std = 1.0 if m.pos_mode == "legacy" else 0.02

@@ -23,17 +23,16 @@ _AD_PERM = (3, 0, 1, 6, 4, 2, 7, 8, 5)
 
 
 def compose_deconv_weight(w_cd: torch.Tensor, w_hd: torch.Tensor, w_vd: torch.Tensor,
-                          w_ad: torch.Tensor, w_std: torch.Tensor,
-                          theta: float = 1.0) -> torch.Tensor:
+                          w_ad: torch.Tensor, w_std: torch.Tensor) -> torch.Tensor:
     """The five branch kernels → one (O, I, 3, 3) weight. ``w_hd``/``w_vd``
     are the 1-D taps (O, I, 3); the others (O, I, 3, 3)."""
     o, i = w_cd.shape[:2]
     cd9 = w_cd.reshape(o, i, 9).clone()
     # center-difference: identity but the center tap, less the full sum
     cd9[..., 4] = cd9[..., 4] - w_cd.reshape(o, i, 9).sum(-1)
-    # angular-difference: w − θ·w[perm]
+    # angular-difference: w − w[perm] (the reference's θ is 1 in every model)
     ad9 = w_ad.reshape(o, i, 9)
-    ad9 = ad9 - theta * ad9[..., list(_AD_PERM)]
+    ad9 = ad9 - ad9[..., list(_AD_PERM)]
     # horizontal-difference: left column +w, right column −w
     hd9 = w_hd.new_zeros((o, i, 9))
     hd9[..., [0, 3, 6]] = w_hd
@@ -49,11 +48,11 @@ def compose_deconv_weight(w_cd: torch.Tensor, w_hd: torch.Tensor, w_vd: torch.Te
 _NAMES = ("conv1_1.conv", "conv1_2.conv", "conv1_3.conv", "conv1_4.conv", "conv1_5")
 
 
-def compose_deconv_state(sd, prefix: str = "", theta: float = 1.0) -> tuple:
+def compose_deconv_state(sd, prefix: str = "") -> tuple:
     """(weight, bias) of the one conv that a DEConv's weights (its state
     dict's keys under ``prefix``) compose into; the bias is the branches'
     sum in JAX's order (cd, hd, vd, ad, std)."""
-    weight = compose_deconv_weight(*(sd[f"{prefix}{n}.weight"] for n in _NAMES), theta)
+    weight = compose_deconv_weight(*(sd[f"{prefix}{n}.weight"] for n in _NAMES))
     bias = sd[f"{prefix}{_NAMES[0]}.bias"]
     for name in _NAMES[1:]:
         bias = bias + sd[f"{prefix}{name}.bias"]
@@ -72,9 +71,8 @@ class DEConv(nn.Module):
     """y = conv(x, w_cd + w_hd + w_vd + w_ad + w_std, Σb), stride 1 pad 1,
     on NCHW ``x``; ``dim`` channels in and out."""
 
-    def __init__(self, dim: int, theta: float = 1.0):
+    def __init__(self, dim: int):
         super().__init__()
-        self.theta = theta
         conv2d = lambda: nn.Conv2d(dim, dim, 3, padding=1, bias=True)
         conv1d = lambda: nn.Conv1d(dim, dim, 3, padding=1, bias=True)
         self.conv1_1 = _Branch(conv2d())
@@ -85,7 +83,7 @@ class DEConv(nn.Module):
 
     def composed(self) -> tuple:
         """(weight, bias) of the one conv the branches sum into."""
-        return compose_deconv_state(dict(self.named_parameters()), theta=self.theta)
+        return compose_deconv_state(dict(self.named_parameters()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.composed()

@@ -38,8 +38,8 @@ from torch import nn
 from fac_fake_torch.core.registry import register
 from fac_fake_torch.models.blocks.ggca import GGCA
 from fac_fake_torch.models.layers import TransformerEncoder, mlp_head, quant_linear
-from fac_fake_torch.models.stems import (Stem, StemSpec, plan_walk, repbn8_stem1,
-                                         repbn8_stem2, vgg_stem, walk_counts)
+from fac_fake_torch.models.stems import (Stem, StemSpec, repbn8_stem1, repbn8_stem2,
+                                         vgg_stem, walk_counts)
 
 LEGACY_POS_ROWS = 32
 # the constructor's stem arguments, in the order the stems run
@@ -115,17 +115,10 @@ class CViT(nn.Module):
     def walk_counts(self) -> Dict[str, int]:
         """What one `forward_crops` runs in its stems, summed over them
         (`stems.walk_counts`: the first stem from the crops, each later one
-        from the fp map before it), and ``no_relu_fused``: the walk's edges
-        that quantize for the next conv with no ReLU between the two."""
-        out: Dict[str, int] = {}
-        for i, field in enumerate(self.stem_names):
-            spec = self.config[field]
-            counts = walk_counts(spec, crops=i == 0)
-            counts["no_relu_fused"] = sum(st.to is not None and not st.relu
-                                          for st in plan_walk(spec)[0])
-            for k, v in counts.items():
-                out[k] = out.get(k, 0) + v
-        return out
+        from the fp map before it)."""
+        counts = [walk_counts(self.config[f], crops=i == 0)
+                  for i, f in enumerate(self.stem_names)]
+        return {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
 
     def forward(self, img: torch.Tensor,
                 pos_indices: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -28,6 +28,7 @@ from fac_fake_torch.ops import preprocess, quant, quant3d
 BN_EPS = 1e-5
 LN_EPS = 1e-5
 LINEAR_NORM_EPS = 1e-6   # the reference's partial(nn.LayerNorm, eps=1e-6)
+LINEAR_NORM_STEPS = 300000   # LinearNorm's total_step, the blend's length
 
 
 def conv3x3(cin: int, cout: int) -> nn.Conv2d:
@@ -174,15 +175,14 @@ class LinearNorm(nn.Module):
     """The schedule-blended LayerNorm → RepBN of the RepBN variants
     (`cvit_GGCA_ADD_DEConv_RepBn8.py:22-46`). In eval it is ``norm1`` alone,
     a LayerNorm with eps 1e-6. ``norm2`` and the ``warm``/``iter`` buffers
-    (the blend's schedule, which ticks in training) are there so that
-    reference checkpoints load strict; the reference's ``total_step`` is a
-    constant here, as in the JAX package."""
+    (the blend's schedule, which ticks in training; here at its start,
+    ``warm`` 0 and ``iter`` `LINEAR_NORM_STEPS`) are there so that reference
+    checkpoints load strict."""
 
-    def __init__(self, dim: int, warm: int = 0, step: int = 300000, r0: float = 1.0):
+    def __init__(self, dim: int):
         super().__init__()
-        self.total_step, self.r0 = step, r0
-        self.register_buffer("warm", torch.tensor(warm))
-        self.register_buffer("iter", torch.tensor(step))
+        self.register_buffer("warm", torch.tensor(0))
+        self.register_buffer("iter", torch.tensor(LINEAR_NORM_STEPS))
         self.norm1 = nn.LayerNorm(dim, eps=LINEAR_NORM_EPS)
         self.norm2 = RepBN(dim)
 

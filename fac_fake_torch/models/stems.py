@@ -120,7 +120,8 @@ def plan_walk(spec: StemSpec) -> Tuple[Tuple[WalkStep, ...], int]:
 
 def walk_counts(spec: StemSpec, crops: bool = False) -> dict:
     """What one forward of the stem runs: K3 launches (``convs``, one a
-    qconv), those that quantize for the next conv (``fused``), quantize
+    qconv), those that quantize for the next conv (``fused``) and those of
+    them with no ReLU between the two convs (``no_relu_fused``), quantize
     passes (the walk's one, and one a qconv run as a module), pools on int8
     and fp tensors, and fp ReLU passes. With ``crops``, the forward of
     `Stem.forward_crops`: the walk's quantize pass is then K2's int8 entry
@@ -134,7 +135,7 @@ def walk_counts(spec: StemSpec, crops: bool = False) -> dict:
         entry = {"quantize": count(rest, "qconv"), "k2_int8": int(bool(steps)),
                  "k2_fp": int(not steps)}
     return {"convs": count(spec, "qconv"), "fused": sum(st.to is not None for st in steps),
-            **entry, "int8_pools": sum(st.pool for st in steps),
+            "no_relu_fused": sum(st.to is not None and not st.relu for st in steps), **entry, "int8_pools": sum(st.pool for st in steps),
             "fp_pools": count(rest, "pool"), "fp_relus": count(rest, "relu")}
 
 

@@ -96,7 +96,7 @@ def nchw(x):
 
 @pytest.mark.parametrize("cin,cout", [(8, 8), (3, 16)])
 def test_compose_deconv_weight_matches_jax(cin, cout):
-    """θ = 1, the flagship's; within 1e-6."""
+    """The port composes at θ = 1, every model's; JAX's at θ = 1, within 1e-6."""
     from fac_fake_tpu.models.blocks.deconv import compose_deconv_weight as jax_compose
     from fac_fake_torch.compat.weights import t_conv, t_conv1d
     from fac_fake_torch.models.blocks.deconv import compose_deconv_weight
@@ -107,7 +107,7 @@ def test_compose_deconv_weight_matches_jax(cin, cout):
     ref = np.asarray(jax_compose(k33[0], k3[0], k3[1], k33[1], k33[2], 1.0))
     t = lambda a, tf: torch.from_numpy(np.ascontiguousarray(tf(a)))
     got = compose_deconv_weight(t(k33[0], t_conv), t(k3[0], t_conv1d), t(k3[1], t_conv1d),
-                                t(k33[1], t_conv), t(k33[2], t_conv), 1.0)
+                                t(k33[1], t_conv), t(k33[2], t_conv))
     assert got.shape == (cout, cin, 3, 3)
     np.testing.assert_allclose(got.permute(2, 3, 1, 0).numpy(), ref, rtol=0, atol=1e-6)
 

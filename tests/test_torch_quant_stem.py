@@ -87,8 +87,8 @@ def test_walk_plan_of_the_quantized_vgg_stem():
 
     spec = _quantized_vgg()
     steps, tail = plan_walk(spec)
-    assert walk_counts(spec) == {"convs": 17, "fused": 16, "quantize": 1, "int8_pools": 4,
-                                 "fp_pools": 1, "fp_relus": 0}
+    assert walk_counts(spec) == {"convs": 17, "fused": 16, "no_relu_fused": 0, "quantize": 1,
+                                 "int8_pools": 4, "fp_pools": 1, "fp_relus": 0}
     assert (tail, len(spec)) == (38, 39)
     assert all(st.relu for st in steps) and steps[-1].to is None
     assert sum(st.pool for st in steps) == 4 and sum(st.to is not None and not st.pool
@@ -98,16 +98,20 @@ def test_walk_plan_of_the_quantized_vgg_stem():
 @pytest.mark.parametrize("spec,counts,tail", [
     # unquantized: no walk
     ((("conv", 8), ("relu",), ("pool",)),
-     {"convs": 0, "fused": 0, "quantize": 0, "int8_pools": 0, "fp_pools": 1, "fp_relus": 1}, 0),
+     {"convs": 0, "fused": 0, "no_relu_fused": 0, "quantize": 0, "int8_pools": 0, "fp_pools": 1,
+      "fp_relus": 1}, 0),
     # no ReLU after the first qconv; two pools end the walk
     ((("qconv", 8), ("qconv", 8), ("relu",), ("pool",), ("pool",), ("qconv", 8)),
-     {"convs": 3, "fused": 1, "quantize": 2, "int8_pools": 0, "fp_pools": 2, "fp_relus": 0}, 3),
+     {"convs": 3, "fused": 1, "no_relu_fused": 1, "quantize": 2, "int8_pools": 0, "fp_pools": 2,
+      "fp_relus": 0}, 3),
     # an op the walk does not model ends it
     ((("qconv", 8), ("bn", 8), ("qconv", 8), ("relu",)),
-     {"convs": 2, "fused": 0, "quantize": 2, "int8_pools": 0, "fp_pools": 0, "fp_relus": 1}, 1),
+     {"convs": 2, "fused": 0, "no_relu_fused": 0, "quantize": 2, "int8_pools": 0, "fp_pools": 0,
+      "fp_relus": 1}, 1),
     # no walk unless op 0 is a qconv
     ((("relu",), ("qconv", 8), ("qconv", 8)),
-     {"convs": 2, "fused": 0, "quantize": 2, "int8_pools": 0, "fp_pools": 0, "fp_relus": 1}, 0),
+     {"convs": 2, "fused": 0, "no_relu_fused": 0, "quantize": 2, "int8_pools": 0, "fp_pools": 0,
+      "fp_relus": 1}, 0),
 ])
 def test_walk_plan_edges(spec, counts, tail):
     """The counts are what one forward launches (on the CPU: the plain
@@ -119,8 +123,14 @@ def test_walk_plan_edges(spec, counts, tail):
     assert walk_counts(spec) == counts
     assert plan_walk(spec)[1] == tail
     stem = _stem(spec, 9)
-    ran = {"convs": 0, "quantize": 0}
+    ran = {"convs": 0, "fused": 0, "no_relu_fused": 0, "quantize": 0}
     conv, quantize = q.int8_conv3x3, q3.quantize_pad
+
+    def counted_conv(xq, kernel_q, s, bias, relu, dtype, q_scale=None, w_k=None):
+        ran["convs"] += 1
+        ran["fused"] += q_scale is not None
+        ran["no_relu_fused"] += q_scale is not None and not relu
+        return conv(xq, kernel_q, s, bias, relu, dtype, q_scale, w_k)
 
     def count(kind, fn):
         def run(*args, **kw):
@@ -128,7 +138,7 @@ def test_walk_plan_edges(spec, counts, tail):
             return fn(*args, **kw)
         return run
 
-    q.int8_conv3x3, q3.quantize_pad = count("convs", conv), count("quantize", quantize)
+    q.int8_conv3x3, q3.quantize_pad = counted_conv, count("quantize", quantize)
     try:
         with torch.no_grad():
             stem(_input(np.random.default_rng(9), (1, 3, 8, 8), 0.125))
@@ -248,11 +258,11 @@ def test_walk_plan_of_the_quantized_flagship_stems():
                                 if op[0] != "bn"))[0]
 
     s1, s2 = quantized(repbn8_stem1()), quantized(repbn8_stem2())
-    assert walk_counts(s1, crops=True) == {"convs": 14, "fused": 13, "quantize": 0,
-                                           "k2_int8": 1, "k2_fp": 0, "int8_pools": 3,
-                                           "fp_pools": 1, "fp_relus": 0}
-    assert walk_counts(s2) == {"convs": 4, "fused": 3, "quantize": 1, "int8_pools": 0,
-                               "fp_pools": 1, "fp_relus": 0}
+    assert walk_counts(s1, crops=True) == {"convs": 14, "fused": 13, "no_relu_fused": 1,
+                                           "quantize": 0, "k2_int8": 1, "k2_fp": 0,
+                                           "int8_pools": 3, "fp_pools": 1, "fp_relus": 0}
+    assert walk_counts(s2) == {"convs": 4, "fused": 3, "no_relu_fused": 0, "quantize": 1,
+                               "int8_pools": 0, "fp_pools": 1, "fp_relus": 0}
     steps1, steps2 = plan_walk(s1)[0], plan_walk(s2)[0]
     no_relu = [st for st in steps1 if not st.relu]
     assert len(no_relu) == 1 and no_relu[0].to == no_relu[0].conv + 1
