@@ -2,23 +2,27 @@
 """Drive fac_fake_torch on one NVIDIA H100: build the hand-written kernels,
 hold each against its plain PyTorch version, score videos end to end with the
 full-width base CViT and the flagship cvit_repbn8 in fp32 and under int8
-post-training quantization, score S3D clips, and print what it measured.
+post-training quantization, score S3D clips, train both CViTs at full width,
+and print what it measured.
 
     python3 chip_smoke.py [--seed N] [--profile]     # all phases, one card
 
 ``--profile`` adds a torch.profiler breakdown, by kernel, of one fp32 and
 one int8_full CViT forward at batch 96 to phase 9 and to F3 (the flagship),
-and of one fp32 and one int8 S3D `predict_batch` at batch 32 to phase 13;
+of one fp32 and one int8 S3D `predict_batch` at batch 32 to phase 13, and of
+one train step and one eval step of each CViT at batch 32 to T2 and T4;
 the int8 breakdowns must name K4's and K5's `wgmma` kernels (`dense_wgmma`,
 `conv_wgmma`, which K3 runs on too), their quantize pass
 (`qwg::quantize_rows`) and K2's `normalize_table`, the S3D one K6's
-`max_pool3d_i8_sep`, and the CViTs' no `qmma::` kernel.
+`max_pool3d_i8_sep`, and the CViTs' no `qmma::` kernel; the train steps
+K7's `clahe_luts` and `clahe_apply` (traced in every run, for the device's
+busy share), the eval steps K2's `normalize_table`.
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
-  2. build the six kernels (K1-K6; K3 and K5 are one kernel, five sources) from
-     fac_fake_torch/csrc, in parallel;
+  2. build the seven kernels (K1-K7; K3 and K5 are one kernel, six sources)
+     from fac_fake_torch/csrc, in parallel;
   3. K2 (`k2_phase`) in its five modes against their plain versions: the
      normalize to fp32 and bf16 (within K2_TOL), the CViT walk's int8 entry
      of both (bit-equal to the normalize and quantize pass it replaces) at
@@ -101,15 +105,36 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      fp32 and int8 (plain versions; int8 from the uint8 clip), batch 1: the
      logits, and the head's input features (int8: against the
      int8-vs-fp32 difference);
- 15. the kernels line; 16. the result line.
+ T1. K7 (CLAHE on the luma, the strong_aug chain's kernel) against its plain
+     version, bit-equal, at (8|32, 224, 224, 3) on seeded images, a flat
+     image, an image of every byte and two grid-1 images; timed cold and
+     warm at (8, 224, 224, 3), the trainer's shape, beside its plain version
+     and copy_ of the same bytes (`k7_phase`);
+ T2. base cvit training at full width (`train_phase`): seeded weights, 256
+     seeded crops (the synthetic face on those of label 1) cached on the
+     card, batch 32, the default strong_aug chain and plateau schedule:
+     train crops/s and ms a step after a warm-up step, the device's busy
+     share over one traced step, peak memory; `fit` for one epoch (7 steps)
+     and an eval pass, with periodic and best checkpoints: finite losses, 1
+     K7 call a train step and 1 K2 fp32 launch an eval batch; 10 steps on a
+     fixed batch with the augmentation off: the loss falls;
+ T3. one base cvit train step at full width, batch 2, card (TF32 off) vs
+     CPU from the same weights: the loss, each parameter's gradient, the
+     BatchNorm running stats and the parameters after the Adam step, within
+     the TRAIN_* bounds it prints (`train_vs_cpu`);
+ T4. the flagship cvit_repbn8 as T2 and T3; LinearNorm's iter must fall by
+     the number of training forwards and no warm go below 0;
+ 15. the training line and the kernels line; 16. the result line.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -164,6 +189,35 @@ K2_CROP_BATCHES = (96, 256)                        # K2's CViT modes: batch_crop
 # into quantization steps that flip, and those spread as int8 noise does
 S3D_FP32_FEATURE_RTOL = 1e-5
 S3D_INT8_FEATURE_RATIO = 1.0
+# training (T1-T4)
+K7_BATCHES = (8, 32)          # K7: the trainer's CLAHE subset at batch 32, and a whole batch
+K7_OPS_PER_PIXEL = 57         # the plain version's fp32 operations a pixel (luma, blend, RGB)
+TRAIN_BATCH = 32              # data.batch_size, JAX's default
+TRAIN_HW = 224                # the crops' side (data.image_size)
+TRAIN_CROPS = 256             # seeded crops cached on the card: 224 train (7 steps), 32 val
+TRAIN_TIMED_STEPS = 10        # timed train steps after a warm-up step
+TRAIN_FIXED_STEPS = 10        # steps on one fixed batch, augmentation off: the loss falls
+TRAIN_CHECK_BATCH = 2         # T3/T4: one train step card vs CPU
+# one train step at full width, card (TF32 off) vs CPU, from the same weights,
+# the CPU's max-pools routed as the card's (`train_vs_cpu`). The fp32
+# gradient of these nets at full width is far from exact on either device:
+# measured on an H100 (seeded and trained weights, batch 2; PERF.md §6),
+# each device's is 0.07-1.4% (relative L2) off the float64 gradient, and the
+# card's and the CPU's 0.18-1.2% apart, worst tensor 1.8%. So the gradient
+# is held to the float64 one: the card's within three times the CPU fp32's
+# distance to it, plus 1e-3; card vs CPU directly within the sanity bounds
+# below. Also: the loss; the BatchNorm running stats and LinearNorm's
+# counters; the parameters after the Adam step where |g| > 1e-5 and the two
+# gradients agree within 10% (Adam's first step is about ±lr there, whatever
+# the gradient's rounding); a tensor whose float64 gradient is zero but for
+# rounding (a conv bias before a BatchNorm) is under 1e-4 of the whole norm
+# on both devices
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_F64_RATIO, TRAIN_GRAD_F64_SLACK = 3.0, 1e-3
+TRAIN_GRAD_RTOL = 5e-2
+TRAIN_GRAD_TENSOR_RTOL = 2e-1
+TRAIN_STATS_RTOL, TRAIN_STATS_ATOL = 1e-3, 1e-5
+TRAIN_PARAM_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -570,13 +624,16 @@ def k4_phase(rng, dev) -> dict:
 
 
 def profile_forward(fn, label: str, top: int = 12, expect: tuple = (),
-                    absent: tuple = ()) -> None:
+                    absent: tuple = (), inference: bool = True) -> tuple:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     busy share of its wall time, and the ``top`` kernels; each name in
     ``expect`` must be among the kernels' names, and no name in ``absent``
     may be part of one. A first call is traced and
     dropped (the profiler's warm-up step): without it the trace loses the
-    kernels at the start of the window."""
+    kernels at the start of the window. ``inference=False`` (a train step)
+    runs ``fn`` outside inference mode. Returns (wall ms, busy ms)."""
+    import contextlib
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -589,7 +646,7 @@ def profile_forward(fn, label: str, top: int = 12, expect: tuple = (),
                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
                     and not e.key.startswith("ProfilerStep"))
 
-    with torch.inference_mode():
+    with torch.inference_mode() if inference else contextlib.nullcontext():
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -621,6 +678,7 @@ def profile_forward(fn, label: str, top: int = 12, expect: tuple = (),
     for name in absent:
         if any(name in key for key, _, _ in rows):
             raise AssertionError(f"profile {label}: a kernel named {name} ran")
+    return wall * 1e3, busy
 
 
 def forward_counts(model, u8, pos) -> dict:
@@ -1628,6 +1686,321 @@ def flagship_phases(seed, rng, dev, det, reader, crops, stacks, paths, with_face
     return dict(launches=launches, int8_launches=int8_launches, k3=k3)
 
 
+def k7_phase(rng, dev) -> dict:
+    """T1: K7 (CLAHE on the luma) against its plain version, bit-equal, at
+    (8|32, 224, 224, 3) on seeded uint8-derived images, on a flat image
+    (every bin clipped, the residual spread), on an image of every byte
+    value, and at grid 1 (8x8 and 120x120 images: tiles of 1 and 15
+    pixels). Timed at (8, 224, 224, 3), the trainer's shape: cold (launches
+    rotating over input/output pairs beyond twice the L2), warm, its plain
+    version, and torch ``copy_`` of the same bytes, cold (a yardstick, not
+    the same function). The bound: bytes, the input read once and the
+    output written once."""
+    import torch
+    from fac_fake_torch.ops import augment as aug
+    d255 = torch.full((1,), 255.0, device=dev)
+    to01 = lambda u8: (torch.from_numpy(u8).to(dev).float() / d255).contiguous()
+    every = (np.arange(8 * 224 * 224 * 3) % 256).reshape(8, 224, 224, 3).astype(np.uint8)
+    cases = [(f"seeded, batch {k}", rng.integers(0, 256, (k, 224, 224, 3), dtype=np.uint8))
+             for k in K7_BATCHES]
+    cases += [("flat", np.full((8, 224, 224, 3), 128, np.uint8)), ("every byte", every),
+              ("grid 1, 1-px tiles", rng.integers(0, 256, (8, 8, 8, 3), dtype=np.uint8)),
+              ("grid 1, 15-px tiles", rng.integers(0, 256, (8, 120, 120, 3), dtype=np.uint8))]
+    err = 0.0
+    for name, u8 in cases:
+        x = to01(u8)
+        got, ref = aug.clahe_luma(x), aug.clahe_luma_plain(x)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        err = max(err, e)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K7 {name} {tuple(x.shape)}: differs from plain by {e}")
+        log(f"K7 clahe_luma {name} {tuple(x.shape)} grid {aug.clahe_grid(*x.shape[1:3])}: "
+            f"bit-equal to plain")
+    x8 = to01(cases[0][1])
+    nbytes = 2.0 * x8.numel() * 4
+    n_rot = int(2 * L2_BYTES // nbytes) + 2
+    rot = [x8] + [x8.clone() for _ in range(n_rot - 1)]
+    k_ms = rotated_ms(aug.clahe_luma, rot)
+    w_ms = cuda_ms(lambda: aug.clahe_luma(x8))
+    pairs = [(torch.empty_like(x), x) for x in rot]
+    c_ms = rotated_ms(lambda pair: pair[0].copy_(pair[1]), pairs)
+    p_ms = cuda_ms(lambda: aug.clahe_luma_plain(x8), iters=3)
+    del rot, pairs
+    b_ms, b_by = bound_ms(nbytes, K7_OPS_PER_PIXEL * x8.numel() / 3)
+    log(f"K7 at {tuple(x8.shape)}: kernel {k_ms:.4f} ms cold ({b_ms / k_ms:.1%} of the bound, "
+        f"{n_rot} buffer pairs), {w_ms:.4f} ms warm; copy_ of the same bytes {c_ms:.4f} ms "
+        f"cold; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+    return dict(ms=k_ms, warm_ms=w_ms, copy_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, err=err)
+
+
+def train_data(rng, face) -> tuple:
+    """TRAIN_CROPS seeded uint8 crops (TRAIN_HW², 224) and seeded labels; the
+    crops of label 1 carry the synthetic face (`synth_face`, upscaled to 128
+    px) at a seeded place."""
+    imgs = rng.integers(0, 256, (TRAIN_CROPS, TRAIN_HW, TRAIN_HW, 3), dtype=np.uint8)
+    labels = rng.integers(0, 2, TRAIN_CROPS).astype(np.int64)
+    big = np.repeat(np.repeat(face, 2, axis=0), 2, axis=1)[:TRAIN_HW // 2, :TRAIN_HW // 2]
+    side = big.shape[0]
+    for i in np.flatnonzero(labels):
+        y, x = rng.integers(0, TRAIN_HW - side + 1, 2)
+        imgs[i, y:y + side, x:x + side] = big
+    return imgs, labels
+
+
+def _linear_norms(model) -> list:
+    return [m for m in model.modules() if type(m).__name__ == "LinearNorm"]
+
+
+def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = "") -> tuple:
+    """T2 (base cvit) and T4's first half (the flagship): `Trainer` at full
+    width, batch TRAIN_BATCH, the default strong_aug chain and plateau
+    schedule, seeded weights. The dataset cached on the card
+    (`Trainer.cache_data`); one warm-up step, TRAIN_TIMED_STEPS timed steps
+    (crops/s, ms a step, peak memory), one step traced (the device's busy
+    share; K7's two kernels must be in it; with ``profile``, the top
+    kernels, and an eval step that must run K2's normalize_table); then the
+    main path, `fit` for one epoch with an eval pass, with the launch
+    counts set to 0 before it: one K7 call a train step, one K2 fp32 launch
+    an eval batch, finite losses; then TRAIN_FIXED_STEPS steps on one fixed
+    batch with the augmentation off, whose last loss must be below its
+    first. The flagship's LinearNorm ``iter`` must have fallen by the
+    number of training forwards, and no ``warm`` below 0. Returns the
+    numbers and the trained model."""
+    import torch
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import augment as aug
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.train.trainer import Trainer
+    imgs, labels = data
+    cfg = Config()
+    cfg.model.name = name
+    cfg.train.epochs = 1
+    cfg.train.log_every = 0
+    cfg.train.checkpoint_dir = ckpt_dir
+    cfg.train.checkpoint_every = 1 if ckpt_dir else 0
+    model = build_model(cfg.model, device=dev, seed=seed)
+    tr = Trainer(model, cfg)
+    n_train = TRAIN_CROPS - TRAIN_BATCH
+    train = tr.cache_data(imgs[:n_train], labels[:n_train], TRAIN_BATCH)
+    val = tr.cache_data(imgs[n_train:], labels[n_train:], TRAIN_BATCH)
+    ones = torch.ones((TRAIN_BATCH,), device=dev)
+    batch = lambda i: {"image": train.images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                       "label": train.labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], "mask": ones}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lin = _linear_norms(model)
+    iter0 = [int(m.iter) for m in lin]
+
+    tr.train_step(batch(0), gen)                        # warm-up: cuDNN, cuBLAS, K7
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_TIMED_STEPS):
+        tr.train_step(batch(i % train.steps), gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall, busy = profile_forward(lambda: tr.train_step(batch(0), gen),
+                                 f"{name} train step, batch {TRAIN_BATCH}",
+                                 top=12 if profile else 0, expect=("clahe_luts", "clahe_apply"),
+                                 inference=False)
+    if profile:
+        vb = {"image": val.images, "label": val.labels, "mask": ones}
+        profile_forward(lambda: tr.eval_step(vb), f"{name} eval step, batch {TRAIN_BATCH}",
+                        expect=("normalize_table",))
+    step_ms = dt / TRAIN_TIMED_STEPS * 1e3
+    timing = dict(step_ms=step_ms, crops_per_s=TRAIN_BATCH * TRAIN_TIMED_STEPS / dt,
+                  peak_gb=peak_gb, traced_wall_ms=wall, traced_busy_ms=busy,
+                  traced_busy_share=busy / wall, busy_share=busy / step_ms)
+    log(f"{name} training at batch {TRAIN_BATCH}: {timing['crops_per_s']:.1f} train crops/s, "
+        f"{step_ms:.2f} ms a step ({TRAIN_TIMED_STEPS} steps after a warm-up step); one traced "
+        f"step {wall:.2f} ms wall (the profiler's overhead in it), device busy {busy:.2f} ms: "
+        f"{busy / wall:.1%} of the traced step, {busy / step_ms:.1%} of an untraced step; peak "
+        f"memory {peak_gb:.2f} GB")
+
+    aug.clahe_luma.launches = 0
+    pp.normalize_imagenet.launches = 0
+    steps0 = tr.step
+    t0 = time.perf_counter()
+    out = tr.fit(train, val)
+    t_fit = time.perf_counter() - t0
+    launches = {"K7": aug.clahe_luma.launches, "K2": pp.normalize_imagenet.launches}
+    h = out["history"]
+    fit_steps = tr.step - steps0
+    log(f"{name} fit, 1 epoch of {fit_steps} steps and {val.steps} eval batch(es): "
+        f"{t_fit:.2f} s; train loss {h['train_loss'][0]:.4f} acc {h['train_acc'][0]:.4f}, "
+        f"val loss {h['val_loss'][0]:.4f} acc {h['val_acc'][0]:.4f}; launches {launches}")
+    if not all(np.isfinite(h[k][0]) for k in ("train_loss", "val_loss")):
+        raise AssertionError(f"{name}: losses not finite: {h}")
+    if launches != {"K7": fit_steps, "K2": val.steps}:
+        raise AssertionError(f"{name}: want 1 K7 call a train step ({fit_steps}) and 1 K2 "
+                             f"launch an eval batch ({val.steps}), got {launches}")
+
+    tr.cfg.data.augment.enabled = False
+    fixed = batch(train.steps - 1)
+    losses = [float(tr.train_step(fixed, gen)["loss"]) for _ in range(TRAIN_FIXED_STEPS)]
+    tr.cfg.data.augment.enabled = True
+    log(f"{name} {TRAIN_FIXED_STEPS} steps on one fixed batch, augmentation off: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: the fixed-batch loss did not fall: {losses}")
+    if lin:
+        fell = [a - int(m.iter) for a, m in zip(iter0, lin)]
+        warm = [int(m.warm) for m in lin]
+        log(f"{name} LinearNorm: iter fell by {fell} over {tr.step} training forwards; "
+            f"warm {warm}")
+        if fell != [tr.step] * len(lin) or min(warm) < 0:
+            raise AssertionError(f"{name}: LinearNorm counters {fell}, warm {warm}, "
+                                 f"{tr.step} forwards")
+    return dict(timing, launches=launches, fit_steps=fit_steps, eval_batches=val.steps,
+                fixed_losses=losses, history={k: h[k] for k in ("train_loss", "val_loss")}), model
+
+
+def _record_routes(model) -> tuple:
+    """Hooks on ``model``'s 2x2 max-pools that record each forward's argmax
+    indices; returns (the list they fill, the hooks)."""
+    import torch.nn.functional as F
+    routes = []
+    hooks = [m.register_forward_hook(lambda m, i, o: routes.append(
+        F.max_pool2d(i[0].detach(), 2, 2, return_indices=True)[1].cpu()))
+        for m in model.modules() if type(m).__name__ == "MaxPool2d"]
+    return routes, hooks
+
+
+def _route_pools(model, routes) -> None:
+    """``model``'s 2x2 max-pools take their values (and so their gradients)
+    from ``routes``, in order: another device's choice at each window."""
+    pools = [m for m in model.modules() if type(m).__name__ == "MaxPool2d"]
+    if len(pools) != len(routes):
+        raise AssertionError(f"{len(routes)} recorded pools for {len(pools)} max-pools")
+    for m, idx in zip(pools, routes):
+        m.forward = lambda x, idx=idx: x.flatten(2).gather(2, idx.to(x.device).flatten(2)) \
+            .view(idx.shape)
+
+
+def _f64_grads(model, b, routes) -> dict:
+    """The float64 gradient of a training forward (augmentation off) of a
+    CPU copy of ``model`` on ``b``, its max-pools routed by ``routes``."""
+    import copy
+
+    import torch
+    from fac_fake_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+    from fac_fake_torch.train.losses import cross_entropy
+    m = copy.deepcopy(model).cpu().double().train()
+    _route_pools(m, routes)
+    x = (b["image"].double() / 255.0 - torch.from_numpy(IMAGENET_MEAN).double()) \
+        / torch.from_numpy(IMAGENET_STD).double()
+    cross_entropy(m(x.permute(0, 3, 1, 2)), b["label"], b["mask"].double()).backward()
+    return {k: p.grad.clone() for k, p in m.named_parameters()}
+
+
+def train_vs_cpu(model, name, rng) -> dict:
+    """T3 (base cvit) and T4's second half (the flagship): one train step at
+    full width, batch TRAIN_CHECK_BATCH, augmentation off, TF32 off, from
+    the same weights on the card and on the CPU, each with a fresh Adam:
+    the loss, each parameter's gradient (relative L2), the BatchNorm
+    running stats and LinearNorm's counters, and the parameters after the
+    step, within the TRAIN_* tolerances; the card's gradient against the
+    float64 one (`_f64_grads`). The CPU's max-pools take the card's argmax
+    at every window (`_route_pools`): at full width a few windows hold a
+    near-tie that the two devices' roundings break apart, and a gradient
+    entry then goes elsewhere. The CPU's step with its own pools is printed
+    beside it."""
+    import copy
+
+    import torch
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.train.trainer import Trainer
+    cfg = Config()
+    cfg.model.name = name
+    cfg.data.augment.enabled = False
+    cfg.train.checkpoint_dir = ""
+    u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_CHECK_BATCH, TRAIN_HW, TRAIN_HW, 3),
+                                       dtype=np.uint8))
+    b = {"image": u8, "label": torch.arange(TRAIN_CHECK_BATCH) % 2,
+         "mask": torch.ones(TRAIN_CHECK_BATCH)}
+    dev = next(model.parameters()).device
+    side, routes = {}, None
+    for where in ("card", "cpu", "cpu_own_pools"):
+        m = copy.deepcopy(model) if where == "card" else copy.deepcopy(model).cpu()
+        if where == "cpu":
+            _route_pools(m, routes)
+        else:
+            recorded, hooks = _record_routes(m)
+        tr = Trainer(m, cfg, device=None if where == "card" else "cpu")
+        d = dev if where == "card" else torch.device("cpu")
+        t0 = time.perf_counter()
+        met = tr.train_step({k: v.to(d) for k, v in b.items()},
+                            torch.Generator(device=d).manual_seed(0))
+        side[where] = dict(t=time.perf_counter() - t0, loss=float(met["loss"]),
+                           grads={k: p.grad.double().cpu() for k, p in m.named_parameters()},
+                           params={k: p.detach().double().cpu() for k, p in m.named_parameters()},
+                           bufs={k: v.double().cpu() for k, v in m.named_buffers()})
+        if where == "card":
+            routes = recorded
+        if where != "cpu":
+            for h in hooks:
+                h.remove()
+        del m, tr
+    c, g, own = side["cpu"], side["card"], side["cpu_own_pools"]
+    g64 = _f64_grads(model, b, routes)
+    norm = lambda d: float(sum((t ** 2).sum() for t in d.values())) ** 0.5
+    total = norm(c["grads"])
+    rel = lambda a, b: norm({k: a[k] - b[k] for k in b}) / norm(b)
+    card_f64, cpu_f64 = rel(g["grads"], g64), rel(c["grads"], g64)
+    loss_err = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    whole = rel(g["grads"], c["grads"])
+    per, noise, left_out, p_err = {}, [], 0, 0.0
+    for k, gc in c["grads"].items():
+        gg = g["grads"][k]
+        if float(g64[k].norm()) < 1e-8 * total:      # zero but for rounding
+            noise.append(k)
+            if max(float(gg.norm()), float(gc.norm())) >= 1e-4 * total:
+                raise AssertionError(f"{name}: {k}'s gradient is zero in float64, "
+                                     f"{float(gg.norm()) / total:.3g} of the norm on the card")
+            left_out += gc.numel()
+            continue
+        per[k] = float((gg - gc).norm() / gc.norm())
+        clear = (gc.abs() > 1e-5) & ((gg - gc).abs() < 0.1 * gc.abs())
+        left_out += int((~clear).sum())
+        if clear.any():
+            p_err = max(p_err, float((g["params"][k] - c["params"][k])[clear].abs().max()))
+    worst = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    stats = [k for k in c["bufs"] if k.endswith(("running_mean", "running_var", "warm", "iter"))]
+    s_err = max(float(((g["bufs"][k] - c["bufs"][k]).abs()
+                       / (TRAIN_STATS_ATOL + TRAIN_STATS_RTOL * c["bufs"][k].abs())).max())
+                for k in stats)
+    n = sum(t.numel() for t in c["params"].values())
+    res = dict(loss_rel=loss_err, grad_rel=whole, grad_tensor_max=worst[0][1],
+               card_vs_f64=card_f64, cpu_vs_f64=cpu_f64,
+               stats_over_tol=s_err, param_max_abs=p_err, left_out=left_out, params=n,
+               cpu_s=c["t"], own_pools_loss_rel=abs(g["loss"] - own["loss"]) / abs(own["loss"]),
+               own_pools_grad_rel=rel(g["grads"], own["grads"]),
+               pool_windows_routed_apart=sum(int((a != r).sum())
+                                             for a, r in zip(routes, recorded)))
+    log(f"{name} one train step card vs CPU, batch {TRAIN_CHECK_BATCH} (CPU {c['t']:.1f} s; "
+        f"its max-pools routed as the card's): loss {g['loss']:.6f} / {c['loss']:.6f} (rel "
+        f"{loss_err:.3g}, bound {TRAIN_LOSS_RTOL}); gradient rel L2 to the float64 one: card "
+        f"{card_f64:.3g}, CPU {cpu_f64:.3g} (bound: card <= {TRAIN_GRAD_F64_RATIO} x CPU + "
+        f"{TRAIN_GRAD_F64_SLACK}); card vs CPU gradient rel L2 {whole:.3g} (bound "
+        f"{TRAIN_GRAD_RTOL}), worst tensors {[(k, round(v, 6)) for k, v in worst]} (bound "
+        f"{TRAIN_GRAD_TENSOR_RTOL}), {len(noise)} rounding-noise tensors; running stats and "
+        f"counters at {s_err:.3g} of their tolerance (rtol {TRAIN_STATS_RTOL}, atol "
+        f"{TRAIN_STATS_ATOL}); parameters after the step max abs {p_err:.3g} (bound "
+        f"{TRAIN_PARAM_ATOL}), {left_out} of {n} entries left out. With the CPU's own pools "
+        f"({res['pool_windows_routed_apart']} windows routed apart): loss rel "
+        f"{res['own_pools_loss_rel']:.3g}, gradient rel L2 {res['own_pools_grad_rel']:.3g} "
+        f"(information)")
+    if not (loss_err <= TRAIN_LOSS_RTOL and whole <= TRAIN_GRAD_RTOL
+            and card_f64 <= TRAIN_GRAD_F64_RATIO * cpu_f64 + TRAIN_GRAD_F64_SLACK
+            and worst[0][1] <= TRAIN_GRAD_TENSOR_RTOL and s_err <= 1.0
+            and p_err <= TRAIN_PARAM_ATOL and left_out < 0.1 * n):
+        raise AssertionError(f"{name}: one train step card vs CPU out of bounds: {res}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1721,6 +2094,24 @@ def main() -> int:
                            four, args.profile)
     torch.cuda.empty_cache()
     s3d = s3d_phases(args.seed, rng, dev, args.profile)
+    torch.cuda.empty_cache()
+
+    # ---- T1-T4. training ----------------------------------------------------------
+    k7 = k7_phase(rng, dev)
+    data = train_data(rng, face)
+    with tempfile.TemporaryDirectory() as ck:
+        t2, model = train_phase("cvit", args.seed, dev, data, args.profile, ck)
+        saved = sorted(os.listdir(ck))
+        log(f"cvit checkpoints written by fit: {saved}")
+        if saved != ["best.pth", "epoch_000000.pt"]:
+            raise AssertionError(f"fit's checkpoints: {saved}")
+    t3 = train_vs_cpu(model, "cvit", rng)
+    del model
+    torch.cuda.empty_cache()
+    t4, model = train_phase("cvit_repbn8", args.seed, dev, data, args.profile)
+    t4_cpu = train_vs_cpu(model, "cvit_repbn8", rng)
+    del model
+    torch.cuda.empty_cache()
 
     # ---- 15. kernels line -----------------------------------------------------
     k5, k6 = s3d["k5"], s3d["k6"]
@@ -1744,7 +2135,9 @@ def main() -> int:
          "replaces": "fac_fake_tpu/ops/preprocess.py:25",
          "launches": launches["K2"], "int8_launches": int8_launches["K2_int8"],
          "flagship_launches": fl["K2"], "flagship_int8_launches": fq["K2_int8"],
-         "raw_launches": s3d["launches"]["K2_raw"], "max_abs_err": k2["err"],
+         "raw_launches": s3d["launches"]["K2_raw"],
+         "train_eval_launches": t2["launches"]["K2"],
+         "flagship_train_eval_launches": t4["launches"]["K2"], "max_abs_err": k2["err"],
          "ms": k2["ms"], "kernel_ms": k2["ms"], "warm_ms": k2["warm_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None, "yardstick_ms": k2["yardstick_ms"],
@@ -1761,7 +2154,8 @@ def main() -> int:
                    f"({S3D_BATCH}, {S3D_T}, {S3D_HW}, {S3D_HW}, 3); launches: the cvit fp32 "
                    "path; int8_launches: int8 entries on the cvit int8_full path; "
                    "flagship_launches, flagship_int8_launches: the same on cvit_repbn8's; "
-                   "raw_launches: the S3D int8 path"},
+                   "raw_launches: the S3D int8 path; train_eval_launches, "
+                   "flagship_train_eval_launches: the eval batches of one training epoch (fp32)"},
         {"name": "K3_quant_conv3x3", "route": "cuda",
          "source": "fac_fake_torch/csrc/quant_conv3d.cu",
          "replaces": "fac_fake_tpu/models/layers.py:106",
@@ -1829,7 +2223,24 @@ def main() -> int:
                    "warm_ms: one input again and again; copy_ms: torch copy_ of the same "
                    "tensors, cold (a yardstick, not the same function)",
          "shapes": f"the 9 int8 pools of one ca_s3d int8 forward, batch {S3D_BATCH}"},
+        {"name": "K7_clahe_luma", "route": "cuda", "source": "fac_fake_torch/csrc/clahe.cu",
+         "replaces": "fac_fake_tpu/data/augment.py:274",
+         "launches": t2["launches"]["K7"], "train_steps": t2["fit_steps"],
+         "launches_per_train_step": t2["launches"]["K7"] / t2["fit_steps"],
+         "flagship_launches": t4["launches"]["K7"], "flagship_train_steps": t4["fit_steps"],
+         "max_abs_err": k7["err"], "ms": k7["ms"], "kernel_ms": k7["ms"],
+         "warm_ms": k7["warm_ms"], "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"],
+         "bound_by": k7["bound_by"], "copy_ms": k7["copy_ms"], "library_ms": None,
+         "timing": "ms: cold, the launches rotating over buffers beyond twice the L2; warm_ms: "
+                   "one input again and again; copy_ms: torch copy_ of the same bytes, cold (a "
+                   "yardstick, not the same function); one call is two kernels (the LUTs, "
+                   "the apply)",
+         "shapes": "(8, 224, 224, 3) fp32, the CLAHE subset of a batch-32 train step; "
+                   "launches: one training epoch of cvit (one call a step); "
+                   "flagship_launches: the same of cvit_repbn8"},
     ]
+    log(json.dumps({"training": {"cvit": dict(t2, vs_cpu=t3),
+                                 "cvit_repbn8": dict(t4, vs_cpu=t4_cpu)}}))
     log(json.dumps({"kernels": rows}))
     # ---- 16. result -----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

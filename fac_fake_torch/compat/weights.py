@@ -10,6 +10,12 @@ port's `QuantConv3x3` / `QuantLinear` buffers of the same names, with the
 same layout transforms; ``kernel_q`` stays int8. The port's module tree
 already uses the reference torch names, so a reference ``.pth`` needs no
 map, only `load_reference_pth` (and, for S3D, `load_s3d_state_dict`).
+
+A JAX training state comes over whole: its ``params``, ``batch_stats`` and
+``schedule`` collections by `cvit_state_dict_from_flax`, and optax's Adam
+``mu``/``nu``/``count`` into the torch Adam's ``exp_avg``/``exp_avg_sq``/
+``step`` by `load_flax_adam_state`, through the same key map and transforms
+(the moments are elementwise, so they transpose as their parameters do).
 """
 from __future__ import annotations
 
@@ -142,6 +148,32 @@ def cvit_state_dict_from_flax(flat: Mapping[str, np.ndarray],
             arr = arr.astype(np.float32)
         out[key] = torch.from_numpy(np.array(tf(arr), order="C"))
     return out
+
+
+def load_flax_adam_state(model, optimizer, flat_mu: Mapping[str, np.ndarray],
+                         flat_nu: Mapping[str, np.ndarray], count: int,
+                         variant: str = "cvit") -> None:
+    """optax Adam's first and second moments (flattened as the variables,
+    ``"params/stem/l0/kernel"``) and its step count → ``optimizer``'s state
+    for ``model``'s parameters, every parameter covered. The step tensor
+    lies on the parameter's device where the optimizer is fused or
+    capturable, else on the CPU, as torch keeps it."""
+    params = dict(model.named_parameters())
+    mu = cvit_state_dict_from_flax(flat_mu, variant)
+    nu = cvit_state_dict_from_flax(flat_nu, variant)
+    if set(mu) != set(params) or set(nu) != set(params):
+        raise KeyError(f"Adam state and model differ: {sorted(set(mu) ^ set(params))}")
+    group = optimizer.param_groups[0]
+    on_device = bool(group.get("fused") or group.get("capturable"))
+    for name, p in params.items():
+        if tuple(mu[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: moment shape {tuple(mu[name].shape)} != {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if on_device else "cpu"),
+            # in the parameter's memory format, as torch makes its moments
+            "exp_avg": torch.empty_like(p).copy_(mu[name]),
+            "exp_avg_sq": torch.empty_like(p).copy_(nu[name])}
 
 
 _MIX_BRANCH = {"b0": "branch0.0", "b1a": "branch1.0", "b1b": "branch1.1",

@@ -30,7 +30,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "fac_fake_torch_kernels"
-SOURCES = ("frame_detections", "normalize", "quant_dense", "quant_conv3d", "max_pool3d_i8")
+SOURCES = ("frame_detections", "normalize", "quant_dense", "quant_conv3d", "max_pool3d_i8",
+           "clahe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,6 +48,7 @@ SIGNATURES = {
                      "fac_int8_conv3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                          ctypes.POINTER(_I), _P]},
     "max_pool3d_i8": {"fac_max_pool3d_i8": [_P, _P, _I, _I, _I, _I, _I, _P]},
+    "clahe": {"fac_clahe_luma": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -6,7 +6,10 @@ Module and attribute names mirror the reference torch CViT
 (`CViT-main/model/cvit.py:5-78`), so a reference ``.pth`` and the JAX
 package's `export_cvit` output both load with ``strict=True``:
 ``transformer.layers.{i}.0.fn.norm`` / ``.0.fn.fn.to_qkv`` /
-``.1.fn.fn.net.{0,2}``. Eval-mode only: BatchNorm uses its running stats.
+``.1.fn.fn.net.{0,2}``. In eval, BatchNorm uses its running stats; in
+training (`train/trainer.py`) it normalizes by the batch's statistics and
+updates its running ones as the JAX package does (`BatchNorm2d`), and
+`LinearNorm` runs its schedule's blend.
 
 `QuantConv3x3` and `QuantLinear` are the int8 post-training-quantized
 layers (`fac_fake_tpu/models/layers.py` `QuantConv3x3`, `QuantDense`):
@@ -20,6 +23,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fac_fake_torch.ops import preprocess, quant, quant3d
@@ -35,8 +39,44 @@ def conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, stride=1, padding=1, bias=True)
 
 
-def batch_norm(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS)
+class _FlaxRunningStats:
+    """A torch BatchNorm whose training forward updates the running stats
+    with flax's rule (JAX `models/layers.py:78-84`, stock flax in fp32):
+    ``ra ← 0.9·ra + 0.1·stat`` with the *biased* batch variance, where
+    torch's own BatchNorm takes the unbiased one. At RepBN's 2·B values a
+    channel the two differ by 2B/(2B−1). Flax's decay 0.9 is torch's
+    momentum 0.1. The forward is torch's fused batch norm; the running
+    variance it wrote is then brought back to the biased rule on the C
+    channels, so no second pass reads the activations."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]          # values a channel
+        # batch_norm updates these copies in place and saves them for its
+        # backward, so the buffers themselves are written after it
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            # var = keep + m·v·n/(n−1) now, for the batch's biased variance v;
+            # flax's is keep + m·v
+            keep = (1.0 - self.momentum) * self.running_var
+            self.running_var.copy_(keep + (var - keep) * ((n - 1) / n))
+            self.running_mean.copy_(mean)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    pass
+
+
+def batch_norm(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=BN_EPS)
 
 
 class QuantConv3x3(nn.Module):
@@ -165,7 +205,7 @@ class RepBN(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.alpha = nn.Parameter(torch.empty(1))
-        self.bn = nn.BatchNorm1d(dim, eps=BN_EPS)
+        self.bn = BatchNorm1d(dim, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(x.transpose(1, 2)).transpose(1, 2) + self.alpha * x
@@ -173,11 +213,14 @@ class RepBN(nn.Module):
 
 class LinearNorm(nn.Module):
     """The schedule-blended LayerNorm → RepBN of the RepBN variants
-    (`cvit_GGCA_ADD_DEConv_RepBn8.py:22-46`). In eval it is ``norm1`` alone,
-    a LayerNorm with eps 1e-6. ``norm2`` and the ``warm``/``iter`` buffers
-    (the blend's schedule, which ticks in training; here at its start,
-    ``warm`` 0 and ``iter`` `LINEAR_NORM_STEPS`) are there so that reference
-    checkpoints load strict."""
+    (`cvit_GGCA_ADD_DEConv_RepBn8.py:22-46`, JAX `models/layers.py:266-305`).
+    In eval it is ``norm1`` alone, a LayerNorm with eps 1e-6. In training,
+    with ``λ = iter / LINEAR_NORM_STEPS``: ``norm1(x)`` while ``warm > 0``,
+    else ``λ·norm1(x) + (1−λ)·norm2(x)``; ``norm2`` (RepBN) runs, and its
+    stats move, either way. After each training forward the counters tick:
+    ``warm`` down to 0, then ``iter`` down to 0. Both are read and written
+    on the tensors' device, so a training step never waits on the host.
+    They start at ``warm`` 0 and ``iter`` `LINEAR_NORM_STEPS` (λ = 1)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -187,11 +230,17 @@ class LinearNorm(nn.Module):
         self.norm2 = RepBN(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "LinearNorm's training blend comes with CViT training (ROADMAP queue 1 "
-                "item 11); call .eval() to score")
-        return self.norm1(x)
+        x1 = self.norm1(x)
+        if not self.training:
+            return x1
+        x2 = self.norm2(x)
+        in_warmup = self.warm > 0
+        lam = self.iter.float() / float(LINEAR_NORM_STEPS)
+        out = torch.where(in_warmup, x1, lam * x1 + (1.0 - lam) * x2)
+        with torch.no_grad():
+            self.warm.copy_(torch.where(in_warmup, self.warm - 1, self.warm))
+            self.iter.copy_(torch.where(~in_warmup & (self.iter > 0), self.iter - 1, self.iter))
+        return out
 
 
 class PreNorm(nn.Module):

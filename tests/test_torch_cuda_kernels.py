@@ -673,3 +673,78 @@ def test_s3d_int8_engine_takes_uint8_clips_through_k2(dev):
         assert (q3.quantize_pad.launches, pp.quantize_clips.launches) == (quantized + 3,
                                                                           raw + 1)
     assert torch.equal(got, fp)
+
+
+# K7: CLAHE on the luma (ops/augment.py, csrc/clahe.cu), bit-equal to its
+# plain version: the trainer's subset (8, 224²), a whole batch, a flat image
+# (every bin clipped, the residual spread), every byte value, an image of
+# odd tiles and one of 1-pixel tiles (grid 1)
+def _k7_images(case, rng):
+    if case == "flat":
+        return np.full((2, 224, 224, 3), 131, np.uint8)
+    if case == "every_byte":
+        return (np.arange(224 * 224 * 3) % 256).reshape(1, 224, 224, 3).astype(np.uint8)
+    shape = {"seeded8": (8, 224, 224, 3), "seeded32": (32, 224, 224, 3),
+             "grid1_odd": (3, 120, 120, 3), "grid1_tiny": (5, 8, 8, 3),
+             "small_grid8": (2, 32, 32, 3)}[case]
+    return rng.integers(0, 256, shape, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("case", ["seeded8", "seeded32", "flat", "every_byte", "grid1_odd",
+                                  "grid1_tiny", "small_grid8"])
+def test_k7_clahe_equals_plain(dev, case):
+    from fac_fake_torch.ops import augment as aug
+
+    u8 = _k7_images(case, np.random.default_rng(7))
+    x = (torch.from_numpy(u8).to(dev).float() / torch.full((1,), 255.0, device=dev)).contiguous()
+    before = aug.clahe_luma.launches
+    got = aug.clahe_luma(x)
+    ref = aug.clahe_luma_plain(x)
+    torch.cuda.synchronize()
+    assert aug.clahe_luma.launches == before + 1
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+def test_k7_refuses_what_it_does_not_take(dev):
+    from fac_fake_torch.ops import augment as aug
+
+    x = torch.rand((2, 16, 16, 3), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        aug.clahe_luma(x[:, ::2].contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        aug.clahe_luma(x.half())
+    with pytest.raises(ValueError, match="shape"):
+        aug.clahe_luma(torch.rand((2, 16, 16, 4), device=dev))
+    before = aug.clahe_luma.launches
+    assert aug.clahe_luma(x[:0]).shape == (0, 16, 16, 3)
+    assert aug.clahe_luma.launches == before
+
+
+def test_train_step_on_the_card_runs_k7_and_k2(dev):
+    """A tiny CViT's train step with the strong_aug chain at batch 32 runs
+    K7 once (on its subset of 8); an eval step runs K2 once."""
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.models import init_weights
+    from fac_fake_torch.models.cvit import CViT
+    from fac_fake_torch.ops import augment as aug
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.train.trainer import Trainer
+
+    spec = ()
+    for _ in range(5):
+        spec += (("conv", 8), ("bn", 8), ("relu",), ("pool",))
+    m = init_weights(CViT(spec, image_size=32, patch_size=1, dim=32, depth=1, heads=2,
+                          mlp_dim=32).to(dev), 0)
+    cfg = Config()
+    cfg.data.image_size = 32
+    tr = Trainer(m, cfg)
+    rng = np.random.default_rng(0)
+    b = {"image": torch.from_numpy(rng.integers(0, 256, (32, 32, 32, 3), dtype=np.uint8)).to(dev),
+         "label": torch.from_numpy(rng.integers(0, 2, 32)).to(dev),
+         "mask": torch.ones(32, device=dev)}
+    k7, k2 = aug.clahe_luma.launches, pp.normalize_imagenet.launches
+    met = tr.train_step(b, torch.Generator(device=dev).manual_seed(0))
+    ev = tr.eval_step(b)
+    torch.cuda.synchronize()
+    assert aug.clahe_luma.launches == k7 + 1 and pp.normalize_imagenet.launches == k2 + 1
+    assert np.isfinite(float(met["loss"])) and np.isfinite(float(ev["loss"]))

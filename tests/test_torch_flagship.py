@@ -166,8 +166,8 @@ def test_ggca_matches_jax(channels, hw):
 
 def test_linear_norm_and_repbn_match_jax_in_eval():
     """LinearNorm in eval is its LayerNorm (eps 1e-6) alone; RepBN on its
-    running stats; each within 1e-5. The training blend raises until
-    training is ported."""
+    running stats; each within 1e-5. A training forward ticks the counters
+    and leaves eval as it was."""
     from fac_fake_tpu.models.layers import LinearNorm as JaxLinearNorm
     from fac_fake_tpu.models.layers import RepBN as JaxRepBN
     from fac_fake_torch.compat.weights import cvit_torch_key
@@ -196,8 +196,13 @@ def test_linear_norm_and_repbn_match_jax_in_eval():
         np.testing.assert_allclose(m(torch.from_numpy(x)).numpy(), ref, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(m.norm2(torch.from_numpy(x)).numpy(), ref_bn,
                                    rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        m.train()(torch.from_numpy(x))
+    # training runs the blend (held against JAX in test_torch_train.py) and
+    # ticks the counters; eval is the LayerNorm alone all the same
+    m.train()(torch.from_numpy(x))
+    assert int(m.iter) == 299999 and int(m.warm) == 0
+    with torch.no_grad():
+        np.testing.assert_allclose(m.eval()(torch.from_numpy(x)).numpy(), ref,
+                                   rtol=1e-5, atol=1e-5)
 
 
 # ---- weights, folding ----------------------------------------------------------

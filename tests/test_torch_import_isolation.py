@@ -34,6 +34,12 @@ def test_importing_every_port_module_loads_no_jax():
             "fac_fake_torch.cli.evaluate"} <= set(mods)
     # the flagship cvit_repbn8's blocks
     assert {"fac_fake_torch.models.blocks.deconv", "fac_fake_torch.models.blocks.ggca"} <= set(mods)
+    # CViT training (kernel K7)
+    assert {"fac_fake_torch.train.losses", "fac_fake_torch.train.schedules",
+            "fac_fake_torch.train.state", "fac_fake_torch.train.checkpoint",
+            "fac_fake_torch.train.trainer", "fac_fake_torch.data.augment",
+            "fac_fake_torch.ops.augment", "fac_fake_torch.data.folder",
+            "fac_fake_torch.data.native_loader", "fac_fake_torch.cli.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
