@@ -15,14 +15,15 @@ the int8 breakdowns must name K4's and K5's `wgmma` kernels (`dense_wgmma`,
 `conv_wgmma`, which K3 runs on too), their quantize pass
 (`qwg::quantize_rows`) and K2's `normalize_table`, the S3D one K6's
 `max_pool3d_i8_sep`, and the CViTs' no `qmma::` kernel; the train steps
-K7's `clahe_luts` and `clahe_apply` (traced in every run, for the device's
-busy share), the eval steps K2's `normalize_table`.
+K7's `clahe_subset` (traced in every run, for the device's busy share), the
+eval steps K2's `normalize_table`.
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
-  2. build the seven kernels (K1-K7; K3 and K5 are one kernel, six sources)
-     from fac_fake_torch/csrc, in parallel;
+  2. build the seven kernels (K1-K7; K3 and K5 are one kernel, six sources;
+     K7 one kernel, the whole CLAHE subset step in one launch) from
+     fac_fake_torch/csrc, in parallel;
   3. K2 (`k2_phase`) in its five modes against their plain versions: the
      normalize to fp32 and bf16 (within K2_TOL), the CViT walk's int8 entry
      of both (bit-equal to the normalize and quantize pass it replaces) at
@@ -105,11 +106,16 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      fp32 and int8 (plain versions; int8 from the uint8 clip), batch 1: the
      logits, and the head's input features (int8: against the
      int8-vs-fp32 difference);
- T1. K7 (CLAHE on the luma, the strong_aug chain's kernel) against its plain
-     version, bit-equal, at (8|32, 224, 224, 3) on seeded images, a flat
-     image, an image of every byte and two grid-1 images; timed cold and
-     warm at (8, 224, 224, 3), the trainer's shape, beside its plain version
-     and copy_ of the same bytes (`k7_phase`);
+ T1. K7 (the strong_aug chain's CLAHE step) against its plain versions,
+     bit-equal: `clahe_luma` at (8|32, 224, 224, 3) on seeded images, a flat
+     image, an image of every byte and two grid-1 images; the in-place
+     `clahe_subset_` at the trainer's 32 images with 8 takers and a budget
+     of 8, over budget, at a budget of n, at grid 1 and on a flat image,
+     untaken images unchanged; timed cold and warm at (8, 224, 224, 3) all
+     taken and at the trainer's step (32 images, 8 taken), each beside its
+     plain version, copy_ of the same bytes and its bound (`k7_phase`); the
+     strong_aug chain, `augment_batch` at (32, 224, 224, 3) uint8, timed,
+     with a digest of seeded outputs (`augment_phase`);
  T2. base cvit training at full width (`train_phase`): seeded weights, 256
      seeded crops (the synthetic face on those of label 1) cached on the
      card, batch 32, the default strong_aug chain and plateau schedule:
@@ -191,6 +197,14 @@ S3D_FP32_FEATURE_RTOL = 1e-5
 S3D_INT8_FEATURE_RATIO = 1.0
 # training (T1-T4)
 K7_BATCHES = (8, 32)          # K7: the trainer's CLAHE subset at batch 32, and a whole batch
+# K7's in-place subset entry: name -> ((N, H, W, 3), seeded takers, budget)
+K7_SUBSETS = {"trainer": ((32, 224, 224, 3), 8, 8), "over budget": ((32, 224, 224, 3), 12, 8),
+              "budget n": ((32, 224, 224, 3), 13, 32), "grid 1": ((16, 120, 120, 3), 5, 8),
+              "flat": ((16, 224, 224, 3), 6, 8),
+              "streamed": ((4, 448, 448, 3), 3, 4)}  # bands beyond shared memory: read twice
+K7_TRAIN_TAKERS = 8           # timed: the trainer's step with its budget of 8 full
+AUGMENT_DIGEST_SEEDS = 4      # augment_phase: generator seeds whose outputs are digested
+AUGMENT_TIMED_CALLS = 4       # augment_phase: calls timed
 K7_OPS_PER_PIXEL = 57         # the plain version's fp32 operations a pixel (luma, blend, RGB)
 TRAIN_BATCH = 32              # data.batch_size, JAX's default
 TRAIN_HW = 224                # the crops' side (data.image_size)
@@ -1686,16 +1700,31 @@ def flagship_phases(seed, rng, dev, det, reader, crops, stacks, paths, with_face
     return dict(launches=launches, int8_launches=int8_launches, k3=k3)
 
 
+def side_rng(rng):
+    """A generator seeded from ``rng`` without advancing it: what a phase
+    draws from it leaves the seeded inputs of the phases after it as they
+    were."""
+    return np.random.default_rng(int(copy.deepcopy(rng).integers(1 << 62)))
+
+
 def k7_phase(rng, dev) -> dict:
-    """T1: K7 (CLAHE on the luma) against its plain version, bit-equal, at
-    (8|32, 224, 224, 3) on seeded uint8-derived images, on a flat image
-    (every bin clipped, the residual spread), on an image of every byte
-    value, and at grid 1 (8x8 and 120x120 images: tiles of 1 and 15
-    pixels). Timed at (8, 224, 224, 3), the trainer's shape: cold (launches
-    rotating over input/output pairs beyond twice the L2), warm, its plain
-    version, and torch ``copy_`` of the same bytes, cold (a yardstick, not
-    the same function). The bound: bytes, the input read once and the
-    output written once."""
+    """T1: K7 (the strong_aug chain's CLAHE step) against its plain versions,
+    bit-equal. The whole-batch entry `clahe_luma` at (8|32, 224, 224, 3) on
+    seeded uint8-derived images, on a flat image (every bin clipped, the
+    residual spread), on an image of every byte value, and at grid 1 (8x8
+    and 120x120 images: tiles of 1 and 15 pixels); the chain's in-place
+    entry `clahe_subset_` against `clahe_subset_plain_` at K7_SUBSETS: the
+    trainer's (32 images, 8 takers, a budget of 8), over budget, a budget of
+    n (JAX's where branch), grid 1 and a flat image, each also leaving its
+    untaken images' bits. Timed at (8, 224, 224, 3) all taken, and at the
+    trainer's step (`clahe_subset_` on 32 images, K7_TRAIN_TAKERS seeded
+    takers, a budget of 8): cold (launches rotating over buffers beyond
+    twice the L2; the subset entry works in place, so each buffer is
+    equalized again each time it comes round), warm, the plain version, and
+    torch ``copy_`` of the same bytes, cold (a yardstick, not the same
+    function). The bound: bytes, each taken image read once and written
+    once (and ``take``). The subset cases and the trainer's inputs draw
+    from `side_rng`."""
     import torch
     from fac_fake_torch.ops import augment as aug
     d255 = torch.full((1,), 255.0, device=dev)
@@ -1717,6 +1746,31 @@ def k7_phase(rng, dev) -> dict:
             raise AssertionError(f"K7 {name} {tuple(x.shape)}: differs from plain by {e}")
         log(f"K7 clahe_luma {name} {tuple(x.shape)} grid {aug.clahe_grid(*x.shape[1:3])}: "
             f"bit-equal to plain")
+
+    side = side_rng(rng)
+
+    def seeded_take(n, takers):
+        take = np.zeros(n, bool)
+        take[side.choice(n, takers, replace=False)] = True
+        return torch.from_numpy(take).to(dev)
+
+    for name, (shape, takers, kb) in K7_SUBSETS.items():
+        u8 = (np.full(shape, 128, np.uint8) if name == "flat"
+              else side.integers(0, 256, shape, dtype=np.uint8))
+        x, take = to01(u8), seeded_take(shape[0], takers)
+        got = aug.clahe_subset_(x.clone(), take, kb)
+        ref = aug.clahe_subset_plain_(x.clone(), take, kb)
+        done = torch.zeros(shape[0], dtype=torch.bool, device=dev)
+        done[torch.nonzero(take).flatten()[:kb]] = True
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        err = max(err, e)
+        if not (torch.equal(got, ref) and torch.equal(got[~done], x[~done])):
+            raise AssertionError(f"K7 clahe_subset_ {name} {shape}, {takers} takers, budget "
+                                 f"{kb}: differs from plain by {e}, or an untaken image moved")
+        log(f"K7 clahe_subset_ {name} {shape}, {takers} takers, budget {kb}: bit-equal to "
+            f"plain, {int((~done).sum())} untaken images unchanged")
+
     x8 = to01(cases[0][1])
     nbytes = 2.0 * x8.numel() * 4
     n_rot = int(2 * L2_BYTES // nbytes) + 2
@@ -1728,11 +1782,67 @@ def k7_phase(rng, dev) -> dict:
     p_ms = cuda_ms(lambda: aug.clahe_luma_plain(x8), iters=3)
     del rot, pairs
     b_ms, b_by = bound_ms(nbytes, K7_OPS_PER_PIXEL * x8.numel() / 3)
-    log(f"K7 at {tuple(x8.shape)}: kernel {k_ms:.4f} ms cold ({b_ms / k_ms:.1%} of the bound, "
-        f"{n_rot} buffer pairs), {w_ms:.4f} ms warm; copy_ of the same bytes {c_ms:.4f} ms "
-        f"cold; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+    log(f"K7 at {tuple(x8.shape)}, all taken: kernel {k_ms:.4f} ms cold ({b_ms / k_ms:.1%} of "
+        f"the bound, {n_rot} buffer pairs), {w_ms:.4f} ms warm; copy_ of the same bytes "
+        f"{c_ms:.4f} ms cold; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e6:.2f} MB)")
+
+    # the trainer's step: 8 of 32 images taken, in place
+    kb = 8
+    x32 = to01(side.integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8))
+    take = seeded_take(TRAIN_BATCH, K7_TRAIN_TAKERS)
+    taken = min(K7_TRAIN_TAKERS, kb)
+    s_bytes = 2.0 * taken * x32[0].numel() * 4 + take.numel()
+    n_rot = int(2 * L2_BYTES // (x32.numel() * 4)) + 2
+    rot = [x32] + [x32.clone() for _ in range(n_rot - 1)]
+    s_ms = rotated_ms(lambda x: aug.clahe_subset_(x, take, kb), rot)
+    s_warm = cuda_ms(lambda: aug.clahe_subset_(x32, take, kb))
+    s_plain = cuda_ms(lambda: aug.clahe_subset_plain_(x32, take, kb), iters=3)
+    del rot
+    sb_ms, sb_by = bound_ms(s_bytes, K7_OPS_PER_PIXEL * taken * x32[0].numel() / 3)
+    log(f"K7 at the trainer's step, clahe_subset_ on {tuple(x32.shape)}, {K7_TRAIN_TAKERS} "
+        f"takers, budget {kb}: kernel {s_ms:.4f} ms cold ({sb_ms / s_ms:.1%} of the bound, "
+        f"{n_rot} buffers), {s_warm:.4f} ms warm; copy_ of the same bytes {c_ms:.4f} ms cold; "
+        f"plain {s_plain:.4f} ms; bound {sb_ms:.4f} ms ({sb_by}, {s_bytes / 1e6:.2f} MB)")
     return dict(ms=k_ms, warm_ms=w_ms, copy_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, err=err)
+                bound_by=b_by, err=err, subset_ms=s_ms, subset_warm_ms=s_warm,
+                subset_plain_ms=s_plain, subset_bound_ms=sb_ms, subset_bound_by=sb_by)
+
+
+def augment_phase(rng, dev) -> dict:
+    """The strong_aug chain as the trainer runs it: `augment_batch` on
+    (TRAIN_BATCH, 224, 224, 3) seeded uint8 crops with the default
+    `AugmentConfig`, device ms a call (each call draws anew from one
+    generator), and by the host's clock (``wall_ms``, the launches from
+    Python included); ``augment_digest``: a digest of the outputs of generators
+    seeded 0..AUGMENT_DIGEST_SEEDS-1 (a batch has a CLAHE taker with
+    probability 0.77), equal across trees whose chains compute the same
+    bits; the crops from `side_rng`. Calls nothing but `augment_batch` and
+    `AugmentConfig`, so that `kernel_pairs --phase augment --phases-from .`
+    runs it on a parent's tree too."""
+    import torch
+    from fac_fake_torch.core.config import AugmentConfig
+    from fac_fake_torch.data.augment import augment_batch
+    cfg = AugmentConfig()
+    u8 = torch.from_numpy(side_rng(rng).integers(0, 256, (TRAIN_BATCH, 224, 224, 3),
+                                                 dtype=np.uint8)).to(dev)
+    outs = [augment_batch(u8, cfg, torch.Generator(device=dev).manual_seed(s))
+            for s in range(AUGMENT_DIGEST_SEEDS)]
+    dig = digest(torch.stack(outs))
+    del outs
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # device time: few enough calls that the host has queued them all before
+    # the sleep ends (a call is some 200 launches from Python)
+    ms = cuda_ms(lambda: augment_batch(u8, cfg, gen), iters=AUGMENT_TIMED_CALLS, warmup=2)
+    t0 = time.perf_counter()
+    for _ in range(AUGMENT_TIMED_CALLS):
+        augment_batch(u8, cfg, gen)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / AUGMENT_TIMED_CALLS * 1e3
+    log(f"augment_batch {tuple(u8.shape)}, the trainer's AugmentConfig: {ms:.4f} ms a call on "
+        f"the card (queued behind a sleep), {wall:.4f} ms a call by the host's clock; digest "
+        f"of {AUGMENT_DIGEST_SEEDS} seeded outputs {dig:.0f}")
+    return dict(ms=ms, wall_ms=wall, augment_digest=dig)
 
 
 def train_data(rng, face) -> tuple:
@@ -1759,7 +1869,7 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
     schedule, seeded weights. The dataset cached on the card
     (`Trainer.cache_data`); one warm-up step, TRAIN_TIMED_STEPS timed steps
     (crops/s, ms a step, peak memory), one step traced (the device's busy
-    share; K7's two kernels must be in it; with ``profile``, the top
+    share; K7's `clahe_subset` must be in it; with ``profile``, the top
     kernels, and an eval step that must run K2's normalize_table); then the
     main path, `fit` for one epoch with an eval pass, with the launch
     counts set to 0 before it: one K7 call a train step, one K2 fp32 launch
@@ -1804,7 +1914,7 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     wall, busy = profile_forward(lambda: tr.train_step(batch(0), gen),
                                  f"{name} train step, batch {TRAIN_BATCH}",
-                                 top=12 if profile else 0, expect=("clahe_luts", "clahe_apply"),
+                                 top=12 if profile else 0, expect=("clahe_subset",),
                                  inference=False)
     if profile:
         vb = {"image": val.images, "label": val.labels, "mask": ones}
@@ -2098,6 +2208,7 @@ def main() -> int:
 
     # ---- T1-T4. training ----------------------------------------------------------
     k7 = k7_phase(rng, dev)
+    augment = augment_phase(rng, dev)
     data = train_data(rng, face)
     with tempfile.TemporaryDirectory() as ck:
         t2, model = train_phase("cvit", args.seed, dev, data, args.profile, ck)
@@ -2231,11 +2342,19 @@ def main() -> int:
          "max_abs_err": k7["err"], "ms": k7["ms"], "kernel_ms": k7["ms"],
          "warm_ms": k7["warm_ms"], "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"],
          "bound_by": k7["bound_by"], "copy_ms": k7["copy_ms"], "library_ms": None,
+         "trainer_ms": k7["subset_ms"], "trainer_warm_ms": k7["subset_warm_ms"],
+         "trainer_plain_ms": k7["subset_plain_ms"], "trainer_bound_ms": k7["subset_bound_ms"],
+         "trainer_bound_by": k7["subset_bound_by"], "augment_chain_ms": augment["ms"],
+         "augment_chain_wall_ms": augment["wall_ms"],
          "timing": "ms: cold, the launches rotating over buffers beyond twice the L2; warm_ms: "
                    "one input again and again; copy_ms: torch copy_ of the same bytes, cold (a "
-                   "yardstick, not the same function); one call is two kernels (the LUTs, "
-                   "the apply)",
-         "shapes": "(8, 224, 224, 3) fp32, the CLAHE subset of a batch-32 train step; "
+                   "yardstick, not the same function); one call is one kernel",
+         "shapes": "ms: clahe_luma on (8, 224, 224, 3) fp32, all taken; trainer_*: "
+                   f"clahe_subset_ in place on ({TRAIN_BATCH}, 224, 224, 3), "
+                   f"{K7_TRAIN_TAKERS} seeded takers, a budget of 8, the CLAHE step of a "
+                   f"batch-{TRAIN_BATCH} train step (fac_fake_tpu/data/augment.py:802-811); "
+                   "augment_chain_ms, augment_chain_wall_ms: augment_batch at the same batch, "
+                   "device time and host wall time; "
                    "launches: one training epoch of cvit (one call a step); "
                    "flagship_launches: the same of cvit_repbn8"},
     ]

@@ -7,11 +7,12 @@ rot90, transpose (p .2) and the flips (.5) composed into one dihedral element
 a image and applied in one select (`apply_dihedral`); GaussNoise (.2); the
 OneOf([CLAHE, Sharpen, Emboss, BrightnessContrast], p=.2) group, whose
 kernel members run as one depthwise 3×3 conv with a per-image kernel and
-bias (`conv3x3_per_image`); CLAHE (kernel K7, `ops/augment.py clahe_luma`)
-and HSV on fixed-size gathered subsets of the batch (`subset_apply`); and the
-ShiftScaleRotate affine with per-batch parameters as five matmuls
-(`batch_affine_matmul`). ``sharpen_oneof=False`` is the legacy mode of
-independent coins (emboss then runs as its own pass after the fused conv).
+bias (`conv3x3_per_image`); CLAHE on its subset in place, one launch of
+kernel K7 (`ops/augment.py clahe_subset_`); HSV on a fixed-size gathered
+subset of the batch (`subset_apply`); and the ShiftScaleRotate affine with
+per-batch parameters as five matmuls (`batch_affine_matmul`).
+``sharpen_oneof=False`` is the legacy mode of independent coins (emboss then
+runs as its own pass after the fused conv).
 
 Every draw comes from one `torch.Generator` on the batch's device, in a fixed
 order (`draw`); the numbers are not `jax.random`'s, so the tests compare each
@@ -287,7 +288,9 @@ def _dihedral_reach(cfg: AugmentConfig, h: int, w: int) -> tuple:
 
 
 def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig) -> torch.Tensor:
-    """The chain on (B, H, W, 3) float32 ``x`` with the draws ``d``."""
+    """The chain on (B, H, W, 3) float32 ``x`` with the draws ``d``; ``x``
+    itself is not written."""
+    x_in = x
     n, h, w = x.shape[0], x.shape[1], x.shape[2]
     col = lambda t: t[:, None, None, None]
     exclusive, emboss_in_conv = _on(cfg)
@@ -323,13 +326,14 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig)
         x = torch.where(col(d["take_emboss"]), torch.clamp(emb, 0.0, 1.0), x)
 
     if cfg.clahe:
+        # JAX's subset of takers, or its where branch as a budget of n; K7
+        # works in place, on a contiguous tensor of this chain's own
         p = cfg.compose_prob * (cfg.sharpen_oneof_prob / 4.0 if exclusive else cfg.prob)
-        eq = lambda sub: ops_augment.clahe_luma(sub.contiguous(), cfg.clahe_clip_limit)
         kb = subset_budget(n, p)
-        if kb <= n // 2 and n >= 16:
-            x = subset_apply(x, d["take_clahe"], kb, eq)
-        else:
-            x = torch.where(col(d["take_clahe"]), eq(x), x)
+        if x is x_in or not x.is_contiguous():
+            x = x.clone(memory_format=torch.contiguous_format)
+        x = ops_augment.clahe_subset_(x, d["take_clahe"], kb if kb <= n // 2 and n >= 16 else n,
+                                      cfg.clahe_clip_limit)
 
     if cfg.hue_saturation or cfg.color_jitter:
         def hsv_fn(sub, sdh, sds, sdv):

@@ -48,7 +48,7 @@ SIGNATURES = {
                      "fac_int8_conv3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                          ctypes.POINTER(_I), _P]},
     "max_pool3d_i8": {"fac_max_pool3d_i8": [_P, _P, _I, _I, _I, _I, _I, _P]},
-    "clahe": {"fac_clahe_luma": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
+    "clahe": {"fac_clahe_subset": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

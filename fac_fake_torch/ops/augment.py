@@ -1,6 +1,7 @@
 """CLAHE on the luma channel — kernel K7, the port of `fac_fake_tpu/data/
-augment.py:274` `clahe_luma`, which `augment_batch` vmaps over its CLAHE
-subset (:802-811).
+augment.py:274` `clahe_luma` and of the step of `augment_batch` that runs it
+on the CLAHE subset of a batch (:802-811, through `_subset_apply`,
+:608-618).
 
 `clahe_luma` takes a batch of (K, H, W, 3) float32 RGB images in [0, 1] and
 equalizes each one's luma (JFIF YCbCr, `_rgb_to_ycbcr`) with cv2's CLAHE
@@ -16,15 +17,22 @@ blending tiles ``clip(band−1)`` and ``clip(band)`` with weight
 [0, 1]. Where a tile would be odd or smaller than 2 pixels, the grid is 1:
 one LUT over the whole image, no blend (JAX's rule for small tiles).
 
+`clahe_subset_` is the chain's step: in place, the first ``k_budget``
+images whose ``take`` fired (in index order, as JAX's stable argsort picks
+them) get `clahe_luma` of themselves, and every other image keeps its bits;
+takers past the budget stay as they are, as in JAX. With ``k_budget = N``
+it is JAX's ``where`` branch.
+
 Every count and cumulative sum is an integer below 2²⁴, so exact in fp32 and
 in int32; the LUT entries are integers ≤ 255. JAX gathers those entries with
 a bf16 one-hot matmul on the TPU, which is exact for them; the plain version
 here gathers them, so it computes JAX's values.
 
-On the card `clahe_luma` is K7 (`csrc/clahe.cu`): one call, two kernels (the
-per-tile LUTs, then the apply), and one added to ``clahe_luma.launches``. It
-is bit-equal to `clahe_luma_plain` on the card. A CPU tensor takes the plain
-version.
+On the card both entries are one launch of K7 (`csrc/clahe.cu`: a
+thread-block cluster a budget slot that finds its taker on the card, reads
+the image once and writes it once), and add one to ``clahe_luma.launches``;
+they are bit-equal to `clahe_subset_plain_` and `clahe_luma_plain`. A CPU
+tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -136,25 +144,56 @@ def clahe_luma_plain(imgs: torch.Tensor, clip_limit: float = 2.0,
     return ycbcr_to_rgb(out, cb, cr)
 
 
+def clahe_subset_plain_(x: torch.Tensor, take: torch.Tensor, k_budget: int,
+                        clip_limit: float = 2.0, grid: int = 8) -> torch.Tensor:
+    """K7's plain version: JAX's `_subset_apply` over `clahe_luma_plain`,
+    written back into ``x`` with ``index_copy_``."""
+    idx = torch.argsort((~take).to(torch.uint8), stable=True)[:k_budget]
+    sub = x.index_select(0, idx)
+    keep = take.index_select(0, idx)[:, None, None, None]
+    return x.index_copy_(0, idx, torch.where(keep, clahe_luma_plain(sub, clip_limit, grid), sub))
+
+
+def _k7(src: torch.Tensor, dst: torch.Tensor, take, k_budget: int, clip_limit: float,
+        grid: int) -> None:
+    """One launch of K7 over ``k_budget`` slots (``take`` None: slot s takes
+    image s), from ``src`` into ``dst`` (the same tensor in place)."""
+    n, h, w, _ = src.shape
+    g = clahe_grid(h, w, grid)
+    tile_px = (h // g) * (w // g)
+    err = kernels.lib("clahe").fac_clahe_subset(
+        kernels.ptr(src), kernels.ptr(dst), None if take is None else kernels.ptr(take), n,
+        k_budget, h, w, g, _clip_limit(tile_px, clip_limit), ctypes.c_float(255.0 / tile_px),
+        kernels.stream_ptr(src.device))
+    kernels.check(err, "clahe")
+    clahe_luma.launches += 1
+
+
+def clahe_subset_(x: torch.Tensor, take: torch.Tensor, k_budget: int, clip_limit: float = 2.0,
+                  grid: int = 8) -> torch.Tensor:
+    """K7 on ``x`` (N, H, W, 3) in place: `clahe_luma` of each of the first
+    ``k_budget`` images whose bool ``take`` (N,) fired; returns ``x``. CPU
+    tensors take `clahe_subset_plain_`; CUDA tensors launch the kernel or
+    raise."""
+    if not x.is_cuda:
+        return clahe_subset_plain_(x, take, k_budget, clip_limit, grid)
+    kernels.require_cuda(x, "clahe_subset_", torch.float32, (None, None, None, 3))
+    kernels.require_cuda(take, "clahe_subset_ take", torch.bool, (x.shape[0],))
+    k_budget = min(k_budget, x.shape[0])
+    if k_budget > 0:
+        _k7(x, x, take, k_budget, clip_limit, grid)
+    return x
+
+
 def clahe_luma(imgs: torch.Tensor, clip_limit: float = 2.0, grid: int = 8) -> torch.Tensor:
-    """K7. CPU tensors take `clahe_luma_plain`; CUDA tensors launch the
-    kernel or raise."""
+    """K7 on the whole batch, into a new tensor. CPU tensors take
+    `clahe_luma_plain`; CUDA tensors launch the kernel or raise."""
     if not imgs.is_cuda:
         return clahe_luma_plain(imgs, clip_limit, grid)
     kernels.require_cuda(imgs, "clahe_luma", torch.float32, (None, None, None, 3))
-    k, h, w, _ = imgs.shape
-    g = clahe_grid(h, w, grid)
     out = torch.empty_like(imgs)
-    if k == 0:
-        return out
-    tile_px = (h // g) * (w // g)
-    lut = torch.empty((k, g * g, 256), dtype=torch.float32, device=imgs.device)
-    err = kernels.lib("clahe").fac_clahe_luma(
-        kernels.ptr(imgs), kernels.ptr(out), kernels.ptr(lut), k, h, w, g,
-        _clip_limit(tile_px, clip_limit), ctypes.c_float(255.0 / tile_px),
-        kernels.stream_ptr(imgs.device))
-    kernels.check(err, "clahe_luma")
-    clahe_luma.launches += 1
+    if imgs.shape[0] > 0:
+        _k7(imgs, out, None, imgs.shape[0], clip_limit, grid)
     return out
 
 

@@ -5,7 +5,8 @@ share shows against the spread between runs:
     python3 -m fac_fake_torch.utils.kernel_pairs PARENT_ROOT [--root .] [--phase k3]
         [--phases-from ROOT]
 
-(``--phase`` names any ``chip_smoke.<phase>_phase``: k1, k2, k3, k4, k6.)
+(``--phase`` names any ``chip_smoke.<phase>_phase``: k1, k2, k3, k4, k6, k7,
+augment.)
 
 PARENT_ROOT is an unpacked checkout of the other tree (``git archive``).
 Each turn is a process of its own that imports ``fac_fake_torch`` from its

@@ -120,6 +120,72 @@ def test_clahe_plain_matches_jax(case):
         assert not np.array_equal(got, x)   # equalization moved it
 
 
+_TAKE_PATTERNS = {              # (takers, budget) of 16 images
+    "no_takers": ((), 4),
+    "fewer_than_budget": ((3, 11), 4),
+    "more_than_budget": ((0, 2, 5, 6, 9, 13, 15), 4),       # 9, 13, 15 stay untouched
+    "all_at_budget_n": (tuple(range(16)), 16),              # JAX's where branch
+}
+
+
+@pytest.mark.parametrize("hw", [32, 40, 8])                 # grid 8; grid 1 (5-px, 1-px tiles)
+@pytest.mark.parametrize("pattern", list(_TAKE_PATTERNS))
+def test_clahe_subset_matches_jax(pattern, hw):
+    """`clahe_subset_` on CPU tensors (its plain version) against JAX's
+    `_subset_apply` over a vmapped `clahe_luma`, bit for bit, in place."""
+    import jax
+    from fac_fake_tpu.data.augment import _subset_apply
+    from fac_fake_tpu.data.augment import clahe_luma as jax_clahe
+    from fac_fake_torch.ops.augment import clahe_subset_
+
+    takers, kb = _TAKE_PATTERNS[pattern]
+    x = _imgs((16, hw, hw, 3), 9)
+    take = np.zeros(16, bool)
+    take[list(takers)] = True
+    eq = jax.vmap(lambda im: jax_clahe(im, 2.0))
+    ref = np.asarray(_subset_apply(jnp.asarray(x), jnp.asarray(take), kb, eq))
+    if kb == 16:
+        where = jnp.where(jnp.asarray(take)[:, None, None, None], eq(jnp.asarray(x)), x)
+        np.testing.assert_array_equal(ref, np.asarray(where))
+    xt = torch.from_numpy(x.copy())
+    out = clahe_subset_(xt, torch.from_numpy(take), kb)
+    assert out is xt
+    np.testing.assert_array_equal(out.numpy(), ref)
+    done = np.flatnonzero(take)[:kb]
+    rest = np.setdiff1d(np.arange(16), done)
+    np.testing.assert_array_equal(out.numpy()[rest], x[rest])   # non-takers and extra takers
+    assert not np.array_equal(out.numpy()[done], x[done]) or len(done) == 0
+
+
+# sha256 of `apply_draws`' output (first 16 hex digits) on the CPU, taken
+# before the CLAHE step became one in-place call of `clahe_subset_`
+_APPLY_DRAWS_DIGESTS = {True: "f6084469eaecb29c", False: "27353968c828fbf6"}
+
+
+@pytest.mark.parametrize("oneof", [True, False])
+def test_apply_draws_keeps_its_input_and_its_output(oneof):
+    """strong_aug at batch 32 with 10 CLAHE takers: the OneOf chain runs
+    the subset of 8 (2 takers past it), the legacy chain JAX's where branch
+    (a budget of 32). The caller's tensor is not written, and the output is
+    the one pinned above. The affine's coins are all off: its einsums round
+    as the CPU's BLAS does, and where() then keeps the input's bits."""
+    import hashlib
+
+    from fac_fake_torch.core.config import AugmentConfig
+    from fac_fake_torch.data.augment import apply_draws, draw
+
+    cfg = AugmentConfig(sharpen_oneof=oneof)
+    x = torch.from_numpy(_imgs((32, 32, 32, 3), 8))
+    d = draw(32, (32, 32), cfg, torch.Generator().manual_seed(5), "cpu")
+    d["take_clahe"] = torch.zeros(32, dtype=torch.bool)
+    d["take_clahe"][[1, 4, 5, 9, 12, 17, 20, 26, 28, 31]] = True
+    d["take_affine"] = torch.zeros(32, dtype=torch.bool)
+    before = x.clone()
+    out = apply_draws(x, d, cfg)
+    assert torch.equal(x, before)
+    assert hashlib.sha256(out.numpy().tobytes()).hexdigest()[:16] == _APPLY_DRAWS_DIGESTS[oneof]
+
+
 def test_clahe_grid_rule():
     from fac_fake_torch.ops.augment import clahe_grid
     assert clahe_grid(224, 224) == 8 and clahe_grid(64, 64) == 8

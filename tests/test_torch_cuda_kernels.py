@@ -720,6 +720,67 @@ def test_k7_refuses_what_it_does_not_take(dev):
     assert aug.clahe_luma.launches == before
 
 
+# K7's subset entry, the chain's step: in place, the first k_budget takers in
+# index order, bit-equal to its plain version (JAX's _subset_apply written
+# back); (images, takers, budget) of each case
+_K7_SUBSETS = {
+    "trainer": ((32, 224, 224, 3), 8, 8),           # the train step's budget, full
+    "over_budget": ((32, 224, 224, 3), 12, 8),      # 4 takers left untouched
+    "few_takers": ((32, 224, 224, 3), 3, 8),        # 5 slots find no taker
+    "budget_n": ((32, 224, 224, 3), 13, 32),        # JAX's where branch
+    "grid1": ((16, 120, 120, 3), 5, 8),             # 15-px tiles: one CTA a slot
+    "grid1_tiny": ((16, 8, 8, 3), 9, 16),           # 1-px tiles
+    "flat": ((16, 224, 224, 3), 6, 8),              # every bin clipped, the residual spread
+    "streamed": ((4, 448, 448, 3), 3, 4),           # bands beyond shared memory: read twice
+    "odd_width": ((8, 30, 30, 3), 4, 8),            # rows not 16-byte multiples: read twice
+}
+
+
+@pytest.mark.parametrize("case", list(_K7_SUBSETS))
+def test_k7_subset_equals_plain(dev, case):
+    from fac_fake_torch.ops import augment as aug
+
+    shape, takers, budget = _K7_SUBSETS[case]
+    rng = np.random.default_rng(11)
+    u8 = (np.full(shape, 131, np.uint8) if case == "flat"
+          else rng.integers(0, 256, shape, dtype=np.uint8))
+    x = torch.from_numpy(u8).to(dev).float() / torch.full((1,), 255.0, device=dev)
+    take = torch.zeros(shape[0], dtype=torch.bool)
+    take[torch.from_numpy(rng.choice(shape[0], takers, replace=False))] = True
+    take = take.to(dev)
+    before = aug.clahe_luma.launches
+    got = aug.clahe_subset_(x.clone(), take, budget)
+    ref = aug.clahe_subset_plain_(x.clone(), take, budget)
+    torch.cuda.synchronize()
+    assert aug.clahe_luma.launches == before + 1
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    done = torch.nonzero(take).flatten()[:budget]
+    changed = torch.zeros(shape[0], dtype=torch.bool, device=dev)
+    changed[done] = True
+    assert torch.equal(got[~changed], x[~changed])       # untaken and over-budget: their bits
+    assert torch.equal(got[changed], aug.clahe_luma_plain(x[changed]))
+
+
+def test_k7_subset_refuses_what_it_does_not_take(dev):
+    from fac_fake_torch.ops import augment as aug
+
+    x = torch.rand((4, 16, 16, 3), device=dev)
+    take = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        aug.clahe_subset_(x.transpose(1, 2), take, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        aug.clahe_subset_(x, take.cpu(), 2)
+    with pytest.raises(ValueError, match="float32"):
+        aug.clahe_subset_(x.half(), take, 2)
+    with pytest.raises(ValueError, match="bool"):
+        aug.clahe_subset_(x, take.to(torch.uint8), 2)
+    with pytest.raises(ValueError, match="shape"):
+        aug.clahe_subset_(x, take[:3], 2)
+    before = aug.clahe_luma.launches
+    assert aug.clahe_subset_(x, take, 0) is x
+    assert aug.clahe_luma.launches == before
+
+
 def test_train_step_on_the_card_runs_k7_and_k2(dev):
     """A tiny CViT's train step with the strong_aug chain at batch 32 runs
     K7 once (on its subset of 8); an eval step runs K2 once."""
