@@ -21,7 +21,7 @@ eval steps K2's `normalize_table`.
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
-  2. build the seven kernels (K1-K7; K3 and K5 are one kernel, six sources;
+  2. build the eight kernels (K1-K8; K3 and K5 are one kernel, seven sources;
      K7 one kernel, the whole CLAHE subset step in one launch) from
      fac_fake_torch/csrc, in parallel;
   3. K2 (`k2_phase`) in its five modes against their plain versions: the
@@ -130,6 +130,24 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      the TRAIN_* bounds it prints (`train_vs_cpu`);
  T4. the flagship cvit_repbn8 as T2 and T3; LinearNorm's iter must fall by
      the number of training forwards and no warm go below 0;
+ M1. K8 (MTCNN's greedy NMS) against its plain version, bit-equal in every
+     idx and keep slot, on the real candidate sets of one `MTCNN.run` on a
+     seeded 1920x1080 frame at thresholds (0.6, 0.7, 0.7) and (0, 0, 0) (the
+     cascade's 4 calls a frame, recorded at the wrapper: 12 pyramid calls of
+     128 -> 128 in one launch, 1536 -> 64, 64 -> 64, 64 -> 32 min) and on
+     planted cases (exact ties, NaN score and box, zero-area and inverted
+     boxes, none valid, max_out above the live count, min mode, max_out 0);
+     the frame's 4 launches timed cold and warm beside the plain version and
+     the bound (`k8_phase`);
+ M2. the MTCNN video path: `VideoScorer` with the full-width base `cvit`
+     (seeded) and infer.detector="mtcnn" (the seeded MTCNN it builds on the
+     card) over the 9 in-memory videos, at (0.6, 0.7, 0.7) and at (0, 0, 0):
+     `score_videos_batched` over 8, `score_video` over 1; K8 launched 4 times
+     a detected frame; at (0, 0, 0) crops come out and K2 launches; then one
+     frame card vs CPU: every net call, every stage patch and every K8 call
+     on the same inputs (`mtcnn_path`, `mtcnn_vs_cpu`);
+ M3. `cli/serve.serve` on loopback with M2's scorer: /health, /score?path=
+     for 3 videos equal to `score_video`, a 400 and a 404 (`serve_phase`);
  15. the training line and the kernels line; 16. the result line.
 """
 from __future__ import annotations
@@ -232,13 +250,25 @@ TRAIN_GRAD_RTOL = 5e-2
 TRAIN_GRAD_TENSOR_RTOL = 2e-1
 TRAIN_STATS_RTOL, TRAIN_STATS_ATOL = 1e-3, 1e-5
 TRAIN_PARAM_ATOL = 1e-6
+# MTCNN (M1-M3)
+MTCNN_HW = (1080, 1920)                            # the reader's frames: 12 pyramid scales
+MTCNN_THRESHOLDS = ((0.6, 0.7, 0.7), (0.0, 0.0, 0.0))   # the predict preset; every slot live
+K8_OPS_PER_IOU = 16           # fp32 operations an IoU test and its suppression
+K8_COLD_SLEEP_CYCLES = 8 * SLEEP_CYCLES   # the cold run enqueues ~5000 launches behind it
+# card vs CPU on one frame, the same inputs: each net's outputs (fp32 convs,
+# TF32 off; a different summation order), the stage patches on the 0-255
+# scale (the same gathers and IEEE products on both)
+MTCNN_NET_TOL = 1e-4
+MTCNN_PATCH_TOL = 1e-3
+SERVE_PROB_TOL = 1e-6         # /score against score_video: the same computation twice
+MTCNN_ALONE_CALLS = 5         # M2: one frame's detect timed alone, after each run's counts
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Device ms a call of ``fn``: CUDA events around ``iters`` calls that
     are queued behind a ~50 ms sleep kernel, so that the host has enqueued
     them all before the first runs and the events time the card, not the
@@ -250,7 +280,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -297,7 +327,7 @@ def digest(t) -> float:
     return float(int.from_bytes(hashlib.sha256(data).digest()[:6], "little"))
 
 
-def rotated_ms(fn, xs) -> float:
+def rotated_ms(fn, xs, sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Device ms a call of ``fn`` on inputs that rotate over ``xs``, each
     call's output kept until its input comes round again: with ``xs`` and
     their outputs beyond twice the L2, every call reads its input from
@@ -310,7 +340,7 @@ def rotated_ms(fn, xs) -> float:
         i = next(turn) % len(xs)
         keep[i] = fn(xs[i])
 
-    return cuda_ms(cold, iters=max(20, len(xs)), warmup=len(xs) + 2)
+    return cuda_ms(cold, iters=max(20, len(xs)), warmup=len(xs) + 2, sleep_cycles=sleep_cycles)
 
 
 def k2_phase(rng, dev) -> dict:
@@ -2111,6 +2141,379 @@ def train_vs_cpu(model, name, rng) -> dict:
     return res
 
 
+# ---- M1-M3: MTCNN with K8, the MTCNN video path, the serving entry point -------------
+
+def k8_planted(side) -> dict:
+    """K8's planted cases, name -> (boxes, scores, valid, iou_thresh, mode,
+    max_out) as numpy: exact score ties; a valid NaN score and a NaN box;
+    zero-area and inverted boxes (+1 areas of 0 and below); none valid;
+    max_out above the live count; the min denominator; max_out 0."""
+    def cells(n):
+        x, y = side.integers(0, 40, n) * 2.0, side.integers(0, 30, n) * 2.0
+        s = side.integers(10, 24, n).astype(np.float64)
+        return np.stack([x, y, x + s, y + s], 1).astype(np.float32)
+
+    b = cells(128)
+    ties = (np.round(side.uniform(0, 1, 128) * 4) / 4).astype(np.float32)
+    on = np.ones(128, bool)
+    nan_b, nan_s = cells(64), side.uniform(0, 1, 64).astype(np.float32)
+    nan_s[[3, 17, 40]] = np.nan
+    nan_b[9] = [np.nan, 2.0, 20.0, 30.0]
+    nan_s[9] = 0.99
+    z_b, z_s = cells(64), side.uniform(0, 1, 64).astype(np.float32)
+    z_b[5], z_b[6], z_b[7] = [10, 10, 9, 9], [30, 30, 20, 35], [4, 4, 4, 4]
+    z_s[[5, 6, 7]] = [0.999, 0.998, 0.997]
+    few = np.zeros(64, bool)
+    few[[4, 30, 31, 60]] = True
+    return {"exact ties, union": (b, ties, on, 0.3, "union", 128),
+            "exact ties, min": (b, ties, on, 0.5, "min", 64),
+            "NaN scores and box": (nan_b, nan_s, np.ones(64, bool), 0.5, "union", 64),
+            "zero-area and inverted": (z_b, z_s, np.ones(64, bool), 0.5, "union", 64),
+            "zero-area, min": (z_b, z_s, np.ones(64, bool), 0.5, "min", 64),
+            "none valid": (z_b, z_s, np.zeros(64, bool), 0.7, "union", 32),
+            "max_out above live": (z_b, z_s, few, 0.7, "union", 64),
+            "max_out 0": (z_b, z_s, np.ones(64, bool), 0.7, "union", 0)}
+
+
+def record_nms(fn) -> list:
+    """Run ``fn`` with `ops.nms.hard_nms` rebound to a recorder: the calls
+    (inputs cloned) and their results, in order."""
+    from fac_fake_torch.ops import nms
+    calls, wrapped = [], nms.hard_nms
+
+    def rec(boxes, scores, valid, iou_thresh=0.7, mode="union", max_out=32):
+        out = wrapped(boxes, scores, valid, iou_thresh, mode, max_out)
+        calls.append(((boxes.clone(), scores.clone(), valid.clone(), iou_thresh, mode, max_out),
+                      out))
+        return out
+
+    rec.launches = wrapped.launches
+    nms.hard_nms = rec
+    try:
+        fn()
+    finally:
+        nms.hard_nms = wrapped
+        wrapped.launches = rec.launches
+    return calls
+
+
+def k8_iou_tests(call) -> int:
+    """The IoU tests one call's scan needs on its data: at each step with a
+    live candidate left, one a live candidate (what the kernel tests)."""
+    import torch
+    from fac_fake_torch.ops import nms
+    boxes, scores, valid, thr, mode, max_out = (x.cpu() if torch.is_tensor(x) else x
+                                                for x in call)
+    b = boxes.reshape(-1, boxes.shape[-2], 4)
+    sc, va = scores.reshape(b.shape[:2]), valid.reshape(b.shape[:2])
+    idx, _ = nms.hard_nms_plain(b, sc, va, thr, mode, max_out)
+    tests = 0
+    for g in range(b.shape[0]):
+        s = torch.where(va[g], sc[g], float("-inf"))
+        live = (s > float("-inf")) | torch.isnan(s)
+        x1, y1, x2, y2 = b[g].unbind(-1)
+        area = (x2 - x1 + 1) * (y2 - y1 + 1)
+        for i in idx[g].tolist():
+            if not bool(live.any()):
+                break
+            tests += int(live.sum())
+            sb = b[g, i]
+            inter = (torch.clamp(torch.minimum(sb[2], x2) - torch.maximum(sb[0], x1) + 1, min=0)
+                     * torch.clamp(torch.minimum(sb[3], y2) - torch.maximum(sb[1], y1) + 1, min=0))
+            den = torch.minimum(area[i], area) if mode == "min" else area[i] + area - inter
+            live &= ~(inter / torch.clamp(den, min=1e-12) > thr)
+            live[i] = False
+    return tests
+
+
+def k8_phase(rng, dev, det) -> dict:
+    """M1: K8 against its plain version, bit-equal (idx and keep in every
+    slot), on the real candidate sets of one `MTCNN.run` on a seeded
+    1920x1080 frame at each of MTCNN_THRESHOLDS (its four calls a frame,
+    recorded at the wrapper: 12 x 128 -> 128 union 0.5, 1536 -> 64 and
+    64 -> 64 union 0.7, 64 -> 32 min 0.7) and on `k8_planted`. Timed as the
+    (0, 0, 0) frame's four launches: cold (launches rotating over copies of
+    the candidate sets beyond twice the L2), warm, and the plain version.
+    The bound: the sets' bytes read once and idx/keep written once, and 16
+    fp32 operations an IoU test that the scan needs on this data
+    (`k8_iou_tests`). Inputs from `side_rng`."""
+    import torch
+    from fac_fake_torch.ops import nms
+    side = side_rng(rng)
+    frame = torch.from_numpy(side.integers(0, 256, (*MTCNN_HW, 3), dtype=np.uint8)).to(dev)
+    before = det.thresholds
+    real = {}
+    for th in MTCNN_THRESHOLDS:
+        det.thresholds = th
+        real[th] = record_nms(lambda: det.run(frame))
+    det.thresholds = before
+
+    def check(name, args, out=None):
+        idx, keep = nms.hard_nms(*args) if out is None else out
+        pidx, pkeep = nms.hard_nms_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, pidx) and torch.equal(keep, pkeep)):
+            raise AssertionError(f"K8 {name}: idx/keep differ from the plain version in "
+                                 f"{int((idx != pidx).sum())} / {int((keep != pkeep).sum())} "
+                                 "slots")
+
+    for th, calls in real.items():
+        if len(calls) != 4:
+            raise AssertionError(f"MTCNN.run made {len(calls)} K8 calls, expected 4")
+        for k, (args, out) in enumerate(calls):
+            check(f"real call {k} at thresholds {th}", args, out)
+        desc = [f"{tuple(a[0].shape[:-1])}->{a[5]} {a[4]} {a[3]}: "
+                f"{int(a[2].sum())} valid, {int(o[1].sum())} kept" for a, o in calls]
+        log(f"M1 K8 real candidate sets of one 1080p frame, thresholds {th}: bit-equal to "
+            f"plain; {'; '.join(desc)}")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for name, (b, s, v, thr, mode, mo) in k8_planted(side).items():
+        check(name, (t(b), t(s), t(v), thr, mode, mo))
+    log(f"M1 K8 planted cases bit-equal to plain: {', '.join(k8_planted(side_rng(rng)))}")
+
+    run = lambda cs: [nms.hard_nms(*c) for c in cs]
+    timed = {}
+    for th, calls in real.items():
+        args = [a for a, _ in calls]
+        timed[th] = (cuda_ms(lambda: run(args)), args)
+    calls = timed[(0.0, 0.0, 0.0)][1]
+    # boxes, scores and valid read once; idx (int64) and keep written once
+    nbytes = sum(a[0].numel() * 4 + a[1].numel() * 4 + a[2].numel()
+                 + a[1].numel() // a[1].shape[-1] * a[5] * 9 for a in calls)
+    n_rot = int(2 * L2_BYTES // nbytes) + 2
+    rot = [calls] + [[(a[0].clone(), a[1].clone(), a[2].clone(), *a[3:]) for a in calls]
+                     for _ in range(n_rot - 1)]
+    cold = rotated_ms(run, rot, sleep_cycles=K8_COLD_SLEEP_CYCLES)
+    del rot
+    warm = timed[(0.0, 0.0, 0.0)][0]
+    plain = cuda_ms(lambda: [nms.hard_nms_plain(*c) for c in calls], iters=2, warmup=1)
+    tests = sum(k8_iou_tests(c) for c in calls)
+    b_ms, b_by = bound_ms(nbytes, K8_OPS_PER_IOU * tests)
+    log(f"M1 K8, one 1080p frame's 4 launches at thresholds (0, 0, 0): kernel {cold:.4f} ms "
+        f"cold ({n_rot} copies), {warm:.4f} ms warm (at {MTCNN_THRESHOLDS[0]}: "
+        f"{timed[MTCNN_THRESHOLDS[0]][0]:.4f} ms warm); plain {plain:.4f} ms; bound "
+        f"{b_ms:.6f} ms ({b_by}: {nbytes / 1e3:.1f} KB, {tests} IoU tests)")
+    return dict(ms=cold, warm_ms=warm, default_warm_ms=timed[MTCNN_THRESHOLDS[0]][0],
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, iou_tests=tests, nbytes=nbytes)
+
+
+def mtcnn_vs_cpu(det, frame: np.ndarray) -> dict:
+    """M2's card-vs-CPU check on one frame, the same weights: every P/R/O-net
+    call of the card's cascade run again on the CPU on the same input (within
+    MTCNN_NET_TOL), every stage patch (`_extract_patches`) made again on the
+    CPU from the card's boxes (within MTCNN_PATCH_TOL on the 0-255 scale),
+    every K8 call bit-equal to the plain version on the CPU on the same
+    candidate set; and, for information, how many of the card's valid boxes
+    have a CPU box with IoU >= 0.99 (a near-tie in the nets may flip a
+    candidate, so this is no bar)."""
+    import torch
+    from fac_fake_torch.detect import mtcnn as M
+    from fac_fake_torch.ops import nms
+    cpu = M.MTCNN({k: v.cpu() for k, v in det.state_dict().items()}, thresholds=det.thresholds,
+                  caps=det.caps, device="cpu")
+    nets = {"pnet": [], "rnet": [], "onet": []}
+    hooks = [getattr(det, n).register_forward_hook(
+        lambda m, i, o, n=n: nets[n].append((i[0].clone(), o))) for n in nets]
+    patches, extract = [], M._extract_patches
+
+    def rec_patches(img, boxes, size):
+        out = extract(img, boxes, size)
+        patches.append((img, boxes.clone(), size, out))
+        return out
+
+    M._extract_patches = rec_patches
+    x = torch.from_numpy(frame).to(det.device)
+    try:
+        calls = record_nms(lambda: det.run(x))
+    finally:
+        M._extract_patches = extract
+        for h in hooks:
+            h.remove()
+    net_err = 0.0
+    with torch.inference_mode():
+        for n, recs in nets.items():
+            for inp, out in recs:
+                for a, b in zip(getattr(cpu, n)(inp.cpu()), out):
+                    net_err = max(net_err, float((a - b.cpu()).abs().max()))
+        patch_err = max(float((extract(img.cpu(), boxes.cpu(), size) - out.cpu()).abs().max())
+                        * 128.0 for img, boxes, size, out in patches)
+    for k, (args, (idx, keep)) in enumerate(calls):
+        pidx, pkeep = nms.hard_nms_plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+        if not (torch.equal(idx.cpu(), pidx) and torch.equal(keep.cpu(), pkeep)):
+            raise AssertionError(f"M2 K8 call {k}: the card's idx/keep differ from the plain "
+                                 "version on the CPU")
+    if net_err > MTCNN_NET_TOL or patch_err > MTCNN_PATCH_TOL:
+        raise AssertionError(f"M2 card vs CPU: nets {net_err:.3g} (bar {MTCNN_NET_TOL}), "
+                             f"patches {patch_err:.3g} (bar {MTCNN_PATCH_TOL})")
+    g, c = det.detect(frame), cpu.detect(frame)
+    agree = 0
+    cb = c[0][c[3]]
+    for b in g[0][g[3]]:
+        if len(cb):
+            ix = np.clip(np.minimum(b[2], cb[:, 2]) - np.maximum(b[0], cb[:, 0]) + 1, 0, None)
+            iy = np.clip(np.minimum(b[3], cb[:, 3]) - np.maximum(b[1], cb[:, 1]) + 1, 0, None)
+            area = lambda q: (q[..., 2] - q[..., 0] + 1) * (q[..., 3] - q[..., 1] + 1)
+            iou = ix * iy / (area(b) + area(cb) - ix * iy)
+            agree += int(iou.max() >= 0.99)
+    n_nets = sum(len(r) for r in nets.values())
+    log(f"M2 card vs CPU, one 1080p frame, thresholds {det.thresholds}: {n_nets} net calls "
+        f"max abs {net_err:.3g} (bar {MTCNN_NET_TOL}); {len(patches)} patch stacks max abs "
+        f"{patch_err:.3g} on 0-255 (bar {MTCNN_PATCH_TOL}); {len(calls)} K8 calls bit-equal "
+        f"to plain on the CPU; valid boxes card {int(g[3].sum())}, CPU {int(c[3].sum())}, "
+        f"{agree} of the card's with a CPU box at IoU >= 0.99 (reported, no bar)")
+    return dict(net_err=net_err, patch_err=patch_err, agree=agree,
+                valid_card=int(g[3].sum()), valid_cpu=int(c[3].sum()))
+
+
+def mtcnn_path(seed, dev, reader) -> tuple:
+    """M2: `VideoScorer` with the full-width base `cvit` (seeded) and
+    infer.detector="mtcnn" (the seeded MTCNN it builds on the card) over the
+    in-memory reader's 9 videos: `score_videos_batched` over 8 and
+    `score_video` over 1, at each of MTCNN_THRESHOLDS (seeded nets may pass
+    nothing at the real preset; at (0, 0, 0) every capacity slot is live and
+    crops come out). Each run: K8 launched 4 times a detected frame, scores
+    in [0, 1]; the (0, 0, 0) run must find faces and launch K2. Then the
+    card-vs-CPU check on one frame (`mtcnn_vs_cpu`). Returns the scorer (at
+    (0, 0, 0)) and the runs' numbers."""
+    import threading
+
+    import torch
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.detect.mtcnn import MTCNN
+    from fac_fake_torch.infer.predictor import VideoScorer
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import nms
+    from fac_fake_torch.ops import preprocess as pp
+    cfg = Config()
+    cfg.infer.detector = "mtcnn"
+    scorer = VideoScorer(build_model(cfg.model, device=dev, seed=seed), cfg, reader=reader)
+    det = scorer.detector
+    if not (isinstance(det, MTCNN) and det.device.type == dev.type):
+        raise AssertionError(f"infer.detector=mtcnn built {type(det).__name__} on "
+                             f"{getattr(det, 'device', None)}")
+    seen = {"frames": 0, "faces": 0}
+    lock = threading.Lock()
+    detect = det.detect
+
+    def counted(img):
+        out = detect(img)
+        with lock:
+            seen["frames"] += 1
+            seen["faces"] += int(out[3].sum())
+        return out
+
+    det.detect = counted
+    scorer.score_crops(np.zeros((29, 224, 224, 3), np.uint8))     # warm cuDNN / cuBLAS
+    det.detect(reader.frame("video_0", 0))
+    torch.cuda.synchronize()
+    paths = [f"video_{i}" for i in range(8)]
+    runs = {}
+    for th in MTCNN_THRESHOLDS:
+        det.thresholds = th
+        seen.update(frames=0, faces=0)
+        nms.hard_nms.launches = 0
+        pp.normalize_imagenet.launches = 0
+        stats = scorer.enable_stage_stats()
+        t0 = time.perf_counter()
+        batched = scorer.score_videos_batched(paths)
+        t_b = time.perf_counter() - t0
+        single = scorer.score_video("video_8")
+        t_s = time.perf_counter() - t0 - t_b
+        launches = {"K8": nms.hard_nms.launches, "K2": pp.normalize_imagenet.launches}
+        n = seen["frames"]
+        crops = {p: scorer.crop_counts[p] for p in paths + ["video_8"]}
+        run = dict(launches=launches, frames=n, faces_per_frame=seen["faces"] / max(n, 1),
+                   crops=crops, videos_per_min=len(paths) / t_b * 60,
+                   video_8_s=t_s, detect_s_per_frame=stats["detect_s"] / max(n, 1),
+                   scores=batched + [single])
+        log(f"M2 MTCNN path, thresholds {th}: videos (batched) {len(paths) / t_b * 60:.1f} "
+            f"videos/min ({t_b:.2f} s), video_8 {t_s:.2f} s; {n} frames detected, "
+            f"{run['faces_per_frame']:.2f} faces a frame, crops {list(crops.values())}; "
+            f"detect {run['detect_s_per_frame'] * 1e3:.2f} ms a frame (summed over the "
+            f"scorer's threads); launches {launches}; "
+            f"scores {run['scores']}")
+        one = reader.frame("video_0", 3)
+        t1 = time.perf_counter()
+        for _ in range(MTCNN_ALONE_CALLS):
+            detect(one)
+        run["detect_alone_ms"] = (time.perf_counter() - t1) / MTCNN_ALONE_CALLS * 1e3
+        log(f"M2 one frame's detect alone (no other thread), thresholds {th}: "
+            f"{run['detect_alone_ms']:.2f} ms a frame over {MTCNN_ALONE_CALLS} calls")
+        if n == 0 or launches["K8"] != 4 * n:
+            raise AssertionError(f"M2 thresholds {th}: {launches['K8']} K8 launches for {n} "
+                                 "detected frames, expected 4 a frame")
+        if not all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in run["scores"]):
+            raise AssertionError(f"M2 scores out of [0, 1]: {run['scores']}")
+        runs[th] = run
+    full = runs[(0.0, 0.0, 0.0)]
+    if full["launches"]["K2"] <= 0 or sum(full["crops"].values()) == 0:
+        raise AssertionError(f"M2 at (0, 0, 0): no crops or no K2 launch: {full}")
+    del det.detect
+    vs_cpu = mtcnn_vs_cpu(det, reader.frame("video_0", 0))
+    return scorer, dict(runs=runs, vs_cpu=vs_cpu)
+
+
+def serve_phase(scorer) -> dict:
+    """M3: `cli/serve.serve` on loopback with M2's scorer (MTCNN at (0, 0, 0)):
+    GET /health; GET /score?path= for 3 placeholder files whose names the
+    in-memory reader knows, each prob equal to `score_video` on the same
+    path (within SERVE_PROB_TOL; the JSON float round-trips exactly); a 400
+    (no path) and a 404. POST needs cv2 to decode and is left to the CPU
+    tests."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from fac_fake_torch.cli import serve as srv
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=300) as r:
+                return r.status, json.load(r)
+        except urllib.error.HTTPError as e:
+            return e.code, json.load(e)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in (1, 4, 7):
+            paths.append(os.path.join(tmp, f"video_{i}"))
+            with open(paths[-1], "wb") as fh:
+                fh.write(b"placeholder: the in-memory reader makes this video's frames")
+        ready, box = threading.Event(), []
+        t = threading.Thread(target=srv.serve, args=(
+            ["--port", "0", "--no-warmup", "--set", "infer.detector=mtcnn"],),
+            kwargs=dict(scorer=scorer, ready_event=ready, server_box=box), daemon=True)
+        t.start()
+        if not ready.wait(60):
+            raise AssertionError("M3: the server did not start")
+        base = f"http://127.0.0.1:{box[0].server_address[1]}"
+        try:
+            code, health = get(f"{base}/health")
+            if code != 200 or health.get("status") != "ok":
+                raise AssertionError(f"M3 /health: {code} {health}")
+            lat = []
+            for p in paths:
+                code, r = get(f"{base}/score?path={p}")
+                want = scorer.score_video(p)
+                log(f"M3 GET /score {os.path.basename(p)}: {code} prob {r.get('prob')} "
+                    f"label {r.get('label')} crops {r.get('num_crops')} latency_s "
+                    f"{r.get('latency_s')}; score_video {want}")
+                if code != 200 or abs(r["prob"] - want) > SERVE_PROB_TOL:
+                    raise AssertionError(f"M3 /score {p}: {code} {r}, score_video {want}")
+                lat.append(r["latency_s"])
+            c400, _ = get(f"{base}/score")
+            c404, _ = get(f"{base}/nothing")
+            log(f"M3 GET /score with no path: {c400}; GET /nothing: {c404}")
+            if (c400, c404) != (400, 404):
+                raise AssertionError(f"M3 error codes {c400}, {c404}: expected 400, 404")
+            out = dict(latency_s=lat, health=health)
+        finally:
+            box[0].shutdown()
+            t.join(30)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2197,6 +2600,14 @@ def main() -> int:
     # ---- 10. full-width int8_full logits, card against CPU ------------------
     logits_vs_cpu(full.model, four, "full-width int8_full logits", plain=True)
     del scorer, full, model
+    torch.cuda.empty_cache()
+
+    # ---- M1-M3. MTCNN with K8, its video path, the serving entry point ----------
+    from fac_fake_torch.detect.mtcnn import MTCNN
+    k8 = k8_phase(rng, dev, MTCNN(device=dev))
+    m_scorer, m2 = mtcnn_path(args.seed, dev, reader)
+    m3 = serve_phase(m_scorer)
+    del m_scorer
     torch.cuda.empty_cache()
 
     # ---- F1-F4. the flagship cvit_repbn8 -----------------------------------------
@@ -2357,6 +2768,27 @@ def main() -> int:
                    "device time and host wall time; "
                    "launches: one training epoch of cvit (one call a step); "
                    "flagship_launches: the same of cvit_repbn8"},
+        {"name": "K8_hard_nms", "route": "cuda", "source": "fac_fake_torch/csrc/hard_nms.cu",
+         "replaces": "fac_fake_tpu/detect/mtcnn.py:183",
+         "launches": sum(r["launches"]["K8"] for r in m2["runs"].values()),
+         "launches_per_frame": 4, "frames": {str(th): r["frames"] for th, r in m2["runs"].items()},
+         "max_abs_err": 0.0, "ms": k8["ms"], "kernel_ms": k8["ms"], "warm_ms": k8["warm_ms"],
+         "default_thresholds_warm_ms": k8["default_warm_ms"], "plain_ms": k8["plain_ms"],
+         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": None,
+         "iou_tests": k8["iou_tests"], "bytes": k8["nbytes"],
+         "timing": "ms: cold, one frame's 4 launches rotating over copies of its candidate sets "
+                   "beyond twice the L2; warm_ms: the same sets again and again; idx and keep "
+                   "bit-equal to the plain version (max_abs_err 0)",
+         "shapes": "one 1920x1080 frame's calls at thresholds (0, 0, 0): (12, 128) -> 128 union "
+                   "0.5, 1536 -> 64 union 0.7, 64 -> 64 union 0.7, 64 -> 32 min 0.7; launches: "
+                   "the M2 path's two runs (4 a detected frame); frames: frames detected a run; "
+                   "library_ms: no PyTorch call computes this NMS (no min mode, +1 areas or "
+                   "fixed capacity in any)",
+         "mtcnn_path": {str(th): {k: r[k] for k in ("videos_per_min", "detect_s_per_frame",
+                                                    "detect_alone_ms", "faces_per_frame",
+                                                    "frames")}
+                        for th, r in m2["runs"].items()},
+         "serve_latency_s": m3["latency_s"]},
     ]
     log(json.dumps({"training": {"cvit": dict(t2, vs_cpu=t3),
                                  "cvit_repbn8": dict(t4, vs_cpu=t4_cpu)}}))

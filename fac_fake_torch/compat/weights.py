@@ -288,3 +288,59 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return strip_ddp_prefix(obj)
+
+
+# MTCNN: facenet_pytorch's layer names a net, and the JAX package's flax names
+# (`fac_fake_tpu/detect/mtcnn.py` convert_mtcnn): the i-th PReLU is PReLU_i
+MTCNN_LAYERS = {
+    "pnet": (("conv1", "conv2", "conv3", "conv4_1", "conv4_2"), (),
+             ("prelu1", "prelu2", "prelu3")),
+    "rnet": (("conv1", "conv2", "conv3"), ("dense4", "dense5_1", "dense5_2"),
+             ("prelu1", "prelu2", "prelu3", "prelu4")),
+    "onet": (("conv1", "conv2", "conv3", "conv4"), ("dense5", "dense6_1", "dense6_2", "dense6_3"),
+             ("prelu1", "prelu2", "prelu3", "prelu4", "prelu5")),
+}
+
+
+def mtcnn_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX MTCNN variables (``{net: {"params": {layer: {leaf: array}}}}``,
+    numpy) → the port's MTCNN state_dict in facenet_pytorch's names
+    (``pnet.conv1.weight``, …): HWIO convs → OIHW, (I, O) denses → (O, I),
+    PReLU ``alpha`` → ``prelu{i}.weight``. The inverse of
+    `fac_fake_tpu/detect/mtcnn.py` convert_mtcnn; the flatten before the
+    first dense needs no permutation, as the nets flatten in facenet's
+    order."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr, tf):
+        out[key] = torch.from_numpy(np.array(tf(np.asarray(arr, np.float32))))
+
+    for net, (convs, denses, prelus) in MTCNN_LAYERS.items():
+        params = variables[net]["params"]
+        for name, tf in [(c, t_conv) for c in convs] + [(d, t_dense) for d in denses]:
+            put(f"{net}.{name}.weight", params[name]["kernel"], tf)
+            put(f"{net}.{name}.bias", params[name]["bias"], t_id)
+        for i, name in enumerate(prelus):
+            put(f"{net}.{name}.weight", params[f"PReLU_{i}"]["alpha"], t_id)
+    return out
+
+
+def mtcnn_flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's (facenet_pytorch-layout) MTCNN state_dict → the JAX
+    package's variables tree of numpy arrays: the port's copy of
+    `fac_fake_tpu/detect/mtcnn.py` convert_mtcnn."""
+    sd = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+          for k, v in state_dict.items()}
+    tree: Dict = {}
+    for net, (convs, denses, prelus) in MTCNN_LAYERS.items():
+        params = {}
+        for name in convs:
+            params[name] = {"kernel": np.transpose(sd[f"{net}.{name}.weight"], (2, 3, 1, 0)),
+                            "bias": sd[f"{net}.{name}.bias"]}
+        for name in denses:
+            params[name] = {"kernel": np.transpose(sd[f"{net}.{name}.weight"]),
+                            "bias": sd[f"{net}.{name}.bias"]}
+        for i, name in enumerate(prelus):
+            params[f"PReLU_{i}"] = {"alpha": sd[f"{net}.{name}.weight"].reshape(-1)}
+        tree[net] = {"params": params}
+    return tree

@@ -8,8 +8,11 @@ The port of `fac_fake_tpu/infer/predictor.py` (`cvit_prediction.py:153-255`).
   * crops go to the card as uint8 and kernel K2 normalizes them there
     (`CViT.forward_crops`); under int8, K2 turns them into the stem's int8
     input in the same pass;
-  * detection is BlazeFace with kernel K1 for the per-frame NMS, ≤ 5 faces
-    per frame and 29 per video (`face_face_rec`'s caps, `:106-121,194`);
+  * detection is BlazeFace with kernel K1 for the per-frame NMS, or under
+    ``infer.detector="mtcnn"`` the MTCNN cascade (`detect/mtcnn.py`, kernel
+    K8 for its NMS) with plain box crops (`face_mtcnn`, `:86-102`); ≤ 5
+    faces per frame and 29 per video (`face_face_rec`'s caps,
+    `:106-121,194`);
   * aggregation is `aggregate_probs`;
   * ``infer.quantize="int8"|"int8_full"``: int8 post-training quantization
     (`compat/quantize.py`), calibrated lazily on the first scored batch of
@@ -46,9 +49,10 @@ class VideoScorer:
     def __init__(self, model, cfg: Optional[Config] = None, detector=None,
                  reader=None, fold_bn: bool = True, device: DeviceLike = None):
         """``model``: a CViT (`models.build_model`) with its weights loaded.
-        ``detector``/``reader``: optional stand-ins for BlazeFace and the cv2
-        `VideoReader` (any object with ``predict_on_batch`` / with
-        ``frame_count`` and ``stream_frames_at_indices``)."""
+        ``detector``/``reader``: optional stand-ins for the detector and the
+        cv2 `VideoReader` (any object with ``predict_on_batch``, BlazeFace's
+        interface, or under ``infer.detector="mtcnn"`` with ``detect``,
+        MTCNN's / with ``frame_count`` and ``stream_frames_at_indices``)."""
         self.cfg = cfg or Config()
         self.device = resolve_device(device)
         model = model.to(self.device).eval()
@@ -62,10 +66,13 @@ class VideoScorer:
         if self.cfg.infer.quantize not in ("none", "int8", "int8_full"):
             raise ValueError(f"infer.quantize {self.cfg.infer.quantize!r}: "
                              "expected none, int8 or int8_full")
-        if self.cfg.infer.detector != "blazeface":
+        if self.cfg.infer.detector == "face_recognition":
             raise NotImplementedError(
-                f"detector {self.cfg.infer.detector!r}: only blazeface is ported "
-                "(MTCNN is ROADMAP queue 1 item 15)")
+                "detector 'face_recognition': its library (dlib's face_recognition) "
+                "is not in this repository; use blazeface or mtcnn")
+        if self.cfg.infer.detector not in ("blazeface", "mtcnn"):
+            raise ValueError(f"infer.detector {self.cfg.infer.detector!r}: expected "
+                             "blazeface or mtcnn")
         self._detector = detector
         self._reader = reader
         self._lazy_lock = threading.Lock()
@@ -107,11 +114,22 @@ class VideoScorer:
     # --- lazily built host-side helpers -------------------------------
     @property
     def detector(self):
+        """Built per ``infer.detector`` on the scorer's device: the packaged
+        BlazeFace, or the MTCNN cascade from ``infer.mtcnn_weights`` (an
+        ``.npz`` of `cli/import_mtcnn.py`; empty: seeded nets) with
+        ``infer.mtcnn_thresholds``."""
         if self._detector is None:
             with self._lazy_lock:
                 if self._detector is None:
-                    from fac_fake_torch.detect.blazeface import BlazeFace
-                    self._detector = BlazeFace.from_packaged_assets(self.device)
+                    if self.cfg.infer.detector == "mtcnn":
+                        from fac_fake_torch.detect.mtcnn import MTCNN, load_mtcnn_npz
+                        weights = self.cfg.infer.mtcnn_weights
+                        self._detector = MTCNN(
+                            load_mtcnn_npz(weights) if weights else None,
+                            thresholds=self.cfg.infer.mtcnn_thresholds, device=self.device)
+                    else:
+                        from fac_fake_torch.detect.blazeface import BlazeFace
+                        self._detector = BlazeFace.from_packaged_assets(self.device)
         return self._detector
 
     @property
@@ -141,7 +159,8 @@ class VideoScorer:
             return np.zeros((0, size, size, 3), np.uint8)
         idxs = predict_indices(n, self.cfg.data.sample_fraction,
                                self.cfg.data.frame_jump)
-        extractor = FaceExtractor(self.detector)
+        boxed = self.cfg.infer.detector == "mtcnn"
+        extractor = None if boxed else FaceExtractor(self.detector)
         crops: List[np.ndarray] = []
         stream = ChunkPrefetcher(
             lambda stop: self.reader.stream_frames_at_indices(
@@ -150,11 +169,14 @@ class VideoScorer:
         try:
             for frames, _ in stream:
                 t0 = time.perf_counter()
-                for fd in extractor.process_frames(frames):
-                    for face in fd["faces"][: self.cfg.data.max_faces_per_frame]:
-                        if len(crops) >= MAX_CROPS:
-                            break
-                        crops.append(resize_area(face, (size, size)))
+                if boxed:
+                    self._boxed_crops_into(crops, frames, size)
+                else:
+                    for fd in extractor.process_frames(frames):
+                        for face in fd["faces"][: self.cfg.data.max_faces_per_frame]:
+                            if len(crops) >= MAX_CROPS:
+                                break
+                            crops.append(resize_area(face, (size, size)))
                 detect_s += time.perf_counter() - t0
                 if len(crops) >= MAX_CROPS:
                     break
@@ -170,6 +192,26 @@ class VideoScorer:
         if not crops:
             return np.zeros((0, size, size, 3), np.uint8)
         return np.stack(crops)
+
+    def _boxed_crops_into(self, crops: List[np.ndarray], frames, size: int) -> None:
+        """A box detector's crops (the reference's `face_mtcnn` loop,
+        `cvit_prediction.py:86-102`): ≤ 5 faces a frame, ≤ 29 a video, the
+        box corners truncated by ``int``, a plain crop with its top and left
+        clipped at 0, INTER_AREA to ``size``². Appends into ``crops`` so the
+        streaming caller can stop at the cap."""
+        max_pf = min(5, self.cfg.data.max_faces_per_frame)
+        for frame in frames:
+            if len(crops) >= MAX_CROPS:
+                break
+            boxes, _, _, valid = self.detector.detect(frame)
+            rects = [(int(y1), int(y2), int(x1), int(x2))
+                     for (x1, y1, x2, y2), v in zip(boxes, valid) if v]
+            for (y1, y2, x1, x2) in rects[:max_pf]:
+                if len(crops) >= MAX_CROPS:
+                    break
+                face = frame[max(y1, 0):y2, max(x1, 0):x2]
+                if face.size:
+                    crops.append(resize_area(face, (size, size)))
 
     # --- scoring ---------------------------------------------------------
     def _autocast(self):

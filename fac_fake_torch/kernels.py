@@ -10,7 +10,7 @@ loads as built.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that no ``a·b+c``
 is contracted into an FMA: the kernels then round every operation as their
-plain PyTorch versions do. No ``--use_fast_math``: the NMS kernel needs IEEE
+plain PyTorch versions do. No ``--use_fast_math``: the NMS kernels need IEEE
 division and NaN comparisons.
 
 Every C entry point takes the CUDA stream last and returns
@@ -31,7 +31,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "fac_fake_torch_kernels"
 SOURCES = ("frame_detections", "normalize", "quant_dense", "quant_conv3d", "max_pool3d_i8",
-           "clahe")
+           "clahe", "hard_nms")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -49,6 +49,7 @@ SIGNATURES = {
                                          ctypes.POINTER(_I), _P]},
     "max_pool3d_i8": {"fac_max_pool3d_i8": [_P, _P, _I, _I, _I, _I, _I, _P]},
     "clahe": {"fac_clahe_subset": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]},
+    "hard_nms": {"fac_hard_nms": [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

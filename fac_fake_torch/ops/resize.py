@@ -19,6 +19,10 @@ cv2, so the port reproduces OpenCV's three INTER_AREA code paths
 
 `tests/test_torch_ops.py` holds the result equal to cv2's, pixel for pixel,
 at the sizes the path sees and at random sizes.
+
+The MTCNN cascade resamples on the device instead, bilinearly, as the JAX
+package does: `resize_bilinear` (its image pyramid) and
+`crop_resize_bilinear` (its 24² and 48² stage patches), below.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 _COEF_BITS = 11
 _COEF_SCALE = 1 << _COEF_BITS
@@ -147,3 +152,65 @@ def _linear_area_coeffs(src, scale_x, scale_y, inv_x, inv_y,
     r1 = rows[y1] >> 4
     v = ((r0 * by0[:, None, None]) >> 16) + ((r1 * by1[:, None, None]) >> 16)
     return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+# --- bilinear resampling on the device (the MTCNN cascade's) -----------------
+#
+# The port of `fac_fake_tpu/ops/resize.py` `_interp_matrix`,
+# `crop_resize_bilinear` and `resize_bilinear`. JAX builds each axis's
+# (out, src) weight matrix and multiplies by it; every row holds two
+# non-zero weights, so the same values come from two taps gathered with the
+# same weights, without the matrices' zeros. Sample centres are half-pixel,
+# ``start + (o + 0.5)·(stop − start)/out − 0.5``, clipped into
+# ``[0, src − 1]``: a box partly out of the frame edge-clamps (unlike
+# `F.interpolate` / `grid_sample`). fp32 on the caller's device; every
+# divisor is a tensor, since CUDA divides by a host scalar as a multiply by
+# its reciprocal.
+
+
+def _taps(out_size: int, start: torch.Tensor, stop: torch.Tensor, src_size: int):
+    """Per row of ``start``/``stop`` (…,): the two source indices (…, out)
+    of each output sample and their weights, JAX's ``_interp_matrix`` rows."""
+    dev = start.device
+    scale = (stop - start) / torch.tensor(float(out_size), device=dev)
+    o = torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5
+    centers = (start[..., None] + o * scale[..., None]) - 0.5
+    centers = torch.clamp(centers, 0.0, src_size - 1.0)
+    lo = torch.floor(centers)
+    frac = centers - lo
+    lo = torch.where(torch.isnan(lo), 0.0, lo)   # a NaN box: NaN weights, as JAX's
+    hi = torch.clamp(lo + 1, max=src_size - 1.0)
+    return lo.long(), hi.long(), 1.0 - frac, frac
+
+
+def _sample(at, ty, tx) -> torch.Tensor:
+    """The y pass, then the x pass, as JAX's two products: ``at(yi, xi)``
+    gathers the pixels at y taps (…, oh) and x taps (…, ow) as (…, oh, ow, C)."""
+    ylo, yhi, wy_lo, wy_hi = ty
+    xlo, xhi, wx_lo, wx_hi = tx
+    wyl, wyh = wy_lo[..., :, None, None], wy_hi[..., :, None, None]
+    col_lo = at(ylo, xlo) * wyl + at(yhi, xlo) * wyh
+    col_hi = at(ylo, xhi) * wyl + at(yhi, xhi) * wyh
+    return col_lo * wx_lo[..., None, :, None] + col_hi * wx_hi[..., None, :, None]
+
+
+def crop_resize_bilinear(frame: torch.Tensor, boxes: torch.Tensor,
+                         out_hw: Tuple[int, int] = (224, 224)) -> torch.Tensor:
+    """frame (H, W, C), boxes (N, 4) [ymin, xmin, ymax, xmax] in pixels →
+    (N, out_h, out_w, C) fp32."""
+    h, w, _ = frame.shape
+    b = boxes.to(torch.float32)
+    ty = _taps(out_hw[0], b[:, 0], b[:, 2], h)
+    tx = _taps(out_hw[1], b[:, 1], b[:, 3], w)
+    fr = frame.to(torch.float32)
+    return _sample(lambda yi, xi: fr[yi[:, :, None], xi[:, None, :]], ty, tx)
+
+
+def resize_bilinear(images: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, H, W, C) → (B, oh, ow, C) fp32, the whole image resampled."""
+    _, h, w, _ = images.shape
+    zero = torch.zeros((), dtype=torch.float32, device=images.device)
+    ty = _taps(out_hw[0], zero, zero + h, h)
+    tx = _taps(out_hw[1], zero, zero + w, w)
+    x = images.to(torch.float32)
+    return _sample(lambda yi, xi: x[:, yi[:, None], xi[None, :]], ty, tx)

@@ -809,3 +809,117 @@ def test_train_step_on_the_card_runs_k7_and_k2(dev):
     torch.cuda.synchronize()
     assert aug.clahe_luma.launches == k7 + 1 and pp.normalize_imagenet.launches == k2 + 1
     assert np.isfinite(float(met["loss"])) and np.isfinite(float(ev["loss"]))
+
+
+def _cell_boxes(rng, n, frac):
+    """n x1y1x2y2 boxes like the cascade's: 12-px P-net cells on a stride-2
+    grid (overlapping neighbours), integer or jittered by fractions."""
+    x = rng.integers(0, 40, n) * 2.0
+    y = rng.integers(0, 30, n) * 2.0
+    side = rng.integers(10, 24, n).astype(np.float64)
+    b = np.stack([x, y, x + side, y + side], axis=1)
+    if frac:
+        b = b + rng.uniform(-1.5, 1.5, b.shape)
+    return b.astype(np.float32)
+
+
+def k8_cases(seed=0):
+    """K8's cases, name -> (boxes (N, 4) or (G, N, 4) fp32, scores, valid,
+    iou_thresh, mode, max_out): the cascade's four call shapes (a frame's 12
+    pyramid calls of 128 → 128 at 0.5, 1536 → 64 and 64 → 64 at 0.7 union,
+    64 → 32 at 0.7 min), integer and fractional boxes; exact score ties; NaN
+    scores and a NaN box; zero-area and inverted boxes; ±inf scores; none
+    valid; max_out above the live count; max_out 0; one candidate; 4096."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def scored(b, p_valid=0.7, ties=False):
+        s = rng.uniform(0.0, 1.0, b.shape[:-1]).astype(np.float32)
+        if ties:
+            s = np.round(s * 4) / 4          # five distinct values
+        v = rng.random(b.shape[:-1]) < p_valid
+        return s, v
+
+    b = np.stack([_cell_boxes(rng, 128, False) for _ in range(12)])
+    out["pyramid_12x128_int"] = (b, *scored(b), 0.5, "union", 128)
+    b = np.stack([_cell_boxes(rng, 128, True) for _ in range(12)])
+    s, v = scored(b, 0.4)
+    s[:, 100:] = -1.0                        # a small level's padding: -1.0, invalid
+    v[:, 100:] = False
+    out["pyramid_12x128_frac"] = (b, s, v, 0.5, "union", 128)
+    b = _cell_boxes(rng, 1536, True)
+    out["stage1_1536_64"] = (b, *scored(b), 0.7, "union", 64)
+    b = _cell_boxes(rng, 64, False)
+    out["rnet_64_64"] = (b, *scored(b, 1.0), 0.7, "union", 64)
+    b = _cell_boxes(rng, 64, True)
+    out["onet_64_32_min"] = (b, *scored(b, 0.9), 0.7, "min", 32)
+    b = _cell_boxes(rng, 128, False)
+    out["ties_union"] = (b, *scored(b, 1.0, ties=True), 0.3, "union", 128)
+    out["ties_min"] = (b, *scored(b, 1.0, ties=True), 0.5, "min", 64)
+    b = _cell_boxes(rng, 64, True)
+    s, v = scored(b, 1.0)
+    s[[3, 17, 40]] = np.nan                  # valid NaN scores: first, not kept, suppressing
+    b[9] = [np.nan, 2.0, 20.0, 30.0]         # a NaN box
+    s[9] = 0.99
+    s[50], v[50] = np.nan, False             # an invalid NaN: never read
+    out["nan"] = (b, s, v, 0.5, "union", 64)
+    b = _cell_boxes(rng, 64, False)
+    s, v = scored(b, 1.0)
+    b[5] = [10.0, 10.0, 9.0, 9.0]            # zero area with the +1
+    b[6] = [30.0, 30.0, 20.0, 35.0]          # inverted: a negative area
+    b[7] = [4.0, 4.0, 4.0, 4.0]              # a one-pixel box
+    s[[5, 6, 7]] = [0.999, 0.998, 0.997]
+    out["zero_area_inverted"] = (b, s, v, 0.5, "union", 64)
+    out["zero_area_inverted_min"] = (b, s, v, 0.5, "min", 64)
+    s2 = s.copy()
+    s2[[0, 1, 2]] = [np.inf, -np.inf, np.inf]
+    out["inf_scores"] = (b, s2, v, 0.5, "union", 64)
+    out["all_invalid"] = (b, s, np.zeros_like(v), 0.7, "union", 32)
+    v3 = np.zeros_like(v)
+    v3[[4, 30, 31, 60]] = True
+    out["max_out_above_live"] = (b, s, v3, 0.7, "union", 64)
+    out["max_out_0"] = (b, s, v, 0.7, "union", 0)
+    out["one_candidate"] = (b[:1], s[:1], v[:1], 0.7, "union", 4)
+    b = _cell_boxes(rng, 4096, True)
+    out["n_4096"] = (b, *scored(b), 0.7, "union", 96)
+    return out
+
+
+@pytest.mark.parametrize("case", list(k8_cases()))
+def test_k8_hard_nms_equals_plain(dev, case):
+    from fac_fake_torch.ops import nms
+
+    boxes, scores, valid, thr, mode, max_out = k8_cases()[case]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    before = nms.hard_nms.launches
+    idx, keep = nms.hard_nms(t(boxes), t(scores), t(valid), thr, mode, max_out)
+    pidx, pkeep = nms.hard_nms_plain(t(boxes), t(scores), t(valid), thr, mode, max_out)
+    torch.cuda.synchronize()
+    assert nms.hard_nms.launches == before + 1
+    assert idx.shape == pidx.shape == (*boxes.shape[:-2], max_out)
+    assert idx.dtype == torch.long and keep.dtype == torch.bool
+    assert torch.equal(idx, pidx) and torch.equal(keep, pkeep)
+
+
+def test_k8_refuses_what_it_does_not_take(dev):
+    from fac_fake_torch.ops import nms
+
+    b = torch.rand((2, 8, 4), device=dev)
+    s = torch.rand((2, 8), device=dev)
+    v = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        nms.hard_nms(b.double(), s, v)
+    with pytest.raises(ValueError, match="bool"):
+        nms.hard_nms(b, s, v.to(torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        nms.hard_nms(b, s.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        nms.hard_nms(b.transpose(0, 1).contiguous().transpose(0, 1), s, v)
+    with pytest.raises(ValueError, match="do not match"):
+        nms.hard_nms(b, s[:, :7], v)
+    with pytest.raises(ValueError, match="mode"):
+        nms.hard_nms(b, s, v, mode="max")
+    big = nms.MAX_CANDIDATES + 1
+    with pytest.raises(ValueError, match="one CTA"):
+        nms.hard_nms(torch.zeros((big, 4), device=dev), torch.zeros(big, device=dev),
+                     torch.zeros(big, dtype=torch.bool, device=dev))

@@ -40,6 +40,9 @@ def test_importing_every_port_module_loads_no_jax():
             "fac_fake_torch.train.trainer", "fac_fake_torch.data.augment",
             "fac_fake_torch.ops.augment", "fac_fake_torch.data.folder",
             "fac_fake_torch.data.native_loader", "fac_fake_torch.cli.train"} <= set(mods)
+    # MTCNN with kernel K8, and the serving CLI
+    assert {"fac_fake_torch.ops.nms", "fac_fake_torch.detect.mtcnn",
+            "fac_fake_torch.cli.import_mtcnn", "fac_fake_torch.cli.serve"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
