@@ -3,7 +3,8 @@
 hold each against its plain PyTorch version, score videos end to end with the
 full-width base CViT and the flagship cvit_repbn8 in fp32 and under int8
 post-training quantization, score S3D clips, train both CViTs at full width,
-and print what it measured.
+detect with MTCNN and serve, score videos with the ResNet/KAN resvitkan, and
+print what it measured.
 
     python3 chip_smoke.py [--seed N] [--profile]     # all phases, one card
 
@@ -21,7 +22,7 @@ eval steps K2's `normalize_table`.
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
-  2. build the eight kernels (K1-K8; K3 and K5 are one kernel, seven sources;
+  2. build the nine kernels (K1-K9; K3 and K5 are one kernel, eight sources;
      K7 one kernel, the whole CLAHE subset step in one launch) from
      fac_fake_torch/csrc, in parallel;
   3. K2 (`k2_phase`) in its five modes against their plain versions: the
@@ -148,6 +149,23 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      on the same inputs (`mtcnn_path`, `mtcnn_vs_cpu`);
  M3. `cli/serve.serve` on loopback with M2's scorer: /health, /score?path=
      for 3 videos equal to `score_video`, a 400 and a 404 (`serve_phase`);
+ R1. K9 (KAN's B-spline bases) against its plain version, bit-equal (NaN
+     where both are NaN) in fp32 and bf16 at the family's call shapes
+     (K9_SHAPES: resvitkan's head at capacity 96 and 8 x 32 rows, reskan's at
+     batch 96) on the default grid, a sorted perturbation of it and one with
+     a repeated knot, x planted on every knot, below the first, at and past
+     the last; one resvitkan forward's 2 launches timed cold and warm beside
+     the plain version, copy_ of the outputs' bytes and the bound
+     (`k9_phase`);
+ R2. the resvitkan video path (`resvitkan_path`): `VideoScorer` with the
+     full-width resvitkan (vendored ResNet-50 with the 512 squeeze, patch 7,
+     dim 1024, depth 6, heads 8, mlp 2048, KAN (2048, 64, 2); seeded) and the
+     packaged BlazeFace over the same videos as phase 5; K2 launches equal
+     the base path's, K9 twice that; one forward from the crops runs 1 K2
+     and 2 K9 launches; logits card vs CPU at batch 4; `score_crops` equal
+     to `score_crop_stacks` per video; a bf16 run with finite scores;
+ R3. the full-width reskan at batch 96 and resvit at batch 4, logits card vs
+     CPU, K9 launched 2 and 0 times a forward (`family_forwards`);
  15. the training line and the kernels line; 16. the result line.
 """
 from __future__ import annotations
@@ -262,6 +280,20 @@ MTCNN_NET_TOL = 1e-4
 MTCNN_PATCH_TOL = 1e-3
 SERVE_PROB_TOL = 1e-6         # /score against score_video: the same computation twice
 MTCNN_ALONE_CALLS = 5         # M2: one frame's detect timed alone, after each run's counts
+# the ResNet/KAN family (R1-R3)
+KAN_MODELS = ("resvitkan",)   # scored models with a KAN head: K9 twice a forward
+K9_ORDER, K9_GRID_SIZE = 3, 5     # every KAN head's spline order and grid size
+# (B, in) of K9's calls on the paths: resvitkan's head at capacity 96 and at
+# 8 x 32 rows (2048 -> 64 -> 2), reskan's at batch 96 (512 -> 64 -> 2)
+K9_SHAPES = ((96, 2048), (96, 64), (256, 2048), (256, 64), (96, 512))
+K9_GRIDS = ("default", "nonuniform", "repeated")
+# fp32 operations of K9's function a (row, feature): order 0, two compares
+# and an and on each of the 11 intervals; a level, x - g, g' - x, two
+# divisions, two products and a sum on each of its 10, 9, 8 bases
+K9_OPS_PER_FEATURE = 3 * 11 + 7 * (10 + 9 + 8)
+RESVIT_HW = 224               # the family's crops (data.image_size)
+RESKAN_BATCH, RESVIT_BATCH = 96, 4    # R3: forwards card vs CPU
+STACK_TOL = 1e-6              # R2: score_crops against score_crop_stacks, per video
 
 
 def log(msg: str) -> None:
@@ -1512,14 +1544,18 @@ def crops_96(crops, dev) -> tuple:
     return u96, torch.arange(QBATCH, device=dev) % 32
 
 
-def fp32_path(scorer, paths, crops, stacks, with_faces, name: str = "cvit") -> dict:
-    """Phase 5 (base cvit) and F1 (the flagship): ``score_videos_batched``
-    over ``paths``, ``score_video`` over video_8, then the crops through
-    ``score_crops`` and the stacks through ``score_crop_stacks``; scores in
-    [0, 1], faces found where the synthetic face is and nowhere else, K1 and
-    K2 launched. Returns the launches of K1 and K2."""
+def fp32_path(scorer, paths, crops, stacks, with_faces, name: str = "cvit",
+              rates: dict = None) -> dict:
+    """Phase 5 (base cvit), F1 (the flagship) and R2 (resvitkan):
+    ``score_videos_batched`` over ``paths``, ``score_video`` over video_8,
+    then the crops through ``score_crops`` and the stacks through
+    ``score_crop_stacks``; scores in [0, 1], faces found where the synthetic
+    face is and nowhere else, K1 and K2 launched (and K9, for a model with a
+    KAN head). Returns the launches of K1 and K2 (and K9); ``rates``, if
+    given, receives videos/min and the crops/s of both entries."""
     import torch
     from fac_fake_torch.detect import extractor as ex
+    from fac_fake_torch.ops import kan
     from fac_fake_torch.ops import preprocess as pp
     tag = "" if name == "cvit" else f"{name} "
     scorer.enable_stage_stats()
@@ -1529,6 +1565,7 @@ def fp32_path(scorer, paths, crops, stacks, with_faces, name: str = "cvit") -> d
 
     ex.frame_detections.launches = 0
     pp.normalize_imagenet.launches = 0
+    kan.kan_bases.launches = 0
     t0 = time.perf_counter()
     batched = scorer.score_videos_batched(paths)
     t_batched = time.perf_counter() - t0
@@ -1545,6 +1582,8 @@ def fp32_path(scorer, paths, crops, stacks, with_faces, name: str = "cvit") -> d
     torch.cuda.synchronize()
     t_stacks = time.perf_counter() - t2
     launches = {"K1": ex.frame_detections.launches, "K2": pp.normalize_imagenet.launches}
+    if name in KAN_MODELS:
+        launches["K9"] = kan.kan_bases.launches
 
     log(f"{tag}videos (batched): scores {batched} faces "
         f"{[scorer.crop_counts[p] for p in paths]} "
@@ -1556,6 +1595,10 @@ def fp32_path(scorer, paths, crops, stacks, with_faces, name: str = "cvit") -> d
     log(f"{tag}score_crop_stacks {len(stacks)}x{len(crops)} crops: scores {p_stacks} "
         f"{len(stacks) * len(crops) * n_it / t_stacks:.1f} crops/s")
     log(f"{tag}main-path launches: {launches}")
+    if rates is not None:
+        rates.update(videos_per_min=len(paths) / t_batched * 60,
+                     score_crops_per_s=len(crops) * n_it / t_crops,
+                     score_crop_stacks_per_s=len(stacks) * len(crops) * n_it / t_stacks)
     probs = batched + [single, p_crops] + p_stacks
     if not all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in probs):
         raise AssertionError(f"{tag}scores out of [0, 1]: {probs}")
@@ -2514,6 +2557,218 @@ def serve_phase(scorer) -> dict:
     return out
 
 
+def k9_grid(rng, case: str, n_in: int) -> np.ndarray:
+    """(in, 12) fp32 knots: the default grid; a sorted per-feature
+    perturbation of it (non-uniform, as a refit leaves it; drawn here, since
+    the card's machine has no JAX for `update_grid`); the default with
+    feature 1's knots 4 and 5 equal (a repeated knot: 0/0 = NaN)."""
+    from fac_fake_torch.models.blocks.kan import default_grid
+    g = default_grid(n_in, K9_GRID_SIZE, K9_ORDER)
+    if case == "nonuniform":
+        h = 2.0 / K9_GRID_SIZE
+        g = np.sort(g + rng.uniform(-0.45 * h, 0.45 * h, g.shape).astype(np.float32), axis=1)
+    elif case == "repeated":
+        g = g.copy()
+        g[1, 5] = g[1, 4]
+    return g
+
+
+def k9_x(rng, grid: np.ndarray, rows: int) -> np.ndarray:
+    """(rows, in) fp32 over the grid's span and 0.3 beyond it, with planted
+    rows: each knot exactly, below the first, at the last, one ulp past it."""
+    lo, hi = grid[:, 0] - 0.3, grid[:, -1] + 0.3
+    x = (lo + (hi - lo) * rng.random((rows, grid.shape[0]))).astype(np.float32)
+    planted = [grid[:, j] for j in range(grid.shape[1])] + [
+        grid[:, 0] - 0.5, grid[:, -1], np.nextafter(grid[:, -1], np.float32(np.inf))]
+    for r, p in enumerate(planted[:rows]):
+        x[r] = p
+    return x
+
+
+def same_bits(a, b) -> bool:
+    """Bit-equal, with NaN equal only where both are NaN."""
+    import torch
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return torch.equal(a[~nan].view(ints), b[~nan].view(ints))
+
+
+def k9_phase(rng, dev) -> dict:
+    """R1: K9 (KAN's B-spline bases) against its plain version, bit-equal (NaN
+    where both are NaN) in fp32 and bf16, at every K9_SHAPES on each of
+    K9_GRIDS, x planted on every knot, below the first, at and past the
+    last. Timed at one resvitkan forward's 2 launches at capacity 96 ((96,
+    2048), (96, 64), fp32): cold (launches rotating over buffers beyond twice
+    the L2), warm, bf16 warm, the plain version, and torch ``copy_`` of the
+    outputs' bytes, cold (a yardstick, not the same function). The bound:
+    bytes, x and the grid read once and the bases written once. Inputs from
+    `side_rng`."""
+    import torch
+    from fac_fake_torch.ops import kan
+    side = side_rng(rng)
+    calls = 0
+    for shape in K9_SHAPES:
+        for case in K9_GRIDS:
+            g = k9_grid(side, case, shape[1])
+            x = k9_x(side, g, shape[0])
+            for dt in (torch.float32, torch.bfloat16):
+                xt, gt = torch.from_numpy(x).to(dev, dt), torch.from_numpy(g).to(dev, dt)
+                got = kan.kan_bases(xt, gt, K9_ORDER)
+                ref = kan.kan_bases_plain(xt, gt, K9_ORDER)
+                torch.cuda.synchronize()
+                nan = bool(torch.isnan(ref).any())
+                if not same_bits(got, ref) or nan != (case == "repeated"):
+                    raise AssertionError(f"K9 {shape} {case} {dt}: differs from plain "
+                                         f"(NaN in plain: {nan})")
+                calls += 1
+    log(f"K9 kan_bases: bit-equal to plain in fp32 and bf16 at {list(K9_SHAPES)} on the "
+        f"{', '.join(K9_GRIDS)} grids, x planted on every knot, below the first, at and "
+        f"past the last ({calls} calls)")
+
+    dims = K9_SHAPES[:2]
+
+    def forward_inputs(dt):
+        pairs = []
+        for b, n in dims:
+            g = k9_grid(side, "nonuniform", n)
+            pairs.append((torch.from_numpy(k9_x(side, g, b)).to(dev, dt),
+                          torch.from_numpy(g).to(dev, dt)))
+        return pairs
+
+    launch = lambda pairs: [kan.kan_bases(x, g, K9_ORDER) for x, g in pairs]
+    fwd = forward_inputs(torch.float32)
+    n_out = K9_GRID_SIZE + K9_ORDER
+    out_bytes = sum(b * n * n_out * 4 for b, n in dims)
+    nbytes = out_bytes + sum((x.numel() + g.numel()) * 4 for x, g in fwd)
+    n_rot = int(2 * L2_BYTES // nbytes) + 2
+    rot = [fwd] + [[(x.clone(), g.clone()) for x, g in fwd] for _ in range(n_rot - 1)]
+    k_ms = rotated_ms(launch, rot)
+    w_ms = cuda_ms(lambda: launch(fwd))
+    bf = forward_inputs(torch.bfloat16)
+    bf_ms = cuda_ms(lambda: launch(bf))
+    p_ms = cuda_ms(lambda: [kan.kan_bases_plain(x, g, K9_ORDER) for x, g in fwd], iters=5)
+    pairs = [[(torch.empty(b, n, n_out, device=dev), torch.rand(b, n, n_out, device=dev))
+              for b, n in dims] for _ in range(n_rot)]
+    c_ms = rotated_ms(lambda ps: [o.copy_(i) for o, i in ps], pairs)
+    del rot, pairs
+    b_ms, b_by = bound_ms(nbytes, K9_OPS_PER_FEATURE * sum(b * n for b, n in dims))
+    log(f"K9 at one resvitkan forward's 2 launches {list(dims)}: kernel {k_ms:.4f} ms cold "
+        f"({b_ms / k_ms:.1%} of the bound, {n_rot} buffer sets), {w_ms:.4f} ms warm, bf16 "
+        f"{bf_ms:.4f} ms warm; copy_ of the outputs' bytes {c_ms:.4f} ms cold; plain "
+        f"{p_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+    return dict(ms=k_ms, warm_ms=w_ms, bf16_warm_ms=bf_ms, plain_ms=p_ms, copy_ms=c_ms,
+                bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, calls=calls)
+
+
+def resvitkan_path(seed, rng, dev, det, reader, paths, with_faces, base_k2: int) -> dict:
+    """R2: `VideoScorer` with the full-width resvitkan (vendored ResNet-50,
+    patch 7, dim 1024, depth 6, heads 8, mlp 2048, KAN (2048, 64, 2); seeded
+    weights) and the packaged BlazeFace over the in-memory videos, as phase
+    5 (`fp32_path`: videos/min, crops/s of both entries); K2 launched as
+    often as on the base path and K9 twice as often; one forward from the
+    crops at capacity 96 runs 1 K2 and 2 K9 launches; logits card vs CPU;
+    `score_crops` equal to `score_crop_stacks` per video (STACK_TOL); a bf16
+    run (`model.dtype=bfloat16`) with finite scores. Crops from
+    `side_rng`."""
+    import torch
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.infer.predictor import VideoScorer
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import kan
+    from fac_fake_torch.ops import preprocess as pp
+    name, hw = "resvitkan", RESVIT_HW
+    side = side_rng(rng)
+    crops = side.integers(0, 256, (29, hw, hw, 3), dtype=np.uint8)
+    stacks = [side.integers(0, 256, (29, hw, hw, 3), dtype=np.uint8) for _ in range(8)]
+    four = torch.from_numpy(side.integers(0, 256, (4, hw, hw, 3), dtype=np.uint8))
+
+    def config(dtype="float32"):
+        cfg = Config()
+        cfg.model.name, cfg.model.dtype, cfg.data.image_size = name, dtype, hw
+        return cfg
+
+    cfg = config()
+    scorer = VideoScorer(build_model(cfg.model, device=dev, seed=seed), cfg, detector=det,
+                         reader=reader)
+    rates = {}
+    launches = fp32_path(scorer, paths, crops, stacks, with_faces, name, rates)
+    if launches["K2"] != base_k2 or launches["K9"] != 2 * launches["K2"]:
+        raise AssertionError(f"{name} path launches {launches}: want K2 {base_k2} (the base "
+                             "path's) and K9 twice K2")
+    u96, pos96 = crops_96(crops, dev)
+    pp.normalize_imagenet.launches = kan.kan_bases.launches = 0
+    with torch.inference_mode():
+        scorer.model.forward_crops(u96, torch.float32, pos96)
+    torch.cuda.synchronize()
+    per_forward = {"K2": pp.normalize_imagenet.launches, "K9": kan.kan_bases.launches}
+    log(f"{name} one forward from the crops, batch {QBATCH}: launches {per_forward}")
+    if per_forward != {"K2": 1, "K9": 2}:
+        raise AssertionError(f"{name} forward launches {per_forward}: want K2 1, K9 2")
+    logit_err = logits_vs_cpu(scorer.model, four, f"{name} fp32 logits")
+    per_video = [scorer.score_crops(s) for s in stacks]
+    packed = scorer.score_crop_stacks(stacks)
+    stack_diff = max(abs(a - b) for a, b in zip(per_video, packed))
+    log(f"{name} score_crops vs score_crop_stacks, 8 videos: max abs {stack_diff:.3g}")
+    if stack_diff > STACK_TOL:
+        raise AssertionError(f"{name} score_crops differs from score_crop_stacks by "
+                             f"{stack_diff} > {STACK_TOL}")
+    bf = VideoScorer(scorer.model, config("bfloat16"), detector=det, reader=reader)
+    kan.kan_bases.launches = 0
+    bf_probs = [bf.score_crops(crops)] + bf.score_crop_stacks(stacks)
+    torch.cuda.synchronize()
+    bf_k9 = kan.kan_bases.launches
+    fp_probs = [scorer.score_crops(crops)] + packed
+    bf_diff = max(abs(a - b) for a, b in zip(bf_probs, fp_probs))
+    log(f"{name} bf16 score_crops and score_crop_stacks: {bf_probs}; max abs against fp32 "
+        f"{bf_diff:.3g}; K9 launches {bf_k9}")
+    if not all(np.isfinite(p) and 0.0 <= p <= 1.0 for p in bf_probs) or bf_k9 != 4:
+        raise AssertionError(f"{name} bf16 scores {bf_probs}, K9 launches {bf_k9} (want 4)")
+    return dict(launches=launches, per_forward=per_forward, logit_err=logit_err,
+                stack_diff=stack_diff, bf16_diff=bf_diff, **rates)
+
+
+def family_forwards(seed, rng, dev) -> dict:
+    """R3: the full-width reskan (ResNet-34, KAN (512, 64, 2)) at batch 96
+    and resvit (ResNet-18, MLP head) at batch 4, 224², seeded: logits card
+    vs CPU within LOGIT_TOL, K9 launched twice by reskan's forward and never
+    by resvit's. Inputs from `side_rng`."""
+    import torch
+    from fac_fake_torch.core.config import ModelConfig
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import kan
+    from fac_fake_torch.ops import preprocess as pp
+    side = side_rng(rng)
+    u8 = torch.from_numpy(side.integers(0, 256, (RESKAN_BATCH, RESVIT_HW, RESVIT_HW, 3),
+                                        dtype=np.uint8))
+    model = build_model(ModelConfig(name="reskan"), device=dev, seed=seed)
+    x = pp.normalize_imagenet(u8.to(dev))
+    kan.kan_bases.launches = 0
+    with torch.inference_mode():
+        gpu = model(x).cpu()
+        torch.cuda.synchronize()
+        k9_reskan = kan.kan_bases.launches
+        t_cpu = time.perf_counter()
+        cpu = copy.deepcopy(model).cpu()(x.cpu())
+        t_cpu = time.perf_counter() - t_cpu
+    err_reskan = float((gpu - cpu).abs().max())
+    log(f"reskan logits, batch {RESKAN_BATCH}, card vs CPU ({t_cpu:.1f} s on the CPU): max abs "
+        f"{err_reskan:.3g} (|logit| max {float(cpu.abs().max()):.3g}); K9 launches {k9_reskan}")
+    if not (torch.isfinite(gpu).all() and err_reskan <= LOGIT_TOL and k9_reskan == 2):
+        raise AssertionError(f"reskan: logits differ by {err_reskan} > {LOGIT_TOL}, or K9 "
+                             f"launched {k9_reskan} times (want 2)")
+    del model
+    model = build_model(ModelConfig(name="resvit", image_size=RESVIT_HW), device=dev, seed=seed)
+    four = torch.from_numpy(side.integers(0, 256, (RESVIT_BATCH, RESVIT_HW, RESVIT_HW, 3),
+                                          dtype=np.uint8))
+    kan.kan_bases.launches = 0
+    err_resvit = logits_vs_cpu(model, four, f"resvit logits, batch {RESVIT_BATCH},")
+    if kan.kan_bases.launches != 0:
+        raise AssertionError(f"resvit launched K9 {kan.kan_bases.launches} times")
+    return dict(reskan_err=err_reskan, reskan_k9=k9_reskan, resvit_err=err_resvit)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2633,6 +2888,13 @@ def main() -> int:
     t4, model = train_phase("cvit_repbn8", args.seed, dev, data, args.profile)
     t4_cpu = train_vs_cpu(model, "cvit_repbn8", rng)
     del model
+    torch.cuda.empty_cache()
+
+    # ---- R1-R3. the ResNet/KAN family with K9 -------------------------------------
+    k9 = k9_phase(rng, dev)
+    r2 = resvitkan_path(args.seed, rng, dev, det, reader, paths, with_faces, launches["K2"])
+    torch.cuda.empty_cache()
+    r3 = family_forwards(args.seed, rng, dev)
     torch.cuda.empty_cache()
 
     # ---- 15. kernels line -----------------------------------------------------
@@ -2789,6 +3051,25 @@ def main() -> int:
                                                     "frames")}
                         for th, r in m2["runs"].items()},
          "serve_latency_s": m3["latency_s"]},
+        {"name": "K9_kan_bases", "route": "cuda", "source": "fac_fake_torch/csrc/kan_bases.cu",
+         "replaces": "fac_fake_tpu/models/blocks/kan.py:35",
+         "launches": r2["launches"]["K9"], "launches_per_forward": r2["per_forward"]["K9"],
+         "reskan_launches_per_forward": r3["reskan_k9"], "max_abs_err": 0.0,
+         "ms": k9["ms"], "kernel_ms": k9["ms"], "warm_ms": k9["warm_ms"],
+         "bf16_warm_ms": k9["bf16_warm_ms"], "plain_ms": k9["plain_ms"],
+         "bound_ms": k9["bound_ms"], "bound_by": k9["bound_by"], "bytes": k9["nbytes"],
+         "library_ms": None, "copy_ms": k9["copy_ms"], "checked_calls": k9["calls"],
+         "timing": "ms: cold, one forward's 2 launches rotating over buffers beyond twice the "
+                   "L2; warm_ms: the same inputs again and again; copy_ms: torch copy_ of the "
+                   "outputs' bytes, cold (a yardstick, not the same function); bit-equal to "
+                   "the plain version in fp32 and bf16 (NaN where both are NaN; max_abs_err 0)",
+         "shapes": "ms: one resvitkan forward at capacity 96, (96, 2048) and (96, 64), grid "
+                   "(in, 12), order 3, fp32; launches: the resvitkan fp32 path (R2), 2 a "
+                   "forward; library_ms: no PyTorch call computes B-spline bases",
+         "resvitkan_path": {k: r2[k] for k in ("videos_per_min", "score_crops_per_s",
+                                               "score_crop_stacks_per_s", "logit_err",
+                                               "stack_diff", "bf16_diff")},
+         "family_logit_err": {"reskan": r3["reskan_err"], "resvit": r3["resvit_err"]}},
     ]
     log(json.dumps({"training": {"cvit": dict(t2, vs_cpu=t3),
                                  "cvit_repbn8": dict(t4, vs_cpu=t4_cpu)}}))

@@ -1,10 +1,13 @@
 """Video scoring CLI — the port of `fac_fake_tpu/cli/predict.py`.
 
   python -m fac_fake_torch.cli.predict --videos dir/ --weights cvit.pth \
-      --save-csv out.csv [--device cuda] [--model cvit_repbn8]
+      --save-csv out.csv [--device cuda] [--model cvit_repbn8|resvitkan|resvit]
 
 Input a folder of mp4s (decoded with cv2, which must be installed), output a
 ``filename,label`` CSV of fake-probabilities; prob < 0.5 → REAL, ≥ 0.5 → FAKE.
+``--model`` names a registered model that scores videos: ``cvit``,
+``cvit_repbn8``, or the ResNet/KAN family's ``resvitkan`` (its KAN head runs
+kernel K9) and ``resvit``; ``reskan`` takes no pos rows and is refused.
 ``--weights`` takes a reference or exported ``.pth``; JAX-trained weights
 come over with ``python -m fac_fake_tpu.cli.export torch out.pth --weights
 ckpt/``.

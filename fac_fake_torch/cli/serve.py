@@ -1,7 +1,7 @@
 """Video-scoring HTTP service — the port of `fac_fake_tpu/cli/serve.py`.
 
   python -m fac_fake_torch.cli.serve --weights cvit.pth --port 8500 \
-      [--device cuda] [--model cvit_repbn8] \
+      [--device cuda] [--model cvit_repbn8|resvitkan|resvit] \
       [--set infer.detector=mtcnn infer.mtcnn_weights=mtcnn.npz]
 
   GET  /health                     → {"status": "ok", "model": ...}

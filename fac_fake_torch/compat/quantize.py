@@ -142,6 +142,8 @@ def quantize_cvit(model, calib_x: torch.Tensor, transformer: bool = False):
     (`compat/fold.py`); the model itself is not changed."""
     from fac_fake_torch.models.cvit import CViT
 
+    if not isinstance(model, CViT):
+        raise ValueError(f"{type(model).__name__} has no foldable stem to quantize")
     stems = model.stems()
     if any(op[0] == "bn" for field, _, _ in stems for op in model.config[field]):
         raise ValueError("quantize_cvit expects a folded stem (run fold_cvit first)")

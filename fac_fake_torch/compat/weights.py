@@ -1,8 +1,9 @@
 """Carry weights into the port: JAX variables and reference ``.pth`` files.
 
 The port's counterpart of `fac_fake_tpu/compat/torch_weights.py` and
-`torch_export.py`, with its own copies of the ``cvit``/``cvit_repbn8`` and
-S3D key maps (`torch_weights._cvit_torch_key`, ``_s3d_torch_key``) and of
+`torch_export.py`, with its own copies of the ``cvit``/``cvit_repbn8``,
+S3D and ResNet/KAN key maps (`torch_weights._cvit_torch_key`,
+``_s3d_torch_key``, ``_resnet_key``, ``_kan_key``) and of
 the layout transforms: flax HWIO convs → OIHW, DHWIO → OIDHW, 1-D (k, I, O)
 taps → (O, I, k), flax (I, O) denses → (O, I). The int8 leaves of a JAX
 `quantize_cvit` output (``kernel_q``, ``w_scale``, ``x_scale``) map to the
@@ -86,7 +87,7 @@ def cvit_torch_key(path, variant: str = "cvit") -> Tuple[str, Callable]:
     ``warm``/``iter``."""
     if variant not in CVIT_VARIANTS:
         raise NotImplementedError(
-            f"variant {variant!r}: the CViT variant zoo is ROADMAP queue 1 item 14")
+            f"variant {variant!r}: the CViT variant zoo is ROADMAP queue 1 item 14b")
     col, rest = path[0], list(path[1:])
     leaf = rest[-1]
     if rest[0] in ("stem", "stem2", "stem3"):
@@ -216,14 +217,107 @@ def s3d_torch_key(path, spec) -> Tuple[str, Callable]:
                               "(ROADMAP queue 1 item 13)")
 
 
+def _from_flax(flat: Mapping[str, np.ndarray], key_fn) -> Dict[str, torch.Tensor]:
+    """Flat ``"col/…/leaf"`` flax variables → a float32 state_dict through
+    ``key_fn(path) -> (torch key, transform)``."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in flat.items():
+        key, tf = key_fn(k.split("/"))
+        out[key] = torch.from_numpy(np.array(tf(np.asarray(v, np.float32)), order="C"))
+    return out
+
+
 def s3d_state_dict_from_flax(flat: Mapping[str, np.ndarray], spec) -> Dict[str, torch.Tensor]:
     """JAX S3DNet variables flattened to ``"params/l0/conv_s/kernel"``-style
     keys → the port's S3DNet state_dict (float32)."""
-    out: Dict[str, torch.Tensor] = {}
-    for k, v in flat.items():
-        key, tf = s3d_torch_key(k.split("/"), spec)
-        out[key] = torch.from_numpy(np.array(tf(np.asarray(v, np.float32)), order="C"))
-    return out
+    return _from_flax(flat, lambda path: s3d_torch_key(path, spec))
+
+
+_RESNET_BLOCK_RE = re.compile(r"^layer(\d+)_(\d+)$")
+
+
+def resnet_torch_key(rest, col: str, prefix: str = "") -> Tuple[str, Callable]:
+    """A flax ResNet path below the ResNet module (``["layer1_0", "conv1",
+    "kernel"]``) → (torch key, transform): the port's copy of JAX
+    `torch_weights._resnet_key` (:361-387). ``conv1``/``channel`` and every
+    block conv → ``.weight`` (HWIO → OIHW), ``bn1``/``bn2`` and the block
+    BNs as BatchNorms, ``ds_conv``/``ds_bn`` → ``downsample.{0,1}``."""
+    sub, leaf = rest[0], rest[-1]
+
+    def term(base: str, is_conv: bool) -> Tuple[str, Callable]:
+        return (f"{base}.weight", t_conv) if is_conv else _norm_key(base, col, leaf)
+
+    if sub in ("conv1", "channel"):
+        return term(f"{prefix}{sub}", True)
+    if sub in ("bn1", "bn2"):
+        return term(f"{prefix}{sub}", False)
+    m = _RESNET_BLOCK_RE.match(sub)
+    if m is None:
+        raise KeyError(f"no torch mapping for ResNet path {rest}")
+    block = f"{prefix}layer{m.group(1)}.{m.group(2)}"
+    inner = rest[1]
+    if inner == "ds_conv":
+        return term(f"{block}.downsample.0", True)
+    if inner == "ds_bn":
+        return term(f"{block}.downsample.1", False)
+    return term(f"{block}.{inner}", inner.startswith("conv"))
+
+
+def kan_torch_key(rest, col: str, prefix: str) -> Tuple[str, Callable]:
+    """A flax KAN path below the KAN module (``["layer0", "base_weight"]``,
+    or ``["layer0", "grid"]`` in the ``kan_grid`` collection) → (torch key,
+    identity): JAX `torch_weights._kan_key` (:390-396); JAX keeps torch's
+    (out, in, …) layouts."""
+    m = re.match(r"^layer(\d+)$", rest[0])
+    if m is None:
+        raise KeyError(f"no torch mapping for KAN path {rest}")
+    return f"{prefix}.layers.{m.group(1)}.{'grid' if col == 'kan_grid' else rest[-1]}", t_id
+
+
+def reskan_state_dict_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX ``reskan`` variables flattened to ``"params/resnet/conv1/kernel"``-
+    style keys (``params``, ``batch_stats``, ``kan_grid``) → the port's
+    `ResKan` state_dict, the reference's ``kan_resnet.py`` keys: the inverse
+    of JAX `convert_reskan`."""
+    def key_fn(path):
+        col, rest = path[0], path[1:]
+        if rest[0] == "resnet":
+            return resnet_torch_key(rest[1:], col)
+        if rest[0] == "kan":
+            return kan_torch_key(rest[1:], col, "kan")
+        raise KeyError(f"no torch mapping for reskan path {path}")
+    return _from_flax(flat, key_fn)
+
+
+def resvitkan_state_dict_from_flax(flat: Mapping[str, np.ndarray],
+                                   head: str = "kan") -> Dict[str, torch.Tensor]:
+    """JAX ``resvitkan`` (``head="kan"``) or ``resvit`` (``head="mlp"``)
+    variables, flattened as `reskan_state_dict_from_flax`'s → the port's
+    `ResVitKan` state_dict, the reference's keys: the inverse of JAX
+    `convert_resvitkan` (:426-451). ``features.`` the ResNet; the
+    transformer through `cvit_torch_key`; ``{kan,mlp}_head.0`` the fc,
+    ``mlp_head.3`` the output, ``kan_head.3.layers.{i}`` the KAN."""
+    if head not in ("kan", "mlp"):
+        raise ValueError(f"head {head!r}: expected kan or mlp")
+    hname = f"{head}_head"
+
+    def key_fn(path):
+        col, rest = path[0], path[1:]
+        leaf = rest[-1]
+        if rest[0] == "features":
+            return resnet_torch_key(rest[1:], col, "features.")
+        if rest[0] == "transformer":
+            return cvit_torch_key(path, "cvit")
+        if rest in (["pos_embedding"], ["cls_token"]):
+            return rest[0], t_id
+        if rest[0] in ("patch_to_embedding", "head_fc", "head_out"):
+            base = {"patch_to_embedding": "patch_to_embedding", "head_fc": f"{hname}.0",
+                    "head_out": f"{hname}.3"}[rest[0]]
+            return _leaf(base, leaf, t_dense)
+        if rest[0] == "head_kan":
+            return kan_torch_key(rest[1:], col, f"{hname}.3")
+        raise KeyError(f"no torch mapping for resvitkan path {path}")
+    return _from_flax(flat, key_fn)
 
 
 def load_s3d_state_dict(model, state_dict: Mapping[str, torch.Tensor]) -> None:

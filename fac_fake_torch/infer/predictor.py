@@ -1,13 +1,15 @@
-"""Video forgery scorer: videos → frames → face crops → batched CViT → prob.
-The port of `fac_fake_tpu/infer/predictor.py` (`cvit_prediction.py:153-255`).
+"""Video forgery scorer: videos → frames → face crops → batched CViT (or
+ResVitKan) → prob. The port of `fac_fake_tpu/infer/predictor.py`
+(`cvit_prediction.py:153-255`).
 
   * the reference's ≤32-crop chunk loop (0:32/32:64/64:90, forced by the
     batch-indexed pos-embedding) is ONE padded forward over ``batch_crops``
     rows with pos rows ``arange(capacity) % 32``; ``UPPER_BOUND`` 90 caps
     the count;
   * crops go to the card as uint8 and kernel K2 normalizes them there
-    (`CViT.forward_crops`); under int8, K2 turns them into the stem's int8
-    input in the same pass;
+    (`CViT.forward_crops`, `ResVitKan.forward_crops`); under int8, K2 turns
+    them into the stem's int8 input in the same pass; a ResVitKan's KAN
+    head runs kernel K9 twice a forward; only CViTs fold BN and quantize;
   * detection is BlazeFace with kernel K1 for the per-frame NMS, or under
     ``infer.detector="mtcnn"`` the MTCNN cascade (`detect/mtcnn.py`, kernel
     K8 for its NMS) with plain box crops (`face_mtcnn`, `:86-102`); ≤ 5
@@ -48,12 +50,24 @@ MAX_CROPS = 29      # per-video crop cap (`cvit_prediction.py:194`)
 class VideoScorer:
     def __init__(self, model, cfg: Optional[Config] = None, detector=None,
                  reader=None, fold_bn: bool = True, device: DeviceLike = None):
-        """``model``: a CViT (`models.build_model`) with its weights loaded.
-        ``detector``/``reader``: optional stand-ins for the detector and the
-        cv2 `VideoReader` (any object with ``predict_on_batch``, BlazeFace's
-        interface, or under ``infer.detector="mtcnn"`` with ``detect``,
-        MTCNN's / with ``frame_count`` and ``stream_frames_at_indices``)."""
+        """``model``: a CViT or a ResVitKan (``resvitkan``, ``resvit``;
+        `models.build_model`) with its weights loaded; ``reskan``, whose
+        forward takes no pos rows, is refused. ``detector``/``reader``:
+        optional stand-ins for the detector and the cv2 `VideoReader` (any
+        object with ``predict_on_batch``, BlazeFace's interface, or under
+        ``infer.detector="mtcnn"`` with ``detect``, MTCNN's / with
+        ``frame_count`` and ``stream_frames_at_indices``)."""
         self.cfg = cfg or Config()
+        if not hasattr(model, "forward_crops"):
+            raise ValueError(
+                f"{type(model).__name__} cannot score videos: its forward takes no legacy "
+                "pos rows (pos_indices), which the scorer passes for the reference's "
+                "32-row chunks; the JAX VideoScorer cannot score it either (its forward "
+                "raises a TypeError on pos_indices)")
+        if self.cfg.infer.quantize in ("int8", "int8_full") and not hasattr(model, "stems"):
+            raise ValueError(
+                f"infer.quantize={self.cfg.infer.quantize!r}: {type(model).__name__} has no "
+                "foldable stem to quantize (int8 serving quantizes CViT stems)")
         self.device = resolve_device(device)
         model = model.to(self.device).eval()
         if fold_bn and hasattr(model, "stem_spec"):

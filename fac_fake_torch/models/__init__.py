@@ -10,7 +10,9 @@ from fac_fake_torch.core.device import DeviceLike, resolve_device
 from fac_fake_torch.core.registry import get
 
 from . import cvit  # noqa: F401  (registers cvit, cvit_repbn8)
+from . import resnet  # noqa: F401  (registers reskan, resvitkan, resvit)
 from .blocks.deconv import DEConv
+from .blocks.kan import KANLinear
 from .layers import LINEAR_NORM_STEPS, LinearNorm, RepBN
 from .s3d.layers import srm_weight
 from .s3d import model as s3d_model  # noqa: F401  (registers the S3D family)
@@ -18,12 +20,15 @@ from .s3d import model as s3d_model  # noqa: F401  (registers the S3D family)
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter and buffer from one explicit `torch.Generator`
-    on the model's device: 2D convs He-normal, 3D convs and linears
-    LeCun-normal, biases 0, norms identity (BatchNorm running mean 0, var
-    1; RepBN's ``alpha`` 1), LinearNorm's schedule at its start, the CViT's
-    cls token and legacy pos-embedding N(0, 1) (patch mode N(0, 0.02)), as
-    the JAX package initialises them; an S3DNet's frozen SRM bank is written
-    anew (``to_empty`` leaves buffers unset).
+    on the model's device: 2D convs He-normal (a ResNet's LeCun-normal),
+    3D convs and linears LeCun-normal, biases 0, norms identity (BatchNorm
+    running mean 0, var 1; RepBN's ``alpha`` 1), LinearNorm's schedule at
+    its start, the CViT's (and ResVitKan's) cls token and legacy
+    pos-embedding N(0, 1) (patch mode N(0, 0.02)), a `KANLinear` as JAX's
+    (`KANLinear.reset_parameters`: kaiming-uniform base weight and scaler,
+    the spline weight fitted to noise, the default grid), as the JAX
+    package initialises them; an S3DNet's frozen SRM bank is written anew
+    (``to_empty`` leaves buffers unset).
 
     A DEConv departs from the JAX package on purpose: its five branches are
     drawn N(0, 1), then all five are scaled by one factor, so that the
@@ -35,6 +40,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     done = set()
+    # a ResNet's convs are flax's default, LeCun-normal (He-normal through
+    # ResNet-34's 16 residual adds grows its pooled features to ~10^2)
+    lecun = {id(c.weight) for r in model.modules() if isinstance(r, resnet.ResNet)
+             for c in r.modules() if isinstance(c, nn.Conv2d)}
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, DEConv):
@@ -51,7 +60,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 if id(m.weight) in done:   # a DEConv branch
                     continue
                 fan_in = m.weight[0].numel()
-                gain = math.sqrt(2.0) if isinstance(m, nn.Conv2d) else 1.0
+                gain = math.sqrt(2.0) if isinstance(m, nn.Conv2d) \
+                    and id(m.weight) not in lecun else 1.0
                 m.weight.normal_(0.0, gain / math.sqrt(fan_in), generator=gen)
                 done.add(id(m.weight))
                 if m.bias is not None:
@@ -71,7 +81,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             elif isinstance(m, LinearNorm):
                 m.warm.fill_(0)
                 m.iter.fill_(LINEAR_NORM_STEPS)
-            elif isinstance(m, cvit.CViT):
+            elif isinstance(m, KANLinear):
+                m.reset_parameters(gen)
+                done.update(id(p) for p in m.parameters(recurse=False))
+            elif isinstance(m, (cvit.CViT, resnet.ResVitKan)):
                 m.cls_token.normal_(0.0, 1.0, generator=gen)
                 std = 1.0 if m.pos_mode == "legacy" else 0.02
                 m.pos_embedding.normal_(0.0, std, generator=gen)

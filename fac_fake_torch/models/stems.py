@@ -45,10 +45,10 @@ _VGG_STAGES = ((32, 3), (64, 3), (128, 3), (256, 4), (512, 4))
 
 # op kinds of the JAX stem DSL that later slices port
 _LATER = {
-    "scconv": "ROADMAP queue 1 item 14 (variant zoo)",
-    "wtconv": "ROADMAP queue 1 item 14 (variant zoo)",
-    "idw": "ROADMAP queue 1 item 14 (variant zoo)",
-    "od": "ROADMAP queue 1 item 14 (variant zoo)",
+    "scconv": "ROADMAP queue 1 item 14b (variant zoo)",
+    "wtconv": "ROADMAP queue 1 item 14b (variant zoo)",
+    "idw": "ROADMAP queue 1 item 14b (variant zoo)",
+    "od": "ROADMAP queue 1 item 14b (variant zoo)",
 }
 
 

@@ -923,3 +923,130 @@ def test_k8_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="one CTA"):
         nms.hard_nms(torch.zeros((big, 4), device=dev), torch.zeros(big, device=dev),
                      torch.zeros(big, dtype=torch.bool, device=dev))
+
+
+# K9: (B, in) of the KAN heads on the main path -- resvitkan at capacity 96
+# and at 8 x 32 rows (2048 -> 64 -> 2), reskan's (512 -> 64 -> 2) -- and a
+# ragged shape
+K9_SHAPES = [(96, 2048), (96, 64), (256, 2048), (256, 64), (96, 512), (3, 37)]
+
+
+def k9_grid(case, n_in, seed=0, grid_size=5, order=3):
+    """(in, grid_size + 2·order + 1) fp32 knots: the default grid; a sorted
+    per-feature perturbation of it (non-uniform, as after a refit); the
+    default with feature 1's knots 4 and 5 equal (a repeated knot)."""
+    from fac_fake_torch.models.blocks.kan import default_grid
+
+    g = default_grid(n_in, grid_size, order)
+    if case == "nonuniform":
+        h = 2.0 / grid_size
+        jitter = np.random.default_rng(seed).uniform(-0.45 * h, 0.45 * h, g.shape)
+        g = np.sort(g + jitter.astype(np.float32), axis=1)
+    elif case == "repeated":
+        g = g.copy()
+        g[1 % n_in, 5] = g[1 % n_in, 4]
+    return g
+
+
+def k9_x(grid, rows, seed=0):
+    """Seeded x over the grid's span and 0.3 beyond it, with planted rows
+    (as far as ``rows`` reaches): each knot exactly, below the first, at the
+    last, one ulp past it."""
+    rng = np.random.default_rng(seed)
+    n_knots = grid.shape[1]
+    lo, hi = grid[:, 0] - 0.3, grid[:, -1] + 0.3
+    x = (lo + (hi - lo) * rng.random((rows, grid.shape[0]))).astype(np.float32)
+    planted = [grid[:, j] for j in range(n_knots)] + [
+        grid[:, 0] - 0.5, grid[:, -1], np.nextafter(grid[:, -1], np.float32(np.inf))]
+    for r, p in enumerate(planted[:rows]):
+        x[r] = p
+    return x
+
+
+def k9_same_bits(a, b) -> bool:
+    """Bit-equal, with NaN equal only where both are NaN."""
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return torch.equal(a[~nan].view(ints), b[~nan].view(ints))
+
+
+@pytest.mark.parametrize("shape", K9_SHAPES)
+@pytest.mark.parametrize("grid_case", ["default", "nonuniform", "repeated"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_kan_bases_equals_plain(dev, shape, grid_case, dtype):
+    from fac_fake_torch.ops import kan
+
+    g = k9_grid(grid_case, shape[1])
+    x = torch.from_numpy(k9_x(g, shape[0])).to(dev, dtype)
+    grid = torch.from_numpy(g).to(dev, dtype)
+    before = kan.kan_bases.launches
+    got = kan.kan_bases(x, grid, 3)
+    ref = kan.kan_bases_plain(x, grid, 3)
+    torch.cuda.synchronize()
+    assert kan.kan_bases.launches == before + 1
+    assert got.shape == ref.shape == (*shape, 8) and got.is_contiguous()
+    assert k9_same_bits(got, ref)
+    assert bool(torch.isnan(got).any()) == (grid_case == "repeated")
+
+
+@pytest.mark.parametrize("grid_size,order", [(5, 0), (5, 1), (5, 2), (4, 3), (3, 5), (9, 3),
+                                             (1, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_other_orders_and_grids_equal_plain(dev, grid_size, order, dtype):
+    """Orders 0-5 and grids up to K9's 16 knots: the scalar stores (bases not
+    filling 16 bytes) and the kernel past the heads' (12 knots, order 3)."""
+    from fac_fake_torch.ops import kan
+
+    g = k9_grid("nonuniform", 70, 1, grid_size, order)
+    x = torch.from_numpy(k9_x(g, 33, 1)).to(dev, dtype)
+    grid = torch.from_numpy(g).to(dev, dtype)
+    got = kan.kan_bases(x, grid, order)
+    assert got.shape == (33, 70, grid_size + order)
+    assert k9_same_bits(got, kan.kan_bases_plain(x, grid, order))
+
+
+def test_k9_refuses_what_it_does_not_take(dev):
+    from fac_fake_torch.ops import kan
+
+    x = torch.rand((4, 6), device=dev)
+    grid = torch.from_numpy(k9_grid("default", 6)).to(dev)
+    with pytest.raises(ValueError, match="no kernel"):
+        kan.kan_bases(x.double(), grid.double(), 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kan.kan_bases(x, grid.bfloat16(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kan.kan_bases(x.t().contiguous().t(), grid, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kan.kan_bases(x, grid.cpu(), 3)
+    with pytest.raises(ValueError, match="caps"):
+        kan.kan_bases(x, torch.zeros((6, 17), device=dev), 3)
+    with pytest.raises(ValueError, match="caps"):
+        kan.kan_bases(x, torch.zeros((6, 16), device=dev), 6)
+
+
+def test_resvitkan_forward_runs_k9_twice_and_matches_the_cpu(dev):
+    """A reduced ``resvitkan`` from uint8 crops on the card: 1 K2 launch, 2
+    K9 launches (2048-wide head reduced to mlp 128: (B, 128) then (B, 64)),
+    logits within 1e-3 of the same module on the CPU (TF32 off)."""
+    import copy
+
+    from fac_fake_torch.core.config import ModelConfig
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import kan
+    from fac_fake_torch.ops import preprocess as pp
+
+    m = build_model(ModelConfig(name="resvitkan", image_size=64, patch_size=2, dim=64, depth=1,
+                                heads=2, mlp_dim=128), device=dev, seed=0)
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (40, 64, 64, 3), dtype=np.uint8))
+    pos = torch.arange(40) % 32
+    k9, k2 = kan.kan_bases.launches, pp.normalize_imagenet.launches
+    with torch.inference_mode():
+        got = m.forward_crops(u8.to(dev), torch.float32, pos.to(dev)).cpu()
+        torch.cuda.synchronize()
+        assert kan.kan_bases.launches == k9 + 2 and pp.normalize_imagenet.launches == k2 + 1
+        ref = copy.deepcopy(m).cpu().forward_crops(u8, torch.float32, pos)
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 1e-3

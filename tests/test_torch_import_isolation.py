@@ -43,6 +43,9 @@ def test_importing_every_port_module_loads_no_jax():
     # MTCNN with kernel K8, and the serving CLI
     assert {"fac_fake_torch.ops.nms", "fac_fake_torch.detect.mtcnn",
             "fac_fake_torch.cli.import_mtcnn", "fac_fake_torch.cli.serve"} <= set(mods)
+    # the ResNet/KAN family with kernel K9
+    assert {"fac_fake_torch.ops.kan", "fac_fake_torch.models.blocks.kan",
+            "fac_fake_torch.models.resnet"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
