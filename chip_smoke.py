@@ -137,9 +137,13 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      cascade's 4 calls a frame, recorded at the wrapper: 12 pyramid calls of
      128 -> 128 in one launch, 1536 -> 64, 64 -> 64, 64 -> 32 min) and on
      planted cases (exact ties, NaN score and box, zero-area and inverted
-     boxes, none valid, max_out above the live count, min mode, max_out 0);
-     the frame's 4 launches timed cold and warm beside the plain version and
-     the bound (`k8_phase`);
+     boxes, none valid, max_out above the live count, min mode, max_out 0;
+     at the edges of K8's 32-candidate tiles: 31, 32 and 33 live, 1024 live
+     with max_out 4, NaN scores and ties across a tile boundary, one box
+     that suppresses all, exactly max_out survivors, a G-batched call with
+     one call of no live candidate and one all live); the frame's 4 launches
+     timed cold and warm beside the plain version, the bound and the launch
+     floor (4 empty kernels) (`k8_phase`);
  M2. the MTCNN video path: `VideoScorer` with the full-width base `cvit`
      (seeded) and infer.detector="mtcnn" (the seeded MTCNN it builds on the
      card) over the 9 in-memory videos, at (0.6, 0.7, 0.7) and at (0, 0, 0):
@@ -152,11 +156,12 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
  R1. K9 (KAN's B-spline bases) against its plain version, bit-equal (NaN
      where both are NaN) in fp32 and bf16 at the family's call shapes
      (K9_SHAPES: resvitkan's head at capacity 96 and 8 x 32 rows, reskan's at
-     batch 96) on the default grid, a sorted perturbation of it and one with
-     a repeated knot, x planted on every knot, below the first, at and past
-     the last; one resvitkan forward's 2 launches timed cold and warm beside
-     the plain version, copy_ of the outputs' bytes and the bound
-     (`k9_phase`);
+     batch 96) on the default grid, a sorted perturbation of it, one with a
+     repeated knot, a knot at +-0, swapped knots, non-finite knots and knots
+     1e-30 apart (K9_GRIDS), x planted on every knot, below the first, at and
+     past the last, at +-0, and on each grid at +-1e38, +-inf and NaN; one
+     resvitkan forward's 2 launches timed cold and warm beside the plain
+     version, copy_ of the outputs' bytes and the bound (`k9_phase`);
  R2. the resvitkan video path (`resvitkan_path`): `VideoScorer` with the
      full-width resvitkan (vendored ResNet-50 with the 512 squeeze, patch 7,
      dim 1024, depth 6, heads 8, mlp 2048, KAN (2048, 64, 2); seeded) and the
@@ -272,7 +277,11 @@ TRAIN_PARAM_ATOL = 1e-6
 MTCNN_HW = (1080, 1920)                            # the reader's frames: 12 pyramid scales
 MTCNN_THRESHOLDS = ((0.6, 0.7, 0.7), (0.0, 0.0, 0.0))   # the predict preset; every slot live
 K8_OPS_PER_IOU = 16           # fp32 operations an IoU test and its suppression
-K8_COLD_SLEEP_CYCLES = 8 * SLEEP_CYCLES   # the cold run enqueues ~5000 launches behind it
+K8_COLD_SLEEP_CYCLES = 8 * SLEEP_CYCLES   # ahead of the cold run's 800 launches
+# K8's cold run times 200 frames (800 launches) of a turn over ~1250 copies:
+# a whole turn enqueues ~5000 launches, more than the host keeps ahead of the
+# card once a frame takes less card time than its four Python calls
+K8_COLD_FRAMES = 200
 # card vs CPU on one frame, the same inputs: each net's outputs (fp32 convs,
 # TF32 off; a different summation order), the stage patches on the 0-255
 # scale (the same gathers and IEEE products on both)
@@ -286,7 +295,8 @@ K9_ORDER, K9_GRID_SIZE = 3, 5     # every KAN head's spline order and grid size
 # (B, in) of K9's calls on the paths: resvitkan's head at capacity 96 and at
 # 8 x 32 rows (2048 -> 64 -> 2), reskan's at batch 96 (512 -> 64 -> 2)
 K9_SHAPES = ((96, 2048), (96, 64), (256, 2048), (256, 64), (96, 512))
-K9_GRIDS = ("default", "nonuniform", "repeated")
+K9_GRIDS = ("default", "nonuniform", "repeated", "zero_knot", "swapped", "nonfinite", "tiny")
+K9_NAN_GRIDS = ("repeated", "nonfinite")   # the full recursion's 0/0 and inf - inf
 # fp32 operations of K9's function a (row, feature): order 0, two compares
 # and an and on each of the 11 intervals; a level, x - g, g' - x, two
 # divisions, two products and a sum on each of its 10, 9, 8 bases
@@ -300,24 +310,36 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3, sleep_cycles: int = SLEEP_CYCLES) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, sleep_cycles: int = SLEEP_CYCLES,
+            device_bound: bool = False) -> float:
     """Device ms a call of ``fn``: CUDA events around ``iters`` calls that
     are queued behind a ~50 ms sleep kernel, so that the host has enqueued
     them all before the first runs and the events time the card, not the
     host's launch overhead (which exceeds the device time of a small
-    kernel). A call that synchronizes falls back to timing both."""
+    kernel). A call that synchronizes falls back to timing both. With
+    ``device_bound``, fails if the host took longer to enqueue the calls
+    than the sleep lasted: the card then waited on the host (or on the
+    driver's launch queue, full), and the events would time the host."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    asleep = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    asleep.record()
     torch.cuda._sleep(sleep_cycles)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     torch.cuda.synchronize()
+    slept = asleep.elapsed_time(start)
+    if device_bound and host_ms >= slept:
+        raise AssertionError(f"timing paced by the host: {iters} calls took {host_ms:.1f} ms "
+                             f"to enqueue, the sleep ahead of them {slept:.1f} ms")
     return start.elapsed_time(end) / iters
 
 
@@ -359,11 +381,12 @@ def digest(t) -> float:
     return float(int.from_bytes(hashlib.sha256(data).digest()[:6], "little"))
 
 
-def rotated_ms(fn, xs, sleep_cycles: int = SLEEP_CYCLES) -> float:
+def rotated_ms(fn, xs, sleep_cycles: int = SLEEP_CYCLES, iters: int = 0, **kw) -> float:
     """Device ms a call of ``fn`` on inputs that rotate over ``xs``, each
     call's output kept until its input comes round again: with ``xs`` and
     their outputs beyond twice the L2, every call reads its input from
-    device memory (cold)."""
+    device memory (cold). ``iters`` timed calls (default: a whole turn, at
+    least 20), after a whole turn of warm-up."""
     import itertools
     turn = itertools.count()
     keep = [None] * len(xs)
@@ -372,7 +395,8 @@ def rotated_ms(fn, xs, sleep_cycles: int = SLEEP_CYCLES) -> float:
         i = next(turn) % len(xs)
         keep[i] = fn(xs[i])
 
-    return cuda_ms(cold, iters=max(20, len(xs)), warmup=len(xs) + 2, sleep_cycles=sleep_cycles)
+    return cuda_ms(cold, iters=iters or max(20, len(xs)), warmup=len(xs) + 2,
+                   sleep_cycles=sleep_cycles, **kw)
 
 
 def k2_phase(rng, dev) -> dict:
@@ -2190,7 +2214,8 @@ def k8_planted(side) -> dict:
     """K8's planted cases, name -> (boxes, scores, valid, iou_thresh, mode,
     max_out) as numpy: exact score ties; a valid NaN score and a NaN box;
     zero-area and inverted boxes (+1 areas of 0 and below); none valid;
-    max_out above the live count; the min denominator; max_out 0."""
+    max_out above the live count; the min denominator; max_out 0; and at the
+    edges of K8's 32-candidate tiles (`k8_tile_planted`)."""
     def cells(n):
         x, y = side.integers(0, 40, n) * 2.0, side.integers(0, 30, n) * 2.0
         s = side.integers(10, 24, n).astype(np.float64)
@@ -2215,7 +2240,46 @@ def k8_planted(side) -> dict:
             "zero-area, min": (z_b, z_s, np.ones(64, bool), 0.5, "min", 64),
             "none valid": (z_b, z_s, np.zeros(64, bool), 0.7, "union", 32),
             "max_out above live": (z_b, z_s, few, 0.7, "union", 64),
-            "max_out 0": (z_b, z_s, np.ones(64, bool), 0.7, "union", 0)}
+            "max_out 0": (z_b, z_s, np.ones(64, bool), 0.7, "union", 0),
+            **k8_tile_planted(side, cells)}
+
+
+def k8_tile_planted(side, cells) -> dict:
+    """K8's cases at the edges of its 32-candidate tiles: 31, 32 and 33 live
+    (disjoint boxes: all survive); 1024 live with max_out 4; 28 NaN scores
+    then 10 tied ones across the first tile boundary; one box that holds
+    every other (min IoU 1); exactly max_out survivors (each box twice, +1
+    px: the better of each pair); G = 3 calls, none / all / a few live."""
+    def disjoint(n):
+        c = np.arange(n)
+        x, y = (c % 16) * 20.0, (c // 16) * 20.0
+        return np.stack([x, y, x + 10, y + 10], 1).astype(np.float32)
+
+    out = {}
+    for n_live in (31, 32, 33):
+        v = np.zeros(64, bool)
+        v[side.permutation(64)[:n_live]] = True
+        out[f"{n_live} live"] = (disjoint(64)[side.permutation(64)],
+                                 side.uniform(0, 1, 64).astype(np.float32), v, 0.7, "union", 40)
+    out["1024 live, max_out 4"] = (cells(1024), side.uniform(0, 1, 1024).astype(np.float32),
+                                   np.ones(1024, bool), 0.7, "union", 4)
+    s = (np.round(side.uniform(0, 1, 128) * 4) / 4).astype(np.float32)
+    order = side.permutation(128)
+    s[order[:28]], s[order[28:38]] = np.nan, 2.0
+    out["NaN and ties across a tile"] = (cells(128), s, np.ones(128, bool), 0.5, "union", 128)
+    b, s = cells(256), side.uniform(0, 1, 256).astype(np.float32)
+    b[37], s[37] = [0, 0, 200, 200], 2.0
+    out["one box suppresses all"] = (b, s, np.ones(256, bool), 0.7, "min", 64)
+    d = disjoint(48)
+    out["exactly max_out survivors"] = (np.concatenate([d, d + np.float32(1)]),
+                                        side.uniform(0, 1, 96).astype(np.float32),
+                                        np.ones(96, bool), 0.5, "union", 48)
+    v = np.ones((3, 128), bool)
+    v[0], v[2] = False, side.random(128) < 0.3
+    out["G-batched, none and all live"] = (np.stack([cells(128) for _ in range(3)]),
+                                           side.uniform(0, 1, (3, 128)).astype(np.float32), v,
+                                           0.7, "union", 64)
+    return out
 
 
 def record_nms(fn) -> list:
@@ -2269,7 +2333,7 @@ def k8_iou_tests(call) -> int:
     return tests
 
 
-def k8_phase(rng, dev, det) -> dict:
+def k8_phase(rng, dev, det=None) -> dict:
     """M1: K8 against its plain version, bit-equal (idx and keep in every
     slot), on the real candidate sets of one `MTCNN.run` on a seeded
     1920x1080 frame at each of MTCNN_THRESHOLDS (its four calls a frame,
@@ -2279,9 +2343,17 @@ def k8_phase(rng, dev, det) -> dict:
     the candidate sets beyond twice the L2), warm, and the plain version.
     The bound: the sets' bytes read once and idx/keep written once, and 16
     fp32 operations an IoU test that the scan needs on this data
-    (`k8_iou_tests`). Inputs from `side_rng`."""
+    (`k8_iou_tests`). Beside it, the launch floor: 4 launches of a kernel
+    that returns at once (``torch.cuda._sleep(0)``) on the same stream, which
+    a latency-bound K8 approaches. The cold run and the floor time
+    K8_COLD_FRAMES frames, and every K8 timing fails if the host paced it.
+    ``det``: the MTCNN whose calls are recorded, a seeded one built on
+    ``dev`` when not given. Inputs from `side_rng`."""
     import torch
     from fac_fake_torch.ops import nms
+    if det is None:
+        from fac_fake_torch.detect.mtcnn import MTCNN
+        det = MTCNN(device=dev)
     side = side_rng(rng)
     frame = torch.from_numpy(side.integers(0, 256, (*MTCNN_HW, 3), dtype=np.uint8)).to(dev)
     before = det.thresholds
@@ -2318,7 +2390,7 @@ def k8_phase(rng, dev, det) -> dict:
     timed = {}
     for th, calls in real.items():
         args = [a for a, _ in calls]
-        timed[th] = (cuda_ms(lambda: run(args)), args)
+        timed[th] = (cuda_ms(lambda: run(args), device_bound=True), args)
     calls = timed[(0.0, 0.0, 0.0)][1]
     # boxes, scores and valid read once; idx (int64) and keep written once
     nbytes = sum(a[0].numel() * 4 + a[1].numel() * 4 + a[2].numel()
@@ -2326,18 +2398,24 @@ def k8_phase(rng, dev, det) -> dict:
     n_rot = int(2 * L2_BYTES // nbytes) + 2
     rot = [calls] + [[(a[0].clone(), a[1].clone(), a[2].clone(), *a[3:]) for a in calls]
                      for _ in range(n_rot - 1)]
-    cold = rotated_ms(run, rot, sleep_cycles=K8_COLD_SLEEP_CYCLES)
+    cold = rotated_ms(run, rot, sleep_cycles=K8_COLD_SLEEP_CYCLES, iters=K8_COLD_FRAMES,
+                      device_bound=True)
     del rot
     warm = timed[(0.0, 0.0, 0.0)][0]
     plain = cuda_ms(lambda: [nms.hard_nms_plain(*c) for c in calls], iters=2, warmup=1)
+    floor = cuda_ms(lambda: [torch.cuda._sleep(0) for _ in calls], iters=K8_COLD_FRAMES,
+                    sleep_cycles=K8_COLD_SLEEP_CYCLES, device_bound=True)
     tests = sum(k8_iou_tests(c) for c in calls)
     b_ms, b_by = bound_ms(nbytes, K8_OPS_PER_IOU * tests)
     log(f"M1 K8, one 1080p frame's 4 launches at thresholds (0, 0, 0): kernel {cold:.4f} ms "
-        f"cold ({n_rot} copies), {warm:.4f} ms warm (at {MTCNN_THRESHOLDS[0]}: "
+        f"cold ({K8_COLD_FRAMES} frames of a turn over {n_rot} copies), {warm:.4f} ms warm "
+        f"(at {MTCNN_THRESHOLDS[0]}: "
         f"{timed[MTCNN_THRESHOLDS[0]][0]:.4f} ms warm); plain {plain:.4f} ms; bound "
-        f"{b_ms:.6f} ms ({b_by}: {nbytes / 1e3:.1f} KB, {tests} IoU tests)")
+        f"{b_ms:.6f} ms ({b_by}: {nbytes / 1e3:.1f} KB, {tests} IoU tests); launch floor "
+        f"{floor:.4f} ms (4 empty kernels)")
     return dict(ms=cold, warm_ms=warm, default_warm_ms=timed[MTCNN_THRESHOLDS[0]][0],
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, iou_tests=tests, nbytes=nbytes)
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, iou_tests=tests, nbytes=nbytes,
+                launch_floor_ms=floor)
 
 
 def mtcnn_vs_cpu(det, frame: np.ndarray) -> dict:
@@ -2561,25 +2639,50 @@ def k9_grid(rng, case: str, n_in: int) -> np.ndarray:
     """(in, 12) fp32 knots: the default grid; a sorted per-feature
     perturbation of it (non-uniform, as a refit leaves it; drawn here, since
     the card's machine has no JAX for `update_grid`); the default with
-    feature 1's knots 4 and 5 equal (a repeated knot: 0/0 = NaN)."""
+    feature 1's knots 4 and 5 equal (a repeated knot: 0/0 = NaN); knots 0.25
+    apart with knot 5 at +0 on even features and -0 on odd ones; the default
+    with feature 1's knots 4 and 5 swapped (unsorted); the default with
+    feature 1's knot 6 +inf, feature 2's knot 0 -inf and feature 3's knot 3
+    NaN; knots 1e-30 apart around 0. A feature whose knots are repeated,
+    swapped or non-finite takes K9's full recursion; on the others a finite
+    in-range x takes its fast path."""
     from fac_fake_torch.models.blocks.kan import default_grid
     g = default_grid(n_in, K9_GRID_SIZE, K9_ORDER)
+    n_knots = g.shape[1]
     if case == "nonuniform":
         h = 2.0 / K9_GRID_SIZE
         g = np.sort(g + rng.uniform(-0.45 * h, 0.45 * h, g.shape).astype(np.float32), axis=1)
     elif case == "repeated":
         g = g.copy()
         g[1, 5] = g[1, 4]
+    elif case == "zero_knot":
+        g = np.tile((np.arange(n_knots, dtype=np.float32) - 5) * np.float32(0.25), (n_in, 1))
+        g[1::2, 5] = -0.0
+    elif case == "swapped":
+        g = g.copy()
+        g[1, [4, 5]] = g[1, [5, 4]]
+    elif case == "nonfinite":
+        g = g.copy()
+        g[1, 6], g[2, 0], g[3, 3] = np.inf, -np.inf, np.nan
+    elif case == "tiny":
+        g = np.tile(((np.arange(n_knots) - 5.5) * 1e-30).astype(np.float32), (n_in, 1))
     return g
 
 
-def k9_x(rng, grid: np.ndarray, rows: int) -> np.ndarray:
+def k9_x(rng, grid: np.ndarray, rows: int, extreme: bool = False) -> np.ndarray:
     """(rows, in) fp32 over the grid's span and 0.3 beyond it, with planted
-    rows: each knot exactly, below the first, at the last, one ulp past it."""
-    lo, hi = grid[:, 0] - 0.3, grid[:, -1] + 0.3
-    x = (lo + (hi - lo) * rng.random((rows, grid.shape[0]))).astype(np.float32)
+    rows: each knot exactly, below the first, at the last, one ulp past it,
+    +0.0, -0.0; with ``extreme``, then +-1e38, +-inf and NaN."""
+    n_in = grid.shape[0]
+    with np.errstate(invalid="ignore", over="ignore"):
+        lo, hi = grid[:, 0] - 0.3, grid[:, -1] + 0.3
+        x = (lo + (hi - lo) * rng.random((rows, n_in))).astype(np.float32)
+    x[~np.isfinite(x)] = 0.5                # a non-finite knot's feature
     planted = [grid[:, j] for j in range(grid.shape[1])] + [
-        grid[:, 0] - 0.5, grid[:, -1], np.nextafter(grid[:, -1], np.float32(np.inf))]
+        grid[:, 0] - 0.5, grid[:, -1], np.nextafter(grid[:, -1], np.float32(np.inf)),
+        np.zeros(n_in), np.full(n_in, -0.0)]
+    if extreme:
+        planted += [np.full(n_in, v) for v in (1e38, -1e38, np.inf, -np.inf, np.nan)]
     for r, p in enumerate(planted[:rows]):
         x[r] = p
     return x
@@ -2599,7 +2702,8 @@ def k9_phase(rng, dev) -> dict:
     """R1: K9 (KAN's B-spline bases) against its plain version, bit-equal (NaN
     where both are NaN) in fp32 and bf16, at every K9_SHAPES on each of
     K9_GRIDS, x planted on every knot, below the first, at and past the
-    last. Timed at one resvitkan forward's 2 launches at capacity 96 ((96,
+    last, at +-0; at (96, 64) on each grid with x also at +-1e38, +-inf and
+    NaN. Timed at one resvitkan forward's 2 launches at capacity 96 ((96,
     2048), (96, 64), fp32): cold (launches rotating over buffers beyond twice
     the L2), warm, bf16 warm, the plain version, and torch ``copy_`` of the
     outputs' bytes, cold (a yardstick, not the same function). The bound:
@@ -2608,24 +2712,26 @@ def k9_phase(rng, dev) -> dict:
     import torch
     from fac_fake_torch.ops import kan
     side = side_rng(rng)
+    cases = [(shape, case, False) for shape in K9_SHAPES for case in K9_GRIDS]
+    cases += [(K9_SHAPES[1], case, True) for case in K9_GRIDS]
     calls = 0
-    for shape in K9_SHAPES:
-        for case in K9_GRIDS:
-            g = k9_grid(side, case, shape[1])
-            x = k9_x(side, g, shape[0])
-            for dt in (torch.float32, torch.bfloat16):
-                xt, gt = torch.from_numpy(x).to(dev, dt), torch.from_numpy(g).to(dev, dt)
-                got = kan.kan_bases(xt, gt, K9_ORDER)
-                ref = kan.kan_bases_plain(xt, gt, K9_ORDER)
-                torch.cuda.synchronize()
-                nan = bool(torch.isnan(ref).any())
-                if not same_bits(got, ref) or nan != (case == "repeated"):
-                    raise AssertionError(f"K9 {shape} {case} {dt}: differs from plain "
-                                         f"(NaN in plain: {nan})")
-                calls += 1
+    for shape, case, extreme in cases:
+        g = k9_grid(side, case, shape[1])
+        x = k9_x(side, g, shape[0], extreme)
+        for dt in (torch.float32, torch.bfloat16):
+            xt, gt = torch.from_numpy(x).to(dev, dt), torch.from_numpy(g).to(dev, dt)
+            got = kan.kan_bases(xt, gt, K9_ORDER)
+            ref = kan.kan_bases_plain(xt, gt, K9_ORDER)
+            torch.cuda.synchronize()
+            nan = bool(torch.isnan(ref).any())
+            if not same_bits(got, ref) or nan != (extreme or case in K9_NAN_GRIDS):
+                raise AssertionError(f"K9 {shape} {case} {dt} (extreme x: {extreme}): differs "
+                                     f"from plain (NaN in plain: {nan})")
+            calls += 1
     log(f"K9 kan_bases: bit-equal to plain in fp32 and bf16 at {list(K9_SHAPES)} on the "
         f"{', '.join(K9_GRIDS)} grids, x planted on every knot, below the first, at and "
-        f"past the last ({calls} calls)")
+        f"past the last, at +-0; at {K9_SHAPES[1]} with x at +-1e38, +-inf and NaN on each "
+        f"grid ({calls} calls)")
 
     dims = K9_SHAPES[:2]
 
@@ -2858,8 +2964,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- M1-M3. MTCNN with K8, its video path, the serving entry point ----------
-    from fac_fake_torch.detect.mtcnn import MTCNN
-    k8 = k8_phase(rng, dev, MTCNN(device=dev))
+    k8 = k8_phase(rng, dev)
     m_scorer, m2 = mtcnn_path(args.seed, dev, reader)
     m3 = serve_phase(m_scorer)
     del m_scorer
@@ -3037,10 +3142,14 @@ def main() -> int:
          "max_abs_err": 0.0, "ms": k8["ms"], "kernel_ms": k8["ms"], "warm_ms": k8["warm_ms"],
          "default_thresholds_warm_ms": k8["default_warm_ms"], "plain_ms": k8["plain_ms"],
          "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"], "library_ms": None,
+         "launch_floor_ms": k8["launch_floor_ms"],
          "iou_tests": k8["iou_tests"], "bytes": k8["nbytes"],
          "timing": "ms: cold, one frame's 4 launches rotating over copies of its candidate sets "
-                   "beyond twice the L2; warm_ms: the same sets again and again; idx and keep "
-                   "bit-equal to the plain version (max_abs_err 0)",
+                   f"beyond twice the L2, {K8_COLD_FRAMES} frames timed; warm_ms: the same sets "
+                   "again and again; each timing fails if the host paced it; "
+                   "launch_floor_ms: 4 launches of a kernel that returns at once "
+                   "(torch.cuda._sleep(0)) on the same stream, information beside the bound; "
+                   "idx and keep bit-equal to the plain version (max_abs_err 0)",
          "shapes": "one 1920x1080 frame's calls at thresholds (0, 0, 0): (12, 128) -> 128 union "
                    "0.5, 1536 -> 64 union 0.7, 64 -> 64 union 0.7, 64 -> 32 min 0.7; launches: "
                    "the M2 path's two runs (4 a detected frame); frames: frames detected a run; "

@@ -6,7 +6,7 @@ share shows against the spread between runs:
         [--phases-from ROOT]
 
 (``--phase`` names any ``chip_smoke.<phase>_phase``: k1, k2, k3, k4, k6, k7,
-augment.)
+k8, k9, augment. ``k8_phase`` builds its seeded MTCNN itself.)
 
 PARENT_ROOT is an unpacked checkout of the other tree (``git archive``).
 Each turn is a process of its own that imports ``fac_fake_torch`` from its

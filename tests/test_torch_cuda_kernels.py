@@ -882,6 +882,54 @@ def k8_cases(seed=0):
     out["one_candidate"] = (b[:1], s[:1], v[:1], 0.7, "union", 4)
     b = _cell_boxes(rng, 4096, True)
     out["n_4096"] = (b, *scored(b), 0.7, "union", 96)
+    out.update(k8_tile_cases(rng))
+    return out
+
+
+def _disjoint_boxes(n):
+    """n 10-px boxes 20 px apart on a grid of 16 columns: no two overlap."""
+    c = np.arange(n)
+    x, y = (c % 16) * 20.0, (c // 16) * 20.0
+    return np.stack([x, y, x + 10.0, y + 10.0], axis=1).astype(np.float32)
+
+
+def k8_tile_cases(rng):
+    """Cases at the edges of K8's 32-candidate tiles: live counts of 31, 32
+    and 33 (all surviving); 1024 live with max_out 4; NaN scores and exact
+    ties straddling the first tile boundary; one box that suppresses every
+    later one; exactly max_out survivors (the better of each overlapping
+    pair), the last past the second tile; a
+    G-batched call with one call of no live candidate and one all live."""
+    out = {}
+    for n_live in (31, 32, 33):
+        b = _disjoint_boxes(64)[rng.permutation(64)]
+        s = rng.uniform(0.0, 1.0, 64).astype(np.float32)
+        v = np.zeros(64, bool)
+        v[rng.permutation(64)[:n_live]] = True
+        out[f"live_{n_live}"] = (b, s, v, 0.7, "union", 40)
+    b = _cell_boxes(rng, 1024, True)
+    out["live_1024_max_out_4"] = (b, rng.uniform(0.0, 1.0, 1024).astype(np.float32),
+                                  np.ones(1024, bool), 0.7, "union", 4)
+    b = _cell_boxes(rng, 128, False)
+    s = np.round(rng.uniform(0.0, 1.0, 128) * 4).astype(np.float32) / 4   # exact ties
+    order = rng.permutation(128)
+    s[order[:28]] = np.nan                  # sorted positions 0-27: NaN
+    s[order[28:38]] = 2.0                   # 28-37: one tied score across the boundary
+    out["nan_and_ties_across_a_tile"] = (b, s, np.ones(128, bool), 0.5, "union", 128)
+    b = _cell_boxes(rng, 256, False)
+    s = rng.uniform(0.0, 1.0, 256).astype(np.float32)
+    b[37], s[37] = [0.0, 0.0, 200.0, 200.0], 2.0   # holds every other box: min IoU 1
+    out["one_box_suppresses_all"] = (b, s, np.ones(256, bool), 0.7, "min", 64)
+    d = _disjoint_boxes(48)
+    b = np.concatenate([d, d + np.float32(1.0)])  # each cell twice: IoU 0.70 > 0.5
+    s = rng.uniform(0.0, 1.0, 96).astype(np.float32)
+    out["exactly_max_out_survivors"] = (b, s, np.ones(96, bool), 0.5, "union", 48)
+    b = np.stack([_cell_boxes(rng, 128, True) for _ in range(3)])
+    s = rng.uniform(0.0, 1.0, (3, 128)).astype(np.float32)
+    v = np.ones((3, 128), bool)
+    v[0] = False                            # call 0: no live candidate
+    v[2] = rng.random(128) < 0.3            # call 2: a few
+    out["batched_none_and_all_live"] = (b, s, v, 0.7, "union", 64)
     return out
 
 
@@ -931,13 +979,23 @@ def test_k8_refuses_what_it_does_not_take(dev):
 K9_SHAPES = [(96, 2048), (96, 64), (256, 2048), (256, 64), (96, 512), (3, 37)]
 
 
+# K9 grids on which the full recursion gives NaN (0/0, inf - inf)
+K9_NAN_GRIDS = ("repeated", "nonfinite")
+
+
 def k9_grid(case, n_in, seed=0, grid_size=5, order=3):
     """(in, grid_size + 2·order + 1) fp32 knots: the default grid; a sorted
     per-feature perturbation of it (non-uniform, as after a refit); the
-    default with feature 1's knots 4 and 5 equal (a repeated knot)."""
+    default with feature 1's knots 4 and 5 equal (a repeated knot); knots
+    0.25 apart with knot 5 at +0 on even features and -0 on odd ones
+    ("zero_knot"); the default with feature 1's knots 4 and 5 swapped
+    (unsorted); the default with feature 1's knot 6 at +inf, feature 2's
+    knot 0 at -inf and feature 3's knot 3 NaN ("nonfinite"); knots 1e-30
+    apart around 0 ("tiny")."""
     from fac_fake_torch.models.blocks.kan import default_grid
 
     g = default_grid(n_in, grid_size, order)
+    n_knots = g.shape[1]
     if case == "nonuniform":
         h = 2.0 / grid_size
         jitter = np.random.default_rng(seed).uniform(-0.45 * h, 0.45 * h, g.shape)
@@ -945,19 +1003,36 @@ def k9_grid(case, n_in, seed=0, grid_size=5, order=3):
     elif case == "repeated":
         g = g.copy()
         g[1 % n_in, 5] = g[1 % n_in, 4]
+    elif case == "zero_knot":
+        g = np.tile((np.arange(n_knots, dtype=np.float32) - 5) * np.float32(0.25), (n_in, 1))
+        g[1::2, 5] = -0.0
+    elif case == "swapped":
+        g = g.copy()
+        g[1 % n_in, [4, 5]] = g[1 % n_in, [5, 4]]
+    elif case == "nonfinite":
+        g = g.copy()
+        g[1 % n_in, 6], g[2 % n_in, 0], g[3 % n_in, 3] = np.inf, -np.inf, np.nan
+    elif case == "tiny":
+        g = np.tile(((np.arange(n_knots) - 5.5) * 1e-30).astype(np.float32), (n_in, 1))
     return g
 
 
-def k9_x(grid, rows, seed=0):
+def k9_x(grid, rows, seed=0, extreme=False):
     """Seeded x over the grid's span and 0.3 beyond it, with planted rows
     (as far as ``rows`` reaches): each knot exactly, below the first, at the
-    last, one ulp past it."""
+    last, one ulp past it, +0.0, -0.0; with ``extreme``, then ±1e38, ±inf and
+    NaN."""
     rng = np.random.default_rng(seed)
-    n_knots = grid.shape[1]
-    lo, hi = grid[:, 0] - 0.3, grid[:, -1] + 0.3
-    x = (lo + (hi - lo) * rng.random((rows, grid.shape[0]))).astype(np.float32)
+    n_in, n_knots = grid.shape
+    with np.errstate(invalid="ignore", over="ignore"):
+        lo, hi = grid[:, 0] - 0.3, grid[:, -1] + 0.3
+        x = (lo + (hi - lo) * rng.random((rows, n_in))).astype(np.float32)
+    x[~np.isfinite(x)] = 0.5                # a non-finite knot's feature
     planted = [grid[:, j] for j in range(n_knots)] + [
-        grid[:, 0] - 0.5, grid[:, -1], np.nextafter(grid[:, -1], np.float32(np.inf))]
+        grid[:, 0] - 0.5, grid[:, -1], np.nextafter(grid[:, -1], np.float32(np.inf)),
+        np.zeros(n_in), np.full(n_in, -0.0)]
+    if extreme:
+        planted += [np.full(n_in, v) for v in (1e38, -1e38, np.inf, -np.inf, np.nan)]
     for r, p in enumerate(planted[:rows]):
         x[r] = p
     return x
@@ -972,8 +1047,11 @@ def k9_same_bits(a, b) -> bool:
     return torch.equal(a[~nan].view(ints), b[~nan].view(ints))
 
 
+K9_GRIDS = ["default", "nonuniform", "repeated", "zero_knot", "swapped", "nonfinite", "tiny"]
+
+
 @pytest.mark.parametrize("shape", K9_SHAPES)
-@pytest.mark.parametrize("grid_case", ["default", "nonuniform", "repeated"])
+@pytest.mark.parametrize("grid_case", K9_GRIDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k9_kan_bases_equals_plain(dev, shape, grid_case, dtype):
     from fac_fake_torch.ops import kan
@@ -988,7 +1066,25 @@ def test_k9_kan_bases_equals_plain(dev, shape, grid_case, dtype):
     assert kan.kan_bases.launches == before + 1
     assert got.shape == ref.shape == (*shape, 8) and got.is_contiguous()
     assert k9_same_bits(got, ref)
-    assert bool(torch.isnan(got).any()) == (grid_case == "repeated")
+    assert bool(torch.isnan(got).any()) == (grid_case in K9_NAN_GRIDS)
+
+
+@pytest.mark.parametrize("grid_case", K9_GRIDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_extreme_x_equals_plain(dev, grid_case, dtype):
+    """x at ±1e38, ±inf and NaN (outside the fast path's range: the full
+    recursion) beside in-range rows, on every grid: bit-equal, NaN where the
+    plain version has it."""
+    from fac_fake_torch.ops import kan
+
+    g = k9_grid(grid_case, 64)
+    x = torch.from_numpy(k9_x(g, 96, extreme=True)).to(dev, dtype)
+    grid = torch.from_numpy(g).to(dev, dtype)
+    got = kan.kan_bases(x, grid, 3)
+    ref = kan.kan_bases_plain(x, grid, 3)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref).any())
+    assert k9_same_bits(got, ref)
 
 
 @pytest.mark.parametrize("grid_size,order", [(5, 0), (5, 1), (5, 2), (4, 3), (3, 5), (9, 3),

@@ -2,8 +2,10 @@
 version (`fac_fake_torch/ops/kan.py kan_bases_plain`) against the JAX
 package's `fac_fake_tpu/models/blocks/kan.py` on the CPU: the B-spline bases
 on the default grid, a grid refitted by JAX's `update_grid`, planted knot
-cases and a repeated knot, in fp32 and bf16; `curve2coeff`; `KANLinear` and
-`KAN` with JAX's variables carried across; the seeded init."""
+cases and a repeated knot, a knot at ±0 with x at ±0, an unsorted grid,
+non-finite knots, knots 1e-30 apart, x at ±1e38, ±inf and NaN, in fp32 and
+bf16; `curve2coeff`; `KANLinear` and `KAN` with JAX's variables carried
+across; the seeded init."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,20 +13,26 @@ import pytest
 import torch
 from flax import traverse_util
 
+from tests.test_torch_cuda_kernels import K9_NAN_GRIDS, k9_grid
+
 torch.set_num_threads(2)
 
 G, K = 5, 3                      # grid_size, spline_order of every KAN head
+K9_EDGE_GRIDS = ("zero_knot", "swapped", "nonfinite", "tiny")
 BF16_ATOL = 1.6e-2               # two bf16 ulps at 1
 
 
 def _grid(case, n_in, seed=0):
     """(in, G + 2K + 1) fp32 knots: the default grid, JAX's `update_grid`
-    refit to seeded inputs (non-uniform, per feature), or the default with
-    one feature's knot repeated."""
+    refit to seeded inputs (non-uniform, per feature), the default with one
+    feature's knot repeated, or one of K9's edge grids (`k9_grid`: a knot at
+    ±0, swapped knots, non-finite knots, knots 1e-30 apart)."""
     from fac_fake_tpu.models.blocks.kan import default_grid, update_grid
 
     g = default_grid(n_in, G, K)
-    if case == "refit":
+    if case in K9_EDGE_GRIDS:
+        g = k9_grid(case, n_in, seed, G, K)
+    elif case == "refit":
         rng = np.random.default_rng(seed)
         x = rng.normal(0.0, 0.6, (64, n_in)).astype(np.float32)
         w = rng.normal(0.0, 0.1, (4, n_in, G + K)).astype(np.float32)
@@ -35,19 +43,25 @@ def _grid(case, n_in, seed=0):
     return g
 
 
-def _planted_x(grid, rows, seed=0):
+def _planted_x(grid, rows, seed=0, extreme=False):
     """Seeded x over and beyond the grid's span, with planted entries: every
     knot of each feature exactly, below the first knot, at the last and
-    past it."""
+    past it, +0.0 and -0.0; with ``extreme``, then ±1e38, ±inf and NaN."""
     rng = np.random.default_rng(seed)
     n_in, n_knots = grid.shape
-    lo, hi = grid[:, 0] - 0.3, grid[:, -1] + 0.3
-    x = (lo + (hi - lo) * rng.random((rows, n_in))).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        lo, hi = grid[:, 0] - 0.3, grid[:, -1] + 0.3
+        x = (lo + (hi - lo) * rng.random((rows, n_in))).astype(np.float32)
+    x[~np.isfinite(x)] = 0.5                # a non-finite knot's feature
     for j in range(n_knots):
         x[j] = grid[:, j]
     x[n_knots] = grid[:, 0] - 0.5
     x[n_knots + 1] = grid[:, -1]
     x[n_knots + 2] = np.nextafter(grid[:, -1], np.float32(np.inf))
+    x[n_knots + 3], x[n_knots + 4] = 0.0, -0.0
+    if extreme:
+        x[n_knots + 5:n_knots + 10] = np.array([1e38, -1e38, np.inf, -np.inf, np.nan],
+                                               np.float32)[:, None]
     return x
 
 
@@ -57,26 +71,44 @@ def _jax_bases(x, grid, dtype):
     return np.asarray(fn(jnp.asarray(x, dtype), jnp.asarray(grid, dtype), K).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("case", ["default", "refit", "repeated"])
+@pytest.mark.parametrize("case", ["default", "refit", "repeated", *K9_EDGE_GRIDS])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kan_bases_plain_matches_jax_b_splines(case, dtype):
     """fp32 atol 1e-6; bf16 (x and grid cast, every op rounded) atol 1.6e-2.
-    A repeated knot gives 0/0 = NaN in the same entries in both."""
+    A repeated knot gives 0/0 = NaN, a non-finite knot inf - inf or NaN, in
+    the same entries in both."""
+    got, ref = _both_bases(_grid(case, 48), 40, dtype)
+    nan = np.isnan(ref)
+    assert np.array_equal(np.isnan(got), nan)
+    assert nan.any() == (case in K9_NAN_GRIDS)
+    np.testing.assert_allclose(got[~nan], ref[~nan], rtol=0,
+                               atol=1e-6 if dtype == "float32" else BF16_ATOL)
+
+
+@pytest.mark.parametrize("case", ["default", *K9_EDGE_GRIDS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kan_bases_plain_extreme_x_matches_jax(case, dtype):
+    """x at ±1e38, ±inf and NaN beside the planted rows: NaN in the same
+    entries (±inf and NaN make NaN; 1e38 overflows a quotient on narrow
+    spacings), every other entry within the same tolerances."""
+    got, ref = _both_bases(_grid(case, 48), 40, dtype, extreme=True)
+    nan = np.isnan(ref)
+    assert np.array_equal(np.isnan(got), nan) and nan.any()
+    np.testing.assert_allclose(got[~nan], ref[~nan], rtol=0,
+                               atol=1e-6 if dtype == "float32" else BF16_ATOL)
+
+
+def _both_bases(grid, rows, dtype, extreme=False):
+    """`kan_bases_plain` and JAX's `b_splines` on `_planted_x`, as float32 numpy."""
     from fac_fake_torch.ops.kan import kan_bases_plain
 
-    grid = _grid(case, 48)
-    x = _planted_x(grid, 40)
+    x = _planted_x(grid, rows, extreme=extreme)
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     got = kan_bases_plain(torch.from_numpy(x).to(tdt), torch.from_numpy(grid).to(tdt), K)
-    assert got.shape == (40, 48, G + K) and got.dtype == tdt and got.is_contiguous()
-    got = got.float().numpy()
-    ref = _jax_bases(x, grid, jdt)
-    nan = np.isnan(ref)
-    assert np.array_equal(np.isnan(got), nan)
-    assert nan.any() == (case == "repeated")
-    np.testing.assert_allclose(got[~nan], ref[~nan], rtol=0,
-                               atol=1e-6 if dtype == "float32" else BF16_ATOL)
+    assert got.shape == (rows, grid.shape[0], G + K) and got.dtype == tdt
+    assert got.is_contiguous()
+    return got.float().numpy(), _jax_bases(x, grid, jdt)
 
 
 def test_kan_bases_planted_knots_are_half_open():
