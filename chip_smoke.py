@@ -3,8 +3,9 @@
 hold each against its plain PyTorch version, score videos end to end with the
 full-width base CViT and the flagship cvit_repbn8 in fp32 and under int8
 post-training quantization, score S3D clips, train both CViTs at full width,
-detect with MTCNN and serve, score videos with the ResNet/KAN resvitkan, and
-print what it measured.
+detect with MTCNN and serve, score videos with the ResNet/KAN resvitkan, train
+the S3D family from its plans and score the msca family, and print what it
+measured.
 
     python3 chip_smoke.py [--seed N] [--profile]     # all phases, one card
 
@@ -17,12 +18,13 @@ the int8 breakdowns must name K4's and K5's `wgmma` kernels (`dense_wgmma`,
 (`qwg::quantize_rows`) and K2's `normalize_table`, the S3D one K6's
 `max_pool3d_i8_sep`, and the CViTs' no `qmma::` kernel; the train steps
 K7's `clahe_subset` (traced in every run, for the device's busy share), the
-eval steps K2's `normalize_table`.
+eval steps K2's `normalize_table`, and of one S3D train step of each plan of
+S3 (traced in every run; plan1_2's must name K10's `jpeg_mcu`).
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
      TF32 off for matmul and cuDNN;
-  2. build the nine kernels (K1-K9; K3 and K5 are one kernel, eight sources;
+  2. build the ten kernels (K1-K10; K3 and K5 are one kernel, nine sources;
      K7 one kernel, the whole CLAHE subset step in one launch) from
      fac_fake_torch/csrc, in parallel;
   3. K2 (`k2_phase`) in its five modes against their plain versions: the
@@ -171,6 +173,30 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      to `score_crop_stacks` per video; a bf16 run with finite scores;
  R3. the full-width reskan at batch 96 and resvit at batch 4, logits card vs
      CPU, K9 launched 2 and 0 times a forward (`family_forwards`);
+ S1. K10 (the S3D transform's JPEG step, in place on the taken frames)
+     against its plain version (`k10_phase`): seeded noise and smooth
+     frames, a flat and an every-byte frame, qualities 1, 50, 60, 99, 100 and
+     the trainer's floor(U[60, 100)), takes none, all and a seeded ~20%:
+     untaken frames bit-unchanged, taken ones within 2e-5 outside the
+     near-tie blocks (counted and bounded); timed cold and warm at plan1_2's
+     (360, 224, 224, 3) with 72 taken beside copy_ of those frames' bytes,
+     the plain version and the bound;
+ S2. the S3D transform, `augment_batch` under plan1_2's augment config on
+     (12, 30, 224, 224, 3) uint8 clips: one K10 launch a call, finite output
+     in [0, 1], a digest, timed on the card and by the host (`s3d_augment_phase`);
+ S3. S3D training from the plans at their published batches and frames,
+     clips cached on the card (`s3d_train_phase`): s3d from plan1_2 (bs 12,
+     30 frames, the transform on: K10 once a step), ca_s3d from caplan9 (bs
+     9, black masking of 6 regions on synth_face frames, the landmarks from
+     the port's BlazeFace), msca_s3d from mplan1 (bs 6): train clips/s, ms a
+     step, busy share, peak memory, K10 launches a step, `fit` for one
+     epoch, 10 fixed-batch steps whose loss falls, one eval batch;
+ S4. one train step of ca_s3d and msca_s3d card vs CPU at full width,
+     batch 2, 16 frames: the loss, the gradient and the running stats held
+     to a float64 step (`s3d_train_vs_cpu`);
+ S5. `S3DEvaluator` with the full-width msca_s3d and msca_s3d_srm in fp32:
+     logits card vs CPU at batch 1, clips/s at batch 32 beside ca_s3d's
+     (`msca_scoring`);
  15. the training line and the kernels line; 16. the result line.
 """
 from __future__ import annotations
@@ -304,6 +330,23 @@ K9_OPS_PER_FEATURE = 3 * 11 + 7 * (10 + 9 + 8)
 RESVIT_HW = 224               # the family's crops (data.image_size)
 RESKAN_BATCH, RESVIT_BATCH = 96, 4    # R3: forwards card vs CPU
 STACK_TOL = 1e-6              # R2: score_crops against score_crop_stacks, per video
+# S3D training (S1-S5)
+K10_QUALITIES = (1, 50, 60, 99, 100)
+K10_FRAMES, K10_TAKEN = 360, 72   # plan1_2's 12 x 30 frames; ImageCompression's p .2
+# near-tie blocks (a coefficient within 1e-4 of a rounding boundary) allowed,
+# as a share of blocks: at the trainer's qualities on smooth frames; and on
+# noise or at quality 99-100, where the window's width alone puts 1.27% there
+K10_NEAR_TIE_SHARE, K10_NOISE_NEAR_TIE_SHARE = 0.005, 0.02
+S3D_PLANS = (("s3d", "configs/plan1_2.yaml"), ("ca_s3d", "configs/caplan9.yaml"),
+             ("msca_s3d", "configs/mplan1.yaml"))
+S3D_TIMED_STEPS = 3           # S3: timed train steps after a warm-up step
+S3D_FIT_STEPS = 2             # S3: fit's epoch, in steps (and one eval batch)
+S3D_FIXED_STEPS = 10          # S3: steps on one fixed batch, augmentation off: the loss falls
+S3D_CHECK_BATCH, S3D_CHECK_T = 2, 16   # S4: 16 frames, the fewest the S3D head takes
+S3D_LOSS_RTOL = 1e-4          # S4: loss card vs CPU
+S3D_STATS_RTOL = 1e-5         # S4: slack of each running-stat tensor's float64 rule
+S3D_MSCA_T = 30               # S5: the plans' frames
+S3D_TRAIN_HW = 224            # S3-S5: the plans' image-size
 
 
 def log(msg: str) -> None:
@@ -2875,6 +2918,456 @@ def family_forwards(seed, rng, dev) -> dict:
     return dict(reskan_err=err_reskan, reskan_k9=k9_reskan, resvit_err=err_resvit)
 
 
+
+# ---- S1-S5: S3D training with K10 ---------------------------------------------------
+
+def k10_frames(side, dev, n: int, kind: str):
+    """(n, 224, 224, 3) float32 frames in [0, 1]: ``noise`` (uniform bytes),
+    ``smooth`` (seeded 8x8 colour fields, bilinearly upsampled, with a little
+    noise: what natural frames look like to the DCT), ``flat`` (one grey) or
+    ``every byte`` (each channel runs through the 256 byte values)."""
+    import torch
+    import torch.nn.functional as F
+    d255 = torch.full((1,), 255.0, device=dev)
+    if kind == "noise":
+        u8 = side.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    elif kind == "smooth":
+        low = torch.from_numpy(side.uniform(0.0, 255.0, (n, 3, 8, 8)).astype(np.float32))
+        up = F.interpolate(low, size=(224, 224), mode="bilinear", align_corners=False)
+        up = up + torch.from_numpy(side.normal(0.0, 4.0, up.shape).astype(np.float32))
+        u8 = up.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1).numpy()
+    elif kind == "flat":
+        u8 = np.full((n, 224, 224, 3), 128, np.uint8)
+    else:
+        i = np.arange(n * 224 * 224)
+        u8 = np.stack([i % 256, (i * 7 + 3) % 256, (i * 31 + 11) % 256], -1)
+        u8 = u8.reshape(n, 224, 224, 3).astype(np.uint8)
+    return (torch.from_numpy(np.ascontiguousarray(u8)).to(dev).float() / d255).contiguous()
+
+
+def k10_check(x, take, q) -> tuple:
+    """K10 (`jpeg_subset_`) against `jpeg_subset_plain_` on a copy of ``x``
+    each: untaken frames bit-unchanged; taken frames within JPEG_TOL outside
+    the near-tie blocks (`near_ties`). Returns (max error outside them, max
+    error over all pixels, near-tie blocks, blocks)."""
+    import torch
+    from fac_fake_torch.ops import jpeg as oj
+    got = oj.jpeg_subset_(x.clone(), take, q)
+    ref = oj.jpeg_subset_plain_(x.clone(), take, q)
+    torch.cuda.synchronize()
+    if not torch.equal(got[~take], x[~take]):
+        raise AssertionError("K10: an untaken frame moved")
+    if not bool(take.any()):
+        return 0.0, 0.0, 0, 0
+    mask, ties, blocks = oj.near_ties(x[take], q[take])
+    err = (got[take] - ref[take]).abs().amax(-1)
+    return (float(err[~mask].max()) if bool((~mask).any()) else 0.0, float(err.max()),
+            ties, blocks)
+
+
+def k10_phase(rng, dev) -> dict:
+    """S1: K10 (the S3D transform's JPEG step, in place on the taken frames)
+    against its plain version `jpeg_subset_plain_` on the card: seeded noise
+    and smooth frames, a flat frame and an every-byte frame, at qualities
+    K10_QUALITIES and at seeded floor(U[60, 100)); takes none, all, and a
+    seeded ~20%. Untaken frames bit-unchanged; outside the near-tie blocks
+    (a coefficient within 1e-4 of a rounding boundary by a float64
+    recomputation) within JPEG_TOL; the near-tie blocks counted: at the
+    trainer's qualities on smooth and flat frames at most K10_NEAR_TIE_SHARE
+    of the blocks; on uniform noise, and at the fixed qualities (99 and 100
+    make every coefficient's rounding a coin), at most
+    K10_NOISE_NEAR_TIE_SHARE; on the every-byte pattern (exact rationals
+    that land on rounding boundaries) printed only (64 coefficients a block, each in the
+    2e-4-wide window with probability 2e-4, put 1.27% of such blocks
+    there); the flat frame held over every block. Timed at
+    the trainer's step, (K10_FRAMES, 224, 224, 3) with K10_TAKEN taken:
+    cold (launches rotating over buffers beyond twice the L2), warm, the
+    plain version, and copy_ of the taken frames' bytes (a yardstick; no
+    PyTorch call computes this function). The bound: bytes, each taken frame
+    read once and written once. Inputs from `side_rng`."""
+    import torch
+    from fac_fake_torch.ops import jpeg as oj
+    side = side_rng(rng)
+    n = 16
+    takes = {"none": torch.zeros(n, dtype=torch.bool, device=dev),
+             "all": torch.ones(n, dtype=torch.bool, device=dev),
+             "seeded 20%": torch.from_numpy(side.random(n) < 0.2).to(dev)}
+    takes["seeded 20%"][side.integers(0, n)] = True          # at least one
+    err = 0.0
+    tally = {}
+    for kind in ("noise", "smooth", "flat", "every byte"):
+        x = k10_frames(side, dev, n, kind)
+        quals = [(f"quality {q}", torch.full((n,), float(q), device=dev)) for q in K10_QUALITIES]
+        quals.append(("trainer", torch.from_numpy(np.floor(
+            side.uniform(60.0, 100.0, n)).astype(np.float32)).to(dev)))
+        for qname, q in quals:
+            for tname, take in takes.items():
+                e, e_all, ties, blocks = k10_check(x, take, q)
+                t = tally.setdefault((kind, qname == "trainer"), [0, 0, 0.0])
+                t[0] += ties
+                t[1] += blocks
+                t[2] = max(t[2], e_all)
+                err = max(err, e)
+                if e > oj.JPEG_TOL or (kind == "flat" and e_all > oj.JPEG_TOL):
+                    raise AssertionError(f"K10 {kind}, {qname}, take {tname}: max error {e} "
+                                         f"outside near-tie blocks ({e_all} over all)")
+        for trainer in (True, False):
+            ties, blocks, e_all = tally[(kind, trainer)]
+            share = ties / max(blocks, 1)
+            limit = (K10_NEAR_TIE_SHARE if trainer and kind in ("smooth", "flat")
+                     else None if kind == "every byte" else K10_NOISE_NEAR_TIE_SHARE)
+            log(f"K10 {kind} frames, "
+                + ("the trainer's qualities floor(U[60, 100))" if trainer
+                   else f"qualities {K10_QUALITIES}")
+                + f" x {len(takes)} take patterns: within {oj.JPEG_TOL} of plain outside "
+                f"near-tie blocks, untaken frames bit-unchanged; near-tie blocks {ties} of "
+                f"{blocks} ({share:.3%}, bound "
+                + (f"{limit:.1%}" if limit else "none: planted exact values") + "); max error "
+                f"over all pixels {e_all:.3g}")
+            if limit is not None and share > limit:
+                raise AssertionError(f"K10 {kind}: {share:.3%} of blocks near-tie")
+
+    # timing at the trainer's step: plan1_2's 12 x 30 frames, K10_TAKEN taken
+    xs = k10_frames(side, dev, K10_FRAMES, "smooth")
+    take = torch.zeros(K10_FRAMES, dtype=torch.bool, device=dev)
+    take[torch.from_numpy(side.choice(K10_FRAMES, K10_TAKEN, replace=False)).to(dev)] = True
+    q = torch.from_numpy(np.floor(side.uniform(60.0, 100.0, K10_FRAMES)).astype(np.float32)
+                         ).to(dev)
+    frame_bytes = xs[0].numel() * 4
+    nbytes = 2.0 * K10_TAKEN * frame_bytes
+    n_rot = int(2 * L2_BYTES // (K10_TAKEN * frame_bytes)) + 2
+    rot = [xs] + [xs.clone() for _ in range(n_rot - 1)]
+    k_ms = rotated_ms(lambda x: oj.jpeg_subset_(x, take, q), rot)
+    w_ms = cuda_ms(lambda: oj.jpeg_subset_(xs, take, q))
+    idx = torch.nonzero(take).flatten()
+    pairs = [(torch.empty((K10_TAKEN, 224, 224, 3), device=dev), x.index_select(0, idx))
+             for x in rot]
+    c_ms = rotated_ms(lambda pair: pair[0].copy_(pair[1]), pairs)
+    p_ms = cuda_ms(lambda: oj.jpeg_subset_plain_(xs, take, q), iters=3)
+    del rot, pairs
+    # operations: per pixel the colour transforms (~30) and 4 DCT passes of 16
+    # flops a coefficient over 1.5 planes' worth of coefficients
+    b_ms, b_by = bound_ms(nbytes, K10_TAKEN * 224 * 224 * (30 + 4 * 16 * 1.5))
+    log(f"K10 at ({K10_FRAMES}, 224, 224, 3), {K10_TAKEN} taken: kernel {k_ms:.4f} ms cold "
+        f"({b_ms / k_ms:.1%} of the bound, {n_rot} buffers), {w_ms:.4f} ms warm; copy_ of "
+        f"the taken frames' bytes {c_ms:.4f} ms cold; plain {p_ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+    return dict(ms=k_ms, warm_ms=w_ms, copy_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, err=err,
+                near_ties={f"{k[0]}, {'trainer' if k[1] else 'fixed'} qualities":
+                           {"blocks": v[0], "of": v[1]} for k, v in tally.items()})
+
+
+def s3d_augment_phase(rng, dev) -> dict:
+    """S2: the S3D train transform as the trainer runs it: `augment_batch`
+    under ``load_plan("configs/plan1_2.yaml")``'s augment config on
+    (12, 30, 224, 224, 3) seeded uint8 clips: one K10 launch a call, a
+    finite output in [0, 1], a digest of the outputs of generators seeded
+    0..AUGMENT_DIGEST_SEEDS-1; device ms a call and ms by the host's
+    clock. Inputs from `side_rng`."""
+    import torch
+    from fac_fake_torch.core.plans import load_plan
+    from fac_fake_torch.data.augment import augment_batch
+    from fac_fake_torch.ops import jpeg as oj
+    plan = load_plan("configs/plan1_2.yaml")
+    cfg, bs, t = plan.data.augment, plan.data.batch_size, plan.data.frames_per_video
+    u8 = torch.from_numpy(side_rng(rng).integers(0, 256, (bs, t, 224, 224, 3),
+                                                 dtype=np.uint8)).to(dev)
+    oj.jpeg_subset_.launches = 0
+    outs = [augment_batch(u8, cfg, torch.Generator(device=dev).manual_seed(s))
+            for s in range(AUGMENT_DIGEST_SEEDS)]
+    launches = oj.jpeg_subset_.launches
+    dig = digest(torch.stack(outs))
+    lo, hi = min(float(o.min()) for o in outs), max(float(o.max()) for o in outs)
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    del outs
+    if launches != AUGMENT_DIGEST_SEEDS or not finite or lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"S3D augment_batch: {launches} K10 launches for "
+                             f"{AUGMENT_DIGEST_SEEDS} calls, finite {finite}, range [{lo}, {hi}]")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ms = cuda_ms(lambda: augment_batch(u8, cfg, gen), iters=AUGMENT_TIMED_CALLS, warmup=2)
+    t0 = time.perf_counter()
+    for _ in range(AUGMENT_TIMED_CALLS):
+        augment_batch(u8, cfg, gen)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / AUGMENT_TIMED_CALLS * 1e3
+    log(f"S3D augment_batch {tuple(u8.shape)}, plan1_2's transform: 1 K10 launch a call, "
+        f"output finite in [{lo:.3g}, {hi:.3g}]; {ms:.4f} ms a call on the card (queued behind "
+        f"a sleep), {wall:.4f} ms a call by the host's clock; digest of "
+        f"{AUGMENT_DIGEST_SEEDS} seeded outputs {dig:.0f}")
+    return dict(ms=ms, wall_ms=wall, augment_digest=dig)
+
+
+def masked_face_clips(side, det, face, n: int, t: int, hw: int) -> tuple:
+    """``n`` seeded uint8 clips (t, hw, hw, 3) of `synth_face` frames (the
+    face enlarged to 4/7 of the frame, 128 px at 224, at a seeded place on a
+    grey, lightly noisy background,
+    one place a clip), each frame masked black on the host as
+    ``ClipDataset.mask_frame`` does, the landmarks from the port's BlazeFace
+    on the card (`landmarks_from_blazeface`, one detection a clip), the
+    region order a clip from the generator. Returns (clips, frames whose
+    landmarks were found)."""
+    from fac_fake_torch.data import masking
+    from fac_fake_torch.ops.resize import resize_area
+    fh = hw * 4 // 7
+    face = resize_area(face, (fh, fh))
+    clips = np.empty((n, t, hw, hw, 3), np.uint8)
+    found = 0
+    for i in range(n):
+        y, x = side.integers(0, hw - fh + 1, 2)
+        base = np.clip(128 + side.normal(0.0, 10.0, (hw, hw, 3)), 0, 255).astype(np.uint8)
+        base[y:y + fh, x:x + fh] = face
+        lm = masking.landmarks_from_blazeface(det, base)
+        found += lm is not None
+        order = side.permutation(8).tolist()
+        for j in range(t):
+            noisy = np.clip(base.astype(np.int16) + side.integers(-3, 4, base.shape), 0, 255)
+            clips[i, j] = masking.apply_face_mask(noisy.astype(np.uint8), lm, order, "black",
+                                                  6, side)
+    return clips, found
+
+
+def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
+    """S3: `Trainer` on clip batches cached on the card, at each plan of
+    S3D_PLANS at its published batch and frames (``s3d`` from plan1_2, the
+    S3D transform on, so K10 once a step; ``ca_s3d`` from caplan9, black
+    masking of 6 regions on `synth_face` frames, on the host; ``msca_s3d``
+    from mplan1), seeded weights, raw 0-255 inputs, bce_weighted with the
+    plans' rebalancing: one warm-up step, S3D_TIMED_STEPS timed steps (train
+    clips/s, ms a step, peak memory), one traced step (the device's busy
+    share; K10's ``jpeg_mcu`` in it where the transform is on), K10
+    launches a step; `fit` for one epoch of S3D_FIT_STEPS steps and one
+    eval batch with the counts set to 0 before it (K10 launched once a train
+    step with aug on, never with it off); S3D_FIXED_STEPS steps on one fixed
+    batch, augmentation off, whose last loss must be below its first; one
+    eval batch. Inputs from `side_rng`."""
+    import torch
+    from fac_fake_torch.core.plans import load_plan
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import jpeg as oj
+    from fac_fake_torch.train.trainer import Trainer
+    side = side_rng(rng)
+    out = {}
+    for name, plan in S3D_PLANS:
+        cfg = load_plan(plan)
+        cfg.data.normalize = "raw255"
+        cfg.model.image_size = S3D_TRAIN_HW
+        cfg.train.epochs = 1
+        cfg.train.log_every = 0
+        cfg.train.checkpoint_dir = ""
+        cfg.train.checkpoint_every = 0
+        bs, t = cfg.data.batch_size, cfg.data.frames_per_video
+        n = bs * (S3D_FIT_STEPS + 1)
+        if cfg.data.mask_method == "black":
+            clips, found = masked_face_clips(side, det, face, n, t, S3D_TRAIN_HW)
+            if found < n:
+                raise AssertionError(f"{name}: BlazeFace found the face in {found} of {n} clips")
+        else:
+            clips = side.integers(0, 256, (n, t, S3D_TRAIN_HW, S3D_TRAIN_HW, 3), dtype=np.uint8)
+            found = 0
+        labels = np.arange(n) % 2
+        pw = cfg.train.rebalance_real / cfg.train.rebalance_fake      # balanced labels
+        torch.cuda.empty_cache()
+        model = build_model(cfg.model, device=dev, seed=seed)
+        tr = Trainer(model, cfg, loss_kwargs={"pos_weight": pw})
+        train = tr.cache_data(clips[:bs * S3D_FIT_STEPS], labels[:bs * S3D_FIT_STEPS], bs)
+        val = tr.cache_data(clips[bs * S3D_FIT_STEPS:], labels[bs * S3D_FIT_STEPS:], bs)
+        del clips
+        ones = torch.ones((bs,), device=dev)
+        batch = lambda i: {"image": train.images[i * bs:(i + 1) * bs],
+                           "label": train.labels[i * bs:(i + 1) * bs], "mask": ones}
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        aug_on = cfg.data.augment.enabled
+        tr.train_step(batch(0), gen)                     # warm-up: cuDNN, cuBLAS, K10
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        oj.jpeg_subset_.launches = 0
+        t0 = time.perf_counter()
+        for i in range(S3D_TIMED_STEPS):
+            tr.train_step(batch(i % train.steps), gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        per_step = oj.jpeg_subset_.launches / S3D_TIMED_STEPS
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        wall, busy = profile_forward(lambda: tr.train_step(batch(0), gen),
+                                     f"{name} train step, batch {bs}", top=12 if profile else 0,
+                                     expect=("jpeg_mcu",) if aug_on else (), inference=False)
+        step_ms = dt / S3D_TIMED_STEPS * 1e3
+        res = dict(plan=plan, batch=bs, frames=t, step_ms=step_ms,
+                   clips_per_s=bs * S3D_TIMED_STEPS / dt, peak_gb=peak_gb,
+                   traced_wall_ms=wall, traced_busy_ms=busy, busy_share=busy / step_ms,
+                   k10_per_step=per_step, augment=aug_on, mask=cfg.data.mask_method,
+                   faces_found=found)
+        log(f"{name} training ({plan}, batch {bs} x {t} x {S3D_TRAIN_HW}^2, aug {aug_on}, mask "
+            f"{cfg.data.mask_method}): {res['clips_per_s']:.2f} train clips/s, {step_ms:.1f} ms "
+            f"a step ({S3D_TIMED_STEPS} steps after a warm-up step); one traced step "
+            f"{wall:.1f} ms wall, device busy {busy:.1f} ms ({busy / step_ms:.1%} of an "
+            f"untraced step); peak memory {peak_gb:.2f} GB; K10 {per_step:g} a step")
+        if per_step != (1 if aug_on else 0):
+            raise AssertionError(f"{name}: K10 {per_step} a step, aug {aug_on}")
+
+        oj.jpeg_subset_.launches = 0
+        steps0 = tr.step
+        t0 = time.perf_counter()
+        fit = tr.fit(train, val)
+        t_fit = time.perf_counter() - t0
+        fit_steps = tr.step - steps0
+        h = fit["history"]
+        res["fit_launches"] = {"K10": oj.jpeg_subset_.launches}
+        res["fit_steps"] = fit_steps
+        log(f"{name} fit, 1 epoch of {fit_steps} steps and {val.steps} eval batch: "
+            f"{t_fit:.1f} s; train loss {h['train_loss'][0]:.4f}, val loss "
+            f"{h['val_loss'][0]:.4f} acc {h['val_acc'][0]:.4f}; K10 launches "
+            f"{oj.jpeg_subset_.launches}")
+        if not all(np.isfinite(h[k][0]) for k in ("train_loss", "val_loss")):
+            raise AssertionError(f"{name}: losses not finite: {h}")
+        if oj.jpeg_subset_.launches != (fit_steps if aug_on else 0):
+            raise AssertionError(f"{name}: {oj.jpeg_subset_.launches} K10 launches in "
+                                 f"{fit_steps} steps, aug {aug_on}")
+
+        tr.cfg.data.augment.enabled = False
+        fixed = batch(0)
+        losses = [float(tr.train_step(fixed, gen)["loss"]) for _ in range(S3D_FIXED_STEPS)]
+        tr.cfg.data.augment.enabled = aug_on
+        ev = tr.eval_step({"image": val.images, "label": val.labels, "mask": ones})
+        ev = {k: float(v) for k, v in ev.items()}
+        res.update(fixed_losses=losses, eval_batch=ev)
+        log(f"{name} {S3D_FIXED_STEPS} steps on one fixed batch, augmentation off: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; one eval batch {ev}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and np.isfinite(ev["loss"]) and ev["count"] == bs):
+            raise AssertionError(f"{name}: fixed-batch losses {losses}, eval {ev}")
+        out[name] = res
+        del tr, model, train, val
+    torch.cuda.empty_cache()
+    return out
+
+
+def s3d_train_vs_cpu(seed, rng, dev) -> dict:
+    """S4: one train step of ``ca_s3d`` and ``msca_s3d`` at full width, batch
+    S3D_CHECK_BATCH, S3D_CHECK_T frames (the fewest the head takes) at 224^2,
+    augmentation off, TF32 off, from the same seeded weights and clips on
+    the card and on the CPU: the loss within S3D_LOSS_RTOL; the gradient
+    held to the float64 one of a CPU copy (the card's distance within
+    TRAIN_GRAD_F64_RATIO x the CPU fp32's + TRAIN_GRAD_F64_SLACK, relative
+    L2); each running-stat tensor held to the float64 step's the same way
+    (within TRAIN_GRAD_F64_RATIO x the CPU's distance + S3D_STATS_RTOL),
+    card vs CPU printed: the two fp32 forwards are some 1e-5 apart, and a
+    deep layer's batch mean carries that into its running mean. Inputs from
+    `side_rng`."""
+    import torch
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.train.trainer import Trainer
+    side = side_rng(rng)
+    out = {}
+    for name in ("ca_s3d", "msca_s3d"):
+        cfg = Config()
+        cfg.model.name, cfg.model.num_class = name, 1
+        cfg.data.normalize = "raw255"
+        cfg.data.augment.enabled = False
+        cfg.train.loss = "bce_weighted"
+        cfg.train.checkpoint_dir = ""
+        model = build_model(cfg.model, device="cpu", seed=seed)
+        u8 = torch.from_numpy(side.integers(
+            0, 256, (S3D_CHECK_BATCH, S3D_CHECK_T, S3D_TRAIN_HW, S3D_TRAIN_HW, 3), dtype=np.uint8))
+        b = {"image": u8, "label": torch.arange(S3D_CHECK_BATCH) % 2,
+             "mask": torch.ones(S3D_CHECK_BATCH)}
+        side_res = {}
+        for where, d, dt in (("card", dev, torch.float32), ("cpu", "cpu", torch.float32),
+                             ("f64", "cpu", torch.float64)):
+            m = copy.deepcopy(model).to(d if where != "f64" else "cpu")
+            tr = Trainer(m, cfg, device=d, loss_kwargs={"pos_weight": 0.3})
+            t0 = time.perf_counter()
+            if where == "f64":
+                m = m.double().train()
+                x = tr.normalize(b["image"].double() / torch.full((1,), 255.0,
+                                                                  dtype=torch.float64))
+                loss = tr.loss_fn(m(x), b["label"], b["mask"].double())
+                loss.backward()
+                loss = float(loss.detach())
+            else:
+                met = tr.train_step({k: v.to(d) for k, v in b.items()},
+                                    torch.Generator(device=d).manual_seed(0))
+                loss = float(met["loss"])
+            side_res[where] = dict(
+                t=time.perf_counter() - t0, loss=loss,
+                grads={k: p.grad.double().cpu() for k, p in m.named_parameters()},
+                bufs={k: v.double().cpu() for k, v in m.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))})
+            del m, tr
+        g, c, f = side_res["card"], side_res["cpu"], side_res["f64"]
+        norm = lambda dd: float(sum((t ** 2).sum() for t in dd.values())) ** 0.5
+        rel = lambda a, bb: norm({k: a[k] - bb[k] for k in bb}) / norm(bb)
+        rt = lambda a, bb: float((a - bb).norm() / bb.norm())
+        res = dict(loss_rel=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+                   card_vs_f64=rel(g["grads"], f["grads"]), cpu_vs_f64=rel(c["grads"], f["grads"]),
+                   card_vs_cpu=rel(g["grads"], c["grads"]),
+                   stats_rel=max(rt(g["bufs"][k], c["bufs"][k]) for k in c["bufs"]),
+                   stats_over=max((rt(g["bufs"][k], f["bufs"][k])
+                                   - TRAIN_GRAD_F64_RATIO * rt(c["bufs"][k], f["bufs"][k]))
+                                  / S3D_STATS_RTOL for k in c["bufs"]),
+                   stats_worst=max(c["bufs"], key=lambda k: rt(g["bufs"][k], c["bufs"][k])),
+                   losses={k: v["loss"] for k, v in side_res.items()},
+                   cpu_s=c["t"], f64_s=f["t"])
+        log(f"{name} one train step card vs CPU, batch {S3D_CHECK_BATCH} x {S3D_CHECK_T} x "
+            f"{S3D_TRAIN_HW}^2 (CPU {c['t']:.1f} s, float64 {f['t']:.1f} s): loss {g['loss']:.6f} / "
+            f"{c['loss']:.6f} / float64 {f['loss']:.6f} (card vs CPU rel {res['loss_rel']:.3g}, "
+            f"bound {S3D_LOSS_RTOL}); gradient rel L2 to the float64 one: card "
+            f"{res['card_vs_f64']:.3g}, CPU {res['cpu_vs_f64']:.3g} (bound: card <= "
+            f"{TRAIN_GRAD_F64_RATIO} x CPU + {TRAIN_GRAD_F64_SLACK}); card vs CPU "
+            f"{res['card_vs_cpu']:.3g}; running stats card vs CPU, worst tensor rel L2 "
+            f"{res['stats_rel']:.3g} ({res['stats_worst']}), each tensor's distance to the "
+            f"float64 one within {TRAIN_GRAD_F64_RATIO} x the CPU's + {S3D_STATS_RTOL} "
+            f"(at {res['stats_over']:.3g} of that slack)")
+        if not (res["loss_rel"] <= S3D_LOSS_RTOL and res["stats_over"] <= 1.0
+                and res["card_vs_f64"] <= TRAIN_GRAD_F64_RATIO * res["cpu_vs_f64"]
+                + TRAIN_GRAD_F64_SLACK):
+            raise AssertionError(f"{name}: one train step card vs CPU out of bounds: {res}")
+        out[name] = res
+    return out
+
+
+def msca_scoring(seed, rng, dev) -> dict:
+    """S5: `S3DEvaluator` with the full-width ``msca_s3d`` and ``msca_s3d_srm``
+    (the residual 3-filter SRM input) in fp32, seeded weights: logits card
+    vs CPU on one seeded clip (batch 1, S3D_MSCA_T frames) within LOGIT_TOL;
+    `predict_batch` clips/s at batch S3D_BATCH beside ``ca_s3d``'s at the
+    same frames. Inputs from `side_rng`."""
+    import torch
+    from fac_fake_torch.core.config import ModelConfig
+    from fac_fake_torch.evaluate.s3d_eval import S3DEvaluator
+    from fac_fake_torch.models import build_model
+    side = side_rng(rng)
+    clips = side.integers(0, 256, (S3D_BATCH, S3D_MSCA_T, S3D_TRAIN_HW, S3D_TRAIN_HW, 3),
+                          dtype=np.uint8)
+    out = {}
+    for name, srm in (("ca_s3d", False), ("msca_s3d", False), ("msca_s3d_srm", True)):
+        mc = ModelConfig(name=name, num_class=1, srm_net=srm)
+        model = build_model(mc, device=dev, seed=seed)
+        ev = S3DEvaluator(model, degrade=False, device=dev)
+        ev.predict_batch(clips[:2])                           # warm cuDNN
+        rate, probs = clips_per_s(ev, clips, n_it=2)
+        res = dict(clips_per_s=rate, srm=model.srm)
+        if name != "ca_s3d":
+            x = torch.from_numpy(clips[:1]).permute(0, 4, 1, 2, 3)
+            with torch.no_grad():
+                card = model(x.to(dev).float()).cpu()
+                cpu = copy.deepcopy(model).cpu()(x.float())
+            res["logit_err"] = float((card - cpu).abs().max())
+            if not (res["logit_err"] <= LOGIT_TOL and np.isfinite(probs).all()):
+                raise AssertionError(f"{name}: logits card vs CPU {res['logit_err']}, "
+                                     f"scores {probs}")
+        log(f"S5 {name} fp32 (SRM {model.srm}), {S3D_MSCA_T} x {S3D_TRAIN_HW}^2: predict_batch "
+            f"{S3D_BATCH} clips {rate:.2f} clips/s"
+            + (f"; logits card vs CPU, batch 1: max abs {res['logit_err']:.3g} (bound "
+               f"{LOGIT_TOL})" if "logit_err" in res else ""))
+        out[name] = res
+        del ev, model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3001,6 +3494,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     r3 = family_forwards(args.seed, rng, dev)
     torch.cuda.empty_cache()
+
+    # ---- S1-S5. S3D training with K10 ---------------------------------------------
+    k10 = k10_phase(rng, dev)
+    s3d_aug = s3d_augment_phase(rng, dev)
+    s3 = s3d_train_phase(args.seed, rng, dev, det, face, args.profile)
+    s4 = s3d_train_vs_cpu(args.seed, rng, dev)
+    s5 = msca_scoring(args.seed, rng, dev)
 
     # ---- 15. kernels line -----------------------------------------------------
     k5, k6 = s3d["k5"], s3d["k6"]
@@ -3179,9 +3679,28 @@ def main() -> int:
                                                "score_crop_stacks_per_s", "logit_err",
                                                "stack_diff", "bf16_diff")},
          "family_logit_err": {"reskan": r3["reskan_err"], "resvit": r3["resvit_err"]}},
+        {"name": "K10_jpeg_subset", "route": "cuda", "source": "fac_fake_torch/csrc/jpeg.cu",
+         "replaces": "fac_fake_tpu/data/augment.py:415",
+         "launches": s3["s3d"]["fit_launches"]["K10"], "train_steps": s3["s3d"]["fit_steps"],
+         "launches_per_train_step": s3["s3d"]["k10_per_step"],
+         "max_abs_err": k10["err"], "ms": k10["ms"], "kernel_ms": k10["ms"],
+         "warm_ms": k10["warm_ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"],
+         "bound_by": k10["bound_by"], "copy_ms": k10["copy_ms"], "library_ms": None,
+         "near_ties": k10["near_ties"], "augment_chain_ms": s3d_aug["ms"],
+         "augment_chain_wall_ms": s3d_aug["wall_ms"],
+         "timing": "ms: cold, the launches rotating over buffers beyond twice the L2; warm_ms: "
+                   "one input again and again; copy_ms: torch copy_ of the taken frames' "
+                   "bytes, cold (a yardstick, not the same function); max_abs_err: outside "
+                   "the near-tie blocks",
+         "shapes": f"ms: jpeg_subset_ in place on ({K10_FRAMES}, 224, 224, 3) fp32, "
+                   f"{K10_TAKEN} taken, the step of a plan1_2 train step; launches: one "
+                   "training epoch of s3d under plan1_2 (one a step); augment_chain_*: "
+                   "augment_batch on plan1_2's (12, 30, 224, 224, 3), device and host time; "
+                   "library_ms: no PyTorch call computes this JPEG"},
     ]
     log(json.dumps({"training": {"cvit": dict(t2, vs_cpu=t3),
-                                 "cvit_repbn8": dict(t4, vs_cpu=t4_cpu)}}))
+                                 "cvit_repbn8": dict(t4, vs_cpu=t4_cpu),
+                                 "s3d_family": s3, "s3d_vs_cpu": s4, "s3d_scoring": s5}}))
     log(json.dumps({"kernels": rows}))
     # ---- 16. result -----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

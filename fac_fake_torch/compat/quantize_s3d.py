@@ -148,8 +148,9 @@ class S3DInt8(nn.Module):
         acts = {op[5] for op in model.spec if op[0] in ("sep", "basic")}
         acts |= {op[2] for op in model.spec if op[0] == "mix"}
         if acts - {"relu"}:
-            raise NotImplementedError(f"acts {sorted(acts)}: only ReLU convs quantize (the "
-                                      "msca family's relu6 is ROADMAP queue 1 item 13)")
+            raise NotImplementedError(f"acts {sorted(acts)}: only ReLU convs quantize (msca "
+                                      "int8 scoring, with ReLU6 in K5's epilogue, is ROADMAP "
+                                      "queue 1 item 13b)")
         self.spec = model.spec
         self.srm = model.srm
         self.num_class = model.num_class
@@ -251,7 +252,8 @@ class S3DInt8(nn.Module):
             elif kind == "ctx":
                 x = _ndhwc(self.ctx[key](_ncdhw(x)))
             else:
-                raise NotImplementedError(f"spec op {kind!r} (msca S3D family)")
+                raise NotImplementedError(f"spec op {kind!r}: msca int8 scoring is ROADMAP "
+                                          "queue 1 item 13b")
             xq, x = (x, None) if to is not None else (None, x)
         # head (fp, `models/s3d/model.py`): avg over (2, H, W), 1×1×1 conv, temporal mean
         x = _ncdhw(x)

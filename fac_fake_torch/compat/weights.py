@@ -185,20 +185,15 @@ _CTX = {"ca1": "channel_add_conv.0", "ln": "channel_add_conv.1",
 
 def s3d_torch_key(path, spec) -> Tuple[str, Callable]:
     """flax S3DNet variable path (``("params", "l5", "b1b", "conv_s",
-    "kernel")``) → (torch key, flax→torch transform), for the ``sep``,
-    ``basic``, ``mix`` and ``ctx`` ops and the head — the port's copy of
-    `fac_fake_tpu/compat/torch_weights.py` ``_s3d_torch_key``. ``base.{i}``
-    lines up with spec index i. The ctx LayerNorm keeps its (planes,)
-    weight, as the port's `ChannelLayerNorm` does."""
+    "kernel")``) → (torch key, flax→torch transform), for every op of the
+    family and the head — the port's copy of
+    `fac_fake_tpu/compat/torch_weights.py` ``_s3d_torch_key`` and its msca
+    helpers (:234-336). ``base.{i}`` lines up with spec index i. The ctx
+    LayerNorm keeps its (planes,) weight, as the port's `ChannelLayerNorm`
+    does."""
     col, rest = path[0], list(path[1:])
     leaf = rest[-1]
-
-    def term(base):
-        if col == "batch_stats":
-            return f"{base}.running_{'mean' if leaf == 'mean' else 'var'}", t_id
-        if leaf == "kernel":
-            return f"{base}.weight", t_conv3d
-        return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
+    term = lambda base: _s3d_term(base, col, leaf)
 
     if rest[0] == "fc":
         return term("fc.0")
@@ -213,8 +208,77 @@ def s3d_torch_key(path, spec) -> Tuple[str, Callable]:
         return term(f"{base}.{_MIX_BRANCH[rest[1]]}.{rest[2]}")
     if op == "ctx":
         return term(f"{base}.{_CTX[rest[1]]}")
-    raise NotImplementedError(f"{path}: spec op {op!r} belongs to the msca S3D family "
-                              "(ROADMAP queue 1 item 13)")
+    if op == "mscan_half":
+        return _mscan_key(base, rest[1:], term)
+    if op == "iformer":
+        return _iformer_key(base, rest[1:], term)
+    raise KeyError(f"no S3D mapping for flax path {path}")
+
+
+def _s3d_term(base: str, col: str, leaf: str) -> Tuple[str, Callable]:
+    """A conv, BatchNorm or LayerNorm leaf under ``base``."""
+    if col == "batch_stats":
+        return f"{base}.running_{'mean' if leaf == 'mean' else 'var'}", t_id
+    if leaf == "kernel":
+        return f"{base}.weight", t_conv3d
+    return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
+
+
+# flax names → the reference's, in the msca blocks
+_SPATIAL_ATTN = {"proj1": "proj_1", "proj2": "proj_2", "gate": "spatial_gating_unit"}
+_IFORMER_MIXER = {"pool_fc": "maxpool_fc.1", "fc": "fc_dw.0", "bn": "fc_dw.2"}
+
+
+def _dwsep_key(base: str, rest, term) -> Tuple[str, Callable]:
+    """A DWSepConv3d's ``["sep", inner, leaf]``: its keys sit directly under
+    the module (``conv_s``, ``conv_t``, ``bn_t``)."""
+    return term(f"{base}.{rest[1]}")
+
+
+def _spatial_attn_key(base: str, rest, term) -> Tuple[str, Callable]:
+    """SpatialAttention3d: ``proj1``/``proj2`` 1×1 convs, and the gate's
+    DWSepConv3d ``conv0``/``conv0_1``/``conv1_1`` and its 1×1 ``conv3``."""
+    sub = f"{base}.{_SPATIAL_ATTN[rest[0]]}"
+    if rest[0] != "gate":
+        return term(sub)
+    if rest[1] == "conv3":
+        return term(f"{sub}.conv3")
+    return _dwsep_key(f"{sub}.{rest[1]}", rest[2:], term)
+
+
+def _mlp3d_key(base: str, rest, term) -> Tuple[str, Callable]:
+    if rest[0] in ("fc1", "fc2"):
+        return term(f"{base}.{rest[0]}")
+    return _dwsep_key(f"{base}.dwconv.dwconv", rest[1:], term)      # rest[0] == "dw"
+
+
+def _mscan_key(base: str, rest, term) -> Tuple[str, Callable]:
+    if rest[0] in ("norm1", "norm2"):
+        return term(f"{base}.{rest[0]}")
+    if rest[0] == "attn":
+        return _spatial_attn_key(f"{base}.attn", rest[1:], term)
+    if rest[0] == "mlp":
+        return _mlp3d_key(f"{base}.mlp", rest[1:], term)
+    raise KeyError(f"no torch mapping for MSCAN path {rest}")
+
+
+def _iformer_key(base: str, rest, term) -> Tuple[str, Callable]:
+    if rest[0] in ("norm1", "norm2"):
+        return term(f"{base}.{rest[0]}")
+    if rest[0] == "mlp":
+        return _mlp3d_key(f"{base}.mlp", rest[1:], term)
+    if rest[0] != "mixer":
+        raise KeyError(f"no torch mapping for iFormer path {rest}")
+    mix, sub = f"{base}.inceptionmixer", rest[1]
+    if sub in ("pool_fc", "fc"):                # BasicConv3d: .../{conv,bn}/leaf
+        return term(f"{mix}.{_IFORMER_MIXER[sub]}.{rest[2]}")
+    if sub == "bn":
+        return term(f"{mix}.{_IFORMER_MIXER[sub]}")
+    if sub == "dw":
+        return _dwsep_key(f"{mix}.fc_dw.1", rest[2:], term)
+    if sub == "attn":
+        return _spatial_attn_key(f"{mix}.attn", rest[2:], term)
+    raise KeyError(f"no torch mapping for iFormer path {rest}")
 
 
 def _from_flax(flat: Mapping[str, np.ndarray], key_fn) -> Dict[str, torch.Tensor]:

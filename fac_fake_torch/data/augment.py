@@ -1,5 +1,6 @@
-"""Batched training augmentation on the card — the port of the CViT chain of
-`fac_fake_tpu/data/augment.py` (`augment_batch`, :621-865).
+"""Batched training augmentation on the card — the port of
+`fac_fake_tpu/data/augment.py` `augment_batch` (:621-865): the CViT chain and
+the S3D train transform.
 
 The reference's strong_aug (`CViT-main/helpers/augmentation.py:9-26`) at its
 probabilities: an outer Compose(p=.9) coin a image, shared by every op;
@@ -14,12 +15,23 @@ per-batch parameters as five matmuls (`batch_affine_matmul`).
 ``sharpen_oneof=False`` is the legacy mode of independent coins (emboss then
 runs as its own pass after the fused conv).
 
+The S3D train transform (`S3D/deepfakes_dataset.py:32-48`, set by
+`core/plans.py load_plan`) adds, in JAX's order: ImageCompression first, in
+place on its taken frames, one launch of kernel K10 (`ops/jpeg.py
+jpeg_subset_`); the OneOf(brightness-contrast, FancyPCA, HSV, p=.4) group in
+place of independent colour coins; GaussianBlur (k 3 at p .5, cv2's taps)
+and FancyPCA (each image's fp32 RGB covariance, ``torch.linalg.eigh``, a
+shift along the eigenvectors by N(0, .1)-weighted eigenvalues) inside the
+fused depthwise conv, as kernel and bias; the random ToGray (p .2) and the
+deterministic gray plan. Clips (B, T, H, W, 3) are flattened to frames,
+each drawn on its own, as the reference augments frame by frame.
+
 Every draw comes from one `torch.Generator` on the batch's device, in a fixed
-order (`draw`); the numbers are not `jax.random`'s, so the tests compare each
-op at fixed parameters and the coins by their rates. Nothing waits on the
-host. The S3D transform's extras (JPEG compression, Gaussian blur, FancyPCA,
-to-gray, the colour OneOf) and the bf16 chain raise; TPU-only tuning (the
-bf16 one-hot CLAHE matmul, `_gather_rows`) is not carried over.
+order (`draw`; the S3D draws only where their options are on, so the CViT
+chain's stream is unchanged); the numbers are not `jax.random`'s, so the
+tests compare each op at fixed parameters and the coins by their rates.
+The bf16 chain raises (ROADMAP queue 1 item 11); TPU-only tuning (the bf16
+one-hot CLAHE matmul, `_gather_rows`) is not carried over.
 
 Images are float32 NHWC in [0, 1].
 """
@@ -34,22 +46,10 @@ import torch.nn.functional as F
 
 from fac_fake_torch.core.config import AugmentConfig
 from fac_fake_torch.ops import augment as ops_augment
-
-# options of the JAX chain that the port runs elsewhere or later
-_LATER = (("image_compression", "ROADMAP queue 1 item 13 (S3D training)"),
-          ("gaussian_blur", "ROADMAP queue 1 item 13 (S3D training)"),
-          ("fancy_pca", "ROADMAP queue 1 item 13 (S3D training)"),
-          ("to_gray", "ROADMAP queue 1 item 13 (S3D training)"),
-          ("color_oneof", "ROADMAP queue 1 item 13 (S3D training)"))
+from fac_fake_torch.ops import jpeg as ops_jpeg
 
 
 def check_config(cfg: AugmentConfig) -> None:
-    for name, item in _LATER:
-        if getattr(cfg, name):
-            raise NotImplementedError(f"augment.{name} belongs to the S3D train transform: {item}")
-    if cfg.to_gray_prob > 0:
-        raise NotImplementedError("augment.to_gray_prob belongs to the S3D train transform: "
-                                  "ROADMAP queue 1 item 13 (S3D training)")
     if cfg.compute_dtype not in ("auto", "float32"):
         raise NotImplementedError(f"augment.compute_dtype={cfg.compute_dtype!r}: bf16 training "
                                   "is ROADMAP queue 1 item 11")
@@ -105,6 +105,7 @@ def apply_dihedral(imgs: torch.Tensor, elem: torch.Tensor, reach=tuple(range(8))
 # --- the depthwise conv stage ---------------------------------------------------
 
 IDENT3 = torch.tensor([[0, 0, 0], [0, 1, 0], [0, 0, 0]], dtype=torch.float32)
+GAUSS3 = torch.outer(torch.tensor([0.25, 0.5, 0.25]), torch.tensor([0.25, 0.5, 0.25]))  # cv2 k=3
 _LAP = torch.tensor([[-1, -1, -1], [-1, 8, -1], [-1, -1, -1]], dtype=torch.float32)
 _EMBOSS = torch.tensor([[-1, 0, 0], [0, 1, 0], [0, 0, 1]], dtype=torch.float32)
 _EMBOSS_SGN = torch.tensor([[-1, 0, 0], [0, 0, 0], [0, 0, 1]], dtype=torch.float32)
@@ -220,8 +221,14 @@ def subset_apply(x: torch.Tensor, take: torch.Tensor, k_budget: int, fn, *extras
 
 
 def _on(cfg: AugmentConfig):
-    exclusive = cfg.sharpen_oneof
-    return exclusive, cfg.emboss and (exclusive or not cfg.sharpen)
+    """(sharpen OneOf exclusive, emboss in the fused conv, blur in the fused conv)."""
+    exclusive = cfg.sharpen_oneof and not cfg.color_oneof
+    return (exclusive, cfg.emboss and (exclusive or not cfg.sharpen),
+            cfg.gaussian_blur and not (cfg.sharpen or cfg.emboss))
+
+
+def _gray(x: torch.Tensor) -> torch.Tensor:
+    return 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
 
 
 def draw(n: int, hw: tuple, cfg: AugmentConfig, gen: torch.Generator,
@@ -233,8 +240,16 @@ def draw(n: int, hw: tuple, cfg: AugmentConfig, gen: torch.Generator,
     outer = u() < cfg.compose_prob
     coin = lambda p=cfg.prob: (u() < p) & outer
     d["outer"] = outer
-    d["take_hsv"], d["take_bc"] = coin(cfg.hsv_prob), coin()
-    exclusive, _ = _on(cfg)
+    if cfg.color_oneof:     # OneOf([BrightnessContrast, FancyPCA, HSV], p=.4)
+        group = (u() < cfg.color_oneof_prob) & outer
+        pick = torch.randint(0, 3, (n,), generator=gen, device=device)
+        for i, name in enumerate(("take_bc", "take_pca", "take_hsv")):
+            d[name] = group & (pick == i)
+    else:
+        d["take_hsv"], d["take_bc"] = coin(cfg.hsv_prob), coin()
+        if cfg.fancy_pca:
+            d["take_pca"] = coin()
+    exclusive = _on(cfg)[0]
     if exclusive:
         group = (u() < cfg.sharpen_oneof_prob) & outer
         pick = torch.randint(0, 4, (n,), generator=gen, device=device)
@@ -242,6 +257,10 @@ def draw(n: int, hw: tuple, cfg: AugmentConfig, gen: torch.Generator,
             d[name] = group & (pick == i)
     else:
         d["take_clahe"], d["take_sharpen"], d["take_emboss"] = coin(), coin(), coin()
+    if cfg.image_compression:
+        lo, hi = (float(v) for v in cfg.compression_quality)
+        d["quality"] = torch.floor(u(lo=lo, hi=hi))
+        d["take_jpeg"] = (u() < cfg.compression_prob) & outer
     if cfg.rot90 or cfg.transpose or cfg.hflip or cfg.vflip:
         elem = torch.zeros((n,), dtype=torch.long, device=device)
         if cfg.rot90:
@@ -258,21 +277,39 @@ def draw(n: int, hw: tuple, cfg: AugmentConfig, gen: torch.Generator,
         d["sigma"] = u(lo=0.01, hi=0.05)
         d["noise"] = torch.randn((n, *hw, 3), generator=gen, device=device)
         d["take_noise"] = coin(cfg.noise_prob)
+    if cfg.gaussian_blur:   # GaussianBlur(blur_limit=(1, 3)): kernel 3 half the time
+        d["take_blur"] = (u() < cfg.blur_prob) & (u() < 0.5) & outer
     if cfg.sharpen:
         d["sharpen_alpha"], d["lightness"] = u(lo=0.2, hi=0.5), u(lo=0.5, hi=1.0)
     if cfg.emboss:
         d["emboss_alpha"], d["strength"] = u(lo=0.2, hi=0.5), u(lo=0.2, hi=0.7)
+    if cfg.fancy_pca:
+        d["pca_alphas"] = 0.1 * torch.randn((n, 3), generator=gen, device=device)
     if cfg.brightness_contrast:
         d["contrast"], d["brightness"] = u(lo=-0.2, hi=0.2), u(lo=-0.2, hi=0.2)
     if cfg.hue_saturation or cfg.color_jitter:
         d["dh"] = u(lo=-0.05, hi=0.05)
         d["dsat"], d["dv"] = u(lo=-0.15, hi=0.15), u(lo=-0.15, hi=0.15)
+    if cfg.to_gray_prob > 0:
+        d["take_gray"] = (u() < cfg.to_gray_prob) & outer
     if cfg.rotation_deg > 0:
         d["angle"] = u((), -1.0, 1.0) * (cfg.rotation_deg * math.pi / 180.0)
         d["scale"] = u((), 1.0 - cfg.scale_limit, 1.0 + cfg.scale_limit)
         d["shift"] = u((2,), -cfg.shift_limit, cfg.shift_limit) * hw[0]
         d["take_affine"] = coin(cfg.affine_prob)
     return d
+
+
+def fancy_pca_delta(x: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
+    """albumentations FancyPCA(alpha=.1) as a per-image RGB bias: (B, H, W, 3)
+    and (B, 3) N(0, .1) draws → (B, 3), ``evecs @ (alphas · evals)`` of each
+    image's fp32 pixel covariance."""
+    px = x.reshape(x.shape[0], -1, 3)
+    centered = px - px.mean(dim=1, keepdim=True)
+    cov = torch.einsum("npc,npd->ncd", centered, centered) \
+        / torch.full((1,), float(px.shape[1]), device=x.device)
+    evals, evecs = torch.linalg.eigh(cov)
+    return torch.einsum("ncd,nd->nc", evecs, alphas * evals)
 
 
 def _dihedral_reach(cfg: AugmentConfig, h: int, w: int) -> tuple:
@@ -293,16 +330,24 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig)
     x_in = x
     n, h, w = x.shape[0], x.shape[1], x.shape[2]
     col = lambda t: t[:, None, None, None]
-    exclusive, emboss_in_conv = _on(cfg)
+    exclusive, emboss_in_conv, blur_in_conv = _on(cfg)
+    if cfg.image_compression:
+        # K10 works in place, on a contiguous tensor of this chain's own
+        x = x.clone(memory_format=torch.contiguous_format)
+        x = ops_jpeg.jpeg_subset_(x, d["take_jpeg"], d["quality"])
     if "elem" in d:
         x = apply_dihedral(x, d["elem"], _dihedral_reach(cfg, h, w))
     if cfg.gauss_noise:
         noisy = torch.clamp(x + col(d["sigma"]) * d["noise"], 0.0, 1.0)
         x = torch.where(col(d["take_noise"]), noisy, x)
 
-    # the fused depthwise conv: kernel = scale_bc · (sharpen | emboss | I), bias = bc
+    # the fused depthwise conv: kernel = scale_bc · (blur | sharpen | emboss | I),
+    # bias = bc + pca
     kern = IDENT3.to(x.device).expand(n, 3, 3)
     take_conv = torch.zeros((n,), dtype=torch.bool, device=x.device)
+    if blur_in_conv:
+        kern = torch.where(d["take_blur"][:, None, None], GAUSS3.to(x.device), kern)
+        take_conv = take_conv | d["take_blur"]
     if cfg.sharpen:
         kern = torch.where(d["take_sharpen"][:, None, None],
                            sharpen_kernel(d["sharpen_alpha"], d["lightness"]), kern)
@@ -312,16 +357,25 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig)
                            emboss_kernel(d["emboss_alpha"], d["strength"]), kern)
         take_conv = take_conv | d["take_emboss"]
     bias = torch.zeros((n, 3), device=x.device)
+    if cfg.fancy_pca:
+        bias = bias + torch.where(d["take_pca"][:, None],
+                                  fancy_pca_delta(x, d["pca_alphas"]), torch.zeros_like(bias))
+        take_conv = take_conv | d["take_pca"]
     if cfg.brightness_contrast:
         a, b, tb = d["contrast"], d["brightness"], d["take_bc"]
         scale = torch.where(tb, 1.0 + a, torch.ones_like(a))
         kern = kern * scale[:, None, None]
         bias = scale[:, None] * bias + torch.where(tb, b - 0.5 * a, torch.zeros_like(b))[:, None]
         take_conv = take_conv | tb
-    if cfg.sharpen or emboss_in_conv or cfg.brightness_contrast:
+    if blur_in_conv or cfg.sharpen or emboss_in_conv or cfg.fancy_pca or cfg.brightness_contrast:
         conv = conv3x3_per_image(x, kern) + bias[:, None, None, :]
         x = torch.where(col(take_conv), torch.clamp(conv, 0.0, 1.0), x)
-    if cfg.emboss and not emboss_in_conv:        # legacy mode: co-fires with sharpen
+    # legacy-mode stragglers that co-fire with sharpen (never in the
+    # reference's shipped OneOf pipelines): their own passes
+    if cfg.gaussian_blur and not blur_in_conv:
+        blurred = conv3x3_per_image(x, GAUSS3.to(x.device).expand(n, 3, 3))
+        x = torch.where(col(d["take_blur"]), torch.clamp(blurred, 0.0, 1.0), x)
+    if cfg.emboss and not emboss_in_conv:
         emb = conv3x3_per_image(x, emboss_kernel(d["emboss_alpha"], d["strength"]))
         x = torch.where(col(d["take_emboss"]), torch.clamp(emb, 0.0, 1.0), x)
 
@@ -344,12 +398,18 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig)
                  torch.clamp(hsv[..., 2] + sdv[:, None, None], 0.0, 1.0)], dim=-1))
             return torch.clamp(shifted, 0.0, 1.0)
 
-        kb = subset_budget(n, cfg.compose_prob * cfg.hsv_prob)
+        p = cfg.color_oneof_prob / 3.0 if cfg.color_oneof else cfg.hsv_prob
+        kb = subset_budget(n, cfg.compose_prob * p)
         extras = (d["dh"], d["dsat"], d["dv"])
         if kb <= n // 2 and n >= 16:
             x = subset_apply(x, d["take_hsv"], kb, hsv_fn, *extras)
         else:
             x = torch.where(col(d["take_hsv"]), hsv_fn(x, *extras), x)
+
+    if cfg.to_gray_prob > 0:        # ToGray(p=.2), a random aug
+        x = torch.where(col(d["take_gray"]), _gray(x)[..., None], x)
+    if cfg.to_gray:                 # the gray plan: every frame
+        x = _gray(x)[..., None].expand(-1, -1, -1, 3)
 
     if cfg.rotation_deg > 0:
         warped = torch.clamp(batch_affine_matmul(x, d["angle"], d["scale"], d["shift"][0],

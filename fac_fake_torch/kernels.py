@@ -31,7 +31,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "fac_fake_torch_kernels"
 SOURCES = ("frame_detections", "normalize", "quant_dense", "quant_conv3d", "max_pool3d_i8",
-           "clahe", "hard_nms", "kan_bases")
+           "clahe", "hard_nms", "kan_bases", "jpeg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -51,6 +51,7 @@ SIGNATURES = {
     "clahe": {"fac_clahe_subset": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]},
     "hard_nms": {"fac_hard_nms": [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]},
     "kan_bases": {"fac_kan_bases": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "jpeg": {"fac_jpeg_subset": [_P, _P, _P, _I, _I, _I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -89,8 +89,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 std = 1.0 if m.pos_mode == "legacy" else 0.02
                 m.pos_embedding.normal_(0.0, std, generator=gen)
                 done.update((id(m.cls_token), id(m.pos_embedding)))
-            elif isinstance(m, s3d_model.S3DNet) and m.srm == "concat30":
-                m.srm_weight.copy_(srm_weight(full=True))
+            elif isinstance(m, s3d_model.S3DNet) and m.srm != "none":
+                m.srm_weight.copy_(srm_weight(full=m.srm == "concat30"))
     missed = [n for n, p in model.named_parameters() if id(p) not in done]
     if missed:
         raise RuntimeError(f"init_weights left parameters unset: {missed}")

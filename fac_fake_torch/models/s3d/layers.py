@@ -9,12 +9,17 @@ takes it, in ``channels_last_3d`` memory; module names are the reference's
   * `SepConv3d`: spatial (1,k,k) stride (1,s,s) conv-BN-act, then temporal
     (k,1,1) stride (s,1,1) conv-BN-act; ``spatial_bn=False`` is the msca
     ``SepConv3dV2`` (no spatial BN, and no spatial act with
-    ``spatial_act=False``);
+    ``spatial_act=False``); ``depthwise=True`` groups both convs by channel;
+  * `DWSepConv3d`: the msca family's depthwise separable conv
+    (`new_model/Conv3d.py:45-64`), BN and ReLU6 after the temporal conv only;
   * the frozen SRM high-pass banks (`S3D/SRM/HPF.py:11-65`), read from this
-    package's own copy of the ``.npy`` assets.
+    package's own copy of the ``.npy`` assets: the 30-filter input bank and
+    the msca family's residual 3-filter bank.
 
-BatchNorm3d runs with the reference's eps 1e-3 (torch's default is 1e-5)
-and momentum 0.001 (flax decay 0.999).
+`BN3D` runs with the reference's eps 1e-3 (torch's default is 1e-5) and
+momentum 0.001 (flax decay 0.999), and in training updates its running
+variance with the biased batch variance, as flax does
+(`models/layers.py _FlaxRunningStats`).
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fac_fake_torch.models.layers import _FlaxRunningStats
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
@@ -39,7 +46,7 @@ def _triple(v: Int3) -> Tuple[int, int, int]:
     return (v, v, v) if isinstance(v, int) else tuple(v)
 
 
-class BN3D(nn.BatchNorm3d):
+class BN3D(_FlaxRunningStats, nn.BatchNorm3d):
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN3D_EPS, momentum=BN3D_MOMENTUM)
 
@@ -78,16 +85,17 @@ class SepConv3d(nn.Module):
                  padding: Int3 = 1, act: str = "relu", spatial_bn: bool = True,
                  spatial_act: bool = True, depthwise: bool = False):
         super().__init__()
-        if depthwise:
-            raise NotImplementedError(
-                "depthwise SepConv3d (DWSepConv3d) belongs to the msca S3D family, "
-                "which fac_fake_torch does not have yet (ROADMAP queue 1 item 13)")
         kt, kh, kw = _triple(kernel)
         pt, ph, pw = _triple(padding)
         s = stride
-        self.conv_s = nn.Conv3d(cin, cout, (1, kh, kw), (1, s, s), (0, ph, pw), bias=False)
+        if depthwise:
+            cout = cin
+        groups = cin if depthwise else 1
+        self.conv_s = nn.Conv3d(cin, cout, (1, kh, kw), (1, s, s), (0, ph, pw), groups=groups,
+                                bias=False)
         self.bn_s = BN3D(cout) if spatial_bn else None
-        self.conv_t = nn.Conv3d(cout, cout, (kt, 1, 1), (s, 1, 1), (pt, 0, 0), bias=False)
+        self.conv_t = nn.Conv3d(cout, cout, (kt, 1, 1), (s, 1, 1), (pt, 0, 0), groups=groups,
+                                bias=False)
         self.bn_t = BN3D(cout)
         self.act = act
         self.spatial_act = spatial_act
@@ -99,6 +107,17 @@ class SepConv3d(nn.Module):
         if self.spatial_act:
             x = act_fn(self.act)(x)
         return act_fn(self.act)(self.bn_t(self.conv_t(x)))
+
+
+class DWSepConv3d(SepConv3d):
+    """Depthwise separable 3D conv (`new_model/Conv3d.py:45-64`): grouped
+    spatial then grouped temporal conv, BN and ReLU6 after the temporal one
+    only. Its keys sit directly under the module (``conv_s``, ``conv_t``,
+    ``bn_t``), as the reference's."""
+
+    def __init__(self, channels: int, kernel: Int3, stride: int = 1, padding: Int3 = 0):
+        super().__init__(channels, channels, kernel, stride, padding, act="relu6",
+                         spatial_bn=False, spatial_act=False, depthwise=True)
 
 
 def max_pool3d(x, kernel: Tuple[int, int, int], strides: Tuple[int, int, int],
@@ -134,5 +153,6 @@ def srm_weight(full: bool = True) -> torch.Tensor:
 
 
 def srm_filter(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Frozen SRM high-pass bank: (B,3,T,H,W) → (B,K,T,H,W), padding (0,2,2)."""
+    """Frozen SRM high-pass bank: (B,3,T,H,W) → (B,K,T,H,W), padding (0,2,2)
+    (the residual input of the msca family is ``x + srm_filter(x, w3)``)."""
     return F.conv3d(x, weight, padding=(0, 2, 2))

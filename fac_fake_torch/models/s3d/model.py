@@ -1,11 +1,18 @@
 """S3D model family, assembled from spec lists — the port of
-`fac_fake_tpu/models/s3d/model.py` for the ``s3d`` and ``ca_s3d`` entries.
+`fac_fake_tpu/models/s3d/model.py`.
 
   * ``s3d``    — `S3D/model.py:6-48` (separable-3D Inception, 20-frame clip
                  → 1 logit; optional 30-channel SRM input, `model.py:10-16`);
   * ``ca_s3d`` — `S3D/CA_S3D.py:9-60` (+ GCNet ContextBlock3d after six of
                  the Inception stages), the reference's default
-                 ``--model_type 0``.
+                 ``--model_type 0``;
+  * ``msca_s3d`` — `msca_S3D.py:17-72` / `msca_S3Dv1.py:74-129` (iFormer
+                 hybrid at 320 channels, reduced 5b/5c tail, ReLU6);
+  * ``msca_s3d_srm`` — `msca_S3Dv1.py:17-72` (the residual 3-filter SRM
+                 input ``x + SRM(x)`` and an MSCAN_half stem block);
+  * ``msca_s3d_v2`` — all-full iFormer blocks (`msca_S3Dv2.py:85-104`);
+  * ``msca_s3d_srm_v2`` — the v1 residual-SRM structure without the stem
+                 MSCAN_half.
 
 ``self.base`` is an ``nn.Sequential`` whose indices are the spec's indices
 (a pool takes a slot, as ``nn.MaxPool3d`` does in the reference), and
@@ -16,9 +23,7 @@ Input: (B, 3, T, H, W) float, raw 0–255, in ``channels_last_3d`` memory (the
 JAX package's (B, T, H, W, 3) permuted). Output: (B, num_class) logits
 (temporal-mean head, `model.py:37-48`).
 
-The msca family (``msca_s3d``, ``msca_s3d_srm``, ``msca_s3d_v2``,
-``msca_s3d_srm_v2``) and the residual 3-filter SRM input are registered but
-raise: their blocks are ROADMAP queue 1 item 13.
+The family runs in float32; bf16 S3D is ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -28,16 +33,14 @@ import torch
 from torch import nn
 
 from fac_fake_torch.core.registry import register
-from fac_fake_torch.models.s3d.blocks import INCEPTION_PLANS, ContextBlock3d, InceptionMix
+from fac_fake_torch.models.s3d.blocks import (INCEPTION_PLANS, ContextBlock3d, IFormerBlock,
+                                              InceptionMix, MSCANHalf)
 from fac_fake_torch.models.s3d.layers import (BasicConv3d, SepConv3d, avg_pool3d, srm_filter,
                                               srm_weight)
 
 _P133 = (("pool", (1, 3, 3), (1, 2, 2), (0, 1, 1)),)
 _P333 = (("pool", (3, 3, 3), (2, 2, 2), (1, 1, 1)),)
 _P222 = (("pool", (2, 2, 2), (2, 2, 2), (0, 0, 0)),)
-
-_MSCA = ("the msca S3D family (MSCAN, iFormer, depthwise-separable blocks, the "
-         "residual3 SRM) is not in fac_fake_torch yet: ROADMAP queue 1 item 13")
 
 
 def s3d_spec(act: str = "relu") -> Tuple:
@@ -77,9 +80,10 @@ def ca_s3d_spec() -> Tuple:
 
 
 def msca_spec(stem_mscan: bool = False, all_full: bool = False) -> Tuple:
-    """The msca_S3D layer plans, as data (`msca_S3D.py:85-115`,
-    `msca_S3Dv1.py`; ``all_full``: `msca_S3Dv2.py:85-104`; ``stem_mscan``:
-    `msca_S3Dv1.py:31`). `S3DNet` does not build them yet."""
+    """The msca_S3D layer plans (`msca_S3D.py:85-115`, `msca_S3Dv1.py`):
+    light-light-full iFormer triplets at 320 channels; ``all_full``: the v2
+    re-plan (`msca_S3Dv2.py:85-104`, two full blocks a ratio); ``stem_mscan``:
+    the v1-SRM stem MSCAN_half (`msca_S3Dv1.py:31`)."""
     act = "relu6"
     spec: Tuple = (("sep", 64, 7, 2, 3, act, True),) + _P133
     if stem_mscan:
@@ -111,15 +115,15 @@ class S3DNet(nn.Module):
 
     def __init__(self, spec: Tuple, num_class: int = 1, srm: str = "none"):
         super().__init__()
-        if srm not in ("none", "concat30"):
-            raise NotImplementedError(f"srm={srm!r}: " + _MSCA if srm == "residual3"
-                                      else f"srm must be none|concat30, got {srm!r}")
+        if srm not in ("none", "concat30", "residual3"):
+            raise ValueError(f"srm must be none|concat30|residual3, got {srm!r}")
         self.spec = tuple(spec)
         self.num_class = num_class
         self.srm = srm
-        if srm == "concat30":
+        if srm != "none":
             # frozen, not part of the state dict (the JAX model has no leaf for it)
-            self.register_buffer("srm_weight", srm_weight(full=True), persistent=False)
+            self.register_buffer("srm_weight", srm_weight(full=srm == "concat30"),
+                                 persistent=False)
         c = 30 if srm == "concat30" else 3
         layers = []
         for op in self.spec:
@@ -139,27 +143,32 @@ class S3DNet(nn.Module):
                 c = layers[-1].out_channels
             elif kind == "ctx":
                 layers.append(ContextBlock3d(c, op[1], op[2]))
-            elif kind in ("mscan_half", "iformer"):
-                raise NotImplementedError(f"spec op {kind!r}: " + _MSCA)
+            elif kind == "mscan_half":
+                layers.append(MSCANHalf(c, op[1]))
+            elif kind == "iformer":
+                layers.append(IFormerBlock(c, op[1], op[2], light=op[3]))
             else:
                 raise ValueError(kind)
         self.base = nn.Sequential(*layers)
         self.fc = nn.Sequential(nn.Conv3d(c, num_class, 1))
 
     def forward(self, clips: torch.Tensor) -> torch.Tensor:
-        x = clips.float()
+        x = clips.to(self.fc[0].weight.dtype)
         if self.srm == "concat30":
             x = srm_filter(x, self.srm_weight)
+        elif self.srm == "residual3":
+            x = x + srm_filter(x, self.srm_weight)
         x = self.base(x)
         # head: avg over (2, H, W) stride 1, 1×1×1 conv, temporal mean
         x = self.fc(avg_pool3d(x, (2, x.shape[3], x.shape[4])))
         return x.flatten(2).mean(2)
 
 
-def _s3d_net(cfg, spec) -> S3DNet:
+def _s3d_net(cfg, spec, srm: str = "concat30") -> S3DNet:
     if getattr(cfg, "dtype", "float32") != "float32":
-        raise NotImplementedError(f"S3D dtype {cfg.dtype!r}: the port runs S3D in float32")
-    return S3DNet(spec, num_class=cfg.num_class, srm="concat30" if cfg.srm_net else "none")
+        raise NotImplementedError(f"S3D dtype {cfg.dtype!r}: the port runs S3D in float32 "
+                                  "(bf16 S3D is ROADMAP queue 1 item 11)")
+    return S3DNet(spec, num_class=cfg.num_class, srm=srm if cfg.srm_net else "none")
 
 
 @register("model", "s3d")
@@ -173,11 +182,24 @@ def build_ca_s3d(cfg):
     return _s3d_net(cfg, ca_s3d_spec())
 
 
-def _msca(name):
-    def build(cfg):
-        raise NotImplementedError(f"model {name!r}: " + _MSCA)
-    register("model", name)(build)
+@register("model", "msca_s3d")
+def build_msca_s3d(cfg):
+    return _s3d_net(cfg, msca_spec())
 
 
-for _name in ("msca_s3d", "msca_s3d_srm", "msca_s3d_v2", "msca_s3d_srm_v2"):
-    _msca(_name)
+@register("model", "msca_s3d_srm")
+def build_msca_s3d_srm(cfg):
+    """v1 residual-SRM hybrid: y = x + HPF_3(x) (`msca_S3Dv1.py:61-63`)."""
+    return _s3d_net(cfg, msca_spec(stem_mscan=True), srm="residual3")
+
+
+@register("model", "msca_s3d_v2")
+def build_msca_s3d_v2(cfg):
+    """v2 re-plan: all-full iFormer blocks (`msca_S3Dv2.py:85-104`)."""
+    return _s3d_net(cfg, msca_spec(all_full=True))
+
+
+@register("model", "msca_s3d_srm_v2")
+def build_msca_s3d_srm_v2(cfg):
+    """v2 residual-SRM: the v1 structure without the stem MSCAN_half."""
+    return _s3d_net(cfg, msca_spec(stem_mscan=False), srm="residual3")

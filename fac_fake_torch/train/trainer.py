@@ -1,10 +1,17 @@
 """The training engine — the port of `fac_fake_tpu/train/trainer.py` for the
-CViT family, on one device (the card unless the caller names the CPU).
+CViT and S3D families, on one device (the card unless the caller names the
+CPU).
 
-One train step (`Trainer.train_step`): the strong_aug chain on the uint8
-batch (`data/augment.py`, CLAHE through kernel K7) → ImageNet normalize →
-forward in training mode → the masked loss → backward → one Adam update
-(`train/state.py`). BatchNorm running stats and LinearNorm's counters are
+One train step (`Trainer.train_step`): the augmentation chain on the uint8
+batch (`data/augment.py`: the CViT's strong_aug with CLAHE through kernel
+K7, or the S3D train transform with JPEG through kernel K10) → the input
+scaling of ``data.normalize`` (``imagenet``: ImageNet mean and std;
+``raw255``, S3D: the augmented [0, 1] batch times 255, JAX :161-166, not the
+integer bytes) → forward in training mode → the masked loss (S3D's
+``bce_weighted`` takes its ``pos_weight`` through ``loss_kwargs``) →
+backward → one Adam update (`train/state.py`). Image batches are (B, H, W,
+3) and clip batches (B, T, H, W, 3), uint8; the model sees them as NCHW /
+NCDHW views of that memory. BatchNorm running stats and LinearNorm's counters are
 the model's buffers and move in its forward, as JAX's mutable collections
 do. Options, as JAX's:
 
@@ -21,8 +28,10 @@ do. Options, as JAX's:
     and those it ended with after, so the buffers are as one forward leaves
     them and the recompute sees what the forward saw.
 
-`eval_step` normalizes the uint8 batch with K2 (`ops/preprocess.py
-normalize_imagenet`, one launch a batch) and runs the model in eval mode.
+`eval_step` normalizes a uint8 image batch with K2 (`ops/preprocess.py
+normalize_imagenet`, one launch a batch; a clip batch under ``raw255`` is
+``u8 / 255 · 255`` in fp32, as JAX's, with no K2: K2 has no fp32 raw mode)
+and runs the model in eval mode.
 `cache_data` keeps a whole uint8 dataset on the device (`DeviceCache`): each
 epoch shuffles it with a seeded generator and gathers the rows on the
 device. Host batches (`data/folder.py`) are read a batch ahead on a worker
@@ -33,8 +42,7 @@ running metrics stay on the device until the epoch ends, or ``log_every``.
 checkpoints on a background thread (`train/checkpoint.py`).
 
 Left out, and raising: the mesh and its tensor-parallel rules (ROADMAP
-queue 1 item 12), TensorBoard (item 16), bf16 training (item 11) and S3D
-training (item 13).
+queue 1 item 12), TensorBoard (item 16) and bf16 training (item 11).
 """
 from __future__ import annotations
 
@@ -66,7 +74,7 @@ class DeviceCache:
     as a ``*_batches_fn`` of `Trainer.fit`."""
 
     def __init__(self, images: torch.Tensor, labels: torch.Tensor, batch_size: int):
-        self.images = images              # (N, H, W, 3) uint8
+        self.images = images              # (N, H, W, 3) or clips (N, T, H, W, 3), uint8
         self.labels = labels              # (N,) int64
         self.batch_size = batch_size
         self.steps = int(images.shape[0]) // batch_size      # drop_last
@@ -94,6 +102,11 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    """NHWC → NCHW, NDHWC → NCDHW, as views."""
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
 class Trainer:
     def __init__(self, model: nn.Module, cfg: Optional[Config] = None,
                  device: DeviceLike = None, loss_kwargs: Optional[dict] = None):
@@ -111,9 +124,9 @@ class Trainer:
                                       "parallel) is ROADMAP queue 1 item 12")
         if tcfg.remat not in _REMAT:
             raise ValueError(f"train.remat={tcfg.remat!r}: one of {_REMAT}")
-        if self.cfg.data.normalize != "imagenet":
-            raise NotImplementedError(f"data.normalize={self.cfg.data.normalize!r}: S3D "
-                                      "training is ROADMAP queue 1 item 13")
+        if self.cfg.data.normalize not in ("imagenet", "raw255"):
+            raise ValueError(f"data.normalize={self.cfg.data.normalize!r}: imagenet or raw255")
+        self.raw255 = self.cfg.data.normalize == "raw255"
         if self.cfg.data.augment.enabled:
             check_config(self.cfg.data.augment)
         self.model = model.to(self.device)
@@ -173,8 +186,10 @@ class Trainer:
         return loss.detach(), logits.detach()
 
     def normalize(self, x01: torch.Tensor) -> torch.Tensor:
-        """[0, 1] NHWC → the model's NCHW input (``channels_last``)."""
-        return ((x01 - self._mean) / self._std).permute(0, 3, 1, 2)
+        """[0, 1] NHWC (NDHWC) → the model's NCHW (NCDHW) input, a view of
+        ``channels_last`` (``channels_last_3d``) memory."""
+        x = x01 * 255.0 if self.raw255 else (x01 - self._mean) / self._std
+        return _channels_first(x)
 
     def train_step(self, batch: Dict[str, torch.Tensor],
                    gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -211,18 +226,24 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The uint8 batch through K2's normalize and the model in eval mode."""
+        """The uint8 batch through the model in eval mode: ImageNet-normalized
+        by K2, or under ``raw255`` (S3D) ``u8 / 255 · 255`` in fp32."""
         self.model.eval()
         mask = batch["mask"].float()
-        logits = self.model(preprocess.normalize_imagenet(batch["image"]))
+        u8 = batch["image"]
+        if self.raw255:
+            x = self.normalize(u8.float() / torch.full((1,), 255.0, device=u8.device))
+        else:
+            x = preprocess.normalize_imagenet(u8)
+        logits = self.model(x)
         return {"loss": self.loss_fn(logits, batch["label"], mask),
                 "correct": count_correct(logits, batch["label"], mask),
                 "count": mask.sum()}
 
     # --- device-cached epochs --------------------------------------------
     def cache_data(self, images_u8, labels, batch_size: int) -> DeviceCache:
-        """Upload a whole uint8 dataset (N, H, W, 3) to the device, cut to
-        whole batches."""
+        """Upload a whole uint8 dataset (N, H, W, 3), or clips (N, T, H, W, 3),
+        to the device, cut to whole batches."""
         n = (len(images_u8) // batch_size) * batch_size
         images = torch.as_tensor(np.ascontiguousarray(images_u8[:n])).to(self.device)
         labels = torch.as_tensor(np.asarray(labels[:n], np.int64)).to(self.device)

@@ -305,8 +305,15 @@ def test_augment_batch_is_seeded_and_in_range(oneof):
                                          ("fancy_pca", True), ("to_gray", True),
                                          ("to_gray_prob", 0.2), ("color_oneof", True)])
 def test_s3d_transform_extras_raise(field, value):
+    """Each S3D transform extra runs in the chain (a seeded output in [0, 1]
+    of the input's shape); with the bf16 chain, which stays ROADMAP queue 1
+    item 11, it raises."""
     from fac_fake_torch.core.config import AugmentConfig
     from fac_fake_torch.data.augment import augment_batch
-    with pytest.raises(NotImplementedError, match="item 13"):
-        augment_batch(torch.zeros((2, 8, 8, 3), dtype=torch.uint8),
-                      AugmentConfig(**{field: value}), torch.Generator())
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 16, 16, 3),
+                                                            dtype=np.uint8))
+    out = augment_batch(u8, AugmentConfig(**{field: value}), torch.Generator().manual_seed(0))
+    assert out.shape == u8.shape and float(out.min()) >= 0 and float(out.max()) <= 1
+    with pytest.raises(NotImplementedError, match="item 11"):
+        augment_batch(u8, AugmentConfig(**{field: value}, compute_dtype="bfloat16"),
+                      torch.Generator())

@@ -219,7 +219,8 @@ def test_cli_train_then_predict_loads_the_best_checkpoint(tmp_path):
     """``python -m fac_fake_torch.cli.train`` at tiny widths on the CPU (the
     strong_aug chain on, one epoch, the test split at the end); its
     ``best.pth`` loads strict in `cli/predict.py`. Without ``--device`` and
-    without CUDA, the CLI raises."""
+    without CUDA, the CLI raises; ``--clips-root`` (S3D clips) with a CViT
+    model is refused."""
     root = _crop_tree(str(tmp_path / "crops"), n=(4, 4))
     sets = ["model.image_size=32", "model.patch_size=1", "model.dim=32", "model.depth=1",
             "model.heads=2", "model.mlp_dim=32", "data.num_workers=1", "train.log_every=0"]
@@ -246,6 +247,6 @@ def test_cli_train_then_predict_loads_the_best_checkpoint(tmp_path):
         from fac_fake_torch.cli import train
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train.main(["--data-root", root, "--set", *sets])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(SystemExit, match="S3D"):
         from fac_fake_torch.cli import train
         train.main(["--clips-root", root, "--device", "cpu"])

@@ -1146,3 +1146,107 @@ def test_resvitkan_forward_runs_k9_twice_and_matches_the_cpu(dev):
         ref = copy.deepcopy(m).cpu().forward_crops(u8, torch.float32, pos)
     assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= 1e-3
+
+
+# ---- K10: the S3D transform's JPEG step --------------------------------------------
+
+def _k10_frames(kind, n, rng, hw=(224, 224)):
+    if kind == "flat":
+        u8 = np.full((n, *hw, 3), 77, np.uint8)
+    elif kind == "every_byte":
+        u8 = (np.arange(n * hw[0] * hw[1] * 3) % 256).reshape(n, *hw, 3).astype(np.uint8)
+    else:
+        u8 = rng.integers(0, 256, (n, *hw, 3), dtype=np.uint8)
+    return u8
+
+
+@pytest.mark.parametrize("kind", ["seeded", "flat", "every_byte"])
+@pytest.mark.parametrize("quality", [1, 50, 60, 99, 100, "seeded"])
+@pytest.mark.parametrize("take", ["none", "all", "seeded"])
+def test_k10_jpeg_equals_plain(dev, kind, quality, take):
+    """K10 in place against `jpeg_subset_plain_` on copies of the same
+    frames: untaken frames keep their bits; taken ones within JPEG_TOL
+    outside the near-tie blocks; one launch. The flat frame (77) is one
+    block repeated: at quality 50 its luma DC coefficient, 8 · (77 − 128) /
+    16 = −25.5, is an exact rounding tie, so every luma block is near-tie
+    there, and no block at the other qualities, where it is held over every
+    block."""
+    from fac_fake_torch.ops import jpeg as oj
+
+    rng = np.random.default_rng(5)
+    n = 8
+    x = torch.from_numpy(_k10_frames(kind, n, rng)).to(dev).float() \
+        / torch.full((1,), 255.0, device=dev)
+    q = (np.floor(rng.uniform(60, 100, n)) if quality == "seeded"
+         else np.full(n, quality)).astype(np.float32)
+    q = torch.from_numpy(q).to(dev)
+    t = {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+         "seeded": rng.random(n) < 0.3}[take]
+    t = torch.from_numpy(t).to(dev)
+    before = oj.jpeg_subset_.launches
+    got = oj.jpeg_subset_(x.clone(), t, q)
+    ref = oj.jpeg_subset_plain_(x.clone(), t, q)
+    torch.cuda.synchronize()
+    assert oj.jpeg_subset_.launches == before + 1
+    assert torch.equal(got[~t], x[~t])
+    if bool(t.any()):
+        mask, ties, blocks = oj.near_ties(x[t], q[t])
+        err = (got[t] - ref[t]).abs().amax(-1)
+        assert not bool((err[~mask] > oj.JPEG_TOL).any())
+        if kind == "flat":
+            # the 4 luma blocks of each MCU's 6 tie at quality 50; the grey's
+            # chroma DC is 0
+            assert ties == (blocks * 2 // 3 if quality == 50 else 0), (ties, blocks)
+
+
+def test_k10_refuses_what_it_does_not_take(dev):
+    from fac_fake_torch.ops import jpeg as oj
+
+    x = torch.rand((2, 32, 32, 3), device=dev)
+    take = torch.ones(2, dtype=torch.bool, device=dev)
+    q = torch.full((2,), 80.0, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        oj.jpeg_subset_(x.transpose(1, 2), take, q)
+    with pytest.raises(ValueError, match="float32"):
+        oj.jpeg_subset_(x.half(), take, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        oj.jpeg_subset_(x, take.cpu(), q)
+    with pytest.raises(ValueError, match="bool"):
+        oj.jpeg_subset_(x, take.to(torch.uint8), q)
+    with pytest.raises(ValueError, match="float32"):
+        oj.jpeg_subset_(x, take, q.double())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        oj.jpeg_subset_(torch.rand((2, 24, 32, 3), device=dev), take, q)
+    before = oj.jpeg_subset_.launches
+    assert oj.jpeg_subset_(x[:0], take[:0], q[:0]).shape == (0, 32, 32, 3)
+    assert oj.jpeg_subset_.launches == before
+
+
+def test_s3d_train_step_on_the_card_runs_k10(dev):
+    """A ``ca_s3d`` train step at 32², 16 frames, batch 2 under plan1_2's
+    transform runs K10 once; with the transform off, never; the eval step
+    (raw255) runs no K2."""
+    import os
+    from fac_fake_torch.core.plans import load_plan
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import jpeg as oj
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_plan(os.path.join(root, "configs", "plan1_2.yaml"))
+    cfg.data.normalize = "raw255"
+    cfg.model.image_size = 32
+    tr = Trainer(build_model(cfg.model, device=dev), cfg, loss_kwargs={"pos_weight": 0.3})
+    rng = np.random.default_rng(0)
+    b = {"image": torch.from_numpy(rng.integers(0, 256, (2, 16, 32, 32, 3),
+                                                dtype=np.uint8)).to(dev),
+         "label": torch.tensor([0, 1], device=dev), "mask": torch.ones(2, device=dev)}
+    k10, k2 = oj.jpeg_subset_.launches, pp.normalize_imagenet.launches
+    met = tr.train_step(b, torch.Generator(device=dev).manual_seed(0))
+    tr.cfg.data.augment.enabled = False
+    tr.train_step(b, torch.Generator(device=dev).manual_seed(0))
+    ev = tr.eval_step(b)
+    torch.cuda.synchronize()
+    assert oj.jpeg_subset_.launches == k10 + 1 and pp.normalize_imagenet.launches == k2
+    assert np.isfinite(float(met["loss"])) and np.isfinite(float(ev["loss"]))

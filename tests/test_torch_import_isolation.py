@@ -46,6 +46,8 @@ def test_importing_every_port_module_loads_no_jax():
     # the ResNet/KAN family with kernel K9
     assert {"fac_fake_torch.ops.kan", "fac_fake_torch.models.blocks.kan",
             "fac_fake_torch.models.resnet"} <= set(mods)
+    # S3D training: the JPEG step (kernel K10), face masking
+    assert {"fac_fake_torch.ops.jpeg", "fac_fake_torch.data.masking"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

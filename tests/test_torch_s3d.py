@@ -160,7 +160,7 @@ def test_reference_pth_round_trip(tmp_path):
 def test_build_model_registry_and_refusals():
     from fac_fake_torch.core.config import ModelConfig
     from fac_fake_torch.models import build_model
-    from fac_fake_torch.models.s3d.layers import SepConv3d
+    from fac_fake_torch.models.s3d.layers import SepConv3d, srm_weight
     from fac_fake_torch.models.s3d.model import S3DNet, msca_spec
 
     m = build_model(ModelConfig(name="ca_s3d", num_class=1), device="cpu", seed=0)
@@ -175,14 +175,17 @@ def test_build_model_registry_and_refusals():
     np.testing.assert_array_equal(srm.srm_weight.numpy(),
                                   S3DNet(((P222),), 1, srm="concat30").srm_weight.numpy())
     for name in ("msca_s3d", "msca_s3d_srm", "msca_s3d_v2", "msca_s3d_srm_v2"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            build_model(ModelConfig(name=name, num_class=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        S3DNet(msca_spec(), 1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        S3DNet((P222,), 1, srm="residual3")
-    with pytest.raises(NotImplementedError, match="msca"):
-        SepConv3d(8, 8, depthwise=True)
+        m = build_model(ModelConfig(name=name, num_class=1, srm_net=True), device="cpu")
+        assert isinstance(m, S3DNet) and m.srm == ("residual3" if "srm" in name else "concat30")
+        with pytest.raises(NotImplementedError, match="item 11"):
+            build_model(ModelConfig(name=name, num_class=1, dtype="bfloat16"), device="cpu")
+    assert len(S3DNet(msca_spec(), 1).base) == len(msca_spec())
+    res = S3DNet((P222,), 1, srm="residual3")
+    np.testing.assert_array_equal(res.srm_weight.numpy(), srm_weight(full=False).numpy())
+    with pytest.raises(ValueError, match="srm must be"):
+        S3DNet((P222,), 1, srm="residual30")
+    dw = SepConv3d(8, 16, depthwise=True)
+    assert dw.conv_s.groups == dw.conv_t.groups == 8 and dw.conv_t.out_channels == 8
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(ModelConfig(name="s3d", num_class=1))

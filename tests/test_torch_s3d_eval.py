@@ -137,10 +137,10 @@ def test_clip_dataset_load_clip_equals_jax(crop_tree, snippet, gray):
     want = list(ref.batches(2, num_workers=2))
     assert len(got) == len(want) == (1 if snippet == "strided" else 2)
     for g, w in zip(got, want):
-        for k in ("image", "label"):
+        for k in ("image", "label", "mask"):
             np.testing.assert_array_equal(g[k], w[k])
-    with pytest.raises(NotImplementedError, match="masking"):
-        ClipDataset(samples, mask_method="black")
+    with pytest.raises(ValueError, match="mask_method"):
+        ClipDataset(samples, mask_method="blur")
 
 
 def test_evaluate_matches_jax(models, crop_tree):
@@ -182,7 +182,10 @@ def test_f1_equals_sklearn(labels, preds):
     ("mplan2.yaml", "model:\n  image-size: 64\n  SRM-net: no\n"),
 ])
 def test_load_plan_matches_jax(tmp_path, name, body):
-    """The fields scoring reads: model family, input size, SRM input, frames."""
+    """Every field JAX's `load_plan` sets (the model family, input size, SRM
+    input and frames that scoring reads, and the training, masking and
+    augmentation fields), on plans that leave fields to their defaults."""
+    import dataclasses
     from fac_fake_tpu.core.plans import load_plan as jax_load_plan
     from fac_fake_torch.core.plans import load_plan
 
@@ -192,6 +195,7 @@ def test_load_plan_matches_jax(tmp_path, name, body):
     for sect, field in (("model", "name"), ("model", "num_class"), ("model", "image_size"),
                         ("model", "srm_net"), ("data", "frames_per_video")):
         assert getattr(getattr(got, sect), field) == getattr(getattr(want, sect), field)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_cli_evaluate_s3d_on_cpu(crop_tree, tmp_path, capsys):

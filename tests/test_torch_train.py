@@ -428,9 +428,6 @@ def test_trainer_runs_on_the_card_by_default_and_refuses_unported_options():
     for path, value, match in (("model.dtype", "bfloat16", "item 11"),
                                ("train.tensorboard_dir", "tb", "item 16"),
                                ("mesh.data", 2, "item 12"),
-                               ("data.augment.image_compression", True, "item 13"),
-                               ("data.augment.fancy_pca", True, "item 13"),
-                               ("data.augment.to_gray_prob", 0.2, "item 13"),
                                ("data.augment.compute_dtype", "bfloat16", "item 11")):
         from fac_fake_torch.core.config import apply_dotted
         cfg = port_cfg()
@@ -438,3 +435,7 @@ def test_trainer_runs_on_the_card_by_default_and_refuses_unported_options():
         apply_dotted(cfg, [f"{path}={value!r}"])
         with pytest.raises(NotImplementedError, match=match):
             Trainer(m, cfg, device="cpu")
+    cfg = port_cfg()
+    cfg.data.normalize = "raw"
+    with pytest.raises(ValueError, match="imagenet or raw255"):
+        Trainer(m, cfg, device="cpu")
