@@ -324,16 +324,19 @@ def _dihedral_reach(cfg: AugmentConfig, h: int, w: int) -> tuple:
     return tuple(sorted(reach))
 
 
-def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig) -> torch.Tensor:
+def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig,
+                owned: bool = False) -> torch.Tensor:
     """The chain on (B, H, W, 3) float32 ``x`` with the draws ``d``; ``x``
-    itself is not written."""
+    itself is not written unless ``owned`` (the caller gives it up, and the
+    in-place kernels may work on it)."""
     x_in = x
     n, h, w = x.shape[0], x.shape[1], x.shape[2]
     col = lambda t: t[:, None, None, None]
     exclusive, emboss_in_conv, blur_in_conv = _on(cfg)
     if cfg.image_compression:
         # K10 works in place, on a contiguous tensor of this chain's own
-        x = x.clone(memory_format=torch.contiguous_format)
+        if not owned or not x.is_contiguous():
+            x = x.clone(memory_format=torch.contiguous_format)
         x = ops_jpeg.jpeg_subset_(x, d["take_jpeg"], d["quality"])
     if "elem" in d:
         x = apply_dihedral(x, d["elem"], _dihedral_reach(cfg, h, w))
@@ -384,7 +387,7 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig)
         # works in place, on a contiguous tensor of this chain's own
         p = cfg.compose_prob * (cfg.sharpen_oneof_prob / 4.0 if exclusive else cfg.prob)
         kb = subset_budget(n, p)
-        if x is x_in or not x.is_contiguous():
+        if (x is x_in and not owned) or not x.is_contiguous():
             x = x.clone(memory_format=torch.contiguous_format)
         x = ops_augment.clahe_subset_(x, d["take_clahe"], kb if kb <= n // 2 and n >= 16 else n,
                                       cfg.clahe_clip_limit)
@@ -432,4 +435,4 @@ def augment_batch(batch_u8: torch.Tensor, cfg: AugmentConfig,
     shape = imgs.shape
     flat = imgs.reshape(-1, *shape[-3:])
     d = draw(flat.shape[0], tuple(shape[-3:-1]), cfg, gen, flat.device)
-    return apply_draws(flat, d, cfg).reshape(shape)
+    return apply_draws(flat, d, cfg, owned=True).reshape(shape)

@@ -200,8 +200,11 @@ def test_s3d_chain_keeps_its_input_runs_k10_once_and_draws_a_frame():
     """`augment_batch` under plan1_2's transform: one call of the JPEG step
     (through ``ops.jpeg.jpeg_subset_``, as on the card, where it is one
     launch of K10); `apply_draws` leaves its input alone and gives the same
-    output twice; a (B, T, H, W, 3) clip batch is its flattened frames drawn
-    a frame; the output is in [0, 1]."""
+    output twice, and with ``owned`` (as `augment_batch` calls it) the same
+    output again, the JPEG step then working in place on the input, with no
+    copy; a (B, T, H, W, 3) clip batch is its flattened frames drawn a
+    frame; the output is in [0, 1]."""
+    import dataclasses
     from fac_fake_torch.data import augment as aug
     from fac_fake_torch.ops import jpeg as oj
 
@@ -226,3 +229,12 @@ def test_s3d_chain_keeps_its_input_runs_k10_once_and_draws_a_frame():
     d["take_jpeg"] = torch.ones(8, dtype=torch.bool)        # every frame through the step
     a, b = aug.apply_draws(x, d, cfg), aug.apply_draws(x, d, cfg)
     assert torch.equal(x, x0) and torch.equal(a, b) and not torch.equal(a, x0)
+    assert torch.equal(aug.apply_draws(x.clone(), d, cfg, owned=True), a)
+    only = dataclasses.replace(cfg, hflip=False, vflip=False, rot90=False, transpose=False,
+                               gauss_noise=False, sharpen=False, emboss=False,
+                               brightness_contrast=False, fancy_pca=False, gaussian_blur=False,
+                               hue_saturation=False, color_jitter=False, to_gray_prob=0.0,
+                               rotation_deg=0.0, clahe=False, sharpen_oneof=False,
+                               color_oneof=False)
+    jpeg = aug.apply_draws(x, d, only, owned=True)
+    assert jpeg.data_ptr() == x.data_ptr() and not torch.equal(jpeg, x0)
