@@ -19,7 +19,7 @@ the int8 breakdowns must name K4's and K5's `wgmma` kernels (`dense_wgmma`,
 `max_pool3d_i8_sep`, and the CViTs' no `qmma::` kernel; the train steps
 K7's `clahe_subset` (traced in every run, for the device's busy share), the
 eval steps K2's `normalize_table`, and of one S3D train step of each plan of
-S3 (traced in every run; plan1_2's must name K10's `jpeg_mcu`).
+S3 (traced in every run; plan1_2's must name K10's `jpeg_bands`).
 
 Phases, in order (any failure exits non-zero; no phase's exception is caught):
   1. environment: require CUDA, print the card's name and power limit, turn
@@ -174,13 +174,15 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
  R3. the full-width reskan at batch 96 and resvit at batch 4, logits card vs
      CPU, K9 launched 2 and 0 times a forward (`family_forwards`);
  S1. K10 (the S3D transform's JPEG step, in place on the taken frames)
-     against its plain version (`k10_phase`): seeded noise and smooth
-     frames, a flat and an every-byte frame, qualities 1, 50, 60, 99, 100 and
-     the trainer's floor(U[60, 100)), takes none, all and a seeded ~20%:
-     untaken frames bit-unchanged, taken ones within 2e-5 outside the
-     near-tie blocks (counted and bounded); timed cold and warm at plan1_2's
-     (360, 224, 224, 3) with 72 taken beside copy_ of those frames' bytes,
-     the plain version and the bound;
+     against its plain version (`k10_phase`), bit for bit: its division
+     against IEEE's over every float and divisor 1..255; seeded noise and
+     smooth frames, a flat and an every-byte frame, qualities 1, 50, 60, 99,
+     100 and the trainer's floor(U[60, 100)), takes none, all and a seeded
+     ~20%; the grid's geometries (only the last frame taken, one frame, all
+     360 frames of plan1_2's step, frames wider than a chunk and narrower
+     than one, a ragged last chunk); untaken frames bit-unchanged; timed cold
+     and warm at plan1_2's (360, 224, 224, 3) with 72 taken beside copy_ of
+     those frames' bytes, the plain version and the bound;
  S2. the S3D transform, `augment_batch` under plan1_2's augment config on
      (12, 30, 224, 224, 3) uint8 clips: one K10 launch a call, finite output
      in [0, 1], a digest, timed on the card and by the host (`s3d_augment_phase`);
@@ -333,12 +335,10 @@ STACK_TOL = 1e-6              # R2: score_crops against score_crop_stacks, per v
 # S3D training (S1-S5)
 K10_QUALITIES = (1, 50, 60, 99, 100)
 K10_FRAMES, K10_TAKEN = 360, 72   # plan1_2's 12 x 30 frames; ImageCompression's p .2
-# near-tie blocks (a coefficient within 1e-4 of a rounding boundary) allowed,
-# as a share of blocks: at the trainer's qualities on smooth frames; and on
-# noise or at quality 99-100, where the window's width alone puts 1.27% there
-K10_NEAR_TIE_SHARE, K10_NOISE_NEAR_TIE_SHARE = 0.005, 0.02
-# on the every-byte pattern, whose exact rationals land on rounding boundaries
-K10_EVERY_BYTE_NEAR_TIE_SHARE = 0.06
+# S1's geometries of K10's grid: (shape, take) on seeded noise at seeded qualities
+K10_GEOMETRIES = (((6, 224, 224, 3), "last"), ((1, 224, 224, 3), "all"),
+                  ((K10_FRAMES, 224, 224, 3), "all"), ((3, 64, 1920, 3), "all"),
+                  ((5, 48, 80, 3), "seeded"), ((2, 32, 272, 3), "all"))
 S3D_PLANS = (("s3d", "configs/plan1_2.yaml"), ("ca_s3d", "configs/caplan9.yaml"),
              ("msca_s3d", "configs/mplan1.yaml"))
 S3D_TIMED_STEPS = 3           # S3: timed train steps after a warm-up step
@@ -2928,8 +2928,8 @@ def family_forwards(seed, rng, dev) -> dict:
 
 # ---- S1-S5: S3D training with K10 ---------------------------------------------------
 
-def k10_frames(side, dev, n: int, kind: str):
-    """(n, 224, 224, 3) float32 frames in [0, 1]: ``noise`` (uniform bytes),
+def k10_frames(side, dev, n: int, kind: str, hw=(224, 224)):
+    """(n, *hw, 3) float32 frames in [0, 1]: ``noise`` (uniform bytes),
     ``smooth`` (seeded 8x8 colour fields, bilinearly upsampled, with a little
     noise: what natural frames look like to the DCT), ``flat`` (one grey) or
     ``every byte`` (each channel runs through the 256 byte values)."""
@@ -2937,72 +2937,70 @@ def k10_frames(side, dev, n: int, kind: str):
     import torch.nn.functional as F
     d255 = torch.full((1,), 255.0, device=dev)
     if kind == "noise":
-        u8 = side.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+        u8 = side.integers(0, 256, (n, *hw, 3), dtype=np.uint8)
     elif kind == "smooth":
         low = torch.from_numpy(side.uniform(0.0, 255.0, (n, 3, 8, 8)).astype(np.float32))
-        up = F.interpolate(low, size=(224, 224), mode="bilinear", align_corners=False)
+        up = F.interpolate(low, size=hw, mode="bilinear", align_corners=False)
         up = up + torch.from_numpy(side.normal(0.0, 4.0, up.shape).astype(np.float32))
         u8 = up.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1).numpy()
     elif kind == "flat":
-        u8 = np.full((n, 224, 224, 3), 128, np.uint8)
+        u8 = np.full((n, *hw, 3), 128, np.uint8)
     else:
-        i = np.arange(n * 224 * 224)
+        i = np.arange(n * hw[0] * hw[1])
         u8 = np.stack([i % 256, (i * 7 + 3) % 256, (i * 31 + 11) % 256], -1)
-        u8 = u8.reshape(n, 224, 224, 3).astype(np.uint8)
+        u8 = u8.reshape(n, *hw, 3).astype(np.uint8)
     return (torch.from_numpy(np.ascontiguousarray(u8)).to(dev).float() / d255).contiguous()
 
 
-def k10_check(x, take, q) -> tuple:
+def k10_check(x, take, q, what: str) -> float:
     """K10 (`jpeg_subset_`) against `jpeg_subset_plain_` on a copy of ``x``
-    each: untaken frames bit-unchanged; taken frames within JPEG_TOL outside
-    the near-tie blocks (`near_ties`). Returns (max error outside them, max
-    error over all pixels, near-tie blocks, blocks)."""
+    each: every frame equal bit for bit (the untaken ones also to ``x``).
+    Returns the largest difference (0)."""
     import torch
     from fac_fake_torch.ops import jpeg as oj
     got = oj.jpeg_subset_(x.clone(), take, q)
     ref = oj.jpeg_subset_plain_(x.clone(), take, q)
     torch.cuda.synchronize()
     if not torch.equal(got[~take], x[~take]):
-        raise AssertionError("K10: an untaken frame moved")
-    if not bool(take.any()):
-        return 0.0, 0.0, 0, 0
-    mask, ties, blocks = oj.near_ties(x[take], q[take])
-    err = (got[take] - ref[take]).abs().amax(-1)
-    return (float(err[~mask].max()) if bool((~mask).any()) else 0.0, float(err.max()),
-            ties, blocks)
+        raise AssertionError(f"K10 {what}: an untaken frame moved")
+    if not torch.equal(got[take], ref[take]):
+        diff = (got != ref).any(-1)
+        raise AssertionError(f"K10 {what}: {int(diff.sum())} pixels differ from the plain "
+                             f"version, max {float((got - ref).abs().max()):.3g}")
+    return float((got - ref).abs().max()) if got.numel() else 0.0
 
 
 def k10_phase(rng, dev) -> dict:
     """S1: K10 (the S3D transform's JPEG step, in place on the taken frames)
-    against its plain version `jpeg_subset_plain_` on the card: seeded noise
-    and smooth frames, a flat frame and an every-byte frame, at qualities
-    K10_QUALITIES and at seeded floor(U[60, 100)); takes none, all, and a
-    seeded ~20%. Untaken frames bit-unchanged; outside the near-tie blocks
-    (a coefficient within 1e-4 of a rounding boundary by a float64
-    recomputation) within JPEG_TOL; the near-tie blocks counted: at the
-    trainer's qualities on smooth and flat frames at most K10_NEAR_TIE_SHARE
-    of the blocks; on uniform noise, and at the fixed qualities (99 and 100
-    make every coefficient's rounding a coin), at most
-    K10_NOISE_NEAR_TIE_SHARE (64 coefficients a block, each in the
-    2e-4-wide window with probability 2e-4, put 1.27% of such blocks
-    there); on the every-byte pattern (exact rationals that land on
-    rounding boundaries) at most K10_EVERY_BYTE_NEAR_TIE_SHARE; the flat
-    frame held over every block. Timed at
-    the trainer's step, (K10_FRAMES, 224, 224, 3) with K10_TAKEN taken:
-    cold (launches rotating over buffers beyond twice the L2), warm, the
-    plain version, and copy_ of the taken frames' bytes (a yardstick; no
-    PyTorch call computes this function). The bound: bytes, each taken frame
-    read once and written once. Inputs from `side_rng`."""
+    against its plain version `jpeg_subset_plain_` on the card, bit for bit:
+    first its division (`division_check`: no float x and divisor whose
+    quotient differs from IEEE's), then seeded noise and smooth frames, a
+    flat frame and an every-byte frame, at qualities K10_QUALITIES and at
+    seeded floor(U[60, 100)); takes none, all, and a seeded ~20%; then
+    K10_GEOMETRIES, the cases of the grid's
+    work items (one frame, only the last frame, all of plan1_2's step,
+    several chunks a band, one narrow chunk, a ragged last chunk). Untaken
+    frames bit-unchanged. Timed at the trainer's step, (K10_FRAMES, 224,
+    224, 3) with K10_TAKEN taken: cold (launches rotating over buffers
+    beyond twice the L2), warm, the plain version, and copy_ of the taken
+    frames' bytes (a yardstick; no PyTorch call computes this function);
+    ``k10_digest``: a digest of K10's output on that input. The bound: bytes,
+    each taken frame read once and written once. Inputs from `side_rng`."""
     import torch
     from fac_fake_torch.ops import jpeg as oj
     side = side_rng(rng)
+    t0 = time.perf_counter()
+    div_bad = oj.division_check(dev)
+    log(f"K10's division (quantize, unit) against IEEE over all 2^32 floats and divisors "
+        f"1..255: {div_bad} results differ ({time.perf_counter() - t0:.2f} s)")
+    if div_bad:
+        raise AssertionError(f"K10's division differs from IEEE's in {div_bad} results")
     n = 16
     takes = {"none": torch.zeros(n, dtype=torch.bool, device=dev),
              "all": torch.ones(n, dtype=torch.bool, device=dev),
              "seeded 20%": torch.from_numpy(side.random(n) < 0.2).to(dev)}
     takes["seeded 20%"][side.integers(0, n)] = True          # at least one
     err = 0.0
-    tally = {}
     for kind in ("noise", "smooth", "flat", "every byte"):
         x = k10_frames(side, dev, n, kind)
         quals = [(f"quality {q}", torch.full((n,), float(q), device=dev)) for q in K10_QUALITIES]
@@ -3010,30 +3008,22 @@ def k10_phase(rng, dev) -> dict:
             side.uniform(60.0, 100.0, n)).astype(np.float32)).to(dev)))
         for qname, q in quals:
             for tname, take in takes.items():
-                e, e_all, ties, blocks = k10_check(x, take, q)
-                t = tally.setdefault((kind, qname == "trainer"), [0, 0, 0.0])
-                t[0] += ties
-                t[1] += blocks
-                t[2] = max(t[2], e_all)
-                err = max(err, e)
-                if e > oj.JPEG_TOL or (kind == "flat" and e_all > oj.JPEG_TOL):
-                    raise AssertionError(f"K10 {kind}, {qname}, take {tname}: max error {e} "
-                                         f"outside near-tie blocks ({e_all} over all)")
-        for trainer in (True, False):
-            ties, blocks, e_all = tally[(kind, trainer)]
-            share = ties / max(blocks, 1)
-            limit = (K10_NEAR_TIE_SHARE if trainer and kind in ("smooth", "flat")
-                     else K10_EVERY_BYTE_NEAR_TIE_SHARE if kind == "every byte"
-                     else K10_NOISE_NEAR_TIE_SHARE)
-            log(f"K10 {kind} frames, "
-                + ("the trainer's qualities floor(U[60, 100))" if trainer
-                   else f"qualities {K10_QUALITIES}")
-                + f" x {len(takes)} take patterns: within {oj.JPEG_TOL} of plain outside "
-                f"near-tie blocks, untaken frames bit-unchanged; near-tie blocks {ties} of "
-                f"{blocks} ({share:.3%}, bound {limit:.1%}); max error over all pixels "
-                f"{e_all:.3g}")
-            if share > limit:
-                raise AssertionError(f"K10 {kind}: {share:.3%} of blocks near-tie")
+                err = max(err, k10_check(x, take, q, f"{kind}, {qname}, take {tname}"))
+        log(f"K10 {kind} frames, qualities {K10_QUALITIES} and the trainer's floor(U[60, 100)) "
+            f"x {len(takes)} take patterns: bit-equal to plain, untaken frames bit-unchanged")
+    for shape, how in K10_GEOMETRIES:
+        n = shape[0]
+        x = k10_frames(side, dev, n, "noise", shape[1:3])
+        take = np.ones(n, bool) if how == "all" else np.arange(n) == n - 1
+        if how == "seeded":
+            take = side.random(n) < 0.5
+            take[side.integers(0, n)] = True
+        q = torch.from_numpy(np.floor(side.uniform(1.0, 100.0, n)).astype(np.float32)).to(dev)
+        err = max(err, k10_check(x, torch.from_numpy(take).to(dev), q, f"{shape} take {how}"))
+        bands, chunks, mcus = oj.band_chunks(*shape[1:3])
+        log(f"K10 {shape}, {int(take.sum())} taken ({how}), {bands} bands of {chunks} chunk(s) "
+            f"of <= {mcus} MCUs: bit-equal to plain")
+        del x
 
     # timing at the trainer's step: plan1_2's 12 x 30 frames, K10_TAKEN taken
     xs = k10_frames(side, dev, K10_FRAMES, "smooth")
@@ -3041,6 +3031,7 @@ def k10_phase(rng, dev) -> dict:
     take[torch.from_numpy(side.choice(K10_FRAMES, K10_TAKEN, replace=False)).to(dev)] = True
     q = torch.from_numpy(np.floor(side.uniform(60.0, 100.0, K10_FRAMES)).astype(np.float32)
                          ).to(dev)
+    dig = digest(oj.jpeg_subset_(xs.clone(), take, q))
     frame_bytes = xs[0].numel() * 4
     nbytes = 2.0 * K10_TAKEN * frame_bytes
     n_rot = int(2 * L2_BYTES // (K10_TAKEN * frame_bytes)) + 2
@@ -3059,11 +3050,9 @@ def k10_phase(rng, dev) -> dict:
     log(f"K10 at ({K10_FRAMES}, 224, 224, 3), {K10_TAKEN} taken: kernel {k_ms:.4f} ms cold "
         f"({b_ms / k_ms:.1%} of the bound, {n_rot} buffers), {w_ms:.4f} ms warm; copy_ of "
         f"the taken frames' bytes {c_ms:.4f} ms cold; plain {p_ms:.4f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+        f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); digest {dig:.0f}")
     return dict(ms=k_ms, warm_ms=w_ms, copy_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, err=err,
-                near_ties={f"{k[0]}, {'trainer' if k[1] else 'fixed'} qualities":
-                           {"blocks": v[0], "of": v[1]} for k, v in tally.items()})
+                bound_by=b_by, err=err, k10_digest=dig, div_bad=div_bad)
 
 
 def s3d_augment_phase(rng, dev) -> dict:
@@ -3143,7 +3132,7 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
     from mplan1), seeded weights, raw 0-255 inputs, bce_weighted with the
     plans' rebalancing: one warm-up step, S3D_TIMED_STEPS timed steps (train
     clips/s, ms a step, peak memory), one traced step (the device's busy
-    share; K10's ``jpeg_mcu`` in it where the transform is on), K10
+    share; K10's ``jpeg_bands`` in it where the transform is on), K10
     launches a step; `fit` for one epoch of S3D_FIT_STEPS steps and one
     eval batch with the counts set to 0 before it (K10 launched once a train
     step with aug on, never with it off); S3D_FIXED_STEPS steps on one fixed
@@ -3199,7 +3188,7 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         wall, busy = profile_forward(lambda: tr.train_step(batch(0), gen),
                                      f"{name} train step, batch {bs}", top=12 if profile else 0,
-                                     expect=("jpeg_mcu",) if aug_on else (), inference=False)
+                                     expect=("jpeg_bands",) if aug_on else (), inference=False)
         step_ms = dt / S3D_TIMED_STEPS * 1e3
         res = dict(plan=plan, batch=bs, frames=t, step_ms=step_ms,
                    clips_per_s=bs * S3D_TIMED_STEPS / dt, peak_gb=peak_gb,
@@ -3712,15 +3701,16 @@ def main() -> int:
          "replaces": "fac_fake_tpu/data/augment.py:415",
          "launches": s3["s3d"]["fit_launches"]["K10"], "train_steps": s3["s3d"]["fit_steps"],
          "launches_per_train_step": s3["s3d"]["k10_per_step"],
-         "max_abs_err": k10["err"], "ms": k10["ms"], "kernel_ms": k10["ms"],
+         "max_abs_err": k10["err"], "bit_equal": True, "ms": k10["ms"], "kernel_ms": k10["ms"],
          "warm_ms": k10["warm_ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"],
          "bound_by": k10["bound_by"], "copy_ms": k10["copy_ms"], "library_ms": None,
-         "near_ties": k10["near_ties"], "augment_chain_ms": s3d_aug["ms"],
+         "k10_digest": k10["k10_digest"], "division_check_differ": k10["div_bad"],
+         "augment_chain_ms": s3d_aug["ms"],
          "augment_chain_wall_ms": s3d_aug["wall_ms"],
          "timing": "ms: cold, the launches rotating over buffers beyond twice the L2; warm_ms: "
                    "one input again and again; copy_ms: torch copy_ of the taken frames' "
-                   "bytes, cold (a yardstick, not the same function); max_abs_err: outside "
-                   "the near-tie blocks",
+                   "bytes, cold (a yardstick, not the same function); bit-equal to the "
+                   "plain version in every case of S1 (max_abs_err 0)",
          "shapes": f"ms: jpeg_subset_ in place on ({K10_FRAMES}, 224, 224, 3) fp32, "
                    f"{K10_TAKEN} taken, the step of a plan1_2 train step; launches: one "
                    "training epoch of s3d under plan1_2 (one a step); augment_chain_*: "

@@ -51,7 +51,8 @@ SIGNATURES = {
     "clahe": {"fac_clahe_subset": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]},
     "hard_nms": {"fac_hard_nms": [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]},
     "kan_bases": {"fac_kan_bases": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
-    "jpeg": {"fac_jpeg_subset": [_P, _P, _P, _I, _I, _I, _P]},
+    "jpeg": {"fac_jpeg_subset": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+             "fac_jpeg_div_check": [_P, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

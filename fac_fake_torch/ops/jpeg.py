@@ -13,20 +13,23 @@ matrix D, quantized ``rint(coef / table) · table`` (half to even, as
 ``/255`` and clipped to [0, 1]. JAX compresses every frame and selects; the
 port compresses only the taken ones, in place, which gives the same result.
 
-`jpeg_compress_plain` is that arithmetic in torch (8×8 einsums,
-``torch.round``): the CPU path and the oracle. `jpeg_subset_` is the
-augmentation's step: on a CPU tensor the plain version on the taken frames;
-on a CUDA tensor one launch of K10 (`csrc/jpeg.cu`: a CTA a (frame, 16×16
-MCU); the CTAs of untaken frames return at once; ``take`` and the quality
-are read on the card) that adds one to ``jpeg_subset_.launches``, or it
-raises.
+`jpeg_compress_plain` is that arithmetic in torch, every sum in one written
+order (`_over_rows`, `_over_cols`, `_subsample`): the CPU path and the
+oracle. `jpeg_subset_` is the augmentation's step: on a CPU tensor the plain
+version on the taken frames; on a CUDA tensor one launch of K10
+(`csrc/jpeg.cu` `jpeg_bands`: a persistent grid that finds the taken frames
+on the card and walks their 16-row bands in chunks of at most 16 MCUs,
+`band_chunks`) that adds one to ``jpeg_subset_.launches``, or it raises.
 
-Numbers: the kernel and its twin sum the DCT products in other orders, so a
-coefficient within float32 noise of a rounding boundary (``k + 0.5`` in
-units of its table entry) can round the other way and move its whole block.
-`near_ties` finds those blocks by a float64 recomputation of
-``coef / table`` (within 1e-4 of a boundary); outside them the two agree to
-2e-5 on the [0, 1] scale (`JPEG_TOL`).
+Numbers: the kernel does the plain version's fp32 operations in its order,
+so the two are equal bit for bit. It divides by a table entry or by 255 as
+a reciprocal product and one residual step, which gives IEEE's quotient
+for every float (`division_check` shows it on the card). JAX's einsums sum
+in another order, so against JAX a coefficient within float32 noise of a
+rounding boundary (``k + 0.5`` in units of its table entry) can round the
+other way and move its whole block. `near_ties` finds those blocks by a
+float64 recomputation of ``coef / table`` (within 1e-4 of a boundary);
+outside them the two agree to 2e-5 on the [0, 1] scale (`JPEG_TOL`).
 """
 from __future__ import annotations
 
@@ -39,8 +42,9 @@ import torch
 from fac_fake_torch import kernels
 from fac_fake_torch.ops.augment import rgb_to_ycbcr, ycbcr_to_rgb
 
-JPEG_TOL = 2e-5          # kernel vs twin, twin vs JAX, outside near-tie blocks
+JPEG_TOL = 2e-5          # the plain version vs JAX or float64, outside near-tie blocks
 NEAR_TIE = 1e-4          # |coef/table − (k + 0.5)| below this: a near-tie block
+MAX_CHUNK_MCUS = 16      # K10's work item: a 16-row band of at most this many MCUs
 
 # ITU-T T.81 Annex K base quantization tables
 LUMA_Q = np.asarray([
@@ -83,24 +87,59 @@ def _blocks(plane: torch.Tensor) -> torch.Tensor:
     return (plane - 128.0).reshape(n, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
 
 
+def _over_rows(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The contraction over a block's rows, ``out[..., i, j] = Σ_k m[i, k] ·
+    b[..., k, j]``, summed k = 0 to 7 left to right, each product and each
+    sum its own rounded op: K10's order."""
+    acc = m[:, 0, None] * b[..., 0:1, :]
+    for k in range(1, 8):
+        acc = acc + m[:, k, None] * b[..., k:k + 1, :]
+    return acc
+
+
+def _over_cols(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The contraction over a block's columns, ``out[..., i, j] = Σ_k
+    a[..., i, k] · m[j, k]``, in the same order."""
+    acc = a[..., 0:1] * m[:, 0]
+    for k in range(1, 8):
+        acc = acc + a[..., k:k + 1] * m[:, k]
+    return acc
+
+
 def _coefs(plane: torch.Tensor) -> torch.Tensor:
+    """``D · block · Dᵀ``: over the rows, then over the columns."""
     d = dct8(plane.device, plane.dtype)
-    return torch.einsum("ux,nhwxy,vy->nhwuv", d, _blocks(plane), d)
+    return _over_cols(_over_rows(d, _blocks(plane)), d)
 
 
 def _dct_quantize(plane: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(N, H, W) in [0, 255] → its blockwise DCT-quantized reconstruction."""
     n, h, w = plane.shape
-    d = dct8(plane.device, plane.dtype)
+    dt = dct8(plane.device, plane.dtype).t()
     t = table[:, None, None]
     coef = torch.round(_coefs(plane) / t) * t
-    rec = torch.einsum("ux,nhwuv,vy->nhwxy", d, coef, d)
+    rec = _over_cols(_over_rows(dt, coef), dt)       # Dᵀ · q · D, in the same order
     return rec.permute(0, 1, 3, 2, 4).reshape(n, h, w) + 128.0
 
 
 def _subsample(c: torch.Tensor) -> torch.Tensor:
+    """The mean of each 2×2 cell, ``((c00 + c01) + c10) + c11`` divided by a
+    tensor 4 (K10's order)."""
     n, h, w = c.shape
-    return c.reshape(n, h // 2, 2, w // 2, 2).mean(dim=(2, 4))
+    q = c.reshape(n, h // 2, 2, w // 2, 2)
+    s = ((q[:, :, 0, :, 0] + q[:, :, 0, :, 1]) + q[:, :, 1, :, 0]) + q[:, :, 1, :, 1]
+    return s / torch.full((1,), 4.0, device=c.device, dtype=c.dtype)
+
+
+def band_chunks(h: int, w: int) -> tuple:
+    """K10's work items a frame: (16-row bands, chunks a band, MCUs a
+    chunk). Each band is cut across into the fewest chunks of at most
+    MAX_CHUNK_MCUS MCUs, as even as they come; the last chunk has
+    ``w / 16 − (chunks − 1) · mcus`` MCUs, at least one."""
+    _check_hw(h, w)
+    mcu_w = w // 16
+    mcus = -(-mcu_w // -(-mcu_w // MAX_CHUNK_MCUS))
+    return h // 16, -(-mcu_w // mcus), mcus
 
 
 def _check_hw(h: int, w: int) -> None:
@@ -153,22 +192,42 @@ def jpeg_subset_plain_(x: torch.Tensor, take: torch.Tensor,
     return x
 
 
+def division_check(device) -> int:
+    """K10's divisions (`csrc/jpeg.cu` ``quantize`` and ``unit``: a
+    reciprocal product and one residual step) against the plain version's
+    IEEE arithmetic on the card, over every float x (all 2^32 bit patterns):
+    ``rint(x / t) · t`` for each table entry t = 1..255 and
+    ``clamp(x / 255, 0, 1)``. Returns how many results differ in any bit (a
+    NaN for a NaN counts as equal); 0 when K10 divides as the plain version
+    does."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    kernels.require_cuda(bad, "division_check")
+    kernels.check(kernels.lib("jpeg").fac_jpeg_div_check(
+        kernels.ptr(bad), kernels.stream_ptr(bad.device)), "jpeg div_check")
+    return int(bad.item())
+
+
 def jpeg_subset_(x: torch.Tensor, take: torch.Tensor, quality: torch.Tensor) -> torch.Tensor:
     """K10 on ``x`` (N, H, W, 3) float32 in place: each frame whose bool
     ``take`` (N,) fired becomes its JPEG at ``quality`` (N,) float32; returns
-    ``x``. CPU tensors take `jpeg_subset_plain_`; CUDA tensors launch the
-    kernel or raise."""
+    ``x``. CPU tensors take `jpeg_subset_plain_`; CUDA tensors (``x`` at a
+    16-byte aligned address, as every allocation is) launch the kernel or
+    raise."""
     if not x.is_cuda:
         return jpeg_subset_plain_(x, take, quality)
     kernels.require_cuda(x, "jpeg_subset_", torch.float32, (None, None, None, 3))
     n, h, w, _ = x.shape
     kernels.require_cuda(take, "jpeg_subset_ take", torch.bool, (n,))
     kernels.require_cuda(quality, "jpeg_subset_ quality", torch.float32, (n,))
-    _check_hw(h, w)
+    _, chunks, mcus = band_chunks(h, w)
+    if x.data_ptr() % 16:
+        raise ValueError("jpeg_subset_: expected x at a 16-byte aligned address (its rows "
+                         "move by bulk copies)")
     if n == 0:
         return x
     err = kernels.lib("jpeg").fac_jpeg_subset(
-        kernels.ptr(x), kernels.ptr(take), kernels.ptr(quality), n, h, w,
+        kernels.ptr(x), kernels.ptr(take), kernels.ptr(quality),
+        kernels.ptr(dct8(torch.device("cpu"))), n, h, w, chunks, mcus,
         kernels.stream_ptr(x.device))
     kernels.check(err, "jpeg")
     jpeg_subset_.launches += 1

@@ -5,8 +5,9 @@ share shows against the spread between runs:
     python3 -m fac_fake_torch.utils.kernel_pairs PARENT_ROOT [--root .] [--phase k3]
         [--phases-from ROOT]
 
-(``--phase`` names any ``chip_smoke.<phase>_phase``: k1, k2, k3, k4, k6, k7,
-k8, k9, augment. ``k8_phase`` builds its seeded MTCNN itself.)
+(``--phase`` names any ``chip_smoke.<phase>_phase(rng, dev)``: k1, k2, k3,
+k4, k6, k7, k8, k9, k10, augment, s3d_augment. ``k8_phase`` builds its
+seeded MTCNN itself.)
 
 PARENT_ROOT is an unpacked checkout of the other tree (``git archive``).
 Each turn is a process of its own that imports ``fac_fake_torch`` from its
@@ -16,10 +17,14 @@ phase's total kernel ms. The phase code is each tree's own
 ``chip_smoke.py``, or with ``--phases-from`` the one in ROOT for both
 turns: a parent that predates a phase, or times it another way, then runs
 the same checks and timing on its own kernels through its own wrappers
-(the wrappers the phase calls must exist in both trees). A phase's
-``*_digest`` numbers (a hash of an output on the seeded input) are
-compared across the four turns: equal digests are outputs equal bit for
-bit between the trees. Needs a card.
+(the wrappers the phase calls must exist in both trees). ``--phases-from``
+cannot pair a tree whose kernel check is stricter than its parent's: the
+parent's kernel then fails the stricter check (as an older K10, whose sums
+ran in another order than its plain version's, fails K10's bit-equality),
+so such a pair runs each tree's own phase. A phase's ``*_digest`` numbers (a hash of an output
+on the seeded input) are compared across the four turns: equal digests are
+outputs equal bit for bit between the trees; a digest that one tree's phase
+does not return compares as unequal. Needs a card.
 """
 from __future__ import annotations
 
@@ -78,7 +83,8 @@ def main() -> int:
         ms[name].append(tot["ms"])
         totals[name].append(tot)
         print(f"{args.phase} pairs: {name} {tot['ms']:.4f} ms", flush=True)
-    digests = {k: len({t[k] for ts in totals.values() for t in ts}) == 1
+    # a digest that one tree's phase does not return compares as unequal
+    digests = {k: len({t.get(k) for ts in totals.values() for t in ts}) == 1
                for k in totals["change"][0] if k.endswith("_digest")}
     if digests:
         print(f"{args.phase} pairs: outputs bit-equal between the trees: {digests}", flush=True)

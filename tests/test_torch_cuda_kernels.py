@@ -1165,12 +1165,10 @@ def _k10_frames(kind, n, rng, hw=(224, 224)):
 @pytest.mark.parametrize("take", ["none", "all", "seeded"])
 def test_k10_jpeg_equals_plain(dev, kind, quality, take):
     """K10 in place against `jpeg_subset_plain_` on copies of the same
-    frames: untaken frames keep their bits; taken ones within JPEG_TOL
-    outside the near-tie blocks; one launch. The flat frame (77) is one
-    block repeated: at quality 50 its luma DC coefficient, 8 · (77 − 128) /
-    16 = −25.5, is an exact rounding tie, so every luma block is near-tie
-    there, and no block at the other qualities, where it is held over every
-    block."""
+    frames: untaken frames keep their bits, taken ones equal bit for bit
+    (the kernel does the plain version's fp32 operations in its order; the
+    flat frame's luma DC at quality 50, 8 · (77 − 128) / 16 = −25.5, is an
+    exact tie that both round half to even); one launch."""
     from fac_fake_torch.ops import jpeg as oj
 
     rng = np.random.default_rng(5)
@@ -1189,14 +1187,46 @@ def test_k10_jpeg_equals_plain(dev, kind, quality, take):
     torch.cuda.synchronize()
     assert oj.jpeg_subset_.launches == before + 1
     assert torch.equal(got[~t], x[~t])
-    if bool(t.any()):
-        mask, ties, blocks = oj.near_ties(x[t], q[t])
-        err = (got[t] - ref[t]).abs().amax(-1)
-        assert not bool((err[~mask] > oj.JPEG_TOL).any())
-        if kind == "flat":
-            # the 4 luma blocks of each MCU's 6 tie at quality 50; the grey's
-            # chroma DC is 0
-            assert ties == (blocks * 2 // 3 if quality == 50 else 0), (ties, blocks)
+    assert torch.equal(got[t], ref[t])
+
+
+@pytest.mark.parametrize("shape, taken", [
+    ((3, 64, 1920, 3), "all"),        # 8 chunks of 15 MCUs a band
+    ((5, 48, 80, 3), "seeded"),       # one chunk of 5 MCUs, less than a whole chunk
+    ((2, 32, 272, 3), "all"),         # 17 MCUs: chunks of 9 and 8
+    ((6, 32, 32, 3), "last"),         # only the last frame
+    ((1, 224, 224, 3), "all"),        # N = 1
+])
+def test_k10_geometries_equal_plain(dev, shape, taken):
+    """K10's work items over frames wider than a chunk, a ragged last chunk,
+    one frame, and only the last frame taken: bit-equal to the plain
+    version, untaken frames unchanged."""
+    from fac_fake_torch.ops import jpeg as oj
+
+    rng = np.random.default_rng(6)
+    n = shape[0]
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev).float() \
+        / torch.full((1,), 255.0, device=dev)
+    q = torch.from_numpy(np.floor(rng.uniform(1, 100, n)).astype(np.float32)).to(dev)
+    t = {"all": np.ones(n, bool), "seeded": rng.random(n) < 0.5,
+         "last": np.arange(n) == n - 1}[taken]
+    t[-1 if taken == "last" else rng.integers(n)] = True      # at least one taken
+    t = torch.from_numpy(t).to(dev)
+    got = oj.jpeg_subset_(x.clone(), t, q)
+    ref = oj.jpeg_subset_plain_(x.clone(), t, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got[~t], x[~t])
+    assert torch.equal(got[t], ref[t])
+    assert not torch.equal(got[t], x[t])
+
+
+def test_k10_division_is_ieee(dev):
+    """K10's quantization and its / 255 (a reciprocal product and one
+    residual step) give the IEEE results for every float and every divisor
+    1..255."""
+    from fac_fake_torch.ops import jpeg as oj
+
+    assert oj.division_check(dev) == 0
 
 
 def test_k10_refuses_what_it_does_not_take(dev):
@@ -1217,6 +1247,9 @@ def test_k10_refuses_what_it_does_not_take(dev):
         oj.jpeg_subset_(x, take, q.double())
     with pytest.raises(ValueError, match="multiples of 16"):
         oj.jpeg_subset_(torch.rand((2, 24, 32, 3), device=dev), take, q)
+    shifted = torch.rand(1 + 2 * 32 * 32 * 3, device=dev)[1:].view(2, 32, 32, 3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        oj.jpeg_subset_(shifted, take, q)
     before = oj.jpeg_subset_.launches
     assert oj.jpeg_subset_(x[:0], take[:0], q[:0]).shape == (0, 32, 32, 3)
     assert oj.jpeg_subset_.launches == before

@@ -57,6 +57,54 @@ def test_jpeg_plain_matches_jax(kind, quality):
         assert ties == 0 and err.max() <= oj.JPEG_TOL
 
 
+@pytest.mark.parametrize("kind", ["noise", "smooth", "every_byte"])
+@pytest.mark.parametrize("quality", QUALITIES + ("seeded",))
+def test_jpeg_plain_matches_float64(kind, quality):
+    """`jpeg_compress_plain` in fp32, its sums in their written order (the
+    kernel's), against the same arithmetic in float64: within JPEG_TOL
+    outside the near-tie blocks of the float64 recomputation (where fp32 may
+    round a coefficient the other way); 8 frames of 64²."""
+    from fac_fake_torch.ops import jpeg as oj
+
+    if kind == "every_byte":
+        i = np.arange(8 * 64 * 64)
+        u8 = np.stack([i % 256, (i * 7 + 3) % 256, (i * 31 + 11) % 256], -1).reshape(8, 64, 64, 3)
+        x = (u8.astype(np.float32) / np.float32(255.0)).astype(np.float32)
+    else:
+        x = _frames(kind, n=8, h=64, w=64, seed=2)
+    q = (np.floor(np.random.default_rng(3).uniform(60, 100, len(x))) if quality == "seeded"
+         else np.full(len(x), quality)).astype(np.float32)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    got = oj.jpeg_compress_plain(xt, qt)
+    ref = oj.jpeg_compress_plain(xt.double(), qt.double())
+    assert got.dtype == torch.float32 and ref.dtype == torch.float64
+    mask, ties, blocks = oj.near_ties(xt, qt)
+    err = (got.double() - ref).abs().amax(-1)
+    assert float(err[~mask].max()) <= oj.JPEG_TOL, (ties, blocks)
+
+
+@pytest.mark.parametrize("hw", [(224, 224), (48, 80), (64, 1920), (1088, 1920), (32, 272),
+                                (16, 16), (32, 4096)])
+def test_band_chunks_cover_every_mcu_once(hw):
+    """K10's work items (`band_chunks`): every MCU of a frame in exactly one
+    (band, chunk), no chunk wider than MAX_CHUNK_MCUS or empty."""
+    from fac_fake_torch.ops import jpeg as oj
+
+    h, w = hw
+    bands, chunks, mcus = oj.band_chunks(h, w)
+    assert 1 <= mcus <= oj.MAX_CHUNK_MCUS and bands == h // 16
+    hits = np.zeros((h // 16, w // 16), np.int64)
+    for band in range(bands):
+        for c in range(chunks):
+            c0 = c * mcus
+            width = min(mcus, w // 16 - c0)          # the kernel's item_at
+            assert width >= 1
+            hits[band, c0:c0 + width] += 1
+    assert (hits == 1).all()
+    with pytest.raises(ValueError, match="multiples of 16"):
+        oj.band_chunks(h, w + 8)
+
+
 def test_jpeg_quality_tables_equal_jax():
     """libjpeg's scaling of both Annex K tables at every quality 1-100 (and
     past the clip at 0 and 101), bit-equal."""
