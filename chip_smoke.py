@@ -163,14 +163,16 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      1e-30 apart (K9_GRIDS), x planted on every knot, below the first, at and
      past the last, at +-0, and on each grid at +-1e38, +-inf and NaN; one
      resvitkan forward's 2 launches timed cold and warm beside the plain
-     version, copy_ of the outputs' bytes and the bound (`k9_phase`);
+     version, copy_ of the outputs' bytes and the bound (`k9_phase`); a
+     grad-tracked input raises (K9 has no backward);
  R2. the resvitkan video path (`resvitkan_path`): `VideoScorer` with the
      full-width resvitkan (vendored ResNet-50 with the 512 squeeze, patch 7,
      dim 1024, depth 6, heads 8, mlp 2048, KAN (2048, 64, 2); seeded) and the
      packaged BlazeFace over the same videos as phase 5; K2 launches equal
      the base path's, K9 twice that; one forward from the crops runs 1 K2
      and 2 K9 launches; logits card vs CPU at batch 4; `score_crops` equal
-     to `score_crop_stacks` per video; a bf16 run with finite scores;
+     to `score_crop_stacks` per video; a bf16 run with finite scores; the
+     `Trainer` refuses the model (K9 has no backward);
  R3. the full-width reskan at batch 96 and resvit at batch 4, logits card vs
      CPU, K9 launched 2 and 0 times a forward (`family_forwards`);
  S1. K10 (the S3D transform's JPEG step, in place on the taken frames)
@@ -196,9 +198,14 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
  S4. one train step of ca_s3d and msca_s3d card vs CPU at full width,
      batch 2, 16 frames: the loss, the gradient and the running stats held
      to a float64 step (`s3d_train_vs_cpu`);
- S5. `S3DEvaluator` with the full-width msca_s3d and msca_s3d_srm in fp32:
-     logits card vs CPU at batch 1, clips/s at batch 32 beside ca_s3d's
-     (`msca_scoring`);
+ S5. `S3DEvaluator` with the full-width msca_s3d and msca_s3d_srm in fp32
+     and int8 (`msca_scoring`, `msca_int8`): clips/s at batch 32 beside
+     ca_s3d's fp32; the int8 path's launches (22 K5 convs a forward, 20 with
+     ReLU6 in the epilogue, 2 K6 pools, 4 quantize passes and K2's raw entry,
+     or 5 passes behind the residual SRM) against `S3DInt8.walk_counts`;
+     every K5/K6 call of one int8 forward bit-equal to its plain version;
+     int8 vs fp32 logits (information); fp32 and int8 logits and head input
+     card vs CPU at batch 1 (phase 14's rule);
  15. the training line and the kernels line; 16. the result line.
 """
 from __future__ import annotations
@@ -264,6 +271,10 @@ K2_CROP_BATCHES = (96, 256)                        # K2's CViT modes: batch_crop
 # into quantization steps that flip, and those spread as int8 noise does
 S3D_FP32_FEATURE_RTOL = 1e-5
 S3D_INT8_FEATURE_RATIO = 1.0
+# S5's int8 walk card vs CPU in lock-step (`int8_lockstep`): each fp step's
+# output (an iFormer, MSCAN-half or context block, the residual SRM) card vs
+# CPU over its largest value, the fp32 layers' rounding (TF32 off)
+S3D_FP_BLOCK_RTOL = 1e-4
 # training (T1-T4)
 K7_BATCHES = (8, 32)          # K7: the trainer's CLAHE subset at batch 32, and a whole batch
 # K7's in-place subset entry: name -> ((N, H, W, 3), seeded takers, budget)
@@ -353,6 +364,7 @@ S3D_LOSS_RTOL = 1e-4          # S4: loss card vs CPU
 S3D_STATS_RTOL, S3D_STATS_ATOL = 3e-4, 5e-7
 S3D_STATS_F64_SLACK = 1e-5
 S3D_MSCA_T = 30               # S5: the plans' frames
+MSCA_INT8 = ("msca_s3d", "msca_s3d_srm")   # S5: scored in int8 too
 S3D_TRAIN_HW = 224            # S3-S5: the plans' image-size
 
 
@@ -1172,7 +1184,7 @@ def record_s3d_calls(engine, x) -> dict:
 
     # each wrapper counts its launches on the function its module's name is
     # bound to: here the recorder's, so that recording launches do not count
-    conv.launches = quantize.launches = pool.launches = raw.launches = 0
+    conv.launches = conv.relu6_launches = quantize.launches = pool.launches = raw.launches = 0
     q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8, pp.quantize_clips = conv, quantize, pool, raw
     try:
         with torch.no_grad():
@@ -1230,7 +1242,7 @@ def check_s3d_calls(engine, x) -> dict:
         return y
 
     # launches made here count on the checker's functions, not the wrappers'
-    conv.launches = quantize.launches = pool.launches = raw.launches = 0
+    conv.launches = conv.relu6_launches = quantize.launches = pool.launches = raw.launches = 0
     q3.int8_conv3d, q3.quantize_pad, q3.max_pool3d_i8, pp.quantize_clips = conv, quantize, pool, raw
     try:
         with torch.no_grad():
@@ -1342,9 +1354,13 @@ def k6_phase(rng, dev) -> dict:
     return k6
 
 
-def k5_phase(rng, dev, calls) -> dict:
+def k5_phase(rng, dev, calls=None) -> dict:
     """K5 against its plain versions at every recorded conv and quantize
-    shape (batches S3D_CHECK_BATCH and S3D_BATCH, fp32 and bf16, bit-equal;
+    shape (``calls``, `record_s3d_calls`; if not given, recorded here from
+    one int8 forward of the seeded full-width ca_s3d, calibrated on seeded
+    uint8 clips at batch S3D_CHECK_BATCH, so that the phase stands alone for
+    `utils/kernel_pairs.py`) (batches S3D_CHECK_BATCH and S3D_BATCH, fp32
+    and bf16, bit-equal;
     a conv that quantizes its output for the next conv against
     ``quantize_pad_plain(int8_conv3d_plain(...))`` at a scale of its
     output's range), then timed at batch S3D_BATCH, each shape times its
@@ -1363,6 +1379,17 @@ def k5_phase(rng, dev, calls) -> dict:
     next conv's quantize pass, an fp32 read."""
     import torch
     from fac_fake_torch.ops import quant3d as q3
+    if calls is None:
+        from fac_fake_torch.compat.quantize_s3d import quantize_s3d
+        from fac_fake_torch.core.config import ModelConfig
+        from fac_fake_torch.models import build_model
+        s3d = build_model(ModelConfig(name="ca_s3d", num_class=1), device=dev, seed=0)
+        x = torch.from_numpy(side_rng(rng).integers(
+            0, 256, (S3D_CHECK_BATCH, S3D_T, S3D_HW, S3D_HW, 3), dtype=np.uint8)).to(dev)
+        x = x.permute(0, 4, 1, 2, 3)
+        calls = record_s3d_calls(quantize_s3d(s3d, x.float()), x)
+        del s3d, x
+        torch.cuda.empty_cache()
     k5 = dict(ms=0.0, conv_ms=0.0, quantize_ms=0.0, plain_ms=0.0, ms_1x1x1=0.0,
               library_ms=0.0, bytes=0.0, bytes_old=0.0, ops=0.0, err=0.0, convs=0, fused=0,
               quantizes=0)
@@ -2782,6 +2809,19 @@ def k9_phase(rng, dev) -> dict:
         f"{', '.join(K9_GRIDS)} grids, x planted on every knot, below the first, at and "
         f"past the last, at +-0; at {K9_SHAPES[1]} with x at +-1e38, +-inf and NaN on each "
         f"grid ({calls} calls)")
+    # K9 has no backward: a grad-tracked input raises, and launches nothing
+    xg = torch.rand((4, 6), device=dev, requires_grad=True)
+    gg = torch.from_numpy(k9_grid(side, "default", 6)).to(dev)
+    before = kan.kan_bases.launches
+    try:
+        kan.kan_bases(xg, gg, K9_ORDER)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    if "no backward" not in raised or kan.kan_bases.launches != before:
+        raise AssertionError(f"K9 on a grad-tracked input: raised {raised!r}, launches "
+                             f"{kan.kan_bases.launches - before}")
+    log(f"K9 on a grad-tracked CUDA input with grad mode on: raises ({raised})")
 
     dims = K9_SHAPES[:2]
 
@@ -2834,6 +2874,7 @@ def resvitkan_path(seed, rng, dev, det, reader, paths, with_faces, base_k2: int)
     from fac_fake_torch.models import build_model
     from fac_fake_torch.ops import kan
     from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.train.trainer import Trainer
     name, hw = "resvitkan", RESVIT_HW
     side = side_rng(rng)
     crops = side.integers(0, 256, (29, hw, hw, 3), dtype=np.uint8)
@@ -2870,6 +2911,14 @@ def resvitkan_path(seed, rng, dev, det, reader, paths, with_faces, base_k2: int)
     if stack_diff > STACK_TOL:
         raise AssertionError(f"{name} score_crops differs from score_crop_stacks by "
                              f"{stack_diff} > {STACK_TOL}")
+    try:                                           # K9 has no backward
+        Trainer(scorer.model, cfg, device=dev)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    log(f"{name}: Trainer refuses it: {refused}")
+    if "KANLinear" not in refused:
+        raise AssertionError(f"Trainer took {name}, whose KAN head K9 cannot train")
     bf = VideoScorer(scorer.model, config("bfloat16"), detector=det, reader=reader)
     kan.kan_bases.launches = 0
     bf_probs = [bf.score_crops(crops)] + bf.score_crop_stacks(stacks)
@@ -3346,12 +3395,184 @@ def s3d_train_vs_cpu(seed, rng, dev) -> dict:
     return out
 
 
+def msca_int8(name, model, clips, dev) -> dict:
+    """S5's int8 half for one full-width msca model: `S3DEvaluator(quantize=
+    "int8")` calibrated on two of ``clips``; the counts set to 0, then
+    `predict_batch` of the S3D_BATCH clips twice (clips/s), the counts read:
+    every launch a forward makes (`S3DInt8.walk_counts`: K5 convs, those with
+    ReLU6, quantize passes, K6 pools, K2's raw entry without an SRM bank)
+    times the forwards; one forward's calls recorded against those counts;
+    every K5, K6 and K2 raw call of one forward from the uint8 clips
+    bit-equal to its plain version on the same activations (ReLU6 and the
+    fused quantize included) at batch S3D_CHECK_BATCH, and for msca_s3d at
+    S3D_BATCH too; int8 vs fp32 logits at S3D_BATCH (information); logits
+    card vs CPU at batch 1: fp32 within LOGIT_TOL (its head input's error
+    printed); int8 free-running with the head input's error at most
+    S3D_INT8_FEATURE_RATIO of the CPU's own int8-vs-fp32 difference (phase
+    14's rule: a flipped step is legitimate there), and in lock-step
+    (`int8_lockstep`) within LOGIT_TOL."""
+    import torch
+    from fac_fake_torch.evaluate.s3d_eval import S3DEvaluator
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.ops import quant3d as q3
+    ev8 = S3DEvaluator(model, degrade=False, quantize="int8", device=dev)
+    ev8.predict_batch(clips[:2])                   # calibrates on these two clips
+    torch.cuda.synchronize()
+    want = ev8.engine.walk_counts()
+    q3.int8_conv3d.launches = q3.int8_conv3d.relu6_launches = 0
+    q3.quantize_pad.launches = q3.max_pool3d_i8.launches = 0
+    pp.quantize_clips.launches = pp.normalize_imagenet.launches = 0
+    rate, probs = clips_per_s(ev8, clips, n_it=2)
+    launches = {"K5": q3.int8_conv3d.launches, "K5_relu6": q3.int8_conv3d.relu6_launches,
+                "K5_quantize": q3.quantize_pad.launches, "K6": q3.max_pool3d_i8.launches,
+                "K2_raw": pp.quantize_clips.launches, "K2": pp.normalize_imagenet.launches}
+    per = {"K5": want["conv"], "K5_relu6": want["relu6"], "K5_quantize": want["quantize"],
+           "K6": want["pool"], "K2_raw": want["raw"], "K2": want["raw"]}
+    forwards = launches["K5"] // want["conv"]
+    log(f"S5 {name} int8 (SRM {model.srm}): predict_batch {S3D_BATCH} clips {rate:.2f} "
+        f"clips/s; launches {launches} over {forwards} forwards; a forward: {want}")
+    if forwards < 1 or any(launches[k] != forwards * v for k, v in per.items()) \
+            or min(launches[k] for k in ("K5", "K5_relu6", "K5_quantize", "K6")) < 1 \
+            or not (np.isfinite(probs).all() and ((probs >= 0) & (probs <= 1)).all()):
+        raise AssertionError(f"{name} int8: launches {launches}, want {per} a forward; "
+                             f"scores {probs}")
+
+    x2 = torch.from_numpy(clips[:S3D_CHECK_BATCH]).to(dev).permute(0, 4, 1, 2, 3)
+    calls = record_s3d_calls(ev8.engine, x2)
+    recorded = {"conv": sum(calls["conv"].values()),
+                "fused": sum(c for key, c in calls["conv"].items() if key[-1]),
+                "relu6": sum(c for key, c in calls["conv"].items() if key[4] == q3.ACT_RELU6),
+                "quantize": sum(calls["quantize"].values()),
+                "raw": sum(calls["raw"].values()), "pool": sum(calls["pool"].values())}
+    if recorded != {k: want[k] for k in recorded}:
+        raise AssertionError(f"{name} int8 forward recorded {recorded}, want {want}")
+    checked = {}
+    for batch in (S3D_CHECK_BATCH, S3D_BATCH) if name == "msca_s3d" else (S3D_CHECK_BATCH,):
+        xb = torch.from_numpy(clips[:batch]).to(dev).permute(0, 4, 1, 2, 3)
+        checked[batch] = check_s3d_calls(ev8.engine, xb)
+        if checked[batch] != {k: want[k] for k in checked[batch]}:
+            raise AssertionError(f"{name} int8: checked {checked[batch]} at batch {batch}, "
+                                 f"not every call of a forward ({want})")
+    log(f"S5 {name} int8 forward: {len(calls['conv'])} conv shapes; K2's raw entry and every "
+        f"K5/K6 call bit-equal to their plain versions on the same clips and activations "
+        f"(ReLU6 and fused epilogues included): {checked}")
+    with torch.no_grad():
+        x32 = torch.from_numpy(clips).to(dev).permute(0, 4, 1, 2, 3)
+        a, b = model(x32.float()).double(), ev8.engine(x32).double()
+    del x32
+    ac, bc = a - a.mean(), b - b.mean()
+    int8_vs_fp32 = float((a - b).abs().max())
+    log(f"S5 {name} int8 vs fp32 logits on {S3D_BATCH} clips (information): max abs "
+        f"{int8_vs_fp32:.4g} centred cosine "
+        f"{float((ac * bc).sum() / (ac.norm() * bc.norm())):.6f} (|logit| max "
+        f"{float(a.abs().max()):.3g}, spread {float(a.max() - a.min()):.3g})")
+
+    u1 = torch.from_numpy(clips[:1]).permute(0, 4, 1, 2, 3)
+    feats, errs = {}, {}
+    for label, mod in (("fp32", model), ("int8", ev8.engine)):
+        one = u1.float() if label == "fp32" else u1
+        gpu_l, gpu_f = head_input(mod, one.to(dev))
+        t_cpu = time.perf_counter()
+        cpu_l, cpu_f = head_input(copy.deepcopy(mod).cpu(), one)
+        t_cpu = time.perf_counter() - t_cpu
+        gpu_l, gpu_f, cpu_f = gpu_l.cpu(), gpu_f.cpu().double(), cpu_f.double()
+        feats[label] = gpu_f, cpu_f
+        errs[label] = float((gpu_l - cpu_l).abs().max())
+        log(f"S5 {name} {label} logits card vs CPU, batch 1 ({t_cpu:.1f} s on the CPU): max "
+            f"abs {errs[label]:.3g} (logit {float(cpu_l[0, 0]):.6g})")
+        if not torch.isfinite(gpu_l).all() or (label == "fp32" and errs[label] > LOGIT_TOL):
+            raise AssertionError(f"{name} {label} logits differ: {errs[label]} > {LOGIT_TOL}")
+    (g32, c32), (g8, c8) = feats["fp32"], feats["int8"]
+    f32_err = float((g32 - c32).norm() / c32.norm())
+    f8_err = float((g8 - c8).norm() / (c8 - c32).norm())
+    # fp32: information (the iFormer blocks round further apart than
+    # ca_s3d's layers: 1.8-2.7e-5 of the norm on an H100, ca_s3d's 7.7e-7);
+    # fp32 is held by its logits above
+    log(f"S5 {name} head input card vs CPU: fp32 error {f32_err:.3g} of its norm "
+        f"(information); int8 error {f8_err:.3g} of the CPU's int8-vs-fp32 difference "
+        f"(limit {S3D_INT8_FEATURE_RATIO}; that difference is "
+        f"{float((c8 - c32).norm() / c32.norm()):.3g} of the fp32 norm)")
+    if not f8_err <= S3D_INT8_FEATURE_RATIO:
+        raise AssertionError(f"{name} int8 head input differs card vs CPU: {f8_err} of the "
+                             f"int8-vs-fp32 difference")
+    lock = int8_lockstep(ev8.engine, u1, dev)
+    log(f"S5 {name} int8 card vs CPU in lock-step (the CPU's walk fed the card's fp-block "
+        f"and SRM outputs, each within {lock['block_err']:.3g} of the CPU's own, bound "
+        f"{S3D_FP_BLOCK_RTOL}, of its largest value): logits max abs {lock['logit_err']:.3g} "
+        f"(bound {LOGIT_TOL}); free-running, above: {errs['int8']:.3g}")
+    if not (lock["block_err"] <= S3D_FP_BLOCK_RTOL and lock["logit_err"] <= LOGIT_TOL):
+        raise AssertionError(f"{name} int8 card vs CPU in lock-step: {lock}")
+    del ev8
+    return dict(int8_clips_per_s=rate, int8_launches=launches, int8_walk=want,
+                int8_forwards=forwards, int8_checked={str(k): v for k, v in checked.items()},
+                logit_err=errs["fp32"], int8_logit_err=errs["int8"],
+                int8_lockstep_logit_err=lock["logit_err"], fp_block_err=lock["block_err"],
+                int8_vs_fp32_max_abs=int8_vs_fp32, head_fp32_err=f32_err,
+                head_int8_ratio=f8_err)
+
+
+def int8_lockstep(engine, u1, dev) -> dict:
+    """The int8 walk of ``engine`` on the uint8 clip ``u1``, card against CPU
+    in lock-step. The two walks' K2/K5/K6 steps are exact either way (each
+    kernel equals its plain version, and those equal the CPU's); only their
+    fp steps round differently: the fp blocks (iFormer, MSCAN-half, GCNet
+    context) and the residual SRM. Free-running, such a difference flips
+    a code wherever a value sits on a .5 tie of a quantize point. Here the
+    card's walk records each fp step's output; the CPU's runs its own, holds
+    it to the card's (``block_err``: the largest difference over the card's
+    largest value, any step) and goes on with the card's. Returns that and
+    the logits' max abs difference."""
+    import torch
+    from fac_fake_torch.compat import quantize_s3d as qs3
+    real_srm, seen = qs3.srm_filter, []
+
+    def recording(key):
+        return lambda mod, args, out: seen.append((key, out.detach().cpu()))
+
+    def srm_recorded(x, w):
+        y = real_srm(x, w)
+        seen.append(("srm", y.detach().cpu()))
+        return y
+
+    hooks = [m.register_forward_hook(recording(k)) for k, m in engine.fp.items()]
+    qs3.srm_filter = srm_recorded
+    try:
+        gpu_l = head_input(engine, u1.to(dev))[0].cpu()
+    finally:
+        qs3.srm_filter = real_srm
+        for h in hooks:
+            h.remove()
+    steps, worst = iter(seen), [0.0]
+
+    def carried(key, own):
+        k, ref = next(steps)
+        if k != key:
+            raise AssertionError(f"fp steps out of order: the card's {k}, the CPU's {key}")
+        worst[0] = max(worst[0], float((own - ref).abs().max() / ref.abs().max()))
+        return ref
+
+    cpu = copy.deepcopy(engine).cpu()
+    hooks = [m.register_forward_hook(lambda mod, args, out, k=k: carried(k, out))
+             for k, m in cpu.fp.items()]
+    qs3.srm_filter = lambda x, w: carried("srm", real_srm(x, w))
+    try:
+        cpu_l = head_input(cpu, u1)[0]
+    finally:
+        qs3.srm_filter = real_srm
+        for h in hooks:
+            h.remove()
+    if next(steps, None) is not None:
+        raise AssertionError("the CPU's walk ran fewer fp steps than the card's")
+    return dict(logit_err=float((gpu_l - cpu_l).abs().max()), block_err=worst[0])
+
+
 def msca_scoring(seed, rng, dev) -> dict:
     """S5: `S3DEvaluator` with the full-width ``msca_s3d`` and ``msca_s3d_srm``
-    (the residual 3-filter SRM input) in fp32, seeded weights: logits card
-    vs CPU on one seeded clip (batch 1, S3D_MSCA_T frames) within LOGIT_TOL;
-    `predict_batch` clips/s at batch S3D_BATCH beside ``ca_s3d``'s at the
-    same frames. Inputs from `side_rng`."""
+    (the residual 3-filter SRM input), seeded weights: `predict_batch`
+    clips/s at batch S3D_BATCH in fp32 beside ``ca_s3d``'s at the same
+    frames, and in int8 with what `msca_int8` checks (the launches, every
+    K5/K6 call bit-equal to its plain version, logits and head input card
+    vs CPU at batch 1, S3D_MSCA_T frames). Inputs from `side_rng`."""
     import torch
     from fac_fake_torch.core.config import ModelConfig
     from fac_fake_torch.evaluate.s3d_eval import S3DEvaluator
@@ -3366,22 +3587,16 @@ def msca_scoring(seed, rng, dev) -> dict:
         ev = S3DEvaluator(model, degrade=False, device=dev)
         ev.predict_batch(clips[:2])                           # warm cuDNN
         rate, probs = clips_per_s(ev, clips, n_it=2)
+        if not np.isfinite(probs).all():
+            raise AssertionError(f"{name}: fp32 scores {probs}")
         res = dict(clips_per_s=rate, srm=model.srm)
-        if name != "ca_s3d":
-            x = torch.from_numpy(clips[:1]).permute(0, 4, 1, 2, 3)
-            with torch.no_grad():
-                card = model(x.to(dev).float()).cpu()
-                cpu = copy.deepcopy(model).cpu()(x.float())
-            res["logit_err"] = float((card - cpu).abs().max())
-            if not (res["logit_err"] <= LOGIT_TOL and np.isfinite(probs).all()):
-                raise AssertionError(f"{name}: logits card vs CPU {res['logit_err']}, "
-                                     f"scores {probs}")
         log(f"S5 {name} fp32 (SRM {model.srm}), {S3D_MSCA_T} x {S3D_TRAIN_HW}^2: predict_batch "
-            f"{S3D_BATCH} clips {rate:.2f} clips/s"
-            + (f"; logits card vs CPU, batch 1: max abs {res['logit_err']:.3g} (bound "
-               f"{LOGIT_TOL})" if "logit_err" in res else ""))
+            f"{S3D_BATCH} clips {rate:.2f} clips/s")
+        del ev
+        if name != "ca_s3d":
+            res.update(msca_int8(name, model, clips, dev))
         out[name] = res
-        del ev, model
+        del model
         torch.cuda.empty_cache()
     return out
 
@@ -3617,12 +3832,20 @@ def main() -> int:
                       "(the count without the fused epilogue)",
          "library_ms": k5["library_ms"], "ms_1x1x1": k5["ms_1x1x1"],
          "library": "torch._int_mm, the GEMMs of the 1x1x1 convs alone (pre-quantized)",
+         "relu6_launches": sum(s5[n]["int8_launches"]["K5_relu6"] for n in MSCA_INT8),
+         "msca_launches": {n: s5[n]["int8_launches"] for n in MSCA_INT8},
+         "msca_relu6_launches_per_forward": {n: s5[n]["int8_walk"]["relu6"] for n in MSCA_INT8},
+         "msca_int8_clips_per_s": {n: s5[n]["int8_clips_per_s"] for n in MSCA_INT8},
          "shapes": f"the 77 convs (39 fused with the next quantize) and 10 quantize passes "
-                   f"of one ca_s3d int8 forward from uint8 clips, batch {S3D_BATCH}, fp32"},
+                   f"of one ca_s3d int8 forward from uint8 clips, batch {S3D_BATCH}, fp32; "
+                   f"launches: the ca_s3d int8 path (ReLU); relu6_launches, msca_launches: "
+                   f"the msca_s3d and msca_s3d_srm int8 paths of S5 ({S3D_BATCH} clips of "
+                   f"{S3D_MSCA_T} x {S3D_TRAIN_HW}^2, 22 convs a forward, 20 with ReLU6)"},
         {"name": "K6_max_pool3d_i8", "route": "cuda",
          "source": "fac_fake_torch/csrc/max_pool3d_i8.cu",
          "replaces": "fac_fake_tpu/compat/quantize_s3d.py:85",
          "launches": s3d["launches"]["K6"], "max_abs_err": k6["err"],
+         "msca_launches": {n: s5[n]["int8_launches"]["K6"] for n in MSCA_INT8},
          "ms": k6["ms"], "kernel_ms": k6["ms"], "plain_ms": k6["plain_ms"],
          "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"], "library_ms": None,
          "warm_ms": k6["warm_ms"], "copy_ms": k6["copy_ms"],

@@ -13,7 +13,9 @@ calibration batch records, per conv:
 
 keyed as the JAX engine keys them (``l0/s``, ``l0/t``, ``l2``,
 ``l4/b1b/s`` …). The int8 walk then runs each conv through K5
-(`ops/quant3d.py`): quantize, exact int32 conv, ``acc·s + b``, ReLU. Where
+(`ops/quant3d.py`): quantize, exact int32 conv, ``acc·s + b``, the conv's
+activation (ReLU; ReLU6, ``clip(·, 0, 6)``, in the msca family; none on a
+V2 mix's spatial convs) in K5's epilogue. Where
 a conv's output is read by the next conv alone (a sep's spatial conv by its
 temporal one, a ``basic`` conv by the sep after it, a mix's ``b1a``/``b2a``
 by their seps: 39 edges in ca_s3d), the first conv's epilogue quantizes
@@ -22,18 +24,20 @@ quantize pass lies between them; the values are those of the separate
 quantize. An Inception mix quantizes its input once with the shared
 scale, and its fourth branch max-pools the int8 tensor (K6): max-pool
 commutes with the monotone quantizer, so that is exact. Each branch writes
-its slice of the mix's output. What stays fp: the SRM bank, the GCNet
-context blocks, the spec's own max-pools and the head. The 3-channel stem
-input is quantized to 4 channels (K5's stem layout); given as uint8 clips
-(what `S3DEvaluator` passes) and with no SRM bank, by K2's raw entry
+its slice of the mix's output. What stays fp, as in JAX: the SRM bank
+(``concat30``, and the msca family's residual ``x + srm_filter(x)``), the
+GCNet context blocks, the msca MSCAN-half and iFormer blocks (each run
+through a deep copy of the model's own module, JAX's ``module_step``), the
+spec's own max-pools and the head. The 3-channel stem input is quantized
+to 4 channels (K5's stem layout); given as uint8 clips (what
+`S3DEvaluator` passes) and with no SRM bank, by K2's raw entry
 (`ops/preprocess.py quantize_clips`) straight from the bytes, the same
 int8 values as the fp32 cast and the quantize pass, so a ca_s3d forward
-runs 10 quantize passes, not 11.
+runs 10 quantize passes, not 11 (`walk_counts` gives each spec's).
 
 The walk is NDHWC inside (the kernels' layout); `S3DInt8.forward` takes
 what `S3DNet.forward` takes, (B, 3, T, H, W) in ``channels_last_3d``
-memory, fp or uint8, and returns (B, num_class) fp32 logits. The msca
-family (relu6 acts, MSCAN/iFormer blocks) is not supported yet.
+memory, fp or uint8, and returns (B, num_class) fp32 logits.
 
     engine = quantize_s3d(model, calib_clips)   # one folded fp32 walk
     logits = engine(clips)                      # the int8 walk
@@ -56,6 +60,8 @@ from fac_fake_torch.ops.quant3d import pad16
 
 Geom = Tuple[Tuple[int, int, int], Tuple[int, int, int]]   # stride, padding
 _G111: Geom = ((1, 1, 1), (0, 0, 0))
+_FIRST = {"sep": "l0/s", "basic": "l0"}       # the first conv's key, by the spec's first op
+_FP_MODULES = ("ctx", "mscan_half", "iformer")  # run in fp through the model's own modules
 
 
 def _ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -109,7 +115,7 @@ class QConv3d(nn.Module):
     it is made from ``w_q`` here, so whoever replaces ``w_q`` makes it
     again."""
 
-    def __init__(self, w_q, s, b, s_x, geom: Geom, relu: bool, cin: int):
+    def __init__(self, w_q, s, b, s_x, geom: Geom, act: int, cin: int):
         super().__init__()
         self.register_buffer("w_q", w_q)
         self.register_buffer("s", s)
@@ -118,47 +124,91 @@ class QConv3d(nn.Module):
         self.register_buffer("w_rows", q3.stem_rows(w_q) if q3.quant_channels(cin) == 4
                              else None, persistent=False)
         self.stride, self.padding = geom
-        self.relu = relu
+        self.act = act          # K5's epilogue activation, `q3.act_mode`
 
     @classmethod
-    def calibrate(cls, w, b, x, s_x, geom: Geom, relu: bool) -> "QConv3d":
+    def calibrate(cls, w, b, x, s_x, geom: Geom, act: Optional[str]) -> "QConv3d":
         """From the folded fp32 conv ``w`` (O, I, kt, kh, kw), ``b`` and its
-        calibration input ``x`` (unless ``s_x`` is given, a mix's shared one)."""
+        calibration input ``x`` (unless ``s_x`` is given, a mix's shared one);
+        ``act``: the spec's activation after the conv (None, relu, relu6)."""
         if s_x is None:
             s_x = _act_scale(x.abs().amax())
         w_q, s_w = _weight_q(w, (1, 2, 3, 4))
         w_q = F.pad(w_q.permute(0, 2, 3, 4, 1), (0, pad16(w.shape[1]) - w.shape[1]))
-        return cls(w_q.contiguous(), s_x * s_w, b.float(), s_x, geom, relu, w.shape[1])
+        return cls(w_q.contiguous(), s_x * s_w, b.float(), s_x, geom, q3.act_mode(act),
+                   w.shape[1])
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         return q3.quantize_pad(x, self.s_x)
 
     def forward(self, xq, dtype, out=None, c0: int = 0, q_scale=None):
         return q3.int8_conv3d(xq, self.w_q, self.s, self.b, self.stride, self.padding,
-                              self.relu, dtype, out, c0, q_scale, self.w_rows)
+                              self.act, dtype, out, c0, q_scale, self.w_rows)
+
+
+def _fused_into(spec, i: int) -> Optional[str]:
+    """The key of the conv that alone reads conv op ``i``'s output (the next
+    op's first conv, when that op is a sep or a basic), else None."""
+    if spec[i][0] not in _FIRST or i + 1 >= len(spec):
+        return None
+    nxt = spec[i + 1][0]
+    return {"sep": f"l{i + 1}/s", "basic": f"l{i + 1}"}.get(nxt)
+
+
+def walk_counts(spec, srm: str = "none", uint8: bool = True) -> Dict[str, int]:
+    """What one int8 forward of ``spec`` runs (`S3DInt8._walk`): K5 convs
+    (``conv``), those that quantize their output for the next conv
+    (``fused``), those with ReLU6 in the epilogue (``relu6``), quantize
+    passes (``quantize``), K2 raw entries (``raw``: the first conv's input
+    from uint8 clips, with no SRM bank), K6 pools (``pool``) and blocks run
+    in fp through the model's own modules (``fp_modules``)."""
+    c = dict(conv=0, fused=0, relu6=0, quantize=0, raw=0, pool=0, fp_modules=0)
+
+    def conv(act, fused):
+        c["conv"] += 1
+        c["fused"] += fused
+        c["relu6"] += act == "relu6"
+
+    quantized = uint8 and srm == "none" and spec[0][0] in _FIRST
+    c["raw"] = int(quantized)
+    for i, op in enumerate(spec):
+        kind, to = op[0], _fused_into(spec, i)
+        if kind in _FIRST:
+            c["quantize"] += not quantized
+            if kind == "sep":
+                conv(op[5] if op[6] else None, True)
+            conv(op[5], to is not None)
+        elif kind == "mix":
+            act, sbn = op[2], op[3]
+            c["quantize"] += 1
+            c["pool"] += 1
+            for fused in (False, True, True, False):      # b0, b1a, b2a, b3
+                conv(act, fused)
+            for _ in range(2):                             # the b1b, b2b seps
+                conv(act if sbn else None, True)
+                conv(act, False)
+        elif kind in _FP_MODULES:
+            c["fp_modules"] += 1
+        quantized = to is not None
+    return c
 
 
 class S3DInt8(nn.Module):
-    """The int8 inference engine for one `S3DNet` (``s3d``, ``ca_s3d``).
-    Built by `quantize_s3d`; `folded_fp_forward` is the exact-algebra fp32
-    walk the tests pin against the model."""
+    """The int8 inference engine for one `S3DNet` (every registry entry:
+    ``s3d``, ``ca_s3d``, the msca family). Built by `quantize_s3d`;
+    `folded_fp_forward` is the exact-algebra fp32 walk the tests pin against
+    the model."""
 
     def __init__(self, model, calib_clips: torch.Tensor):
         super().__init__()
-        acts = {op[5] for op in model.spec if op[0] in ("sep", "basic")}
-        acts |= {op[2] for op in model.spec if op[0] == "mix"}
-        if acts - {"relu"}:
-            raise NotImplementedError(f"acts {sorted(acts)}: only ReLU convs quantize (msca "
-                                      "int8 scoring, with ReLU6 in K5's epilogue, is ROADMAP "
-                                      "queue 1 item 13b)")
         self.spec = model.spec
         self.srm = model.srm
         self.num_class = model.num_class
         self.dtype = torch.float32
-        if self.srm == "concat30":
+        if self.srm != "none":
             self.register_buffer("srm_weight", model.srm_weight.clone(), persistent=False)
-        self.ctx = nn.ModuleDict({f"l{i}": copy.deepcopy(model.base[i])
-                                  for i, op in enumerate(self.spec) if op[0] == "ctx"})
+        self.fp = nn.ModuleDict({f"l{i}": copy.deepcopy(model.base[i])
+                                 for i, op in enumerate(self.spec) if op[0] in _FP_MODULES})
         self.fc = copy.deepcopy(model.fc)
         self.qconvs = nn.ModuleDict()
         with torch.no_grad():
@@ -171,6 +221,10 @@ class S3DInt8(nn.Module):
 
     def forward(self, clips: torch.Tensor) -> torch.Tensor:
         return self._walk(clips)
+
+    def walk_counts(self, uint8: bool = True) -> Dict[str, int]:
+        """What one forward runs (`walk_counts`), from uint8 clips or not."""
+        return walk_counts(self.spec, self.srm, uint8)
 
     @torch.no_grad()
     def folded_fp_forward(self, model, clips: torch.Tensor) -> torch.Tensor:
@@ -192,7 +246,7 @@ class S3DInt8(nn.Module):
                 return qc(qc.quantize(x) if xq is None else xq, dt, out, c0, q_scale)
             w, b = folded[key]
             if build:
-                self.qconvs[key] = QConv3d.calibrate(w, b, x, s_x, geom, act == "relu")
+                self.qconvs[key] = QConv3d.calibrate(w, b, x, s_x, geom, act)
             return _ndhwc(act_fn(act)(F.conv3d(_ncdhw(x), w, b, *geom)))
 
         def sep(x, key, strd, pad, act, sbn, out=None, c0=0, xq=None, to=None):
@@ -225,7 +279,7 @@ class S3DInt8(nn.Module):
             return torch.cat([y0, y1, y2, y3], dim=-1)
 
         xq = None   # int8 walk: the input of conv op i, quantized by conv op i - 1
-        first = {"sep": "l0/s", "basic": "l0"}.get(self.spec[0][0])
+        first = _FIRST.get(self.spec[0][0])
         if int8 and clips.dtype == torch.uint8 and self.srm == "none" and first:
             # the first conv's input straight from the uint8 clips (K2's raw entry)
             xq, x = pp.quantize_clips(_ndhwc(clips), self.qconvs[first].s_x), None
@@ -233,12 +287,12 @@ class S3DInt8(nn.Module):
             x = clips.to(dt)
             if self.srm == "concat30":
                 x = srm_filter(x.float(), self.srm_weight).to(dt)
+            elif self.srm == "residual3":
+                x = (x.float() + srm_filter(x.float(), self.srm_weight)).to(dt)
             x = _ndhwc(x)
         for i, op in enumerate(self.spec):
             kind, key = op[0], f"l{i}"
-            nxt = self.spec[i + 1][0] if i + 1 < len(self.spec) else None
-            to = {"sep": f"l{i + 1}/s", "basic": f"l{i + 1}"}.get(nxt) \
-                if int8 and kind in ("sep", "basic") else None
+            to = _fused_into(self.spec, i) if int8 else None
             if kind == "sep":
                 _, _, _, strd, pad, act, sbn = op
                 x = sep(x, key, strd, pad, act, sbn, xq=xq, to=to)
@@ -249,11 +303,10 @@ class S3DInt8(nn.Module):
                 x = _ndhwc(max_pool3d(_ncdhw(x), op[1], op[2], op[3]))
             elif kind == "mix":
                 x = mix(x, key, INCEPTION_PLANS[op[1]], op[2], op[3])
-            elif kind == "ctx":
-                x = _ndhwc(self.ctx[key](_ncdhw(x)))
+            elif kind in _FP_MODULES:
+                x = _ndhwc(self.fp[key](_ncdhw(x)))
             else:
-                raise NotImplementedError(f"spec op {kind!r}: msca int8 scoring is ROADMAP "
-                                          "queue 1 item 13b")
+                raise ValueError(f"spec op {kind!r}")
             xq, x = (x, None) if to is not None else (None, x)
         # head (fp, `models/s3d/model.py`): avg over (2, H, W), 1×1×1 conv, temporal mean
         x = _ncdhw(x)

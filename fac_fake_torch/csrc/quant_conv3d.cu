@@ -5,7 +5,8 @@
 // next conv.
 //
 // Replaces: fac_fake_tpu/compat/quantize_s3d.py _conv3d(int8=True) (:59-62),
-// _quantize_in (:93-95) and the epilogue of conv_step (:147-149) (K5), and
+// _quantize_in (:93-95), the epilogue of conv_step (:147-149) and _act's
+// relu and relu6 (:65-70) (K5), and
 // fac_fake_tpu/models/layers.py QuantConv3x3 (:106-139) with the nn.relu
 // after it (K3), which XLA lowered to an int8 conv_general_dilated
 // (preferred_element_type int32) with the quantize and the epilogue fused
@@ -18,7 +19,9 @@
 //                      from elsewhere (the clip, a spec max-pool, a mix input
 //                      that three convs and K6 share).
 //   fac_int8_conv3d:   xq (B, T, H, W, Cp) int8 * wq -> out[..., c0 : c0 + N]
-//                      = relu?(acc * s[o] + b[o]), fp32 or bf16, out rows ldo
+//                      = act(acc * s[o] + b[o]), act none, ReLU or ReLU6
+//                      (the msca family's clip to [0, 6]; Act below), fp32
+//                      or bf16, out rows ldo
 //                      values apart (an Inception branch writes its slice of
 //                      the concatenated output); or, given q_scale (the next
 //                      conv's s_x), that value rounded to the walk's dtype
@@ -65,6 +68,22 @@ using namespace qwg;
 
 enum AMode { kGather = 0, kTma = 1, kRows4 = 2 };
 
+// The epilogue's activations (fac_int8_conv3d's act): none, ReLU, or the
+// msca family's ReLU6, a clip to [0, 6]. Each is a clamp of the value to
+// [act_lo, act_hi], applied after its rounding to the output type (0 and 6
+// are exact in bf16, so the clamp commutes with the rounding, as JAX's (y *
+// s + b).astype(dt) then clip); where the epilogue quantizes the value, it
+// is a clamp of the code to [q8(act_lo), q8(act_hi)] instead, the same
+// bytes since the quantize is monotone, and free (q8's own clip).
+enum Act { kActNone = 0, kActRelu = 1, kActRelu6 = 2 };
+
+__device__ __forceinline__ float act_lo(int act) {
+  return act == kActNone ? -__int_as_float(0x7f800000) : 0.0f;  // -inf
+}
+__device__ __forceinline__ float act_hi(int act) {
+  return act == kActRelu6 ? 6.0f : __int_as_float(0x7f800000);  // +inf
+}
+
 // The int8 A operand: (B, T, H, W, Cp) image, output (B, To, Ho, Wo),
 // kernel (kt, kh, kw), stride, zero padding; K = kt*kh*kw*Cp (kRows4:
 // kt*kh*32).
@@ -81,7 +100,7 @@ struct ConvEpi {
   const float* bias;     // (N,)
   void* out;             // fp32 / bf16 rows of ldo values, or int8 rows of pad16(N)
   int out_bf16;          // the walk's dtype is bf16 (with q_scale: round to it first)
-  int relu, ldo, c0, N;
+  int act, ldo, c0, N;  // act: kActNone, kActRelu, kActRelu6
   const float* q_scale;  // 0-d, or null
 };
 
@@ -256,6 +275,14 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     const bool pairs = e.ldo % 2 == 0 && e.c0 % 2 == 0;  // two values a store
     const bool quant = e.q_scale != nullptr;
     const float qs = quant ? *e.q_scale : 1.0f, qr = __frcp_rn(qs);
+    // the activation: the clamp of an fp value, or of a code (Act); no
+    // value here is a NaN (finite scales and biases), which the clamp of
+    // an fp value with no activation would turn into -inf
+    const float lo = act_lo(e.act), hi = act_hi(e.act);
+    const float qlo = e.act == kActNone ? -127.0f : 0.0f;
+    const float qhi = e.act == kActRelu6
+                          ? static_cast<float>(static_cast<int8_t>(q8(hi, qs, qr)))
+                          : 127.0f;
     int s = 0, phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * BM;
@@ -284,9 +311,11 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
       if (lane == 0) mbar_arrive(&empty[prev]);
 
       // the epilogue, from the registers: acc[4 q + h] is row r0 + 8 (h / 2),
-      // column n0 + 8 q + 2 (lane % 4) + h % 2. First every value in place
-      // (a column's scale and bias loaded once, no load behind a store;
-      // columns past N compute zeros), then the stores.
+      // column n0 + 8 q + 2 (lane % 4) + h % 2. First every value in place,
+      // rounded to the output type (a column's scale and bias loaded once,
+      // no load behind a store; columns past N compute zeros), then the
+      // stores, each with the activation: the code's bounds of a quantizing
+      // store, the value's clamp of an fp one.
       const int r0 = m0 + wg * 64 + 16 * warp + lane / 4;
 #pragma unroll
       for (int q = 0; q < BN / 8; ++q) {
@@ -298,7 +327,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
         for (int h = 0; h < 4; ++h) {
           const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * q + h]), h % 2 ? s1 : s0),
                                     h % 2 ? b1 : b0);
-          acc[4 * q + h] = __float_as_int(finish(y, e.out_bf16, e.relu));
+          acc[4 * q + h] = __float_as_int(finish(y, e.out_bf16, 0));
         }
       }
       if (quant) {  // the next conv's int8 input: rows of Np, zero past N
@@ -309,8 +338,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
           for (int h = 0; h < 4; h += 2) {
             const int r = r0 + 4 * h;
             if (r >= g.M || n >= Np) continue;
-            const uint32_t b2 = q8(__int_as_float(acc[4 * q + h]), qs, qr) |
-                                q8(__int_as_float(acc[4 * q + h + 1]), qs, qr) << 8;
+            const uint32_t b2 = q8(__int_as_float(acc[4 * q + h]), qs, qr, qlo, qhi) |
+                                q8(__int_as_float(acc[4 * q + h + 1]), qs, qr, qlo, qhi) << 8;
             *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(e.out) +
                                          static_cast<size_t>(r) * Np + n) =
                 static_cast<uint16_t>(b2);
@@ -326,7 +355,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
           const int r = r0 + 4 * h;
           if (r >= g.M || n >= N) continue;
           const size_t o = static_cast<size_t>(r) * e.ldo + e.c0 + n;
-          const float y0 = __int_as_float(acc[4 * q + h]), y1 = __int_as_float(acc[4 * q + h + 1]);
+          const float y0 = fminf(fmaxf(__int_as_float(acc[4 * q + h]), lo), hi);
+          const float y1 = fminf(fmaxf(__int_as_float(acc[4 * q + h + 1]), lo), hi);
           if (n + 1 < N && pairs) {
             store2(e.out, o, y0, y1, e.out_bf16);
           } else {
@@ -408,9 +438,9 @@ extern "C" int fac_quantize_pad(const void* x, int x_bf16, const void* x_scale, 
 // ints); wq: (N, kt, kh, kw, Cp) int8, or with Cp == 4 the (N, kt, kh, 32)
 // rows of the stem; s, bias: (N,) fp32 device pointers; out: (B, To, Ho, Wo,
 // ldo) in the walk's dtype, or with q_scale (0-d fp32) int8 (B, To, Ho, Wo,
-// pad16(N)), ldo = pad16(N), c0 = 0.
+// pad16(N)), ldo = pad16(N), c0 = 0; act: 0 none, 1 ReLU, 2 ReLU6.
 extern "C" int fac_int8_conv3d(const void* xq, const void* wq, const void* s, const void* bias,
-                               void* out, int out_bf16, int relu, int ldo, int c0,
+                               void* out, int out_bf16, int act, int ldo, int c0,
                                const void* q_scale, const int* g, void* stream) {
   const int B = g[0], T = g[1], H = g[2], W = g[3], Cp = g[4], To = g[5], Ho = g[6], Wo = g[7];
   const int N = g[8], kt = g[9], kh = g[10], kw = g[11];
@@ -418,6 +448,7 @@ extern "C" int fac_int8_conv3d(const void* xq, const void* wq, const void* s, co
   const long long pixels = static_cast<long long>(B) * T * H * W;
   const bool rows4 = Cp == 4;
   if (rows < 1 || N < 1 || rows > 0x7fffffffLL || pixels > 0x7fffffffLL || c0 + N > ldo ||
+      act < kActNone || act > kActRelu6 ||
       (rows4 ? kw > 8 : Cp % 16 != 0) ||
       (q_scale != nullptr && (ldo != pad16(N) || c0 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -428,7 +459,7 @@ extern "C" int fac_int8_conv3d(const void* xq, const void* wq, const void* s, co
           fast_div(Wo), fast_div(Ho), fast_div(To), fast_div(Cp), fast_div(kh * kw),
           fast_div(kw), fast_div(kh)};
   const ConvEpi e{static_cast<const float*>(s), static_cast<const float*>(bias), out, out_bf16,
-                  relu, ldo, c0, N, static_cast<const float*>(q_scale)};
+                  act, ldo, c0, N, static_cast<const float*>(q_scale)};
   const bool pointwise = kt == 1 && kh == 1 && kw == 1 && g[12] == 1 && g[13] == 1 &&
                          g[14] == 1 && g[15] == 0 && g[16] == 0 && g[17] == 0;
   const int mode = rows4 ? kRows4 : pointwise ? kTma : kGather;

@@ -41,9 +41,11 @@ class S3DEvaluator:
     """S3D scoring and evaluation (`S3D-test.py:260-286`).
 
     ``quantize="int8"`` scores through the int8 engine
-    (`compat/quantize_s3d.py`, kernels K5 and K6 on the card), calibrated
-    on the first two clips of the first batch it scores; the engine takes
-    the uint8 clips, and K2's raw entry quantizes them for its first conv.
+    (`compat/quantize_s3d.py`, kernels K5 and K6 on the card; every
+    registry entry, the msca family's ReLU6 convs in K5's epilogue),
+    calibrated on the first two clips of the first batch it scores; the
+    engine takes the uint8 clips, and without an SRM bank K2's raw entry
+    quantizes them for its first conv.
     The model moves to ``device``: the card unless the caller names the CPU.
     """
 

@@ -57,10 +57,16 @@ def kan_bases_plain(x: torch.Tensor, grid: torch.Tensor, spline_order: int) -> t
 def kan_bases(x: torch.Tensor, grid: torch.Tensor, spline_order: int) -> torch.Tensor:
     """K9's wrapper: the plain version for CPU tensors; for CUDA tensors one
     kernel launch or an exception. x (B, in) and grid (in, L), contiguous,
-    fp32 or bf16, L ≤ `MAX_KNOTS`, spline_order ≤ `MAX_ORDER`."""
+    fp32 or bf16, L ≤ `MAX_KNOTS`, spline_order ≤ `MAX_ORDER`. K9 is
+    forward-only: a CUDA ``x`` or ``grid`` that requires grad while grad
+    mode is on raises, rather than return bases that autograd cannot see."""
     if not x.is_cuda:
         return kan_bases_plain(x, grid, spline_order)
     _check(x, grid, spline_order)
+    if torch.is_grad_enabled() and (x.requires_grad or grid.requires_grad):
+        raise RuntimeError("kan_bases: K9 has no backward, so its bases would carry no "
+                           "gradient; call it under torch.no_grad() or "
+                           "torch.inference_mode() (the KAN family is scored, not trained)")
     if x.dtype not in DTYPES:
         raise ValueError(f"kan_bases: no kernel for {x.dtype}")
     kernels.require_cuda(x, "kan_bases x", x.dtype)

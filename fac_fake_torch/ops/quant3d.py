@@ -12,9 +12,11 @@ the unit the kernels read in; the 3-channel stem input is padded to 4.
     fp32 tensor on x's device;
   * `int8_conv3d` (K5): int8 (B, T, H, W, Cp) ⊛ int8 kernel (N, kt, kh, kw,
     Cp) → exact int32, then ``acc · s[o] + b[o]`` in fp32 (``s = s_x·s_w``
-    formed once at calibration, as JAX forms it), the ReLU if asked for, in
-    fp32 or bf16; into a new (B, To, Ho, Wo, N) tensor or into channels
-    ``c0 … c0 + N`` of a given ``out`` (B, To, Ho, Wo, C_total). With
+    formed once at calibration, as JAX forms it), the activation ``act``
+    (`ACT_NONE`, `ACT_RELU` or `ACT_RELU6`: ``clip(·, 0, 6)``, the msca
+    family's; ``False``/``True`` read as none/ReLU), in fp32 or bf16; into
+    a new (B, To, Ho, Wo, N) tensor or into channels ``c0 … c0 + N`` of a
+    given ``out`` (B, To, Ho, Wo, C_total). With
     ``q_scale`` (the next conv's ``s_x``), that value is quantized again
     in the same launch: int8 (B, To, Ho, Wo, pad16(N)), exactly
     ``quantize_pad(int8_conv3d(...), q_scale)``. A 4-channel input (the
@@ -48,6 +50,35 @@ from fac_fake_torch import kernels
 Int3 = Tuple[int, int, int]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# K5's epilogue activations (`csrc/quant_conv3d.cu` ``Act``), applied to
+# ``acc·s + b`` after its rounding to the walk's dtype
+ACT_NONE, ACT_RELU, ACT_RELU6 = 0, 1, 2
+_ACT_NAMES = {None: ACT_NONE, "relu": ACT_RELU, "relu6": ACT_RELU6}
+
+
+def act_mode(name: Optional[str]) -> int:
+    """The epilogue mode of a spec activation: None, ``relu`` or ``relu6``."""
+    if name not in _ACT_NAMES:
+        raise ValueError(f"K5 epilogue: no activation {name!r} (None, relu or relu6)")
+    return _ACT_NAMES[name]
+
+
+def _check_act(act: int, what: str) -> int:
+    if act not in (ACT_NONE, ACT_RELU, ACT_RELU6):
+        raise ValueError(f"{what}: act {act!r} is not ACT_NONE, ACT_RELU or ACT_RELU6")
+    return int(act)
+
+
+def apply_act(y: torch.Tensor, act: int) -> torch.Tensor:
+    """The epilogue's activation as JAX's `_act` applies it: ``relu``, or
+    ``clip(y, 0, 6)`` (0 and 6 are exact in bf16, so it commutes with the
+    cast before it)."""
+    if act == ACT_RELU:
+        return torch.relu(y)
+    if act == ACT_RELU6:
+        return torch.clamp(y, 0.0, 6.0)
+    return y
 
 
 def quantize_plain(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
@@ -119,15 +150,16 @@ def _kernel_for(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return w_q[..., :cp]
 
 
-def int8_conv3d_plain(xq, w_q, s, bias, stride, padding, relu: bool, dtype: torch.dtype,
+def int8_conv3d_plain(xq, w_q, s, bias, stride, padding, act: int, dtype: torch.dtype,
                       out: Optional[torch.Tensor] = None, c0: int = 0,
                       q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """JAX's order: ``(acc · s + b)`` in fp32, cast to ``dtype``, then the
-    ReLU (which commutes with the cast); with ``q_scale``, that quantized
-    for the next conv."""
+    activation (`apply_act`, which commutes with the cast); with
+    ``q_scale``, that quantized for the next conv."""
+    act = _check_act(act, "int8_conv3d")
     y = (int_conv3d_plain(xq, _kernel_for(xq, w_q), stride, padding).float() * s
          + bias).to(dtype)
-    y = torch.relu(y) if relu else y
+    y = apply_act(y, act)
     if q_scale is not None:
         if out is not None:
             raise ValueError("int8_conv3d: q_scale writes a new int8 tensor, not into out")
@@ -176,7 +208,7 @@ def stem_rows(w_q: torch.Tensor) -> torch.Tensor:
     return F.pad(rows, (0, STEM_ROW - kw * 4)).contiguous()
 
 
-def conv_launch(xq, wk, s, bias, kernel: Int3, stride: Int3, padding: Int3, relu: bool,
+def conv_launch(xq, wk, s, bias, kernel: Int3, stride: Int3, padding: Int3, act: int,
                 dtype: torch.dtype, out: Optional[torch.Tensor] = None, c0: int = 0,
                 q_scale: Optional[torch.Tensor] = None, what: str = "int8_conv3d"
                 ) -> torch.Tensor:
@@ -189,6 +221,7 @@ def conv_launch(xq, wk, s, bias, kernel: Int3, stride: Int3, padding: Int3, relu
     empty."""
     if dtype not in _DTYPES:
         raise ValueError(f"{what}: no kernel for output dtype {dtype}")
+    act = _check_act(act, what)
     b, t, h, w, cp = xq.shape
     n = s.shape[0]
     kt, kh, kw = kernel
@@ -227,38 +260,42 @@ def conv_launch(xq, wk, s, bias, kernel: Int3, stride: Int3, padding: Int3, relu
     geom = (ctypes.c_int * 18)(b, t, h, w, cp, *oshape[1:], n, kt, kh, kw, *stride, *padding)
     err = kernels.lib("quant_conv3d").fac_int8_conv3d(
         kernels.ptr(xq), kernels.ptr(wk), kernels.ptr(s), kernels.ptr(bias), kernels.ptr(out),
-        int(dtype == torch.bfloat16), int(relu), ldo, c0,
+        int(dtype == torch.bfloat16), act, ldo, c0,
         None if q_scale is None else kernels.ptr(q_scale), geom, kernels.stream_ptr(xq.device))
     kernels.check(err, what)
     return out
 
 
-def int8_conv3d(xq, w_q, s, bias, stride: Int3, padding: Int3, relu: bool,
+def int8_conv3d(xq, w_q, s, bias, stride: Int3, padding: Int3, act: int,
                 dtype: torch.dtype, out: Optional[torch.Tensor] = None,
                 c0: int = 0, q_scale: Optional[torch.Tensor] = None,
                 w_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5's wrapper: returns the new (B, To, Ho, Wo, N) output, or ``out``
     with channels ``c0 … c0 + N`` written, or with ``q_scale`` the new
-    int8 (B, To, Ho, Wo, pad16(N)) input of the next conv. ``w_rows``: for
-    a 4-channel input, ``stem_rows(w_q)`` made once by the caller (made
+    int8 (B, To, Ho, Wo, pad16(N)) input of the next conv. ``act``: the
+    epilogue's activation (`ACT_NONE`, `ACT_RELU`, `ACT_RELU6`). ``w_rows``:
+    for a 4-channel input, ``stem_rows(w_q)`` made once by the caller (made
     here when not given). CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise. A launch adds one to ``launches``, and one
+    with ReLU6 also to ``relu6_launches``."""
     if not xq.is_cuda:
-        return int8_conv3d_plain(xq, w_q, s, bias, stride, padding, relu, dtype, out, c0,
+        return int8_conv3d_plain(xq, w_q, s, bias, stride, padding, act, dtype, out, c0,
                                  q_scale)
     n, kt, kh, kw = w_q.shape[:4]
     kernels.require_cuda(w_q, "int8_conv3d w_q", torch.int8, (n, kt, kh, kw, None))
     wk = w_q
     if xq.shape[-1] == 4:
         wk = stem_rows(w_q) if w_rows is None else w_rows
-    out = conv_launch(xq, wk, s, bias, (kt, kh, kw), stride, padding, relu, dtype, out, c0,
+    out = conv_launch(xq, wk, s, bias, (kt, kh, kw), stride, padding, act, dtype, out, c0,
                       q_scale)
     if out.numel():
         int8_conv3d.launches += 1
+        int8_conv3d.relu6_launches += act == ACT_RELU6
     return out
 
 
 int8_conv3d.launches = 0
+int8_conv3d.relu6_launches = 0
 
 
 # ---- K6 -----------------------------------------------------------------------

@@ -42,7 +42,10 @@ running metrics stay on the device until the epoch ends, or ``log_every``.
 checkpoints on a background thread (`train/checkpoint.py`).
 
 Left out, and raising: the mesh and its tensor-parallel rules (ROADMAP
-queue 1 item 12), TensorBoard (item 16) and bf16 training (item 11).
+queue 1 item 12), TensorBoard (item 16) and bf16 training (item 11). A
+model that holds a `KANLinear` (``reskan``, ``resvitkan``) is refused: K9,
+its spline bases on the card, has no backward, and JAX's `Trainer` cannot
+train the KAN family either.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ from torch import nn
 from fac_fake_torch.core.config import Config
 from fac_fake_torch.core.device import DeviceLike, resolve_device
 from fac_fake_torch.data.augment import augment_batch, check_config
+from fac_fake_torch.models.blocks.kan import KANLinear
 from fac_fake_torch.ops import preprocess
 from fac_fake_torch.train.losses import make_loss
 from fac_fake_torch.train.schedules import build_controller
@@ -111,6 +115,12 @@ class Trainer:
     def __init__(self, model: nn.Module, cfg: Optional[Config] = None,
                  device: DeviceLike = None, loss_kwargs: Optional[dict] = None):
         self.cfg = cfg or Config()
+        if any(isinstance(m, KANLinear) for m in model.modules()):
+            raise ValueError(
+                f"{type(model).__name__} holds a KANLinear and cannot be trained: K9, its "
+                "spline bases on the card, has no backward, and the JAX Trainer cannot train "
+                "the KAN family either (its init_state keeps no kan_grid collection, so "
+                "KANLinear's grid lookup raises ScopeCollectionNotFound)")
         self.device = resolve_device(device)
         tcfg = self.cfg.train
         if self.cfg.model.dtype != "float32":

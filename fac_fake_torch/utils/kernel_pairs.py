@@ -6,8 +6,9 @@ share shows against the spread between runs:
         [--phases-from ROOT]
 
 (``--phase`` names any ``chip_smoke.<phase>_phase(rng, dev)``: k1, k2, k3,
-k4, k6, k7, k8, k9, k10, augment, s3d_augment. ``k8_phase`` builds its
-seeded MTCNN itself.)
+k4, k5, k6, k7, k8, k9, k10, augment, s3d_augment. ``k8_phase`` builds its
+seeded MTCNN itself, ``k5_phase`` records its shapes from one int8 forward
+of a seeded ca_s3d.)
 
 PARENT_ROOT is an unpacked checkout of the other tree (``git archive``).
 Each turn is a process of its own that imports ``fac_fake_torch`` from its

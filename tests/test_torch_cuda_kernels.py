@@ -529,6 +529,51 @@ def test_k5_fused_quantize_epilogue_equals_plain(dev, kernel, stride, padding, c
         assert torch.equal(got, q3.quantize_pad_plain(y, q_scale))
 
 
+@pytest.mark.parametrize("kernel,stride,padding,cin,cout,thw", CONV3D_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_relu6_epilogue_equals_plain(dev, kernel, stride, padding, cin, cout, thw, dtype):
+    """K5 with the msca family's ReLU6 (``clip(acc·s + b, 0, 6)`` after the
+    rounding to the walk's dtype): into a new tensor, into a channel slice,
+    and quantized for the next conv, each bit-equal to the plain version;
+    the scales set so that values fall below 0, between 0 and 6 and above
+    6 in every case. A ReLU6 launch counts in ``relu6_launches`` too."""
+    from fac_fake_torch.ops import quant3d as q3
+    from fac_fake_torch.ops.quant import pad16
+
+    rng = np.random.default_rng(cin * 10 + cout + thw[0])
+    x, x_scale, wq, _, _ = _conv3d_inputs(rng, dev, kernel, cin, cout, thw)
+    xq = q3.quantize_pad(x.to(dtype), x_scale)
+    acc = q3.int_conv3d_plain(xq, q3._kernel_for(xq, wq), stride, padding).float()
+    spread = acc.reshape(-1, cout).std(0).clamp_min(1.0)
+    s = (5.0 / spread).contiguous()
+    bias = torch.from_numpy(rng.normal(2.0, 3.0, cout).astype(np.float32)).to(dev)
+    ref = q3.int8_conv3d_plain(xq, wq, s, bias, stride, padding, q3.ACT_RELU6, dtype)
+    assert (ref == 0).any() and (ref == 6).any() and ((ref > 0) & (ref < 6)).any()
+    assert torch.equal(ref, torch.clamp(q3.int8_conv3d_plain(
+        xq, wq, s, bias, stride, padding, q3.ACT_NONE, dtype), 0.0, 6.0))
+    before = (q3.int8_conv3d.launches, q3.int8_conv3d.relu6_launches)
+    got = q3.int8_conv3d(xq, wq, s, bias, stride, padding, q3.ACT_RELU6, dtype)
+    out = torch.full((*ref.shape[:-1], cout + 24), 9.0, dtype=dtype, device=dev)
+    q3.int8_conv3d(xq, wq, s, bias, stride, padding, q3.ACT_RELU6, dtype, out, 8)
+    q_scale = torch.tensor(8.0 / 127.0, device=dev)     # past 6: ReLU alone would show
+    fused = q3.int8_conv3d(xq, wq, s, bias, stride, padding, q3.ACT_RELU6, dtype,
+                           q_scale=q_scale)
+    relu = q3.int8_conv3d(xq, wq, s, bias, stride, padding, q3.ACT_RELU, dtype)
+    torch.cuda.synchronize()
+    assert (q3.int8_conv3d.launches, q3.int8_conv3d.relu6_launches) == \
+        (before[0] + 4, before[1] + 3)
+    assert got.dtype == dtype and torch.equal(got, ref)
+    assert torch.equal(out[..., 8:8 + cout], ref)
+    assert (out[..., :8] == 9).all() and (out[..., 8 + cout:] == 9).all()
+    assert fused.shape == (*ref.shape[:-1], pad16(cout))
+    assert torch.equal(fused, q3.quantize_pad_plain(ref, q_scale))
+    assert torch.equal(relu, q3.int8_conv3d_plain(xq, wq, s, bias, stride, padding,
+                                                  q3.ACT_RELU, dtype))
+    assert bool((relu > 6).any())
+    with pytest.raises(ValueError, match="act"):
+        q3.int8_conv3d(xq, wq, s, bias, stride, padding, 3, dtype)
+
+
 def test_k5_stem_reads_four_channels(dev):
     """The 3-channel stem input is quantized to 4 channels, and K5's (1,7,7)
     stride-2 conv over it gives the int32 sums of the 16-channel layout."""
@@ -1120,6 +1165,34 @@ def test_k9_refuses_what_it_does_not_take(dev):
         kan.kan_bases(x, torch.zeros((6, 17), device=dev), 3)
     with pytest.raises(ValueError, match="caps"):
         kan.kan_bases(x, torch.zeros((6, 16), device=dev), 6)
+
+
+def test_k9_refuses_a_grad_tracked_input(dev):
+    """K9 has no backward: a CUDA ``x`` that requires grad raises while grad
+    mode is on, and launches under ``no_grad`` or ``inference_mode``; the
+    `Trainer` refuses the KAN models on the card as on the CPU."""
+    from fac_fake_torch.core.config import Config, ModelConfig
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import kan
+    from fac_fake_torch.train.trainer import Trainer
+
+    x = torch.rand((4, 6), device=dev, requires_grad=True)
+    grid = torch.from_numpy(k9_grid("default", 6)).to(dev)
+    before = kan.kan_bases.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        kan.kan_bases(x, grid, 3)
+    assert kan.kan_bases.launches == before
+    with torch.no_grad():
+        got = kan.kan_bases(x, grid, 3)
+    with torch.inference_mode():
+        got_inf = kan.kan_bases(x.detach(), grid, 3)
+    assert kan.kan_bases.launches == before + 2
+    ref = kan.kan_bases_plain(x.detach(), grid, 3)
+    assert k9_same_bits(got, ref) and k9_same_bits(got_inf, ref)
+    m = build_model(ModelConfig(name="resvitkan", image_size=64, patch_size=2, dim=64, depth=1,
+                                heads=2, mlp_dim=128), device=dev, seed=0)
+    with pytest.raises(ValueError, match="KANLinear"):
+        Trainer(m, Config(), device=dev)
 
 
 def test_resvitkan_forward_runs_k9_twice_and_matches_the_cpu(dev):

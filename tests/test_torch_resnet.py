@@ -280,6 +280,30 @@ def test_scorer_refuses_reskan_and_int8_on_the_family():
         quantize_cvit(m, torch.zeros(2, 3, HW, HW))
 
 
+@pytest.mark.parametrize("name", ["reskan", "resvitkan", "resvit"])
+def test_trainer_refuses_the_kan_models(name):
+    """K9 has no backward, and JAX's `Trainer` cannot train the KAN family:
+    the port's `Trainer` refuses a model that holds a `KANLinear` (``reskan``,
+    ``resvitkan``) and takes ``resvit``, whose head is an MLP. On the CPU the
+    plain bases stay tracked by autograd."""
+    from fac_fake_torch.core.config import Config, ModelConfig
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.models.blocks.kan import KANLinear
+    from fac_fake_torch.train.trainer import Trainer
+
+    over = {} if name == "reskan" else dict(image_size=HW, **SMALL)
+    m = build_model(ModelConfig(name=name, **over), device="cpu", seed=0)
+    if name == "resvit":
+        assert Trainer(m, Config(), device="cpu").model is m
+        return
+    with pytest.raises(ValueError, match="KANLinear.*no backward.*JAX Trainer"):
+        Trainer(m, Config(), device="cpu")
+    head = next(mod for mod in m.modules() if isinstance(mod, KANLinear))
+    x = torch.rand((3, head.in_features), requires_grad=True)
+    head(x).sum().backward()
+    assert x.grad is not None and bool(x.grad.abs().sum() > 0)
+
+
 def test_cli_predict_resvitkan_on_the_cpu(tmp_path):
     """`cli/predict.py --model resvitkan --device cpu` at a reduced width,
     with a reference-keyed .pth (DDP prefix, training dict) loaded
