@@ -194,7 +194,7 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      9, black masking of 6 regions on synth_face frames, the landmarks from
      the port's BlazeFace), msca_s3d from mplan1 (bs 6): train clips/s, ms a
      step, busy share, peak memory, K10 launches a step, `fit` for one
-     epoch, 10 fixed-batch steps whose loss falls, one eval batch;
+     epoch, 5 fixed-batch steps whose loss falls, one eval batch;
  S4. one train step of ca_s3d and msca_s3d card vs CPU at full width,
      batch 2, 16 frames: the loss, the gradient and the running stats held
      to a float64 step (`s3d_train_vs_cpu`);
@@ -206,7 +206,34 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      every K5/K6 call of one int8 forward bit-equal to its plain version;
      int8 vs fp32 logits (information); fp32 and int8 logits and head input
      card vs CPU at batch 1 (phase 14's rule);
- 15. the training line and the kernels line; 16. the result line.
+ B1. K7 and K10 in their bf16 modes against their plain versions, bit for
+     bit, on T1's and S1's cases in bf16 (`k7_phase`, `k10_phase` with
+     dtype bfloat16; K7 also on a band beyond shared memory and on rows of
+     44 x 6 B), timed cold and warm at the trainer's step and at plan1_2's,
+     beside the fp32 mode's time of this run, copy_ of the same bf16 bytes
+     and the bound from those bytes;
+ B2. bf16 training (`model.dtype=bfloat16`: fp32 master weights, bf16
+     compute, the chain in bf16) of cvit and cvit_repbn8 as T2 and T4
+     (`train_phase(..., dtype="bfloat16")`: K7's bf16 mode once a train
+     step, K2's bf16 normalize once an eval batch), and one bf16 step card vs
+     CPU vs float64 (`train_vs_cpu(..., "bfloat16")`): held layer by layer
+     (`replay_layers`: each module's output and gradients on the card
+     within BF16_LAYER_RATIO x the CPU bf16's distance from float64 +
+     BF16_LAYER_SLACK, the left-out share under BF16_LAYER_LEFT_OUT), the
+     whole step's gradient and loss within TRAIN_GRAD_F64_RATIO x the CPU
+     bf16 step's distance from float64 + TRAIN_BF16_*_SLACK;
+ B3. bf16 S3D training from the three plans as S3 (K10's bf16 mode once a
+     plan1_2 step), and one bf16 ca_s3d step held as B2's;
+ B4. bf16 `S3DEvaluator` with ca_s3d, msca_s3d and msca_s3d_srm, fp and
+     int8 (`msca_scoring(..., "bfloat16")`): clips/s at batch 32; the int8
+     engine's walk in bf16 (K5's bf16 out), every K5/K6 call of a forward
+     bit-equal to its plain version; head input card vs CPU at batch 1 by
+     phase 14's rule (fp: within the CPU's own bf16-vs-fp32 difference),
+     lock-step within S3D_FP_BLOCK_RTOL_BF16 and LOGIT_TOL_BF16; each B
+     phase's numbers printed beside the fp32 ones of this run;
+ 15. the training line (and T3/T4's per-tensor watch over T4_WATCH_SEEDS
+     seeds) and the kernels line, with K7's and K10's bf16 modes; 16. the
+     result line. Each phase group prints the seconds since the start.
 """
 from __future__ import annotations
 
@@ -218,6 +245,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -275,6 +303,13 @@ S3D_INT8_FEATURE_RATIO = 1.0
 # output (an iFormer, MSCAN-half or context block, the residual SRM) card vs
 # CPU over its largest value, the fp32 layers' rounding (TF32 off)
 S3D_FP_BLOCK_RTOL = 1e-4
+# B4, bf16 S3D scoring: card vs CPU the two devices' bf16 layers round apart
+# by bf16 ulps, so phase 14's int8 rule holds the fp head input too: its
+# card-vs-CPU error at most S3D_INT8_FEATURE_RATIO of the CPU's own
+# bf16-vs-fp32 difference; in lock-step each fp step within a few bf16 ulps
+# of its largest value, and the logits within two bf16 ulps at |logit| < 2
+S3D_FP_BLOCK_RTOL_BF16 = 3e-2
+LOGIT_TOL_BF16 = 1.6e-2
 # training (T1-T4)
 K7_BATCHES = (8, 32)          # K7: the trainer's CLAHE subset at batch 32, and a whole batch
 # K7's in-place subset entry: name -> ((N, H, W, 3), seeded takers, budget)
@@ -282,6 +317,9 @@ K7_SUBSETS = {"trainer": ((32, 224, 224, 3), 8, 8), "over budget": ((32, 224, 22
               "budget n": ((32, 224, 224, 3), 13, 32), "grid 1": ((16, 120, 120, 3), 5, 8),
               "flat": ((16, 224, 224, 3), 6, 8),
               "streamed": ((4, 448, 448, 3), 3, 4)}  # bands beyond shared memory: read twice
+# B1 adds, in bf16 (whose bands are half the bytes): a band beyond shared
+# memory, and rows that are no multiple of 16 bytes (44 x 3 x 2 B): read twice
+K7_BF16_SUBSETS = {"streamed": ((2, 640, 640, 3), 2, 2), "unaligned rows": ((4, 44, 44, 3), 3, 4)}
 K7_TRAIN_TAKERS = 8           # timed: the trainer's step with its budget of 8 full
 AUGMENT_DIGEST_SEEDS = 4      # augment_phase: generator seeds whose outputs are digested
 AUGMENT_TIMED_CALLS = 4       # augment_phase: calls timed
@@ -312,6 +350,37 @@ TRAIN_GRAD_RTOL = 5e-2
 TRAIN_GRAD_TENSOR_RTOL = 2e-1
 TRAIN_STATS_RTOL, TRAIN_STATS_ATOL = 1e-3, 1e-5
 TRAIN_PARAM_ATOL = 1e-6
+# B2/B3: one bf16 train step card vs CPU (both bf16) vs float64, the same
+# weights and batch. A bf16 step is far from float64 on either device, so
+# the card is held to float64 as the fp32 step is, with a bf16 slack: its
+# gradient (relative L2) and its loss within TRAIN_GRAD_F64_RATIO x the CPU
+# bf16 step's distance + these; the card-vs-CPU quantities of the fp32
+# check are printed, not held. Measured on an H100 (three runs, PERF.md §6):
+# gradients 0.18-1.45 of their norm from float64 on either device; losses
+# 0.04-5.3% on the card and 0.09-2.7% on the CPU, apart by draw, not by
+# device (the flagship's CPU loss 0.09% off where the card's was 2.5%), so
+# the loss's slack is 5% of it, a bf16 forward's own scale
+TRAIN_BF16_GRAD_F64_SLACK = 1e-2
+TRAIN_BF16_LOSS_F64_SLACK = 5e-2
+# That whole-step rule is a sanity check, not one a wrong gradient fails: a
+# zero gradient is 1.0 from float64, under 3 x 0.9 + 1e-2. So B2/B3 hold
+# the card's bf16 step layer by layer (`replay_layers`): each module that owns a parameter (and
+# each attention core) is run again on the inputs and the output gradient it
+# had in the card's step, on the card and on the CPU in bf16 and on the CPU
+# in float64. Its output, its input's gradient and its parameters'
+# gradients (relative L2 each) on the card within BF16_LAYER_RATIO x the
+# CPU's distance to float64 + BF16_LAYER_SLACK (2^-6: two bf16 ulps, where
+# a zero or a wrong gradient reads 1 or more, and a bf16 sum that did not
+# accumulate in fp32 some sqrt(n) ulps); the entries of tensors whose bound
+# is 1 or more, and so could not fail a zero gradient, are the left-out
+# share, under BF16_LAYER_LEFT_OUT
+BF16_LAYER_RATIO, BF16_LAYER_SLACK = 3.0, 2.0 ** -6
+BF16_LAYER_LEFT_OUT = 0.1
+# a tensor whose float64 gradient is zero but for rounding (a conv bias before
+# a BatchNorm): its share of the whole gradient's norm on either device, in
+# fp32 and (bf16 rounding is 2^16 times coarser) in bf16
+TRAIN_NOISE_SHARE = {"float32": 1e-4, "bfloat16": 1e-2}
+T4_WATCH_SEEDS = 3            # T3/T4: the one-step check on this many side_rng seeds (§3 watch)
 # MTCNN (M1-M3)
 MTCNN_HW = (1080, 1920)                            # the reader's frames: 12 pyramid scales
 MTCNN_THRESHOLDS = ((0.6, 0.7, 0.7), (0.0, 0.0, 0.0))   # the predict preset; every slot live
@@ -354,7 +423,7 @@ S3D_PLANS = (("s3d", "configs/plan1_2.yaml"), ("ca_s3d", "configs/caplan9.yaml")
              ("msca_s3d", "configs/mplan1.yaml"))
 S3D_TIMED_STEPS = 3           # S3: timed train steps after a warm-up step
 S3D_FIT_STEPS = 2             # S3: fit's epoch, in steps (and one eval batch)
-S3D_FIXED_STEPS = 10          # S3: steps on one fixed batch, augmentation off: the loss falls
+S3D_FIXED_STEPS = 5           # S3, B3: steps on one fixed batch, augmentation off: the loss falls
 S3D_CHECK_BATCH, S3D_CHECK_T = 2, 16   # S4: 16 frames, the fewest the S3D head takes
 S3D_LOSS_RTOL = 1e-4          # S4: loss card vs CPU
 # S4: each running-stat tensor card vs CPU, elementwise |card - cpu| <= rtol |cpu| + atol
@@ -1881,9 +1950,10 @@ def side_rng(rng):
     return np.random.default_rng(int(copy.deepcopy(rng).integers(1 << 62)))
 
 
-def k7_phase(rng, dev) -> dict:
-    """T1: K7 (the strong_aug chain's CLAHE step) against its plain versions,
-    bit-equal. The whole-batch entry `clahe_luma` at (8|32, 224, 224, 3) on
+def k7_phase(rng, dev, dtype: str = "float32") -> dict:
+    """T1 (``dtype`` bfloat16: B1's half of it, on bf16 images, with
+    K7_BF16_SUBSETS too): K7 (the strong_aug chain's CLAHE step) against
+    its plain versions, bit-equal. The whole-batch entry `clahe_luma` at (8|32, 224, 224, 3) on
     seeded uint8-derived images, on a flat image (every bin clipped, the
     residual spread), on an image of every byte value, and at grid 1 (8x8
     and 120x120 images: tiles of 1 and 15 pixels); the chain's in-place
@@ -1901,8 +1971,11 @@ def k7_phase(rng, dev) -> dict:
     from `side_rng`."""
     import torch
     from fac_fake_torch.ops import augment as aug
-    d255 = torch.full((1,), 255.0, device=dev)
-    to01 = lambda u8: (torch.from_numpy(u8).to(dev).float() / d255).contiguous()
+    dt = getattr(torch, dtype)
+    esize = torch.finfo(dt).bits // 8
+    d255 = torch.full((1,), 255.0, device=dev, dtype=dt)
+    to01 = lambda u8: (torch.from_numpy(u8).to(dev).to(dt) / d255).contiguous()
+    tag = "" if dtype == "float32" else f" {dtype}"
     every = (np.arange(8 * 224 * 224 * 3) % 256).reshape(8, 224, 224, 3).astype(np.uint8)
     cases = [(f"seeded, batch {k}", rng.integers(0, 256, (k, 224, 224, 3), dtype=np.uint8))
              for k in K7_BATCHES]
@@ -1916,10 +1989,10 @@ def k7_phase(rng, dev) -> dict:
         torch.cuda.synchronize()
         e = float((got - ref).abs().max())
         err = max(err, e)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K7 {name} {tuple(x.shape)}: differs from plain by {e}")
-        log(f"K7 clahe_luma {name} {tuple(x.shape)} grid {aug.clahe_grid(*x.shape[1:3])}: "
-            f"bit-equal to plain")
+        if not torch.equal(got, ref) or got.dtype != dt:
+            raise AssertionError(f"K7{tag} {name} {tuple(x.shape)}: differs from plain by {e}")
+        log(f"K7{tag} clahe_luma {name} {tuple(x.shape)} grid "
+            f"{aug.clahe_grid(*x.shape[1:3])}: bit-equal to plain")
 
     side = side_rng(rng)
 
@@ -1928,7 +2001,10 @@ def k7_phase(rng, dev) -> dict:
         take[side.choice(n, takers, replace=False)] = True
         return torch.from_numpy(take).to(dev)
 
-    for name, (shape, takers, kb) in K7_SUBSETS.items():
+    subsets = dict(K7_SUBSETS)
+    if dtype != "float32":
+        subsets.update({f"bf16 {k}": v for k, v in K7_BF16_SUBSETS.items()})
+    for name, (shape, takers, kb) in subsets.items():
         u8 = (np.full(shape, 128, np.uint8) if name == "flat"
               else side.integers(0, 256, shape, dtype=np.uint8))
         x, take = to01(u8), seeded_take(shape[0], takers)
@@ -1940,13 +2016,14 @@ def k7_phase(rng, dev) -> dict:
         e = float((got - ref).abs().max())
         err = max(err, e)
         if not (torch.equal(got, ref) and torch.equal(got[~done], x[~done])):
-            raise AssertionError(f"K7 clahe_subset_ {name} {shape}, {takers} takers, budget "
-                                 f"{kb}: differs from plain by {e}, or an untaken image moved")
-        log(f"K7 clahe_subset_ {name} {shape}, {takers} takers, budget {kb}: bit-equal to "
-            f"plain, {int((~done).sum())} untaken images unchanged")
+            raise AssertionError(f"K7{tag} clahe_subset_ {name} {shape}, {takers} takers, "
+                                 f"budget {kb}: differs from plain by {e}, or an untaken image "
+                                 f"moved")
+        log(f"K7{tag} clahe_subset_ {name} {shape}, {takers} takers, budget {kb}: bit-equal "
+            f"to plain, {int((~done).sum())} untaken images unchanged")
 
     x8 = to01(cases[0][1])
-    nbytes = 2.0 * x8.numel() * 4
+    nbytes = 2.0 * x8.numel() * esize
     n_rot = int(2 * L2_BYTES // nbytes) + 2
     rot = [x8] + [x8.clone() for _ in range(n_rot - 1)]
     k_ms = rotated_ms(aug.clahe_luma, rot)
@@ -1956,8 +2033,8 @@ def k7_phase(rng, dev) -> dict:
     p_ms = cuda_ms(lambda: aug.clahe_luma_plain(x8), iters=3)
     del rot, pairs
     b_ms, b_by = bound_ms(nbytes, K7_OPS_PER_PIXEL * x8.numel() / 3)
-    log(f"K7 at {tuple(x8.shape)}, all taken: kernel {k_ms:.4f} ms cold ({b_ms / k_ms:.1%} of "
-        f"the bound, {n_rot} buffer pairs), {w_ms:.4f} ms warm; copy_ of the same bytes "
+    log(f"K7{tag} at {tuple(x8.shape)}, all taken: kernel {k_ms:.4f} ms cold ({b_ms / k_ms:.1%} "
+        f"of the bound, {n_rot} buffer pairs), {w_ms:.4f} ms warm; copy_ of the same bytes "
         f"{c_ms:.4f} ms cold; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
         f"{nbytes / 1e6:.2f} MB)")
 
@@ -1966,21 +2043,28 @@ def k7_phase(rng, dev) -> dict:
     x32 = to01(side.integers(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=np.uint8))
     take = seeded_take(TRAIN_BATCH, K7_TRAIN_TAKERS)
     taken = min(K7_TRAIN_TAKERS, kb)
-    s_bytes = 2.0 * taken * x32[0].numel() * 4 + take.numel()
-    n_rot = int(2 * L2_BYTES // (x32.numel() * 4)) + 2
+    s_bytes = 2.0 * taken * x32[0].numel() * esize + take.numel()
+    n_rot = int(2 * L2_BYTES // (x32.numel() * esize)) + 2
     rot = [x32] + [x32.clone() for _ in range(n_rot - 1)]
     s_ms = rotated_ms(lambda x: aug.clahe_subset_(x, take, kb), rot)
     s_warm = cuda_ms(lambda: aug.clahe_subset_(x32, take, kb))
     s_plain = cuda_ms(lambda: aug.clahe_subset_plain_(x32, take, kb), iters=3)
-    del rot
+    # copy_ of the same bytes at the trainer's step: the taken images' read and write
+    idx = torch.nonzero(take).flatten()[:kb]
+    s_pairs = [(torch.empty((taken, *x32.shape[1:]), device=dev, dtype=dt),
+                x.index_select(0, idx)) for x in rot]
+    s_copy = rotated_ms(lambda pair: pair[0].copy_(pair[1]), s_pairs)
+    del rot, s_pairs
     sb_ms, sb_by = bound_ms(s_bytes, K7_OPS_PER_PIXEL * taken * x32[0].numel() / 3)
-    log(f"K7 at the trainer's step, clahe_subset_ on {tuple(x32.shape)}, {K7_TRAIN_TAKERS} "
-        f"takers, budget {kb}: kernel {s_ms:.4f} ms cold ({sb_ms / s_ms:.1%} of the bound, "
-        f"{n_rot} buffers), {s_warm:.4f} ms warm; copy_ of the same bytes {c_ms:.4f} ms cold; "
-        f"plain {s_plain:.4f} ms; bound {sb_ms:.4f} ms ({sb_by}, {s_bytes / 1e6:.2f} MB)")
+    log(f"K7{tag} at the trainer's step, clahe_subset_ on {tuple(x32.shape)}, "
+        f"{K7_TRAIN_TAKERS} takers, budget {kb}: kernel {s_ms:.4f} ms cold ({sb_ms / s_ms:.1%} "
+        f"of the bound, {n_rot} buffers), {s_warm:.4f} ms warm; copy_ of the taken images' "
+        f"bytes {s_copy:.4f} ms cold (of the 8 images above {c_ms:.4f}); plain {s_plain:.4f} "
+        f"ms; bound {sb_ms:.4f} ms ({sb_by}, {s_bytes / 1e6:.2f} MB)")
     return dict(ms=k_ms, warm_ms=w_ms, copy_ms=c_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, err=err, subset_ms=s_ms, subset_warm_ms=s_warm,
-                subset_plain_ms=s_plain, subset_bound_ms=sb_ms, subset_bound_by=sb_by)
+                subset_plain_ms=s_plain, subset_bound_ms=sb_ms, subset_bound_by=sb_by,
+                subset_copy_ms=s_copy)
 
 
 def augment_phase(rng, dev) -> dict:
@@ -2037,8 +2121,11 @@ def _linear_norms(model) -> list:
     return [m for m in model.modules() if type(m).__name__ == "LinearNorm"]
 
 
-def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = "") -> tuple:
-    """T2 (base cvit) and T4's first half (the flagship): `Trainer` at full
+def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = "",
+                dtype: str = "float32") -> tuple:
+    """T2 (base cvit) and T4's first half (the flagship), and with ``dtype``
+    bfloat16 B2's (``model.dtype``: bf16 compute over fp32 master weights,
+    the chain in bf16, K7's and K2's bf16 modes): `Trainer` at full
     width, batch TRAIN_BATCH, the default strong_aug chain and plateau
     schedule, seeded weights. The dataset cached on the card
     (`Trainer.cache_data`); one warm-up step, TRAIN_TIMED_STEPS timed steps
@@ -2061,12 +2148,14 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
     imgs, labels = data
     cfg = Config()
     cfg.model.name = name
+    cfg.model.dtype = dtype
     cfg.train.epochs = 1
     cfg.train.log_every = 0
     cfg.train.checkpoint_dir = ckpt_dir
     cfg.train.checkpoint_every = 1 if ckpt_dir else 0
     model = build_model(cfg.model, device=dev, seed=seed)
     tr = Trainer(model, cfg)
+    name = name if dtype == "float32" else f"{name} {dtype}"
     n_train = TRAIN_CROPS - TRAIN_BATCH
     train = tr.cache_data(imgs[:n_train], labels[:n_train], TRAIN_BATCH)
     val = tr.cache_data(imgs[n_train:], labels[n_train:], TRAIN_BATCH)
@@ -2104,13 +2193,14 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
         f"{busy / wall:.1%} of the traced step, {busy / step_ms:.1%} of an untraced step; peak "
         f"memory {peak_gb:.2f} GB")
 
-    aug.clahe_luma.launches = 0
+    aug.clahe_luma.launches = aug.clahe_luma.bf16_launches = 0
     pp.normalize_imagenet.launches = 0
     steps0 = tr.step
     t0 = time.perf_counter()
     out = tr.fit(train, val)
     t_fit = time.perf_counter() - t0
     launches = {"K7": aug.clahe_luma.launches, "K2": pp.normalize_imagenet.launches}
+    bf16_k7 = aug.clahe_luma.bf16_launches
     h = out["history"]
     fit_steps = tr.step - steps0
     log(f"{name} fit, 1 epoch of {fit_steps} steps and {val.steps} eval batch(es): "
@@ -2118,9 +2208,11 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
         f"val loss {h['val_loss'][0]:.4f} acc {h['val_acc'][0]:.4f}; launches {launches}")
     if not all(np.isfinite(h[k][0]) for k in ("train_loss", "val_loss")):
         raise AssertionError(f"{name}: losses not finite: {h}")
-    if launches != {"K7": fit_steps, "K2": val.steps}:
-        raise AssertionError(f"{name}: want 1 K7 call a train step ({fit_steps}) and 1 K2 "
-                             f"launch an eval batch ({val.steps}), got {launches}")
+    if launches != {"K7": fit_steps, "K2": val.steps} \
+            or bf16_k7 != (fit_steps if dtype == "bfloat16" else 0):
+        raise AssertionError(f"{name}: want 1 K7 call a train step ({fit_steps}), in its "
+                             f"{dtype} mode, and 1 K2 launch an eval batch ({val.steps}), got "
+                             f"{launches}, {bf16_k7} in bf16")
 
     tr.cfg.data.augment.enabled = False
     fixed = batch(train.steps - 1)
@@ -2139,7 +2231,101 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
             raise AssertionError(f"{name}: LinearNorm counters {fell}, warm {warm}, "
                                  f"{tr.step} forwards")
     return dict(timing, launches=launches, fit_steps=fit_steps, eval_batches=val.steps,
-                fixed_losses=losses, history={k: h[k] for k in ("train_loss", "val_loss")}), model
+                fixed_losses=losses, history={k: h[k] for k in ("train_loss", "val_loss")},
+                dtype=dtype), model
+
+
+def _replayed(model) -> list:
+    """(name, module) of each module of ``model`` that owns a parameter (the
+    root aside) or is an attention core: what `replay_layers` runs again."""
+    return [(n, m) for n, m in model.named_modules()
+            if n and (any(True for _ in m.parameters(recurse=False))
+                      or type(m).__name__ == "MultiHeadSelfAttention")]
+
+
+def record_layers(model) -> tuple:
+    """Hooks on `_replayed` modules that keep, from the first call of each
+    in the next training step, its inputs and its output's gradient;
+    returns (the dict they fill, the hooks)."""
+    import torch
+    rec = {}
+
+    def hook(name):
+        def fn(m, args, kwargs, out):
+            if name in rec or not torch.is_tensor(out) or not out.requires_grad:
+                return
+            e = rec[name] = {"args": [a.detach().clone() if torch.is_tensor(a) else a
+                                      for a in args], "kwargs": kwargs}
+            out.register_hook(lambda g: e.__setitem__("gy", g.detach().clone()))
+        return fn
+    return rec, [m.register_forward_hook(hook(n), with_kwargs=True)
+                 for n, m in _replayed(model)]
+
+
+def _replay(mod, e, device, f64: bool) -> dict:
+    """One module's forward and backward, in training mode, on its recorded
+    inputs and output gradient: its output and every gradient, float64 on
+    the CPU."""
+    import torch
+    m = copy.deepcopy(mod).to(device).train()
+    if f64:
+        m = m.double()
+    args = [a.to(device, torch.float64 if f64 else a.dtype, copy=True).requires_grad_(True)
+            if torch.is_tensor(a) and a.is_floating_point() else a for a in e["args"]]
+    y = m(*args, **e["kwargs"])
+    y.backward(e["gy"].to(device, y.dtype))
+    out = {"out": y.detach()}
+    out.update({f"input{i}.grad": a.grad for i, a in enumerate(args)
+                if torch.is_tensor(a) and a.grad is not None})
+    out.update({f"{k}.grad": p.grad for k, p in m.named_parameters() if p.grad is not None})
+    return {k: v.double().cpu() for k, v in out.items()}
+
+
+def replay_layers(before, rec, what: str) -> dict:
+    """B2/B3: the card's bf16 training step held layer by layer. ``before``
+    is the model as the step found it, ``rec`` what `record_layers` kept
+    of the step. Each recorded module is run again on the card and on the
+    CPU (bf16) and in float64 on the CPU (`_replay`); each tensor's
+    distance to float64 on the card within BF16_LAYER_RATIO x the CPU's +
+    BF16_LAYER_SLACK, and the left-out share (see BF16_LAYER_SLACK) under
+    BF16_LAYER_LEFT_OUT. A zero gradient (the control) reads 1.0."""
+    mods = dict(before.named_modules())
+    dev = next(before.parameters()).device
+    worst, over, n_all, n_left, tensors = [], [], 0, 0, 0
+    for name, e in rec.items():
+        if "gy" not in e:                    # an output no loss depends on
+            continue
+        card, cpu, f64 = (_replay(mods[name], e, d, f) for d, f in
+                          ((dev, False), ("cpu", False), ("cpu", True)))
+        for k, ref in f64.items():
+            r = float(ref.norm())
+            if r == 0.0:
+                continue
+            d_card, d_cpu = (float((t[k] - ref).norm()) / r for t in (card, cpu))
+            bound = BF16_LAYER_RATIO * d_cpu + BF16_LAYER_SLACK
+            tensors += 1
+            n_all += ref.numel()
+            if bound >= 1.0:
+                n_left += ref.numel()
+            worst.append((d_card / bound, f"{name}.{k}", d_card, d_cpu))
+            if not d_card <= bound:              # NaN too
+                over.append((f"{name}.{k}", d_card, d_cpu))
+    worst.sort(reverse=True)
+    res = dict(modules=len(rec), tensors=tensors, left_out_share=n_left / max(n_all, 1),
+               worst=[(k, round(c, 6), round(p, 6)) for _, k, c, p in worst[:5]],
+               worst_of_bound=worst[0][0] if worst else 0.0,
+               card_vs_f64_max=max((c for _, _, c, _ in worst), default=0.0),
+               cpu_vs_f64_max=max((p for _, _, _, p in worst), default=0.0))
+    log(f"{what} bf16 step layer by layer ({res['modules']} modules, {tensors} tensors: "
+        f"output, input and parameter gradients), card vs float64 within "
+        f"{BF16_LAYER_RATIO} x CPU + {BF16_LAYER_SLACK:.4g}: at {res['worst_of_bound']:.3g} of "
+        f"the bound at worst, largest distance card {res['card_vs_f64_max']:.3g}, CPU "
+        f"{res['cpu_vs_f64_max']:.3g} (a zero gradient: 1.0); left out {res['left_out_share']:.2%}"
+        f" (bound {BF16_LAYER_LEFT_OUT:.0%}); worst tensors (card, CPU) {res['worst']}")
+    if over or res["left_out_share"] >= BF16_LAYER_LEFT_OUT or not tensors:
+        raise AssertionError(f"{what}: bf16 layers card vs float64 out of bounds: {over[:10]}, "
+                             f"{res}")
+    return res
 
 
 def _record_routes(model) -> tuple:
@@ -2164,9 +2350,10 @@ def _route_pools(model, routes) -> None:
             .view(idx.shape)
 
 
-def _f64_grads(model, b, routes) -> dict:
-    """The float64 gradient of a training forward (augmentation off) of a
-    CPU copy of ``model`` on ``b``, its max-pools routed by ``routes``."""
+def _f64_grads(model, b, routes) -> tuple:
+    """The float64 gradient and loss of a training forward (augmentation
+    off) of a CPU copy of ``model`` on ``b``, its max-pools routed by
+    ``routes``."""
     import copy
 
     import torch
@@ -2176,12 +2363,15 @@ def _f64_grads(model, b, routes) -> dict:
     _route_pools(m, routes)
     x = (b["image"].double() / 255.0 - torch.from_numpy(IMAGENET_MEAN).double()) \
         / torch.from_numpy(IMAGENET_STD).double()
-    cross_entropy(m(x.permute(0, 3, 1, 2)), b["label"], b["mask"].double()).backward()
-    return {k: p.grad.clone() for k, p in m.named_parameters()}
+    loss = cross_entropy(m(x.permute(0, 3, 1, 2)), b["label"], b["mask"].double())
+    loss.backward()
+    return {k: p.grad.clone() for k, p in m.named_parameters()}, float(loss.detach())
 
 
-def train_vs_cpu(model, name, rng) -> dict:
-    """T3 (base cvit) and T4's second half (the flagship): one train step at
+def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
+    """T3 (base cvit) and T4's second half (the flagship), and with ``dtype``
+    bfloat16 B2's (both steps bf16; held layer by layer by `replay_layers`
+    and as a whole by the TRAIN_BF16 rule, the rest printed): one train step at
     full width, batch TRAIN_CHECK_BATCH, augmentation off, TF32 off, from
     the same weights on the card and on the CPU, each with a fresh Adam:
     the loss, each parameter's gradient (relative L2), the BatchNorm
@@ -2199,6 +2389,7 @@ def train_vs_cpu(model, name, rng) -> dict:
     from fac_fake_torch.train.trainer import Trainer
     cfg = Config()
     cfg.model.name = name
+    cfg.model.dtype = dtype
     cfg.data.augment.enabled = False
     cfg.train.checkpoint_dir = ""
     u8 = torch.from_numpy(rng.integers(0, 256, (TRAIN_CHECK_BATCH, TRAIN_HW, TRAIN_HW, 3),
@@ -2206,13 +2397,18 @@ def train_vs_cpu(model, name, rng) -> dict:
     b = {"image": u8, "label": torch.arange(TRAIN_CHECK_BATCH) % 2,
          "mask": torch.ones(TRAIN_CHECK_BATCH)}
     dev = next(model.parameters()).device
-    side, routes = {}, None
+    side, routes, layers = {}, None, None
     for where in ("card", "cpu", "cpu_own_pools"):
         m = copy.deepcopy(model) if where == "card" else copy.deepcopy(model).cpu()
+        if where == "card" and dtype == "bfloat16":
+            before = copy.deepcopy(m)
+            rec, layer_hooks = record_layers(m)
         if where == "cpu":
             _route_pools(m, routes)
         else:
             recorded, hooks = _record_routes(m)
+        if where == "card" and dtype == "bfloat16":
+            hooks += layer_hooks
         tr = Trainer(m, cfg, device=None if where == "card" else "cpu")
         d = dev if where == "card" else torch.device("cpu")
         t0 = time.perf_counter()
@@ -2227,21 +2423,25 @@ def train_vs_cpu(model, name, rng) -> dict:
         if where != "cpu":
             for h in hooks:
                 h.remove()
+        if where == "card" and dtype == "bfloat16":
+            layers = replay_layers(before, rec, name)
+            del before, rec
         del m, tr
     c, g, own = side["cpu"], side["card"], side["cpu_own_pools"]
-    g64 = _f64_grads(model, b, routes)
+    g64, loss64 = _f64_grads(model, b, routes)
     norm = lambda d: float(sum((t ** 2).sum() for t in d.values())) ** 0.5
     total = norm(c["grads"])
     rel = lambda a, b: norm({k: a[k] - b[k] for k in b}) / norm(b)
     card_f64, cpu_f64 = rel(g["grads"], g64), rel(c["grads"], g64)
     loss_err = abs(g["loss"] - c["loss"]) / abs(c["loss"])
     whole = rel(g["grads"], c["grads"])
-    per, noise, left_out, p_err = {}, [], 0, 0.0
+    per, noise, left_out, p_err, per_f64 = {}, [], 0, 0.0, {}
     for k, gc in c["grads"].items():
         gg = g["grads"][k]
+        g64n = float(g64[k].norm())
         if float(g64[k].norm()) < 1e-8 * total:      # zero but for rounding
             noise.append(k)
-            if max(float(gg.norm()), float(gc.norm())) >= 1e-4 * total:
+            if max(float(gg.norm()), float(gc.norm())) >= TRAIN_NOISE_SHARE[dtype] * total:
                 raise AssertionError(f"{name}: {k}'s gradient is zero in float64, "
                                      f"{float(gg.norm()) / total:.3g} of the norm on the card")
             left_out += gc.numel()
@@ -2249,6 +2449,10 @@ def train_vs_cpu(model, name, rng) -> dict:
         per[k] = float((gg - gc).norm() / gc.norm())
         clear = (gc.abs() > 1e-5) & ((gg - gc).abs() < 0.1 * gc.abs())
         left_out += int((~clear).sum())
+        # the watch of ROADMAP §3: each tensor's distance to float64 on either
+        # device, and its share of entries left out
+        per_f64[k] = (float((gg - g64[k]).norm()) / g64n, float((gc - g64[k]).norm()) / g64n,
+                      float((~clear).float().mean()))
         if clear.any():
             p_err = max(p_err, float((g["params"][k] - c["params"][k])[clear].abs().max()))
     worst = sorted(per.items(), key=lambda kv: -kv[1])[:3]
@@ -2257,14 +2461,21 @@ def train_vs_cpu(model, name, rng) -> dict:
                        / (TRAIN_STATS_ATOL + TRAIN_STATS_RTOL * c["bufs"][k].abs())).max())
                 for k in stats)
     n = sum(t.numel() for t in c["params"].values())
+    # the tensors where the card is furthest beyond the CPU, as distance to float64
+    apart = sorted(per_f64.items(), key=lambda kv: -kv[1][0] / max(kv[1][1], 1e-12))[:5]
     res = dict(loss_rel=loss_err, grad_rel=whole, grad_tensor_max=worst[0][1],
-               card_vs_f64=card_f64, cpu_vs_f64=cpu_f64,
+               card_vs_f64=card_f64, cpu_vs_f64=cpu_f64, dtype=dtype,
+               loss_f64=loss64, card_loss_vs_f64=abs(g["loss"] - loss64) / abs(loss64),
+               cpu_loss_vs_f64=abs(c["loss"] - loss64) / abs(loss64),
+               left_out_share=left_out / n,
+               card_beyond_cpu_tensors={k: [round(v, 6) for v in t] for k, t in apart},
                stats_over_tol=s_err, param_max_abs=p_err, left_out=left_out, params=n,
                cpu_s=c["t"], own_pools_loss_rel=abs(g["loss"] - own["loss"]) / abs(own["loss"]),
                own_pools_grad_rel=rel(g["grads"], own["grads"]),
                pool_windows_routed_apart=sum(int((a != r).sum())
-                                             for a, r in zip(routes, recorded)))
-    log(f"{name} one train step card vs CPU, batch {TRAIN_CHECK_BATCH} (CPU {c['t']:.1f} s; "
+                                             for a, r in zip(routes, recorded)), layers=layers)
+    log(f"{name}{'' if dtype == 'float32' else ' ' + dtype} one train step card vs CPU, batch "
+        f"{TRAIN_CHECK_BATCH} (CPU {c['t']:.1f} s; "
         f"its max-pools routed as the card's): loss {g['loss']:.6f} / {c['loss']:.6f} (rel "
         f"{loss_err:.3g}, bound {TRAIN_LOSS_RTOL}); gradient rel L2 to the float64 one: card "
         f"{card_f64:.3g}, CPU {cpu_f64:.3g} (bound: card <= {TRAIN_GRAD_F64_RATIO} x CPU + "
@@ -2276,11 +2487,25 @@ def train_vs_cpu(model, name, rng) -> dict:
         f"{TRAIN_PARAM_ATOL}), {left_out} of {n} entries left out. With the CPU's own pools "
         f"({res['pool_windows_routed_apart']} windows routed apart): loss rel "
         f"{res['own_pools_loss_rel']:.3g}, gradient rel L2 {res['own_pools_grad_rel']:.3g} "
-        f"(information)")
-    if not (loss_err <= TRAIN_LOSS_RTOL and whole <= TRAIN_GRAD_RTOL
-            and card_f64 <= TRAIN_GRAD_F64_RATIO * cpu_f64 + TRAIN_GRAD_F64_SLACK
-            and worst[0][1] <= TRAIN_GRAD_TENSOR_RTOL and s_err <= 1.0
-            and p_err <= TRAIN_PARAM_ATOL and left_out < 0.1 * n):
+        f"(information). Loss to float64 {loss64:.6f}: card {res['card_loss_vs_f64']:.3g}, CPU "
+        f"{res['cpu_loss_vs_f64']:.3g}; left out {left_out / n:.2%}; the tensors where the card "
+        f"is furthest beyond the CPU (card, CPU distance to float64, left-out share): "
+        f"{res['card_beyond_cpu_tensors']}")
+    if dtype == "float32":
+        ok = (loss_err <= TRAIN_LOSS_RTOL and whole <= TRAIN_GRAD_RTOL
+              and card_f64 <= TRAIN_GRAD_F64_RATIO * cpu_f64 + TRAIN_GRAD_F64_SLACK
+              and worst[0][1] <= TRAIN_GRAD_TENSOR_RTOL and s_err <= 1.0
+              and p_err <= TRAIN_PARAM_ATOL and left_out < 0.1 * n)
+    else:
+        ok = (card_f64 <= TRAIN_GRAD_F64_RATIO * cpu_f64 + TRAIN_BF16_GRAD_F64_SLACK
+              and res["card_loss_vs_f64"] <= TRAIN_GRAD_F64_RATIO * res["cpu_loss_vs_f64"]
+              + TRAIN_BF16_LOSS_F64_SLACK and p_err <= TRAIN_PARAM_ATOL)
+        log(f"{name} {dtype}: held to float64: gradient card {card_f64:.3g} <= "
+            f"{TRAIN_GRAD_F64_RATIO} x CPU {cpu_f64:.3g} + {TRAIN_BF16_GRAD_F64_SLACK}; loss "
+            f"card {res['card_loss_vs_f64']:.3g} <= {TRAIN_GRAD_F64_RATIO} x CPU "
+            f"{res['cpu_loss_vs_f64']:.3g} + {TRAIN_BF16_LOSS_F64_SLACK}; parameters after the "
+            f"step {p_err:.3g} <= {TRAIN_PARAM_ATOL}")
+    if not ok:
         raise AssertionError(f"{name}: one train step card vs CPU out of bounds: {res}")
     return res
 
@@ -2977,14 +3202,15 @@ def family_forwards(seed, rng, dev) -> dict:
 
 # ---- S1-S5: S3D training with K10 ---------------------------------------------------
 
-def k10_frames(side, dev, n: int, kind: str, hw=(224, 224)):
-    """(n, *hw, 3) float32 frames in [0, 1]: ``noise`` (uniform bytes),
+def k10_frames(side, dev, n: int, kind: str, hw=(224, 224), dtype: str = "float32"):
+    """(n, *hw, 3) frames in [0, 1] in ``dtype``: ``noise`` (uniform bytes),
     ``smooth`` (seeded 8x8 colour fields, bilinearly upsampled, with a little
     noise: what natural frames look like to the DCT), ``flat`` (one grey) or
     ``every byte`` (each channel runs through the 256 byte values)."""
     import torch
     import torch.nn.functional as F
-    d255 = torch.full((1,), 255.0, device=dev)
+    dt = getattr(torch, dtype)
+    d255 = torch.full((1,), 255.0, device=dev, dtype=dt)
     if kind == "noise":
         u8 = side.integers(0, 256, (n, *hw, 3), dtype=np.uint8)
     elif kind == "smooth":
@@ -2998,7 +3224,7 @@ def k10_frames(side, dev, n: int, kind: str, hw=(224, 224)):
         i = np.arange(n * hw[0] * hw[1])
         u8 = np.stack([i % 256, (i * 7 + 3) % 256, (i * 31 + 11) % 256], -1)
         u8 = u8.reshape(n, *hw, 3).astype(np.uint8)
-    return (torch.from_numpy(np.ascontiguousarray(u8)).to(dev).float() / d255).contiguous()
+    return (torch.from_numpy(np.ascontiguousarray(u8)).to(dev).to(dt) / d255).contiguous()
 
 
 def k10_check(x, take, q, what: str) -> float:
@@ -3019,8 +3245,10 @@ def k10_check(x, take, q, what: str) -> float:
     return float((got - ref).abs().max()) if got.numel() else 0.0
 
 
-def k10_phase(rng, dev) -> dict:
-    """S1: K10 (the S3D transform's JPEG step, in place on the taken frames)
+def k10_phase(rng, dev, dtype: str = "float32") -> dict:
+    """S1 (``dtype`` bfloat16: B1's half of it, on bf16 frames, the division
+    check left to S1): K10 (the S3D transform's JPEG step, in place on the
+    taken frames)
     against its plain version `jpeg_subset_plain_` on the card, bit for bit:
     first its division (`division_check`: no float x and divisor whose
     quotient differs from IEEE's), then seeded noise and smooth frames, a
@@ -3038,12 +3266,17 @@ def k10_phase(rng, dev) -> dict:
     import torch
     from fac_fake_torch.ops import jpeg as oj
     side = side_rng(rng)
-    t0 = time.perf_counter()
-    div_bad = oj.division_check(dev)
-    log(f"K10's division (quantize, unit) against IEEE over all 2^32 floats and divisors "
-        f"1..255: {div_bad} results differ ({time.perf_counter() - t0:.2f} s)")
-    if div_bad:
-        raise AssertionError(f"K10's division differs from IEEE's in {div_bad} results")
+    dt = getattr(torch, dtype)
+    esize = torch.finfo(dt).bits // 8
+    tag = "" if dtype == "float32" else f" {dtype}"
+    div_bad = 0
+    if dtype == "float32":
+        t0 = time.perf_counter()
+        div_bad = oj.division_check(dev)
+        log(f"K10's division (quantize, unit) against IEEE over all 2^32 floats and divisors "
+            f"1..255: {div_bad} results differ ({time.perf_counter() - t0:.2f} s)")
+        if div_bad:
+            raise AssertionError(f"K10's division differs from IEEE's in {div_bad} results")
     n = 16
     takes = {"none": torch.zeros(n, dtype=torch.bool, device=dev),
              "all": torch.ones(n, dtype=torch.bool, device=dev),
@@ -3051,52 +3284,54 @@ def k10_phase(rng, dev) -> dict:
     takes["seeded 20%"][side.integers(0, n)] = True          # at least one
     err = 0.0
     for kind in ("noise", "smooth", "flat", "every byte"):
-        x = k10_frames(side, dev, n, kind)
+        x = k10_frames(side, dev, n, kind, dtype=dtype)
         quals = [(f"quality {q}", torch.full((n,), float(q), device=dev)) for q in K10_QUALITIES]
         quals.append(("trainer", torch.from_numpy(np.floor(
             side.uniform(60.0, 100.0, n)).astype(np.float32)).to(dev)))
         for qname, q in quals:
             for tname, take in takes.items():
-                err = max(err, k10_check(x, take, q, f"{kind}, {qname}, take {tname}"))
-        log(f"K10 {kind} frames, qualities {K10_QUALITIES} and the trainer's floor(U[60, 100)) "
-            f"x {len(takes)} take patterns: bit-equal to plain, untaken frames bit-unchanged")
+                err = max(err, k10_check(x, take, q, f"{kind}{tag}, {qname}, take {tname}"))
+        log(f"K10{tag} {kind} frames, qualities {K10_QUALITIES} and the trainer's floor(U[60, "
+            f"100)) x {len(takes)} take patterns: bit-equal to plain, untaken frames "
+            f"bit-unchanged")
     for shape, how in K10_GEOMETRIES:
         n = shape[0]
-        x = k10_frames(side, dev, n, "noise", shape[1:3])
+        x = k10_frames(side, dev, n, "noise", shape[1:3], dtype)
         take = np.ones(n, bool) if how == "all" else np.arange(n) == n - 1
         if how == "seeded":
             take = side.random(n) < 0.5
             take[side.integers(0, n)] = True
         q = torch.from_numpy(np.floor(side.uniform(1.0, 100.0, n)).astype(np.float32)).to(dev)
-        err = max(err, k10_check(x, torch.from_numpy(take).to(dev), q, f"{shape} take {how}"))
+        err = max(err, k10_check(x, torch.from_numpy(take).to(dev), q,
+                                 f"{shape}{tag} take {how}"))
         bands, chunks, mcus = oj.band_chunks(*shape[1:3])
-        log(f"K10 {shape}, {int(take.sum())} taken ({how}), {bands} bands of {chunks} chunk(s) "
-            f"of <= {mcus} MCUs: bit-equal to plain")
+        log(f"K10{tag} {shape}, {int(take.sum())} taken ({how}), {bands} bands of {chunks} "
+            f"chunk(s) of <= {mcus} MCUs: bit-equal to plain")
         del x
 
     # timing at the trainer's step: plan1_2's 12 x 30 frames, K10_TAKEN taken
-    xs = k10_frames(side, dev, K10_FRAMES, "smooth")
+    xs = k10_frames(side, dev, K10_FRAMES, "smooth", dtype=dtype)
     take = torch.zeros(K10_FRAMES, dtype=torch.bool, device=dev)
     take[torch.from_numpy(side.choice(K10_FRAMES, K10_TAKEN, replace=False)).to(dev)] = True
     q = torch.from_numpy(np.floor(side.uniform(60.0, 100.0, K10_FRAMES)).astype(np.float32)
                          ).to(dev)
     dig = digest(oj.jpeg_subset_(xs.clone(), take, q))
-    frame_bytes = xs[0].numel() * 4
+    frame_bytes = xs[0].numel() * esize
     nbytes = 2.0 * K10_TAKEN * frame_bytes
     n_rot = int(2 * L2_BYTES // (K10_TAKEN * frame_bytes)) + 2
     rot = [xs] + [xs.clone() for _ in range(n_rot - 1)]
     k_ms = rotated_ms(lambda x: oj.jpeg_subset_(x, take, q), rot)
     w_ms = cuda_ms(lambda: oj.jpeg_subset_(xs, take, q))
     idx = torch.nonzero(take).flatten()
-    pairs = [(torch.empty((K10_TAKEN, 224, 224, 3), device=dev), x.index_select(0, idx))
-             for x in rot]
+    pairs = [(torch.empty((K10_TAKEN, 224, 224, 3), device=dev, dtype=dt),
+              x.index_select(0, idx)) for x in rot]
     c_ms = rotated_ms(lambda pair: pair[0].copy_(pair[1]), pairs)
     p_ms = cuda_ms(lambda: oj.jpeg_subset_plain_(xs, take, q), iters=3)
     del rot, pairs
     # operations: per pixel the colour transforms (~30) and 4 DCT passes of 16
     # flops a coefficient over 1.5 planes' worth of coefficients
     b_ms, b_by = bound_ms(nbytes, K10_TAKEN * 224 * 224 * (30 + 4 * 16 * 1.5))
-    log(f"K10 at ({K10_FRAMES}, 224, 224, 3), {K10_TAKEN} taken: kernel {k_ms:.4f} ms cold "
+    log(f"K10{tag} at ({K10_FRAMES}, 224, 224, 3), {K10_TAKEN} taken: kernel {k_ms:.4f} ms cold "
         f"({b_ms / k_ms:.1%} of the bound, {n_rot} buffers), {w_ms:.4f} ms warm; copy_ of "
         f"the taken frames' bytes {c_ms:.4f} ms cold; plain {p_ms:.4f} ms; bound "
         f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); digest {dig:.0f}")
@@ -3173,8 +3408,11 @@ def masked_face_clips(side, det, face, n: int, t: int, hw: int) -> tuple:
     return clips, found
 
 
-def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
-    """S3: `Trainer` on clip batches cached on the card, at each plan of
+def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False,
+                    dtype: str = "float32", clips_cache: Optional[dict] = None) -> dict:
+    """S3 (with ``dtype`` bfloat16, B3: ``model.dtype`` bf16 and the
+    transform's K10 in its bf16 mode): `Trainer` on clip batches cached on
+    the card, at each plan of
     S3D_PLANS at its published batch and frames (``s3d`` from plan1_2, the
     S3D transform on, so K10 once a step; ``ca_s3d`` from caplan9, black
     masking of 6 regions on `synth_face` frames, on the host; ``msca_s3d``
@@ -3186,7 +3424,9 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
     eval batch with the counts set to 0 before it (K10 launched once a train
     step with aug on, never with it off); S3D_FIXED_STEPS steps on one fixed
     batch, augmentation off, whose last loss must be below its first; one
-    eval batch. Inputs from `side_rng`."""
+    eval batch. Inputs from `side_rng`; ``clips_cache`` keeps each plan's
+    clips (masked on the host, the slow part) for a later call, which
+    trains on the same clips."""
     import torch
     from fac_fake_torch.core.plans import load_plan
     from fac_fake_torch.models import build_model
@@ -3197,6 +3437,7 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
     for name, plan in S3D_PLANS:
         cfg = load_plan(plan)
         cfg.data.normalize = "raw255"
+        cfg.model.dtype = dtype
         cfg.model.image_size = S3D_TRAIN_HW
         cfg.train.epochs = 1
         cfg.train.log_every = 0
@@ -3204,13 +3445,17 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
         cfg.train.checkpoint_every = 0
         bs, t = cfg.data.batch_size, cfg.data.frames_per_video
         n = bs * (S3D_FIT_STEPS + 1)
-        if cfg.data.mask_method == "black":
+        if clips_cache is not None and name in clips_cache:
+            clips, found = clips_cache[name]
+        elif cfg.data.mask_method == "black":
             clips, found = masked_face_clips(side, det, face, n, t, S3D_TRAIN_HW)
             if found < n:
                 raise AssertionError(f"{name}: BlazeFace found the face in {found} of {n} clips")
         else:
             clips = side.integers(0, 256, (n, t, S3D_TRAIN_HW, S3D_TRAIN_HW, 3), dtype=np.uint8)
             found = 0
+        if clips_cache is not None:
+            clips_cache[name] = clips, found
         labels = np.arange(n) % 2
         pw = cfg.train.rebalance_real / cfg.train.rebalance_fake      # balanced labels
         torch.cuda.empty_cache()
@@ -3218,12 +3463,12 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
         tr = Trainer(model, cfg, loss_kwargs={"pos_weight": pw})
         train = tr.cache_data(clips[:bs * S3D_FIT_STEPS], labels[:bs * S3D_FIT_STEPS], bs)
         val = tr.cache_data(clips[bs * S3D_FIT_STEPS:], labels[bs * S3D_FIT_STEPS:], bs)
-        del clips
         ones = torch.ones((bs,), device=dev)
         batch = lambda i: {"image": train.images[i * bs:(i + 1) * bs],
                            "label": train.labels[i * bs:(i + 1) * bs], "mask": ones}
         gen = torch.Generator(device=dev).manual_seed(seed)
         aug_on = cfg.data.augment.enabled
+        tag = name if dtype == "float32" else f"{name} {dtype}"
         tr.train_step(batch(0), gen)                     # warm-up: cuDNN, cuBLAS, K10
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3236,15 +3481,15 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
         per_step = oj.jpeg_subset_.launches / S3D_TIMED_STEPS
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         wall, busy = profile_forward(lambda: tr.train_step(batch(0), gen),
-                                     f"{name} train step, batch {bs}", top=12 if profile else 0,
+                                     f"{tag} train step, batch {bs}", top=12 if profile else 0,
                                      expect=("jpeg_bands",) if aug_on else (), inference=False)
         step_ms = dt / S3D_TIMED_STEPS * 1e3
         res = dict(plan=plan, batch=bs, frames=t, step_ms=step_ms,
                    clips_per_s=bs * S3D_TIMED_STEPS / dt, peak_gb=peak_gb,
                    traced_wall_ms=wall, traced_busy_ms=busy, busy_share=busy / step_ms,
                    k10_per_step=per_step, augment=aug_on, mask=cfg.data.mask_method,
-                   faces_found=found)
-        log(f"{name} training ({plan}, batch {bs} x {t} x {S3D_TRAIN_HW}^2, aug {aug_on}, mask "
+                   faces_found=found, dtype=dtype)
+        log(f"{tag} training ({plan}, batch {bs} x {t} x {S3D_TRAIN_HW}^2, aug {aug_on}, mask "
             f"{cfg.data.mask_method}): {res['clips_per_s']:.2f} train clips/s, {step_ms:.1f} ms "
             f"a step ({S3D_TIMED_STEPS} steps after a warm-up step); one traced step "
             f"{wall:.1f} ms wall, device busy {busy:.1f} ms ({busy / step_ms:.1%} of an "
@@ -3252,24 +3497,27 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
         if per_step != (1 if aug_on else 0):
             raise AssertionError(f"{name}: K10 {per_step} a step, aug {aug_on}")
 
-        oj.jpeg_subset_.launches = 0
+        oj.jpeg_subset_.launches = oj.jpeg_subset_.bf16_launches = 0
         steps0 = tr.step
         t0 = time.perf_counter()
         fit = tr.fit(train, val)
         t_fit = time.perf_counter() - t0
         fit_steps = tr.step - steps0
         h = fit["history"]
-        res["fit_launches"] = {"K10": oj.jpeg_subset_.launches}
+        res["fit_launches"] = {"K10": oj.jpeg_subset_.launches,
+                               "K10_bf16": oj.jpeg_subset_.bf16_launches}
         res["fit_steps"] = fit_steps
-        log(f"{name} fit, 1 epoch of {fit_steps} steps and {val.steps} eval batch: "
+        log(f"{tag} fit, 1 epoch of {fit_steps} steps and {val.steps} eval batch: "
             f"{t_fit:.1f} s; train loss {h['train_loss'][0]:.4f}, val loss "
             f"{h['val_loss'][0]:.4f} acc {h['val_acc'][0]:.4f}; K10 launches "
-            f"{oj.jpeg_subset_.launches}")
+            f"{res['fit_launches']}")
         if not all(np.isfinite(h[k][0]) for k in ("train_loss", "val_loss")):
-            raise AssertionError(f"{name}: losses not finite: {h}")
-        if oj.jpeg_subset_.launches != (fit_steps if aug_on else 0):
-            raise AssertionError(f"{name}: {oj.jpeg_subset_.launches} K10 launches in "
-                                 f"{fit_steps} steps, aug {aug_on}")
+            raise AssertionError(f"{tag}: losses not finite: {h}")
+        want = fit_steps if aug_on else 0
+        if res["fit_launches"] != {"K10": want,
+                                   "K10_bf16": want if dtype == "bfloat16" else 0}:
+            raise AssertionError(f"{tag}: K10 launches {res['fit_launches']} in {fit_steps} "
+                                 f"steps, aug {aug_on}")
 
         tr.cfg.data.augment.enabled = False
         fixed = batch(0)
@@ -3278,7 +3526,7 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
         ev = tr.eval_step({"image": val.images, "label": val.labels, "mask": ones})
         ev = {k: float(v) for k, v in ev.items()}
         res.update(fixed_losses=losses, eval_batch=ev)
-        log(f"{name} {S3D_FIXED_STEPS} steps on one fixed batch, augmentation off: loss "
+        log(f"{tag} {S3D_FIXED_STEPS} steps on one fixed batch, augmentation off: loss "
             f"{losses[0]:.4f} -> {losses[-1]:.4f}; one eval batch {ev}")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
                 and np.isfinite(ev["loss"]) and ev["count"] == bs):
@@ -3289,8 +3537,13 @@ def s3d_train_phase(seed, rng, dev, det, face, profile: bool = False) -> dict:
     return out
 
 
-def s3d_train_vs_cpu(seed, rng, dev) -> dict:
-    """S4: one train step of ``ca_s3d`` and ``msca_s3d`` at full width, batch
+def s3d_train_vs_cpu(seed, rng, dev, dtype: str = "float32",
+                     names=("ca_s3d", "msca_s3d")) -> dict:
+    """S4 (with ``dtype`` bfloat16, B3's check of ``ca_s3d``: both steps
+    bf16, held layer by layer by `replay_layers` and as a whole by the
+    TRAIN_BF16 rule, the running stats and card-vs-CPU quantities
+    printed): one train step of ``ca_s3d`` and
+    ``msca_s3d`` at full width, batch
     S3D_CHECK_BATCH, S3D_CHECK_T frames (the fewest the head takes) at 224^2,
     augmentation off, TF32 off, from the same seeded weights and clips on
     the card and on the CPU: the loss within S3D_LOSS_RTOL; the gradient
@@ -3310,9 +3563,10 @@ def s3d_train_vs_cpu(seed, rng, dev) -> dict:
     from fac_fake_torch.train.trainer import Trainer
     side = side_rng(rng)
     out = {}
-    for name in ("ca_s3d", "msca_s3d"):
+    for name in names:
         cfg = Config()
         cfg.model.name, cfg.model.num_class = name, 1
+        cfg.model.dtype = dtype
         cfg.data.normalize = "raw255"
         cfg.data.augment.enabled = False
         cfg.train.loss = "bce_weighted"
@@ -3322,16 +3576,20 @@ def s3d_train_vs_cpu(seed, rng, dev) -> dict:
             0, 256, (S3D_CHECK_BATCH, S3D_CHECK_T, S3D_TRAIN_HW, S3D_TRAIN_HW, 3), dtype=np.uint8))
         b = {"image": u8, "label": torch.arange(S3D_CHECK_BATCH) % 2,
              "mask": torch.ones(S3D_CHECK_BATCH)}
-        side_res = {}
+        side_res, layers = {}, None
         for where, d, dt in (("card", dev, torch.float32), ("cpu", "cpu", torch.float32),
                              ("f64", "cpu", torch.float64)):
             m = copy.deepcopy(model).to(d if where != "f64" else "cpu")
             tr = Trainer(m, cfg, device=d, loss_kwargs={"pos_weight": 0.3})
+            if where == "card" and dtype == "bfloat16":
+                before = copy.deepcopy(m)
+                rec, hooks = record_layers(m)
             t0 = time.perf_counter()
             if where == "f64":
+                m.dtype = torch.float32          # the parameters' dtype, float64 below
                 m = m.double().train()
-                x = tr.normalize(b["image"].double() / torch.full((1,), 255.0,
-                                                                  dtype=torch.float64))
+                x = (b["image"].double() / torch.full((1,), 255.0, dtype=torch.float64)
+                     * 255.0).permute(0, 4, 1, 2, 3)
                 loss = tr.loss_fn(m(x), b["label"], b["mask"].double())
                 loss.backward()
                 loss = float(loss.detach())
@@ -3344,6 +3602,11 @@ def s3d_train_vs_cpu(seed, rng, dev) -> dict:
                 grads={k: p.grad.double().cpu() for k, p in m.named_parameters()},
                 bufs={k: v.double().cpu() for k, v in m.named_buffers()
                       if k.endswith(("running_mean", "running_var"))})
+            if where == "card" and dtype == "bfloat16":
+                for h in hooks:
+                    h.remove()
+                layers = replay_layers(before, rec, name)
+                del before, rec
             del m, tr
         g, c, f = side_res["card"], side_res["cpu"], side_res["f64"]
         norm = lambda dd: float(sum((t ** 2).sum() for t in dd.values())) ** 0.5
@@ -3373,7 +3636,11 @@ def s3d_train_vs_cpu(seed, rng, dev) -> dict:
                                       / S3D_STATS_F64_SLACK for k in cb),
                    losses={k: v["loss"] for k, v in side_res.items()},
                    cpu_s=c["t"], f64_s=f["t"])
-        log(f"{name} one train step card vs CPU, batch {S3D_CHECK_BATCH} x {S3D_CHECK_T} x "
+        res["dtype"], res["layers"] = dtype, layers
+        res["card_loss_vs_f64"] = abs(g["loss"] - f["loss"]) / abs(f["loss"])
+        res["cpu_loss_vs_f64"] = abs(c["loss"] - f["loss"]) / abs(f["loss"])
+        log(f"{name}{'' if dtype == 'float32' else ' ' + dtype} one train step card vs CPU, "
+            f"batch {S3D_CHECK_BATCH} x {S3D_CHECK_T} x "
             f"{S3D_TRAIN_HW}^2 (CPU {c['t']:.1f} s, float64 {f['t']:.1f} s): loss {g['loss']:.6f} / "
             f"{c['loss']:.6f} / float64 {f['loss']:.6f} (card vs CPU rel {res['loss_rel']:.3g}, "
             f"bound {S3D_LOSS_RTOL}); gradient rel L2 to the float64 one: card "
@@ -3386,16 +3653,28 @@ def s3d_train_vs_cpu(seed, rng, dev) -> dict:
             f"atol's floor {res['stats_rel_by_kind']}; each tensor's distance to the float64 "
             f"one within {TRAIN_GRAD_F64_RATIO} x the CPU's + {S3D_STATS_F64_SLACK} (at "
             f"{res['stats_f64_over']:.3g} of that slack)")
-        if not (res["loss_rel"] <= S3D_LOSS_RTOL and res["stats_tol_share"] <= 1.0
-                and res["stats_f64_over"] <= 1.0
-                and res["card_vs_f64"] <= TRAIN_GRAD_F64_RATIO * res["cpu_vs_f64"]
-                + TRAIN_GRAD_F64_SLACK):
+        if dtype == "float32":
+            ok = (res["loss_rel"] <= S3D_LOSS_RTOL and res["stats_tol_share"] <= 1.0
+                  and res["stats_f64_over"] <= 1.0
+                  and res["card_vs_f64"] <= TRAIN_GRAD_F64_RATIO * res["cpu_vs_f64"]
+                  + TRAIN_GRAD_F64_SLACK)
+        else:
+            ok = (res["card_vs_f64"] <= TRAIN_GRAD_F64_RATIO * res["cpu_vs_f64"]
+                  + TRAIN_BF16_GRAD_F64_SLACK
+                  and res["card_loss_vs_f64"] <= TRAIN_GRAD_F64_RATIO * res["cpu_loss_vs_f64"]
+                  + TRAIN_BF16_LOSS_F64_SLACK)
+            log(f"{name} {dtype}: held to float64: gradient card {res['card_vs_f64']:.3g} <= "
+                f"{TRAIN_GRAD_F64_RATIO} x CPU {res['cpu_vs_f64']:.3g} + "
+                f"{TRAIN_BF16_GRAD_F64_SLACK}; loss card {res['card_loss_vs_f64']:.3g} <= "
+                f"{TRAIN_GRAD_F64_RATIO} x CPU {res['cpu_loss_vs_f64']:.3g} + "
+                f"{TRAIN_BF16_LOSS_F64_SLACK}")
+        if not ok:
             raise AssertionError(f"{name}: one train step card vs CPU out of bounds: {res}")
         out[name] = res
     return out
 
 
-def msca_int8(name, model, clips, dev) -> dict:
+def msca_int8(name, model, clips, dev, dtype: str = "float32") -> dict:
     """S5's int8 half for one full-width msca model: `S3DEvaluator(quantize=
     "int8")` calibrated on two of ``clips``; the counts set to 0, then
     `predict_batch` of the S3D_BATCH clips twice (clips/s), the counts read:
@@ -3410,14 +3689,22 @@ def msca_int8(name, model, clips, dev) -> dict:
     printed); int8 free-running with the head input's error at most
     S3D_INT8_FEATURE_RATIO of the CPU's own int8-vs-fp32 difference (phase
     14's rule: a flipped step is legitimate there), and in lock-step
-    (`int8_lockstep`) within LOGIT_TOL."""
+    (`int8_lockstep`) within LOGIT_TOL. With ``dtype`` bfloat16 (B4; also
+    ``ca_s3d``): the engine's walk in bf16 (K5's bf16 out), the fp head
+    input held by phase 14's rule against the CPU's bf16-vs-fp32
+    difference, lock-step within S3D_FP_BLOCK_RTOL_BF16 and LOGIT_TOL_BF16."""
     import torch
     from fac_fake_torch.evaluate.s3d_eval import S3DEvaluator
     from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant3d as q3
+    bf16 = dtype == "bfloat16"
+    tag = f"{'B4' if bf16 else 'S5'} {name}{' ' + dtype if bf16 else ''}"
     ev8 = S3DEvaluator(model, degrade=False, quantize="int8", device=dev)
     ev8.predict_batch(clips[:2])                   # calibrates on these two clips
+    ev8.predict_batch(clips)                       # warm at the timed batch
     torch.cuda.synchronize()
+    if ev8.engine.dtype != getattr(torch, dtype):
+        raise AssertionError(f"{tag}: the int8 engine's walk in {ev8.engine.dtype}")
     want = ev8.engine.walk_counts()
     q3.int8_conv3d.launches = q3.int8_conv3d.relu6_launches = 0
     q3.quantize_pad.launches = q3.max_pool3d_i8.launches = 0
@@ -3429,10 +3716,11 @@ def msca_int8(name, model, clips, dev) -> dict:
     per = {"K5": want["conv"], "K5_relu6": want["relu6"], "K5_quantize": want["quantize"],
            "K6": want["pool"], "K2_raw": want["raw"], "K2": want["raw"]}
     forwards = launches["K5"] // want["conv"]
-    log(f"S5 {name} int8 (SRM {model.srm}): predict_batch {S3D_BATCH} clips {rate:.2f} "
+    log(f"{tag} int8 (SRM {model.srm}): predict_batch {S3D_BATCH} clips {rate:.2f} "
         f"clips/s; launches {launches} over {forwards} forwards; a forward: {want}")
     if forwards < 1 or any(launches[k] != forwards * v for k, v in per.items()) \
-            or min(launches[k] for k in ("K5", "K5_relu6", "K5_quantize", "K6")) < 1 \
+            or min(launches[k] for k in ("K5", "K5_relu6", "K5_quantize", "K6")
+                   if per[k]) < 1 \
             or not (np.isfinite(probs).all() and ((probs >= 0) & (probs <= 1)).all()):
         raise AssertionError(f"{name} int8: launches {launches}, want {per} a forward; "
                              f"scores {probs}")
@@ -3453,7 +3741,7 @@ def msca_int8(name, model, clips, dev) -> dict:
         if checked[batch] != {k: want[k] for k in checked[batch]}:
             raise AssertionError(f"{name} int8: checked {checked[batch]} at batch {batch}, "
                                  f"not every call of a forward ({want})")
-    log(f"S5 {name} int8 forward: {len(calls['conv'])} conv shapes; K2's raw entry and every "
+    log(f"{tag} int8 forward: {len(calls['conv'])} conv shapes; K2's raw entry and every "
         f"K5/K6 call bit-equal to their plain versions on the same clips and activations "
         f"(ReLU6 and fused epilogues included): {checked}")
     with torch.no_grad():
@@ -3462,13 +3750,18 @@ def msca_int8(name, model, clips, dev) -> dict:
     del x32
     ac, bc = a - a.mean(), b - b.mean()
     int8_vs_fp32 = float((a - b).abs().max())
-    log(f"S5 {name} int8 vs fp32 logits on {S3D_BATCH} clips (information): max abs "
+    log(f"{tag} int8 vs fp logits on {S3D_BATCH} clips (information): max abs "
         f"{int8_vs_fp32:.4g} centred cosine "
         f"{float((ac * bc).sum() / (ac.norm() * bc.norm())):.6f} (|logit| max "
         f"{float(a.abs().max()):.3g}, spread {float(a.max() - a.min()):.3g})")
 
     u1 = torch.from_numpy(clips[:1]).permute(0, 4, 1, 2, 3)
     feats, errs = {}, {}
+    if bf16:       # the fp32 model of the same weights, on the CPU: bf16's own difference
+        m32 = copy.deepcopy(model).cpu()
+        m32.dtype = torch.float32
+        f32_ref = head_input(m32, u1.float())[1].double()
+        del m32
     for label, mod in (("fp32", model), ("int8", ev8.engine)):
         one = u1.float() if label == "fp32" else u1
         gpu_l, gpu_f = head_input(mod, one.to(dev))
@@ -3478,29 +3771,43 @@ def msca_int8(name, model, clips, dev) -> dict:
         gpu_l, gpu_f, cpu_f = gpu_l.cpu(), gpu_f.cpu().double(), cpu_f.double()
         feats[label] = gpu_f, cpu_f
         errs[label] = float((gpu_l - cpu_l).abs().max())
-        log(f"S5 {name} {label} logits card vs CPU, batch 1 ({t_cpu:.1f} s on the CPU): max "
-            f"abs {errs[label]:.3g} (logit {float(cpu_l[0, 0]):.6g})")
-        if not torch.isfinite(gpu_l).all() or (label == "fp32" and errs[label] > LOGIT_TOL):
+        log(f"{tag} {label if not bf16 else label.replace('fp32', 'fp')} logits card vs "
+            f"CPU, batch 1 ({t_cpu:.1f} s on the CPU): max abs {errs[label]:.3g} (logit "
+            f"{float(cpu_l[0, 0]):.6g})")
+        if not torch.isfinite(gpu_l).all() or (label == "fp32" and not bf16
+                                               and errs[label] > LOGIT_TOL):
             raise AssertionError(f"{name} {label} logits differ: {errs[label]} > {LOGIT_TOL}")
     (g32, c32), (g8, c8) = feats["fp32"], feats["int8"]
     f32_err = float((g32 - c32).norm() / c32.norm())
     f8_err = float((g8 - c8).norm() / (c8 - c32).norm())
+    if bf16:
+        # phase 14's rule for the bf16 fp head input: card vs CPU within the
+        # CPU's own bf16-vs-fp32 difference
+        f32_err = float((g32 - c32).norm() / (c32 - f32_ref).norm())
+        log(f"{tag} head input card vs CPU: fp error {f32_err:.3g} of the CPU's bf16-vs-fp32 "
+            f"difference (limit {S3D_INT8_FEATURE_RATIO}; that difference is "
+            f"{float((c32 - f32_ref).norm() / f32_ref.norm()):.3g} of the fp32 norm)")
+        if not f32_err <= S3D_INT8_FEATURE_RATIO:
+            raise AssertionError(f"{tag} fp head input differs card vs CPU: {f32_err} of the "
+                                 f"bf16-vs-fp32 difference")
     # fp32: information (the iFormer blocks round further apart than
     # ca_s3d's layers: 1.8-2.7e-5 of the norm on an H100, ca_s3d's 7.7e-7);
     # fp32 is held by its logits above
-    log(f"S5 {name} head input card vs CPU: fp32 error {f32_err:.3g} of its norm "
-        f"(information); int8 error {f8_err:.3g} of the CPU's int8-vs-fp32 difference "
-        f"(limit {S3D_INT8_FEATURE_RATIO}; that difference is "
-        f"{float((c8 - c32).norm() / c32.norm()):.3g} of the fp32 norm)")
+    log(f"{tag} head input card vs CPU: fp error {f32_err:.3g} of "
+        f"{'the bf16-vs-fp32 difference' if bf16 else 'its norm (information)'}; int8 error "
+        f"{f8_err:.3g} of the CPU's int8-vs-fp difference (limit {S3D_INT8_FEATURE_RATIO}; "
+        f"that difference is {float((c8 - c32).norm() / c32.norm()):.3g} of the fp norm)")
     if not f8_err <= S3D_INT8_FEATURE_RATIO:
         raise AssertionError(f"{name} int8 head input differs card vs CPU: {f8_err} of the "
                              f"int8-vs-fp32 difference")
     lock = int8_lockstep(ev8.engine, u1, dev)
-    log(f"S5 {name} int8 card vs CPU in lock-step (the CPU's walk fed the card's fp-block "
+    block_tol, logit_tol = ((S3D_FP_BLOCK_RTOL_BF16, LOGIT_TOL_BF16) if bf16
+                            else (S3D_FP_BLOCK_RTOL, LOGIT_TOL))
+    log(f"{tag} int8 card vs CPU in lock-step (the CPU's walk fed the card's fp-block "
         f"and SRM outputs, each within {lock['block_err']:.3g} of the CPU's own, bound "
-        f"{S3D_FP_BLOCK_RTOL}, of its largest value): logits max abs {lock['logit_err']:.3g} "
-        f"(bound {LOGIT_TOL}); free-running, above: {errs['int8']:.3g}")
-    if not (lock["block_err"] <= S3D_FP_BLOCK_RTOL and lock["logit_err"] <= LOGIT_TOL):
+        f"{block_tol}, of its largest value): logits max abs {lock['logit_err']:.3g} "
+        f"(bound {logit_tol}); free-running, above: {errs['int8']:.3g}")
+    if not (lock["block_err"] <= block_tol and lock["logit_err"] <= logit_tol):
         raise AssertionError(f"{name} int8 card vs CPU in lock-step: {lock}")
     del ev8
     return dict(int8_clips_per_s=rate, int8_launches=launches, int8_walk=want,
@@ -3566,13 +3873,15 @@ def int8_lockstep(engine, u1, dev) -> dict:
     return dict(logit_err=float((gpu_l - cpu_l).abs().max()), block_err=worst[0])
 
 
-def msca_scoring(seed, rng, dev) -> dict:
+def msca_scoring(seed, rng, dev, dtype: str = "float32", profile: bool = False) -> dict:
     """S5: `S3DEvaluator` with the full-width ``msca_s3d`` and ``msca_s3d_srm``
     (the residual 3-filter SRM input), seeded weights: `predict_batch`
     clips/s at batch S3D_BATCH in fp32 beside ``ca_s3d``'s at the same
     frames, and in int8 with what `msca_int8` checks (the launches, every
     K5/K6 call bit-equal to its plain version, logits and head input card
-    vs CPU at batch 1, S3D_MSCA_T frames). Inputs from `side_rng`."""
+    vs CPU at batch 1, S3D_MSCA_T frames). Inputs from `side_rng`. With
+    ``dtype`` bfloat16, B4: the three models in bf16 (``model.dtype``), fp
+    and int8 each (`msca_int8` in bf16)."""
     import torch
     from fac_fake_torch.core.config import ModelConfig
     from fac_fake_torch.evaluate.s3d_eval import S3DEvaluator
@@ -3581,20 +3890,27 @@ def msca_scoring(seed, rng, dev) -> dict:
     clips = side.integers(0, 256, (S3D_BATCH, S3D_MSCA_T, S3D_TRAIN_HW, S3D_TRAIN_HW, 3),
                           dtype=np.uint8)
     out = {}
+    bf16 = dtype == "bfloat16"
     for name, srm in (("ca_s3d", False), ("msca_s3d", False), ("msca_s3d_srm", True)):
-        mc = ModelConfig(name=name, num_class=1, srm_net=srm)
+        mc = ModelConfig(name=name, num_class=1, srm_net=srm, dtype=dtype)
         model = build_model(mc, device=dev, seed=seed)
         ev = S3DEvaluator(model, degrade=False, device=dev)
-        ev.predict_batch(clips[:2])                           # warm cuDNN
+        # warm cuDNN at the timed batch: a first call at a new shape pays its
+        # algorithm search (bf16 ca_s3d on an H100: 148 clips/s timed cold,
+        # a traced warm call 90.9 ms)
+        ev.predict_batch(clips)
         rate, probs = clips_per_s(ev, clips, n_it=2)
+        if profile:
+            profile_forward(lambda: ev.predict_batch(clips),
+                            f"{name} {dtype} predict_batch {S3D_BATCH}")
         if not np.isfinite(probs).all():
             raise AssertionError(f"{name}: fp32 scores {probs}")
-        res = dict(clips_per_s=rate, srm=model.srm)
-        log(f"S5 {name} fp32 (SRM {model.srm}), {S3D_MSCA_T} x {S3D_TRAIN_HW}^2: predict_batch "
-            f"{S3D_BATCH} clips {rate:.2f} clips/s")
+        res = dict(clips_per_s=rate, srm=model.srm, dtype=dtype)
+        log(f"{'B4' if bf16 else 'S5'} {name} {dtype} (SRM {model.srm}), {S3D_MSCA_T} x "
+            f"{S3D_TRAIN_HW}^2: predict_batch {S3D_BATCH} clips {rate:.2f} clips/s")
         del ev
-        if name != "ca_s3d":
-            res.update(msca_int8(name, model, clips, dev))
+        if name != "ca_s3d" or bf16:
+            res.update(msca_int8(name, model, clips, dev, dtype))
         out[name] = res
         del model
         torch.cuda.empty_cache()
@@ -3631,6 +3947,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    t_start = time.perf_counter()
+    clock = lambda what: log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
 
     # ---- 2. build ---------------------------------------------------------
     kernels.build(verbose=True)
@@ -3638,6 +3956,7 @@ def main() -> int:
 
     # ---- 3. K2 in its five modes against their plain versions -------------
     k2 = k2_phase(rng, dev)
+    clock("build, K2")
 
     # ---- 4. K1 against its plain version ---------------------------------
     det = BlazeFace.from_packaged_assets(dev)
@@ -3688,6 +4007,7 @@ def main() -> int:
     logits_vs_cpu(full.model, four, "full-width int8_full logits", plain=True)
     del scorer, full, model
     torch.cuda.empty_cache()
+    clock("phases 4-10")
 
     # ---- M1-M3. MTCNN with K8, its video path, the serving entry point ----------
     k8 = k8_phase(rng, dev)
@@ -3695,13 +4015,16 @@ def main() -> int:
     m3 = serve_phase(m_scorer)
     del m_scorer
     torch.cuda.empty_cache()
+    clock("M1-M3")
 
     # ---- F1-F4. the flagship cvit_repbn8 -----------------------------------------
     flag = flagship_phases(args.seed, rng, dev, det, reader, crops, stacks, paths, with_faces,
                            four, args.profile)
     torch.cuda.empty_cache()
+    clock("F1-F4")
     s3d = s3d_phases(args.seed, rng, dev, args.profile)
     torch.cuda.empty_cache()
+    clock("phases 11-14")
 
     # ---- T1-T4. training ----------------------------------------------------------
     k7 = k7_phase(rng, dev)
@@ -3713,11 +4036,23 @@ def main() -> int:
         log(f"cvit checkpoints written by fit: {saved}")
         if saved != ["best.pth", "epoch_000000.pt"]:
             raise AssertionError(f"fit's checkpoints: {saved}")
+    clock("T1-T2")
     t3 = train_vs_cpu(model, "cvit", rng)
+    # ROADMAP §3's watch: the same check on more side_rng seeds, per tensor
+    watch = {"cvit": [t3] + [train_vs_cpu(model, "cvit", side_rng(rng) if i == 0 else
+                                          np.random.default_rng([args.seed, i]))
+                             for i in range(T4_WATCH_SEEDS - 1)]}
     del model
     torch.cuda.empty_cache()
     t4, model = train_phase("cvit_repbn8", args.seed, dev, data, args.profile)
     t4_cpu = train_vs_cpu(model, "cvit_repbn8", rng)
+    watch["cvit_repbn8"] = [t4_cpu] + [
+        train_vs_cpu(model, "cvit_repbn8", side_rng(rng) if i == 0 else
+                     np.random.default_rng([args.seed, i])) for i in range(T4_WATCH_SEEDS - 1)]
+    clock("T3-T4 and the watch seeds")
+    log(json.dumps({"t4_watch": {n: [{k: r[k] for k in (
+        "left_out_share", "card_vs_f64", "cpu_vs_f64", "card_beyond_cpu_tensors")} for r in rs]
+        for n, rs in watch.items()}}))
     del model
     torch.cuda.empty_cache()
 
@@ -3727,13 +4062,53 @@ def main() -> int:
     torch.cuda.empty_cache()
     r3 = family_forwards(args.seed, rng, dev)
     torch.cuda.empty_cache()
+    clock("R1-R3")
 
     # ---- S1-S5. S3D training with K10 ---------------------------------------------
     k10 = k10_phase(rng, dev)
     s3d_aug = s3d_augment_phase(rng, dev)
-    s3 = s3d_train_phase(args.seed, rng, dev, det, face, args.profile)
+    s3_clips = {}
+    s3 = s3d_train_phase(args.seed, rng, dev, det, face, args.profile, clips_cache=s3_clips)
     s4 = s3d_train_vs_cpu(args.seed, rng, dev)
     s5 = msca_scoring(args.seed, rng, dev)
+    clock("S1-S5")
+
+    # ---- B1-B4. bf16: K7 and K10 in their bf16 modes, bf16 training, bf16 S3D scoring
+    b_rng = side_rng(rng)
+    k7b = k7_phase(b_rng, dev, "bfloat16")
+    k10b = k10_phase(b_rng, dev, "bfloat16")
+    clock("B1")
+    b2, b2_cpu = {}, {}
+    for name in ("cvit", "cvit_repbn8"):
+        b2[name], model = train_phase(name, args.seed, dev, data, args.profile, dtype="bfloat16")
+        b2_cpu[name] = train_vs_cpu(model, name, b_rng, "bfloat16")
+        del model
+        torch.cuda.empty_cache()
+    clock("B2")
+    b3 = s3d_train_phase(args.seed, b_rng, dev, det, face, args.profile, dtype="bfloat16",
+                         clips_cache=s3_clips)
+    del s3_clips
+    b3_cpu = s3d_train_vs_cpu(args.seed, b_rng, dev, "bfloat16", names=("ca_s3d",))
+    clock("B3")
+    b4 = msca_scoring(args.seed, b_rng, dev, "bfloat16", args.profile)
+    clock("B4")
+    for name, fp32, bf in (("cvit", t2, b2["cvit"]), ("cvit_repbn8", t4, b2["cvit_repbn8"])):
+        log(f"B2 {name} at batch {TRAIN_BATCH}: bf16 {bf['crops_per_s']:.1f} train crops/s, "
+            f"{bf['step_ms']:.2f} ms a step, {bf['busy_share']:.1%} busy, {bf['peak_gb']:.2f} GB; "
+            f"fp32 (T2/T4, this run) {fp32['crops_per_s']:.1f}, {fp32['step_ms']:.2f} ms, "
+            f"{fp32['busy_share']:.1%}, {fp32['peak_gb']:.2f} GB")
+    for name in b3:
+        bf, fp32 = b3[name], s3[name]
+        log(f"B3 {name} ({bf['plan']}, batch {bf['batch']}): bf16 {bf['clips_per_s']:.2f} train "
+            f"clips/s, {bf['step_ms']:.1f} ms a step, {bf['busy_share']:.1%} busy, "
+            f"{bf['peak_gb']:.2f} GB; fp32 (S3, this run) {fp32['clips_per_s']:.2f}, "
+            f"{fp32['step_ms']:.1f} ms, {fp32['busy_share']:.1%}, {fp32['peak_gb']:.2f} GB")
+    for name in b4:
+        log(f"B4 {name}: bf16 fp {b4[name]['clips_per_s']:.2f} clips/s, int8 "
+            f"{b4[name]['int8_clips_per_s']:.2f}; fp32 (S5, this run) "
+            f"{s5[name]['clips_per_s']:.2f}"
+            + (f", int8 {s5[name]['int8_clips_per_s']:.2f}" if "int8_clips_per_s" in s5[name]
+               else ""))
 
     # ---- 15. kernels line -----------------------------------------------------
     k5, k6 = s3d["k5"], s3d["k6"]
@@ -3940,9 +4315,53 @@ def main() -> int:
                    "augment_batch on plan1_2's (12, 30, 224, 224, 3), device and host time; "
                    "library_ms: no PyTorch call computes this JPEG"},
     ]
+    # the bf16 modes: K7 on B2's cvit epoch, K10 on B3's plan1_2 epoch
+    rows += [
+        {"name": "K7_clahe_luma_bf16", "route": "cuda", "source": "fac_fake_torch/csrc/clahe.cu",
+         "replaces": "fac_fake_tpu/data/augment.py:805",
+         "launches": b2["cvit"]["launches"]["K7"], "train_steps": b2["cvit"]["fit_steps"],
+         "flagship_launches": b2["cvit_repbn8"]["launches"]["K7"],
+         "max_abs_err": k7b["err"], "ms": k7b["subset_ms"], "kernel_ms": k7b["subset_ms"],
+         "warm_ms": k7b["subset_warm_ms"], "plain_ms": k7b["subset_plain_ms"],
+         "bound_ms": k7b["subset_bound_ms"], "bound_by": k7b["subset_bound_by"],
+         "library_ms": None, "copy_ms": k7b["subset_copy_ms"],
+         "fp32_ms": k7["subset_ms"], "fp32_warm_ms": k7["subset_warm_ms"],
+         "all_taken_ms": k7b["ms"], "all_taken_warm_ms": k7b["warm_ms"],
+         "all_taken_fp32_ms": k7["ms"], "all_taken_bound_ms": k7b["bound_ms"],
+         "timing": "ms: cold (buffers beyond twice the L2), the trainer's step; copy_ms: copy_ of "
+                   "the taken images' bf16 bytes, cold; fp32_ms: K7's fp32 mode at the same "
+                   "step in this run; bit-equal to the plain version (clahe_luma_plain of the "
+                   "images in fp32, rounded to bf16) in every case of B1",
+         "shapes": f"ms: clahe_subset_ in place on ({TRAIN_BATCH}, 224, 224, 3) bf16, "
+                   f"{K7_TRAIN_TAKERS} takers, a budget of 8; all_taken: clahe_luma on (8, 224, "
+                   "224, 3) bf16; launches: one bf16 training epoch of cvit (B2), one a step; "
+                   "flagship_launches: the same of cvit_repbn8"},
+        {"name": "K10_jpeg_subset_bf16", "route": "cuda", "source": "fac_fake_torch/csrc/jpeg.cu",
+         "replaces": "fac_fake_tpu/data/augment.py:707",
+         "launches": b3["s3d"]["fit_launches"]["K10_bf16"], "train_steps": b3["s3d"]["fit_steps"],
+         "max_abs_err": k10b["err"], "bit_equal": True, "ms": k10b["ms"],
+         "kernel_ms": k10b["ms"], "warm_ms": k10b["warm_ms"], "plain_ms": k10b["plain_ms"],
+         "bound_ms": k10b["bound_ms"], "bound_by": k10b["bound_by"], "library_ms": None,
+         "copy_ms": k10b["copy_ms"], "fp32_ms": k10["ms"], "fp32_warm_ms": k10["warm_ms"],
+         "k10_digest": k10b["k10_digest"],
+         "timing": "ms: cold (buffers beyond twice the L2); copy_ms: copy_ of the taken frames' "
+                   "bf16 bytes, cold; fp32_ms: K10's fp32 mode at the same step in this run; "
+                   "bit-equal to the plain version (JAX's bf16 JPEG steps spelled out) in every "
+                   "case of B1",
+         "shapes": f"ms: jpeg_subset_ in place on ({K10_FRAMES}, 224, 224, 3) bf16, "
+                   f"{K10_TAKEN} taken, plan1_2's step; launches: one bf16 training epoch of "
+                   "s3d under plan1_2 (B3), one a step"},
+    ]
+    rows[1]["bf16_train_eval_launches"] = b2["cvit"]["launches"]["K2"]
+    rows[4]["bf16_launches"] = {n: b4[n]["int8_launches"]["K5"] for n in b4}
     log(json.dumps({"training": {"cvit": dict(t2, vs_cpu=t3),
                                  "cvit_repbn8": dict(t4, vs_cpu=t4_cpu),
-                                 "s3d_family": s3, "s3d_vs_cpu": s4, "s3d_scoring": s5}}))
+                                 "s3d_family": s3, "s3d_vs_cpu": s4, "s3d_scoring": s5,
+                                 "bf16": {"cvit": dict(b2["cvit"], vs_cpu=b2_cpu["cvit"]),
+                                          "cvit_repbn8": dict(b2["cvit_repbn8"],
+                                                              vs_cpu=b2_cpu["cvit_repbn8"]),
+                                          "s3d_family": b3, "s3d_vs_cpu": b3_cpu,
+                                          "s3d_scoring": b4}}}, default=str))
     log(json.dumps({"kernels": rows}))
     # ---- 16. result -----------------------------------------------------------
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -37,7 +37,10 @@ runs 10 quantize passes, not 11 (`walk_counts` gives each spec's).
 
 The walk is NDHWC inside (the kernels' layout); `S3DInt8.forward` takes
 what `S3DNet.forward` takes, (B, 3, T, H, W) in ``channels_last_3d``
-memory, fp or uint8, and returns (B, num_class) fp32 logits.
+memory, fp or uint8, and returns (B, num_class) fp32 logits. The int8
+walk's activations are in the model's dtype (JAX :110, :138): for a bf16
+model K5 writes bf16 (its bf16 out mode), and the fp blocks, pools and head
+run in bf16; calibration is fp32, as JAX's.
 
     engine = quantize_s3d(model, calib_clips)   # one folded fp32 walk
     logits = engine(clips)                      # the int8 walk
@@ -204,7 +207,9 @@ class S3DInt8(nn.Module):
         self.spec = model.spec
         self.srm = model.srm
         self.num_class = model.num_class
-        self.dtype = torch.float32
+        # the int8 walk's activations in the model's dtype (JAX :110, :138);
+        # calibration and the folded walk run in fp32
+        self.dtype = getattr(model, "dtype", torch.float32)
         if self.srm != "none":
             self.register_buffer("srm_weight", model.srm_weight.clone(), persistent=False)
         self.fp = nn.ModuleDict({f"l{i}": copy.deepcopy(model.base[i])
@@ -235,7 +240,7 @@ class S3DInt8(nn.Module):
         """``folded`` given: the fp32 walk with those convs (``build``: record
         each conv's qparams); else the int8 walk."""
         int8 = folded is None
-        dt = self.dtype
+        dt = self.dtype if int8 else torch.float32
 
         def conv(x, key, geom: Geom, act, xq=None, s_x=None, out=None, c0=0, to=None):
             """``to``: the conv that alone reads this one's output; the int8

@@ -80,6 +80,19 @@ def apply_dotted(cfg: Any, dotted: List[str]) -> Any:
     return cfg
 
 
+DTYPES = ("float32", "bfloat16")
+
+
+def torch_dtype(name: str, field: str = "model.dtype"):
+    """A compute dtype's name in a config (``model.dtype``, or
+    ``data.augment.compute_dtype`` once "auto" is resolved) as a torch
+    dtype; ``field`` names it in the error for any other name."""
+    import torch
+    if name not in DTYPES:
+        raise ValueError(f"{field}={name!r}: one of {DTYPES}")
+    return getattr(torch, name)
+
+
 def load_yaml(cfg: Any, path: str) -> Any:
     import yaml
 

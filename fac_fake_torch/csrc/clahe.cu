@@ -1,7 +1,11 @@
 // K7: the strong_aug chain's CLAHE step. In place on a batch of (N, H, W, 3)
-// float32 RGB images in [0, 1]: each of the first k_budget images whose
-// `take` byte is set (in index order) gets CLAHE on its luma, clip limit and
-// tile grid as cv2's; every other image keeps its bits.
+// float32 or bfloat16 RGB images in [0, 1]: each of the first k_budget
+// images whose `take` byte is set (in index order) gets CLAHE on its luma,
+// clip limit and tile grid as cv2's; every other image keeps its bits. The
+// bf16 mode is JAX's bf16 chain (data/augment.py:805-809: CLAHE of
+// sub.astype(float32), cast back): each value loaded as bf16 is exact in
+// fp32, every operation below is the fp32 mode's, and the store rounds to
+// bf16 (round to nearest even).
 //
 // Replaces: fac_fake_tpu/data/augment.py:274 clahe_luma, vmapped over the
 // CLAHE subset of augment_batch (:802-811) by _subset_apply (:608-618): a
@@ -53,6 +57,8 @@
 //      to RGB, divides by 255, clips to [0, 1] and writes the image's rows.
 //      Grid 1 (JAX's rule for odd or sub-2-pixel tiles) is one CTA a slot,
 //      one LUT, no blend.
+// In the bf16 mode the staged band stays RGB (6 B a pixel, half the fp32
+// band): the blend computes each pixel's Y, Cb, Cr again from it.
 // A band that does not fit in shared memory (a large image at grid 1), or
 // whose rows are not 16-byte multiples, is read from device memory twice in
 // the same kernel: once for the histograms, once for the blend (its Y, Cb,
@@ -68,6 +74,7 @@
 // 132, and each CTA's phases (the load's latency, the pixels' work through
 // shared memory, the cluster barriers) run one after another (PERF.md §6).
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,8 +100,8 @@ constexpr float kCr2R = (float)1.402, kCb2G = (float)0.344136, kCr2G = (float)0.
 constexpr float kCb2B = (float)1.772;
 
 struct Args {
-  const float* src;      // (N, H, W, 3); src == dst in place
-  float* dst;
+  const void* src;       // (N, H, W, 3) of the mode's type; src == dst in place
+  void* dst;
   const uint8_t* take;   // (N,) bools, or null: slot s takes image s
   int n, h, w, grid;
   int rows;              // tile rows a CTA owns (the last CTA of a cluster may own fewer)
@@ -107,6 +114,13 @@ struct Args {
 struct YCbCr {
   float y, cb, cr;
 };
+
+// the image element: fp32, or bf16 loaded exactly and stored rounded to
+// nearest even
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ YCbCr to_ycbcr(float r8, float g8, float b8) {
   const float r = __fmul_rn(r8, 255.0f);
@@ -221,7 +235,12 @@ __device__ int find_taker(const uint8_t* take, int n, int s) {
   return who != 0 ? __shfl_sync(0xffffffffu, found, __ffs(who) - 1) : -1;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads) clahe_subset(const Args a) {
+  // fp32 staged: each pixel's RGB is replaced in place by (bin, Cb, Cr)
+  constexpr bool kFp32 = sizeof(T) == 4;
+  const T* src = static_cast<const T*>(a.src);
+  T* dst = static_cast<T*>(a.dst);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[kChunks];
   __shared__ int found;
@@ -248,7 +267,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads) clahe_subset(
   float* lut = reinterpret_cast<float*>(smem);
   int* hist = reinterpret_cast<int*>(lut);
   int4* rowtab = reinterpret_cast<int4*>(lut + (a.rows + 2) * row_floats);
-  float* band = reinterpret_cast<float*>(rowtab + a.rows * th);
+  T* band = reinterpret_cast<T*>(rowtab + a.rows * th);
   const int rows_chunk = (band_rows + kChunks - 1) / kChunks;
 
   // ---- 0. the image (warp 0), and what does not depend on it -----------------
@@ -269,8 +288,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads) clahe_subset(
     if (img >= 0 && a.staged && lane < kChunks && lane * rows_chunk < band_rows) {
       const int rc = min(rows_chunk, band_rows - lane * rows_chunk);
       const size_t off = static_cast<size_t>(lane) * rows_chunk * w * 3;
-      bulk_load(band + off, a.src + (static_cast<size_t>(img) * a.h + row0) * w * 3 + off,
-                static_cast<uint32_t>(rc) * w * 12, &bars[lane]);
+      bulk_load(band + off, src + (static_cast<size_t>(img) * a.h + row0) * w * 3 + off,
+                static_cast<uint32_t>(rc) * w * 3 * sizeof(T), &bars[lane]);
     }
   }
 #pragma unroll 1
@@ -292,12 +311,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads) clahe_subset(
   const int img = found;
   if (img < 0) return;                       // so does every CTA of the cluster
   const size_t at = (static_cast<size_t>(img) * a.h + row0) * w * 3;
-  const float* gsrc = a.src + at;
-  float* gdst = a.dst + at;
+  const T* gsrc = src + at;
+  T* gdst = dst + at;
 
   // ---- 1. histograms ---------------------------------------------------------
-  // staged, each pixel's RGB in shared memory is replaced by (bin, Cb, Cr)
-  const float* in = a.staged ? band : gsrc;
+  // staged fp32, each pixel's RGB in shared memory is replaced by (bin, Cb, Cr)
+  const T* in = a.staged ? band : gsrc;
 #pragma unroll 1
   for (int j = jt; j < w; j += a.cw) {
     const int hcol = (j / tw) * kBins;
@@ -308,12 +327,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads) clahe_subset(
 #pragma unroll 2
       for (int i = c * rows_chunk + it; i < i1; i += a.rstep) {
         const size_t p = static_cast<size_t>(i) * w + j;
-        const float* q = in + p * 3;
-        const YCbCr ycc = to_ycbcr(q[0], q[1], q[2]);
+        const T* q = in + p * 3;
+        const YCbCr ycc = to_ycbcr(load(q), load(q + 1), load(q + 2));
         const int bin = luma_bin(ycc.y);
         atomicAdd(&hist[rowtab[i].x + hcol + bin], 1);
-        if (a.staged) {
-          float* o = band + p * 3;
+        if (kFp32 && a.staged) {
+          float* o = reinterpret_cast<float*>(band) + p * 3;
           o[0] = __int_as_float(bin);
           o[1] = ycc.cb;
           o[2] = ycc.cr;
@@ -390,14 +409,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads) clahe_subset(
       const size_t p = static_cast<size_t>(i) * w + j;
       int bin;
       float cb, cr;
-      if (a.staged) {
-        const float* q = band + p * 3;
+      if (kFp32 && a.staged) {
+        const float* q = reinterpret_cast<const float*>(band) + p * 3;
         bin = __float_as_int(q[0]);
         cb = q[1];
         cr = q[2];
       } else {
-        const float* q = gsrc + p * 3;
-        const YCbCr ycc = to_ycbcr(q[0], q[1], q[2]);
+        const T* q = (a.staged ? band : gsrc) + p * 3;
+        const YCbCr ycc = to_ycbcr(load(q), load(q + 1), load(q + 2));
         bin = luma_bin(ycc.y);
         cb = ycc.cb;
         cr = ycc.cr;
@@ -405,36 +424,30 @@ __global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads) clahe_subset(
       const int4 ry = rowtab[i];
       const float3 o = blend_rgb(lut + bin, cb, cr, ry.y, ry.z, __int_as_float(ry.w), x0, x1,
                                  wx, ax, one_tile);
-      float* d = gdst + p * 3;
-      d[0] = o.x;
-      d[1] = o.y;
-      d[2] = o.z;
+      T* d = gdst + p * 3;
+      store(d, o.x);
+      store(d + 1, o.y);
+      store(d + 2, o.z);
     }
   }
 }
 
-}  // namespace
-
-// src, dst: (n, h, w, 3) fp32 (the same pointer in place); take: (n,) bools or
-// null; k_budget: slots (<= n); grid: 1, or dividing h and w into even tiles.
-// Returns cudaErrorInvalidValue where a CTA's LUTs (rows + 2 tile rows of
-// them, rows = ceil(grid / 8)) and row and column tables do not fit in its
-// shared memory.
-extern "C" int fac_clahe_subset(const float* src, float* dst, const uint8_t* take, int n,
-                                int k_budget, int h, int w, int grid, int limit, float scale,
-                                cudaStream_t stream) {
-  if (k_budget <= 0) return 0;
+template <typename T>
+int launch(const void* src, void* dst, const uint8_t* take, int n, int k_budget, int h, int w,
+           int grid, int limit, float scale, cudaStream_t stream) {
   const int rows = (grid + kMaxCluster - 1) / kMaxCluster;
   const int ctas = (grid + rows - 1) / rows;
   const int band_rows = rows * (h / grid);
   const size_t fixed = static_cast<size_t>(rows + 2) * grid * kBins * 4 +
                        static_cast<size_t>(band_rows) * 16;
-  const size_t band_bytes = static_cast<size_t>(band_rows) * w * 12;
+  const size_t band_bytes = static_cast<size_t>(band_rows) * w * 3 * sizeof(T);
   if (fixed > static_cast<size_t>(kSmemDynMax)) return cudaErrorInvalidValue;
-  const bool staged = w % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+  // a row of the band a multiple of 16 bytes, for the bulk copies
+  const bool staged = (w * 3 * sizeof(T)) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
                       fixed + band_bytes <= static_cast<size_t>(kSmemDynMax);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      clahe_subset, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDynMax);
+      clahe_subset<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDynMax);
   if (attr != cudaSuccess) return attr;
   // a thread a column (up to kMaxThreads of them), and as many rows at a
   // time as the rest allows; whole warps
@@ -458,6 +471,22 @@ extern "C" int fac_clahe_subset(const float* src, float* dst, const uint8_t* tak
   cfg.stream = stream;
   cfg.attrs = at;
   cfg.numAttrs = 2;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, clahe_subset, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, clahe_subset<T>, a);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace
+
+// src, dst: (n, h, w, 3), fp32 or with bf16 = 1 bfloat16 (the same pointer
+// in place); take: (n,) bools or null; k_budget: slots (<= n); grid: 1, or
+// dividing h and w into even tiles. Returns cudaErrorInvalidValue where a
+// CTA's LUTs (rows + 2 tile rows of them, rows = ceil(grid / 8)) and row and
+// column tables do not fit in its shared memory.
+extern "C" int fac_clahe_subset(const void* src, void* dst, const uint8_t* take, int n,
+                                int k_budget, int h, int w, int grid, int limit, float scale,
+                                int bf16, cudaStream_t stream) {
+  if (k_budget <= 0) return 0;
+  return bf16 ? launch<__nv_bfloat16>(src, dst, take, n, k_budget, h, w, grid, limit, scale,
+                                      stream)
+              : launch<float>(src, dst, take, n, k_budget, h, w, grid, limit, scale, stream);
 }

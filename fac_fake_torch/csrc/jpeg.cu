@@ -1,7 +1,17 @@
 // K10: the S3D train transform's JPEG compression step. In place on a batch
-// of (N, H, W, 3) float32 RGB frames in [0, 1], H and W multiples of 16: each
-// frame whose `take` byte is set becomes its JPEG at quality[n] (8x8 block
-// DCT quantization, 4:2:0 chroma); every other frame keeps its bits.
+// of (N, H, W, 3) float32 or bfloat16 RGB frames in [0, 1], H and W
+// multiples of 16: each frame whose `take` byte is set becomes its JPEG at
+// quality[n] (8x8 block DCT quantization, 4:2:0 chroma); every other frame
+// keeps its bits.
+//
+// The bf16 mode is JAX's bf16 chain (data/augment.py:707: jpeg_compress on
+// the bf16 frames, .astype(bf16)), whose steps ops/jpeg.py
+// jpeg_compress_plain spells out: RGB x 255 to Y, Cb, Cr in bf16 arithmetic
+// (each product and sum rounded to bf16, the JFIF constants rounded to bf16,
+// as JAX's weak Python floats are); the chroma 2x2 mean summed in fp32 and
+// rounded to bf16; block - 128 rounded to bf16; the DCTs, the quantization
+// and the way back to RGB in fp32 as the fp32 mode; the store rounded to
+// bf16 (nearest even). A bf16 band halves the bulk-copy bytes.
 //
 // Replaces: fac_fake_tpu/data/augment.py:415 jpeg_compress (with
 // _rgb_to_ycbcr :258, _jpeg_quality_table :397, _dct_quantize :404,
@@ -59,6 +69,7 @@
 // add issued apart) is not far below it on the CUDA cores, so the two
 // buffers let one item's copies run under another's compute. No tensor
 // cores: bit-equality needs fp32 sums in a fixed order.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,13 +104,62 @@ __constant__ float kChroma[64] = {
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
 
 struct Args {
-  float* x;               // (N, H, W, 3), in place
+  void* x;                // (N, H, W, 3) of the mode's type, in place
   const uint8_t* take;    // (N,)
   const float* quality;   // (N,)
   int n, h, w;
   int mcu_w, chunks, mcus, per_frame;  // MCUs across, chunks a band, MCUs a chunk, items a frame
   float d[8][8];          // the DCT matrix D[u][x]: ops/jpeg.py dct8, built on the host
 };
+
+// a value rounded to bf16 (nearest even) and back: one bf16 operation's result
+__device__ __forceinline__ float rb(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// Two pixels' RGB (6 values) of a row of the item's buffer, and back
+__device__ __forceinline__ void load6(const float* p, float (&v)[6]) {
+  const float2* q = reinterpret_cast<const float2*>(p);
+  const float2 a = q[0], b = q[1], c = q[2];
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y, v[4] = c.x, v[5] = c.y;
+}
+__device__ __forceinline__ void load6(const __nv_bfloat16* p, float (&v)[6]) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  for (int i = 0; i < 3; ++i) {
+    const float2 f = __bfloat1622float2(q[i]);
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store6(float* p, const float* v) {
+  float2* q = reinterpret_cast<float2*>(p);
+  q[0] = make_float2(v[0], v[1]);
+  q[1] = make_float2(v[2], v[3]);
+  q[2] = make_float2(v[4], v[5]);
+}
+__device__ __forceinline__ void store6(__nv_bfloat16* p, const float* v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  for (int i = 0; i < 3; ++i) q[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+}
+
+// A pixel's Y - 128 and its Cb, Cr (Y, Cb, Cr each rounded to bf16 op by op
+// in the bf16 mode: the mode's values, in the plain version's order)
+template <bool B>
+__device__ __forceinline__ void to_ycbcr(float r8, float g8, float b8, float& lum, float& cb,
+                                         float& cr) {
+  auto o = [](float v) { return B ? rb(v) : v; };
+  const float rr = o(__fmul_rn(r8, 255.f)), gg = o(__fmul_rn(g8, 255.f)),
+              bb = o(__fmul_rn(b8, 255.f));
+  const float yr = B ? rb(kYR) : kYR, yg = B ? rb(kYG) : kYG, yb = B ? rb(kYB) : kYB;
+  const float br = B ? rb(kBR) : kBR, bg = B ? rb(kBG) : kBG, bq = B ? rb(kBB) : kBB;
+  const float cq = B ? rb(kRR) : kRR, cg = B ? rb(kRG) : kRG, cbq = B ? rb(kRB) : kRB;
+  const float y = o(__fadd_rn(o(__fadd_rn(o(__fmul_rn(yr, rr)), o(__fmul_rn(yg, gg)))),
+                              o(__fmul_rn(yb, bb))));
+  cb = o(__fadd_rn(
+      o(__fadd_rn(o(__fsub_rn(o(__fmul_rn(br, rr)), o(__fmul_rn(bg, gg)))), o(__fmul_rn(bq, bb)))),
+      128.f));
+  cr = o(__fadd_rn(
+      o(__fsub_rn(o(__fsub_rn(o(__fmul_rn(cq, rr)), o(__fmul_rn(cg, gg)))), o(__fmul_rn(cbq, bb)))),
+      128.f));
+  lum = o(__fsub_rn(y, 128.f));
+}
 
 // libjpeg quality scaling, as quality_table: q already clipped to [1, 100]
 __device__ __forceinline__ float table_entry(float base, float q) {
@@ -201,21 +261,25 @@ __device__ int kth_taken(const uint8_t* take, int n, int k, int& base, int& befo
 }
 
 // A work item: its first pixel in x and its MCUs across
+template <typename T>
 struct Item {
-  float* g;
+  T* g;
   int mcus;
 };
 
-__device__ __forceinline__ Item item_at(const Args& a, int item, int frame) {
+template <typename T>
+__device__ __forceinline__ Item<T> item_at(const Args& a, int item, int frame) {
   const int r = item % a.per_frame, band = r / a.chunks;
   const int c0 = (r - band * a.chunks) * a.mcus;
-  return {a.x + (static_cast<size_t>(frame) * a.h + band * 16) * a.w * 3 + c0 * 48,
+  return {static_cast<T*>(a.x) + (static_cast<size_t>(frame) * a.h + band * 16) * a.w * 3 +
+              c0 * 48,
           min(a.mcus, a.mcu_w - c0)};
 }
 
 // thread 0: the item's 16 row segments into ``buf``
-__device__ void load_item(const Args& a, const Item& it, float* buf, uint64_t* bar) {
-  const uint32_t row = it.mcus * 192;
+template <typename T>
+__device__ void load_item(const Args& a, const Item<T>& it, T* buf, uint64_t* bar) {
+  const uint32_t row = it.mcus * 48 * sizeof(T);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(16 * row)
                : "memory");
@@ -228,8 +292,9 @@ __device__ void load_item(const Args& a, const Item& it, float* buf, uint64_t* b
 }
 
 // thread 0: ``buf`` over the item's 16 row segments
-__device__ void store_item(const Args& a, const Item& it, const float* buf) {
-  const uint32_t row = it.mcus * 192;
+template <typename T>
+__device__ void store_item(const Args& a, const Item<T>& it, const T* buf) {
+  const uint32_t row = it.mcus * 48 * sizeof(T);
   if (it.mcus == a.mcu_w) {
     bulk_store(it.g, buf, 16 * row);
   } else {
@@ -274,8 +339,11 @@ __device__ __forceinline__ void quantize_row(float (&o)[8], const float* tab, co
   for (int k = 0; k < 8; ++k) o[k] = quantize(o[k], tq[k], rq[k]);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) jpeg_bands(const __grid_constant__ Args a) {
-  extern __shared__ __align__(128) float smem[];
+  constexpr bool kBf16 = sizeof(T) == 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ __align__(8) uint64_t bars[2];
   __shared__ __align__(16) float tab[2][64];    // the item's luma and chroma tables
   __shared__ __align__(16) float rtab[2][64];   // their reciprocals, RN(1 / entry)
@@ -283,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, 2) jpeg_bands(const __grid_constant_
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const float r255 = __fdiv_rn(1.f, 255.f);
   const int buf_floats = a.mcus * kItemFloats;   // an item buffer; there are two
-  float* blk = smem + 2 * buf_floats;   // 4 m luma, m Cb, m Cr blocks
+  float* blk = reinterpret_cast<float*>(smem + 2 * buf_floats);   // 4 m luma, m Cb, m Cr blocks
 
   if (t == 0) {
     for (int i = 0; i < 2; ++i)
@@ -296,12 +364,12 @@ __global__ void __launch_bounds__(kThreads, 2) jpeg_bands(const __grid_constant_
   int item = blockIdx.x;
   int frame = kth_taken(a.take, a.n, item / a.per_frame, base, before, counts, &found);
   if (frame < 0) return;
-  Item it = item_at(a, item, frame);
+  Item<T> it = item_at<T>(a, item, frame);
   if (t == 0) load_item(a, it, smem, &bars[0]);
 
 #pragma unroll 1
   for (int j = 0;; ++j) {
-    float* buf = smem + (j & 1) * buf_floats;
+    T* buf = smem + (j & 1) * buf_floats;
     const int m = it.mcus, cells_w = 8 * m, row_f = 48 * m;
     const int cell_magic = ((1 << 20) + cells_w - 1) / cells_w;
     const int next = item + gridDim.x;
@@ -327,29 +395,22 @@ __global__ void __launch_bounds__(kThreads, 2) jpeg_bands(const __grid_constant_
       float cbs[4], crs[4];
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
-        const float2* p = reinterpret_cast<const float2*>(buf + (2 * ci + dy) * row_f + cj * 6);
-        const float2 p0 = p[0], p1 = p[1], p2 = p[2];
-        const float px[2][3] = {{p0.x, p0.y, p1.x}, {p1.y, p2.x, p2.y}};
+        float px[6];
+        load6(buf + (2 * ci + dy) * row_f + cj * 6, px);
 #pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const float rr = __fmul_rn(px[dx][0], 255.f), gg = __fmul_rn(px[dx][1], 255.f),
-                      bb = __fmul_rn(px[dx][2], 255.f);
-          const float y = __fadd_rn(__fadd_rn(__fmul_rn(kYR, rr), __fmul_rn(kYG, gg)),
-                                    __fmul_rn(kYB, bb));
-          cbs[dy * 2 + dx] = __fadd_rn(
-              __fadd_rn(__fsub_rn(__fmul_rn(kBR, rr), __fmul_rn(kBG, gg)), __fmul_rn(kBB, bb)),
-              128.f);
-          crs[dy * 2 + dx] = __fadd_rn(
-              __fsub_rn(__fsub_rn(__fmul_rn(kRR, rr), __fmul_rn(kRG, gg)), __fmul_rn(kRB, bb)),
-              128.f);
-          lum[dy * kRow + dx] = __fsub_rn(y, 128.f);
-        }
+        for (int dx = 0; dx < 2; ++dx)
+          to_ycbcr<kBf16>(px[3 * dx], px[3 * dx + 1], px[3 * dx + 2], lum[dy * kRow + dx],
+                          cbs[dy * 2 + dx], crs[dy * 2 + dx]);
       }
+      // the 2x2 mean in fp32 (rounded to bf16 in the bf16 mode), then - 128
+      auto o = [](float v) { return kBf16 ? rb(v) : v; };
       const int at = (cj >> 3) * kBlk + ci * kRow + (cj & 7);
-      cbb[at] = __fsub_rn(
-          __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(cbs[0], cbs[1]), cbs[2]), cbs[3]), 0.25f), 128.f);
-      crb[at] = __fsub_rn(
-          __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(crs[0], crs[1]), crs[2]), crs[3]), 0.25f), 128.f);
+      cbb[at] = o(__fsub_rn(
+          o(__fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(cbs[0], cbs[1]), cbs[2]), cbs[3]), 0.25f)),
+          128.f));
+      crb[at] = o(__fsub_rn(
+          o(__fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(crs[0], crs[1]), crs[2]), crs[3]), 0.25f)),
+          128.f));
     }
     __syncthreads();
 
@@ -357,7 +418,7 @@ __global__ void __launch_bounds__(kThreads, 2) jpeg_bands(const __grid_constant_
     // waited for, and the next item's rows fill it under this item's DCTs
     if (t == 0 && next_frame >= 0) {
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      load_item(a, item_at(a, next, next_frame), smem + ((j + 1) & 1) * buf_floats,
+      load_item(a, item_at<T>(a, next, next_frame), smem + ((j + 1) & 1) * buf_floats,
                 &bars[(j + 1) & 1]);
     }
 
@@ -420,12 +481,7 @@ __global__ void __launch_bounds__(kThreads, 2) jpeg_bands(const __grid_constant_
         out[3 * i + 2] = unit(__fadd_rn(y, bc), r255);
       }
 #pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        float2* p = reinterpret_cast<float2*>(buf + (2 * ci + dy) * row_f + cj * 6);
-        p[0] = make_float2(out[6 * dy + 0], out[6 * dy + 1]);
-        p[1] = make_float2(out[6 * dy + 2], out[6 * dy + 3]);
-        p[2] = make_float2(out[6 * dy + 4], out[6 * dy + 5]);
-      }
+      for (int dy = 0; dy < 2; ++dy) store6(buf + (2 * ci + dy) * row_f + cj * 6, out + 6 * dy);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // to the bulk store
     __syncthreads();
@@ -433,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, 2) jpeg_bands(const __grid_constant_
     if (next_frame < 0) break;
     item = next;
     frame = next_frame;
-    it = item_at(a, item, frame);
+    it = item_at<T>(a, item, frame);
   }
   if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
@@ -467,11 +523,11 @@ __global__ void __launch_bounds__(256) div_check(unsigned long long* bad) {
 
 }  // namespace
 
-// chunks, mcus: ops/jpeg.py band_chunks(h, w); dct: the 64 floats of dct8 in
-// host memory
-extern "C" int fac_jpeg_subset(float* x, const uint8_t* take, const float* quality,
+// x: (n, h, w, 3), fp32 or with bf16 = 1 bfloat16; chunks, mcus: ops/jpeg.py
+// band_chunks(h, w); dct: the 64 floats of dct8 in host memory
+extern "C" int fac_jpeg_subset(void* x, const uint8_t* take, const float* quality,
                                const float* dct, int n, int h, int w, int chunks, int mcus,
-                               cudaStream_t stream) {
+                               int bf16, cudaStream_t stream) {
   if (n <= 0) return 0;
   const int mcu_w = w / 16;
   if (h <= 0 || w <= 0 || h % 16 || w % 16 || mcus < 1 || mcus > kMaxChunk ||
@@ -493,19 +549,24 @@ extern "C" int fac_jpeg_subset(float* x, const uint8_t* take, const float* quali
   a.per_frame = static_cast<int>(per_frame);
   for (int i = 0; i < 64; ++i) a.d[i / 8][i % 8] = dct[i];
   // two item buffers and the item's blocks
-  const int smem = mcus * (2 * kItemFloats + 6 * kBlk) * 4;
-  cudaError_t e = cudaFuncSetAttribute(jpeg_bands, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem);
+  const int esize = bf16 ? 2 : 4;
+  const int smem = mcus * (2 * kItemFloats * esize + 6 * kBlk * 4);
+  const void* fn = bf16 ? reinterpret_cast<const void*>(jpeg_bands<__nv_bfloat16>)
+                        : reinterpret_cast<const void*>(jpeg_bands<float>);
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jpeg_bands, kThreads, smem)) !=
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem)) !=
           cudaSuccess)
     return static_cast<int>(e);
   const long long grid = std::min<long long>(static_cast<long long>(sms) * std::max(per_sm, 1),
                                              per_frame * n);
-  jpeg_bands<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(a);
+  if (bf16)
+    jpeg_bands<__nv_bfloat16><<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(a);
+  else
+    jpeg_bands<float><<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

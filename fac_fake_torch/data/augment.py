@@ -30,10 +30,15 @@ Every draw comes from one `torch.Generator` on the batch's device, in a fixed
 order (`draw`; the S3D draws only where their options are on, so the CViT
 chain's stream is unchanged); the numbers are not `jax.random`'s, so the
 tests compare each op at fixed parameters and the coins by their rates.
-The bf16 chain raises (ROADMAP queue 1 item 11); TPU-only tuning (the bf16
-one-hot CLAHE matmul, `_gather_rows`) is not carried over.
+TPU-only tuning (the bf16 one-hot CLAHE matmul, `_gather_rows`) is not
+carried over.
 
-Images are float32 NHWC in [0, 1].
+Images are NHWC in [0, 1], in ``compute_dtype``: float32 (``auto`` here;
+the trainer resolves it from the model's dtype) or bfloat16, JAX's bf16
+chain: the batch ``bf16(u8) / 255`` in bf16; the noise, the per-image 3×3
+kernel and bias, the gray weights and the affine matrices cast to the
+images' dtype; FancyPCA's covariance, HSV and CLAHE (K7's bf16 mode) in
+fp32 on their images, cast back; the JPEG step K10's bf16 mode.
 """
 from __future__ import annotations
 
@@ -44,15 +49,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fac_fake_torch.core.config import AugmentConfig
+from fac_fake_torch.core.config import AugmentConfig, torch_dtype
 from fac_fake_torch.ops import augment as ops_augment
 from fac_fake_torch.ops import jpeg as ops_jpeg
 
 
-def check_config(cfg: AugmentConfig) -> None:
-    if cfg.compute_dtype not in ("auto", "float32"):
-        raise NotImplementedError(f"augment.compute_dtype={cfg.compute_dtype!r}: bf16 training "
-                                  "is ROADMAP queue 1 item 11")
+def check_config(cfg: AugmentConfig) -> torch.dtype:
+    """The chain's dtype; raises for an unknown one (``auto``: float32; the
+    trainer resolves ``auto`` from the model's dtype before it calls the
+    chain)."""
+    name = "float32" if cfg.compute_dtype == "auto" else cfg.compute_dtype
+    return torch_dtype(name, "augment.compute_dtype")
 
 
 # --- the dihedral group (rot90 × transpose × flips in one select) ------------
@@ -127,9 +134,10 @@ def emboss_kernel(alpha: torch.Tensor, strength: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_per_image(x: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) × (B, 3, 3) → the depthwise 3×3 conv with each image's
-    kernel on every channel, zero padding: nine weighted shifted adds in
-    JAX's order."""
+    kernel (cast to ``x``'s dtype) on every channel, zero padding: nine
+    weighted shifted adds in JAX's order."""
     h, w = x.shape[1], x.shape[2]
+    kern = kern.to(x.dtype)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     out = torch.zeros_like(x)
     for dy in range(3):
@@ -191,11 +199,12 @@ def batch_affine_matmul(imgs: torch.Tensor, angle: torch.Tensor, scale: torch.Te
     s = torch.sin(angle)
     rows = torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) / 2.0
     cols = torch.arange(w, dtype=torch.float32, device=dev) - (w - 1) / 2.0
-    x = torch.einsum("hvw,bhwc->bhvc", _shift_matrix(w, a * rows - tx), imgs)   # shear x
-    x = torch.einsum("wvh,bhwc->bvwc", _shift_matrix(h, s * cols - ty), x)      # shear y
-    x = torch.einsum("hvw,bhwc->bhvc", _shift_matrix(w, a * rows), x)           # shear x
-    x = torch.einsum("vh,bhwc->bvwc", _scale_matrix(h, scale), x)               # zoom y
-    return torch.einsum("uw,bhwc->bhuc", _scale_matrix(w, scale), x)            # zoom x
+    dt = imgs.dtype                     # the matrices in the images' dtype, as JAX's
+    x = torch.einsum("hvw,bhwc->bhvc", _shift_matrix(w, a * rows - tx).to(dt), imgs)  # shear x
+    x = torch.einsum("wvh,bhwc->bvwc", _shift_matrix(h, s * cols - ty).to(dt), x)     # shear y
+    x = torch.einsum("hvw,bhwc->bhvc", _shift_matrix(w, a * rows).to(dt), x)          # shear x
+    x = torch.einsum("vh,bhwc->bvwc", _scale_matrix(h, scale).to(dt), x)              # zoom y
+    return torch.einsum("uw,bhwc->bhuc", _scale_matrix(w, scale).to(dt), x)           # zoom x
 
 
 # --- subsets ------------------------------------------------------------------------
@@ -228,7 +237,10 @@ def _on(cfg: AugmentConfig):
 
 
 def _gray(x: torch.Tensor) -> torch.Tensor:
-    return 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    """ToGray's luma; its weights rounded to ``x``'s dtype, as JAX's weak
+    Python floats are."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    return c(0.299) * x[..., 0] + c(0.587) * x[..., 1] + c(0.114) * x[..., 2]
 
 
 def draw(n: int, hw: tuple, cfg: AugmentConfig, gen: torch.Generator,
@@ -304,7 +316,7 @@ def fancy_pca_delta(x: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     """albumentations FancyPCA(alpha=.1) as a per-image RGB bias: (B, H, W, 3)
     and (B, 3) N(0, .1) draws → (B, 3), ``evecs @ (alphas · evals)`` of each
     image's fp32 pixel covariance."""
-    px = x.reshape(x.shape[0], -1, 3)
+    px = x.reshape(x.shape[0], -1, 3).float()
     centered = px - px.mean(dim=1, keepdim=True)
     cov = torch.einsum("npc,npd->ncd", centered, centered) \
         / torch.full((1,), float(px.shape[1]), device=x.device)
@@ -326,7 +338,7 @@ def _dihedral_reach(cfg: AugmentConfig, h: int, w: int) -> tuple:
 
 def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig,
                 owned: bool = False) -> torch.Tensor:
-    """The chain on (B, H, W, 3) float32 ``x`` with the draws ``d``; ``x``
+    """The chain on (B, H, W, 3) ``x`` (fp32 or bf16) with the draws ``d``; ``x``
     itself is not written unless ``owned`` (the caller gives it up, and the
     in-place kernels may work on it)."""
     x_in = x
@@ -341,7 +353,8 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig,
     if "elem" in d:
         x = apply_dihedral(x, d["elem"], _dihedral_reach(cfg, h, w))
     if cfg.gauss_noise:
-        noisy = torch.clamp(x + col(d["sigma"]) * d["noise"], 0.0, 1.0)
+        noise = col(d["sigma"].to(x.dtype)) * d["noise"].to(x.dtype)
+        noisy = torch.clamp(x + noise, 0.0, 1.0)
         x = torch.where(col(d["take_noise"]), noisy, x)
 
     # the fused depthwise conv: kernel = scale_bc · (blur | sharpen | emboss | I),
@@ -371,7 +384,7 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig,
         bias = scale[:, None] * bias + torch.where(tb, b - 0.5 * a, torch.zeros_like(b))[:, None]
         take_conv = take_conv | tb
     if blur_in_conv or cfg.sharpen or emboss_in_conv or cfg.fancy_pca or cfg.brightness_contrast:
-        conv = conv3x3_per_image(x, kern) + bias[:, None, None, :]
+        conv = conv3x3_per_image(x, kern) + bias.to(x.dtype)[:, None, None, :]
         x = torch.where(col(take_conv), torch.clamp(conv, 0.0, 1.0), x)
     # legacy-mode stragglers that co-fire with sharpen (never in the
     # reference's shipped OneOf pipelines): their own passes
@@ -393,13 +406,13 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig,
                                       cfg.clahe_clip_limit)
 
     if cfg.hue_saturation or cfg.color_jitter:
-        def hsv_fn(sub, sdh, sds, sdv):
-            hsv = rgb_to_hsv(sub)
+        def hsv_fn(sub, sdh, sds, sdv):      # in fp32 on its images, cast back
+            hsv = rgb_to_hsv(sub.float())
             shifted = hsv_to_rgb(torch.stack(
                 [hsv[..., 0] + sdh[:, None, None],
                  torch.clamp(hsv[..., 1] + sds[:, None, None], 0.0, 1.0),
                  torch.clamp(hsv[..., 2] + sdv[:, None, None], 0.0, 1.0)], dim=-1))
-            return torch.clamp(shifted, 0.0, 1.0)
+            return torch.clamp(shifted, 0.0, 1.0).to(sub.dtype)
 
         p = cfg.color_oneof_prob / 3.0 if cfg.color_oneof else cfg.hsv_prob
         kb = subset_budget(n, cfg.compose_prob * p)
@@ -424,12 +437,12 @@ def apply_draws(x: torch.Tensor, d: Dict[str, torch.Tensor], cfg: AugmentConfig,
 def augment_batch(batch_u8: torch.Tensor, cfg: AugmentConfig,
                   gen: torch.Generator) -> torch.Tensor:
     """uint8 (B, H, W, 3) (or clips (B, T, H, W, 3), drawn a frame) → the
-    augmented float32 batch in [0, 1], on the batch's device; ``gen`` lies
-    there too."""
-    check_config(cfg)
+    augmented batch in [0, 1] in ``cfg.compute_dtype`` (``auto``: float32),
+    on the batch's device; ``gen`` lies there too."""
+    dt = check_config(cfg)
     # a tensor divisor, as JAX divides (CUDA multiplies by the reciprocal of a
     # Python number)
-    imgs = batch_u8.float() / torch.full((1,), 255.0, device=batch_u8.device)
+    imgs = batch_u8.to(dt) / torch.full((1,), 255.0, device=batch_u8.device, dtype=dt)
     if not cfg.enabled:
         return imgs
     shape = imgs.shape

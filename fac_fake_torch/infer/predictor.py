@@ -30,13 +30,12 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, as_completed
-from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from fac_fake_torch.core.config import Config
+from fac_fake_torch.core.config import Config, torch_dtype
 from fac_fake_torch.core.device import DeviceLike, resolve_device
 from fac_fake_torch.infer.aggregate import aggregate_probs
 from fac_fake_torch.ops.preprocess import normalize_imagenet
@@ -76,7 +75,7 @@ class VideoScorer:
             model = fold_cvit(model)
         self.model = model.to(memory_format=torch.channels_last)
         self.legacy = getattr(model, "pos_mode", "legacy") == "legacy"
-        self.dtype = torch.bfloat16 if self.cfg.model.dtype == "bfloat16" else torch.float32
+        self.dtype = torch_dtype(self.cfg.model.dtype)
         if self.cfg.infer.quantize not in ("none", "int8", "int8_full"):
             raise ValueError(f"infer.quantize {self.cfg.infer.quantize!r}: "
                              "expected none, int8 or int8_full")
@@ -228,19 +227,13 @@ class VideoScorer:
                     crops.append(resize_area(face, (size, size)))
 
     # --- scoring ---------------------------------------------------------
-    def _autocast(self):
-        if self.dtype == torch.bfloat16:
-            return torch.autocast(self.device.type, dtype=torch.bfloat16)
-        return nullcontext()
-
     @torch.inference_mode()
     def _forward(self, crops_u8: np.ndarray, pos_idx: torch.Tensor) -> torch.Tensor:
         # uint8 to the card; there K2 normalizes them (or, for a stem with an
         # int8 walk, makes the walk's int8 input in the same pass)
         x = torch.from_numpy(crops_u8).to(self.device, non_blocking=True)
-        with self._autocast():
-            return self.model.forward_crops(x, self.dtype,
-                                            pos_indices=pos_idx if self.legacy else None)
+        return self.model.forward_crops(x, self.dtype,
+                                        pos_indices=pos_idx if self.legacy else None)
 
     def score_crops(self, crops_u8: np.ndarray) -> float:
         """Score a stack of uint8 RGB 224² crops (B, 224, 224, 3), padded to

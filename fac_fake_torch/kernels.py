@@ -48,10 +48,10 @@ SIGNATURES = {
                      "fac_int8_conv3d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                          ctypes.POINTER(_I), _P]},
     "max_pool3d_i8": {"fac_max_pool3d_i8": [_P, _P, _I, _I, _I, _I, _I, _P]},
-    "clahe": {"fac_clahe_subset": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]},
+    "clahe": {"fac_clahe_subset": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]},
     "hard_nms": {"fac_hard_nms": [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]},
     "kan_bases": {"fac_kan_bases": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
-    "jpeg": {"fac_jpeg_subset": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "jpeg": {"fac_jpeg_subset": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
              "fac_jpeg_div_check": [_P, _P]},
 }
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fac_fake_torch.models.layers import batch_norm
+from fac_fake_torch.models.layers import Conv2d, batch_norm
 
 
 class GGCA(nn.Module):
@@ -25,8 +25,8 @@ class GGCA(nn.Module):
         self.num_groups = num_groups
         cg = channels // num_groups
         mid = max(1, cg // reduction)
-        self.shared_conv = nn.Sequential(nn.Conv2d(cg, mid, 1), batch_norm(mid), nn.ReLU(),
-                                         nn.Conv2d(mid, cg, 1))
+        self.shared_conv = nn.Sequential(Conv2d(cg, mid, 1), batch_norm(mid), nn.ReLU(),
+                                         Conv2d(mid, cg, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape

@@ -93,7 +93,7 @@ class KANLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """JAX :103-108 in order: ``silu(x) @ base_wᵀ + bases(x) @
         (spline_w · scaler)ᵀ``, with the grid and both weights in ``x``'s
-        dtype (bf16 under the scorer's autocast)."""
+        dtype (bf16 in a bf16 model)."""
         spline_w = self.spline_weight * self.spline_scaler[..., None]
         base = F.linear(F.silu(x), self.base_weight.to(x.dtype))
         bases = b_splines(x, self.grid.to(x.dtype), self.spline_order)

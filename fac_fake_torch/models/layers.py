@@ -11,6 +11,15 @@ training (`train/trainer.py`) it normalizes by the batch's statistics and
 updates its running ones as the JAX package does (`BatchNorm2d`), and
 `LinearNorm` runs its schedule's blend.
 
+Precision follows JAX's ``dtype=bfloat16`` modules, with fp32 master
+parameters: `Linear`, `Conv2d`, `Conv3d` compute in their input's dtype
+(the weights cast to it, as flax's ``Dense``/``Conv`` cast theirs), so a
+bf16 input keeps the model in bf16; `LayerNorm` normalizes in fp32 and
+rounds once to its input's dtype (flax's ``LayerNorm(dtype=bf16)``); the
+BatchNorms take JAX's bf16 fast path for a bf16 input (`_FlaxRunningStats`);
+attention scores are fp32 (JAX's ``preferred_element_type``). An fp32 input
+runs exactly the fp32 ops it ran before: every cast is then a no-op.
+
 `QuantConv3x3` and `QuantLinear` are the int8 post-training-quantized
 layers (`fac_fake_tpu/models/layers.py` `QuantConv3x3`, `QuantDense`):
 buffers only, written by `compat/quantize.py`, run by kernels K3 and K4
@@ -35,8 +44,59 @@ LINEAR_NORM_EPS = 1e-6   # the reference's partial(nn.LayerNorm, eps=1e-6)
 LINEAR_NORM_STEPS = 300000   # LinearNorm's total_step, the blend's length
 
 
-def conv3x3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=1, padding=1, bias=True)
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in at least fp32: a bf16 tensor in fp32, fp32 and float64 as
+    they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype (flax ``Dense(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype (flax ``Conv(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` in its input's dtype (flax ``Conv(dtype=...)``). A bf16
+    input on the CPU, and a grouped (depthwise) conv's bf16 input on the
+    card, convolve its values and the bf16 weights in fp32 and round once,
+    which is what a bf16 conv computes: torch's CPU bf16 conv3d returns
+    garbage weight gradients at some shapes (a (3, 1, 1) conv over 2 frames
+    of 2×2 maps, not in ``channels_last_3d``: NaN or 1e33), and cuDNN's bf16
+    grouped 3D convs made the msca family's bf16 train step 3.3× slower than
+    its fp32 one on an H100 (PERF.md §6)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x.dtype)
+        if x.dtype == torch.bfloat16 and (x.device.type == "cpu" or self.groups > 1):
+            return self._conv_forward(x.float(), w.float(), _cast(b, torch.float32)).to(x.dtype)
+        return self._conv_forward(x, w, b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in fp32 and rounded once to its input's
+    dtype (flax ``LayerNorm(dtype=...)``: its statistics and normalize
+    promote to fp32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(widen(x), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+def conv3x3(cin: int, cout: int) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=1, padding=1, bias=True)
 
 
 class _FlaxRunningStats:
@@ -47,9 +107,14 @@ class _FlaxRunningStats:
     channel the two differ by 2B/(2B−1). Flax's decay 0.9 is torch's
     momentum 0.1. The forward is torch's fused batch norm; the running
     variance it wrote is then brought back to the biased rule on the C
-    channels, so no second pass reads the activations."""
+    channels, so no second pass reads the activations.
+
+    A bf16 input takes JAX's bf16 fast path (`Bf16FastBatchNorm`,
+    JAX `models/layers.py:45-88`, `_bf16`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return self._bf16(x)
         if not self.training:
             return super().forward(x)
         n = x.numel() // x.shape[1]          # values a channel
@@ -65,6 +130,30 @@ class _FlaxRunningStats:
             self.running_mean.copy_(mean)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX's bf16 fast path: the batch's mean and biased variance from
+        ``x.float()`` (one fp32 reduction; JAX forms ``max(E[x²] − mean², 0)``,
+        which agrees but for its rounding), the running stats updated in
+        fp32 by flax's rule; then ``w = scale·rsqrt(var + eps)`` and ``b =
+        bias − mean·w`` in fp32, and the output ``x·bf16(w) + bf16(b)`` in
+        bf16, the product and the sum each rounded, as JAX's: a small cvit's
+        bf16 gradient is 4.9% from JAX's this way, 82% with one fused
+        rounding (`tests/test_torch_bf16.py`). In eval, the running stats."""
+        red = [0, *range(2, x.dim())]
+        if self.training:
+            var, mean = torch.var_mean(x.float(), red, correction=0)
+            with torch.no_grad():
+                keep = 1.0 - self.momentum          # flax's decay
+                self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(keep * self.running_var + self.momentum * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        w = self.weight * torch.rsqrt(var + self.eps)
+        b = self.bias - mean * w
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        return x * w.to(x.dtype).view(view) + b.to(x.dtype).view(view)
 
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
@@ -150,7 +239,7 @@ def quant_linear(in_features: int, out_features: int, quant: bool,
     """``nn.Linear``, or its int8 twin when ``quant`` (JAX `dense(quant=)`)."""
     if quant:
         return QuantLinear(in_features, out_features, bias)
-    return nn.Linear(in_features, out_features, bias=bias)
+    return Linear(in_features, out_features, bias=bias)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -170,8 +259,9 @@ class MultiHeadSelfAttention(nn.Module):
         h = self.heads
         qkv = self.to_qkv(x).reshape(b, n, 3, h, self.dim // h)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (b, h, n, hd)
-        dots = torch.matmul(q, k.transpose(-1, -2)) * self.scale
-        attn = torch.softmax(dots.float(), dim=-1).to(v.dtype)
+        # fp32 scores, as JAX's einsum(preferred_element_type=float32)
+        dots = torch.matmul(widen(q), widen(k).transpose(-1, -2)) * self.scale
+        attn = torch.softmax(dots, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, self.dim)
         return self.to_out(out)
 
@@ -226,7 +316,7 @@ class LinearNorm(nn.Module):
         super().__init__()
         self.register_buffer("warm", torch.tensor(0))
         self.register_buffer("iter", torch.tensor(LINEAR_NORM_STEPS))
-        self.norm1 = nn.LayerNorm(dim, eps=LINEAR_NORM_EPS)
+        self.norm1 = LayerNorm(dim, eps=LINEAR_NORM_EPS)
         self.norm2 = RepBN(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -236,17 +326,19 @@ class LinearNorm(nn.Module):
         x2 = self.norm2(x)
         in_warmup = self.warm > 0
         lam = self.iter.float() / float(LINEAR_NORM_STEPS)
-        out = torch.where(in_warmup, x1, lam * x1 + (1.0 - lam) * x2)
+        # JAX's promotions: the fp32 λ blends in fp32 (RepBN's α·x is fp32
+        # too); its one reader, the FFN's first dense, casts to x's dtype
+        out = torch.where(in_warmup, x1, lam * widen(x1) + (1.0 - lam) * x2)
         with torch.no_grad():
             self.warm.copy_(torch.where(in_warmup, self.warm - 1, self.warm))
             self.iter.copy_(torch.where(~in_warmup & (self.iter > 0), self.iter - 1, self.iter))
-        return out
+        return out.to(x.dtype)
 
 
 class PreNorm(nn.Module):
     def __init__(self, dim: int, fn: nn.Module, norm: Optional[nn.Module] = None):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS) if norm is None else norm
+        self.norm = LayerNorm(dim, eps=LN_EPS) if norm is None else norm
         self.fn = fn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -281,4 +373,4 @@ def mlp_head(dim: int, mlp_dim: int, num_classes: int,
     """dim → mlp_dim (ReLU) → num_classes (`model/cvit.py:161-165`). Under
     ``quant`` only the first layer is int8; the 2-logit output stays fp."""
     return nn.Sequential(quant_linear(dim, mlp_dim, quant), nn.ReLU(),
-                         nn.Linear(mlp_dim, num_classes))
+                         Linear(mlp_dim, num_classes))

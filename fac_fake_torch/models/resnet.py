@@ -30,7 +30,7 @@ from torch import nn
 from fac_fake_torch.core.registry import register
 from fac_fake_torch.models.blocks.kan import KAN
 from fac_fake_torch.models.cvit import LEGACY_POS_ROWS, patchify
-from fac_fake_torch.models.layers import TransformerEncoder, batch_norm
+from fac_fake_torch.models.layers import Conv2d, Linear, TransformerEncoder, batch_norm
 from fac_fake_torch.ops import preprocess
 
 LAYER_PLANS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
@@ -39,7 +39,7 @@ RESNET_STRIDE = 32   # the stem's conv and pool, and layers 2-4
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), batch_norm(cout))
+    return nn.Sequential(Conv2d(cin, cout, 1, stride, bias=False), batch_norm(cout))
 
 
 class BasicBlock(nn.Module):
@@ -47,9 +47,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 3, stride, 1, bias=False)
         self.bn1 = batch_norm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = batch_norm(planes)
         self.downsample = _downsample(cin, planes, stride) if downsample else None
 
@@ -68,11 +68,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = planes * self.expansion
         self.relu_before_add = relu_before_add
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = batch_norm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = batch_norm(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.conv3 = Conv2d(planes, out, 1, bias=False)
         self.bn3 = batch_norm(out)
         self.downsample = _downsample(cin, out, stride) if downsample else None
 
@@ -97,7 +97,7 @@ class ResNet(nn.Module):
         if depth not in LAYER_PLANS:
             raise ValueError(f"ResNet depth {depth}: expected one of {sorted(LAYER_PLANS)}")
         block = Bottleneck if depth >= 50 else BasicBlock
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = batch_norm(64)
         self.maxpool = nn.MaxPool2d(3, 2, padding=1)
         cin = 64
@@ -113,7 +113,7 @@ class ResNet(nn.Module):
             setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
         self.squeeze_512 = squeeze_512
         if squeeze_512:
-            self.channel = nn.Conv2d(cin, 512, 1, bias=False)
+            self.channel = Conv2d(cin, 512, 1, bias=False)
             self.bn2 = batch_norm(512)
             cin = 512
         self.out_channels = cin
@@ -154,7 +154,7 @@ class ResVitKan(nn.Module):
         self.features = ResNet(resnet_depth, relu_before_add=big, squeeze_512=big)
         self.patch_size, self.dim, self.pos_mode = patch_size, dim, pos_mode
         ch = self.features.out_channels
-        self.patch_to_embedding = nn.Linear(ch * patch_size ** 2, dim)
+        self.patch_to_embedding = Linear(ch * patch_size ** 2, dim)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         if pos_mode == "legacy":
             self.pos_embedding = nn.Parameter(torch.empty(LEGACY_POS_ROWS, 1, dim))
@@ -165,8 +165,8 @@ class ResVitKan(nn.Module):
             raise ValueError(f"unknown pos_mode {pos_mode}")
         self.transformer = TransformerEncoder(dim, depth, heads, mlp_dim, "ln")
         last = (KAN((mlp_dim, 64, num_classes)) if head == "kan"
-                else nn.Linear(mlp_dim, num_classes))
-        setattr(self, f"{head}_head", nn.Sequential(nn.Linear(dim, mlp_dim), nn.Dropout(0.5),
+                else Linear(mlp_dim, num_classes))
+        setattr(self, f"{head}_head", nn.Sequential(Linear(dim, mlp_dim), nn.Dropout(0.5),
                                                     nn.ReLU(), last))
         self.head = head
 

@@ -21,6 +21,7 @@ from torch import nn
 
 import torch.nn.functional as F
 
+from fac_fake_torch.models.layers import Conv3d, LayerNorm
 from fac_fake_torch.models.s3d.layers import BN3D, BasicConv3d, DWSepConv3d, SepConv3d
 
 # (b0, b1_reduce, b1_out, b2_reduce, b2_out, b3) channel plans, keyed by the
@@ -62,7 +63,7 @@ class InceptionMix(nn.Module):
                           self.branch3(x)], dim=1)
 
 
-class ChannelLayerNorm(nn.LayerNorm):
+class ChannelLayerNorm(LayerNorm):
     """LayerNorm over the channels of a pooled (B, C, 1, 1, 1) context: the
     reference's ``LayerNorm([planes, 1, 1, 1])``, with its weight and bias
     kept as (planes,) as the JAX package keeps them."""
@@ -82,10 +83,10 @@ class ContextBlock3d(nn.Module):
         planes = int(cin * ratio)
         self.pooling = pooling
         if pooling == "att":
-            self.conv_mask = nn.Conv3d(cin, 1, 1)
+            self.conv_mask = Conv3d(cin, 1, 1)
         self.channel_add_conv = nn.Sequential(
-            nn.Conv3d(cin, planes, 1), ChannelLayerNorm(planes, eps=1e-5), nn.ReLU6(),
-            nn.Conv3d(planes, cin, 1))
+            Conv3d(cin, planes, 1), ChannelLayerNorm(planes, eps=1e-5), nn.ReLU6(),
+            Conv3d(planes, cin, 1))
 
     def forward(self, x):
         b, c = x.shape[:2]
@@ -98,9 +99,9 @@ class ContextBlock3d(nn.Module):
         return x + self.channel_add_conv(ctx)
 
 
-def conv1(cin: int, cout: int) -> nn.Conv3d:
+def conv1(cin: int, cout: int) -> Conv3d:
     """1×1×1 conv with bias (the msca blocks' projections)."""
-    return nn.Conv3d(cin, cout, 1)
+    return Conv3d(cin, cout, 1)
 
 
 class Mlp3d(nn.Module):

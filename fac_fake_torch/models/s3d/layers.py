@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fac_fake_torch.models.layers import _FlaxRunningStats
+from fac_fake_torch.models.layers import Conv3d, _FlaxRunningStats, widen
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
@@ -68,7 +68,7 @@ class BasicConv3d(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: Int3 = 1, stride: Int3 = 1,
                  padding: Int3 = 0, act: str = "relu"):
         super().__init__()
-        self.conv = nn.Conv3d(cin, cout, _triple(kernel), _triple(stride), _triple(padding),
+        self.conv = Conv3d(cin, cout, _triple(kernel), _triple(stride), _triple(padding),
                               bias=False)
         self.bn = BN3D(cout)
         self.act = act
@@ -91,10 +91,10 @@ class SepConv3d(nn.Module):
         if depthwise:
             cout = cin
         groups = cin if depthwise else 1
-        self.conv_s = nn.Conv3d(cin, cout, (1, kh, kw), (1, s, s), (0, ph, pw), groups=groups,
+        self.conv_s = Conv3d(cin, cout, (1, kh, kw), (1, s, s), (0, ph, pw), groups=groups,
                                 bias=False)
         self.bn_s = BN3D(cout) if spatial_bn else None
-        self.conv_t = nn.Conv3d(cout, cout, (kt, 1, 1), (s, 1, 1), (pt, 0, 0), groups=groups,
+        self.conv_t = Conv3d(cout, cout, (kt, 1, 1), (s, 1, 1), (pt, 0, 0), groups=groups,
                                 bias=False)
         self.bn_t = BN3D(cout)
         self.act = act
@@ -127,8 +127,9 @@ def max_pool3d(x, kernel: Tuple[int, int, int], strides: Tuple[int, int, int],
 
 
 def avg_pool3d(x, kernel: Tuple[int, int, int]):
-    """Stride-1 mean over ``kernel`` windows, no padding."""
-    return F.avg_pool3d(x, kernel, stride=1)
+    """Stride-1 mean over ``kernel`` windows, no padding; a bf16 ``x``'s
+    summed in fp32 and rounded once (torch's CPU pool has no bf16 kernel)."""
+    return F.avg_pool3d(widen(x), kernel, stride=1).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=2)

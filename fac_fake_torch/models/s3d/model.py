@@ -20,10 +20,18 @@
 reference ``.pth`` loads by name.
 
 Input: (B, 3, T, H, W) float, raw 0–255, in ``channels_last_3d`` memory (the
-JAX package's (B, T, H, W, 3) permuted). Output: (B, num_class) logits
+JAX package's (B, T, H, W, 3) permuted). Output: (B, num_class) fp32 logits
 (temporal-mean head, `model.py:37-48`).
 
-The family runs in float32; bf16 S3D is ROADMAP queue 1 item 11.
+``dtype`` (``model.dtype`` of the config) is the compute dtype, as JAX's
+``S3DNet.dtype``: the clips are cast to it and every layer follows its
+input's dtype (`models/layers.py`); the parameters stay fp32. At the
+default fp32 the model computes in its parameters' dtype (a float64 copy,
+``.double()``, computes in float64). In bf16 the
+frozen SRM bank runs in fp32 on the fp32 clips and the result is cast,
+as JAX's int8 engine runs it (JAX's bf16 model cannot: its
+``lax.conv_general_dilated`` refuses the bf16 clips against the fp32
+bank).
 """
 from __future__ import annotations
 
@@ -32,7 +40,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from fac_fake_torch.core.config import torch_dtype
 from fac_fake_torch.core.registry import register
+from fac_fake_torch.models.layers import Conv3d, widen
 from fac_fake_torch.models.s3d.blocks import (INCEPTION_PLANS, ContextBlock3d, IFormerBlock,
                                               InceptionMix, MSCANHalf)
 from fac_fake_torch.models.s3d.layers import (BasicConv3d, SepConv3d, avg_pool3d, srm_filter,
@@ -113,8 +123,10 @@ def msca_spec(stem_mscan: bool = False, all_full: bool = False) -> Tuple:
 class S3DNet(nn.Module):
     memory_format = torch.channels_last_3d   # what `build_model` converts to
 
-    def __init__(self, spec: Tuple, num_class: int = 1, srm: str = "none"):
+    def __init__(self, spec: Tuple, num_class: int = 1, srm: str = "none",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if srm not in ("none", "concat30", "residual3"):
             raise ValueError(f"srm must be none|concat30|residual3, got {srm!r}")
         self.spec = tuple(spec)
@@ -150,25 +162,24 @@ class S3DNet(nn.Module):
             else:
                 raise ValueError(kind)
         self.base = nn.Sequential(*layers)
-        self.fc = nn.Sequential(nn.Conv3d(c, num_class, 1))
+        self.fc = nn.Sequential(Conv3d(c, num_class, 1))
 
     def forward(self, clips: torch.Tensor) -> torch.Tensor:
-        x = clips.to(self.fc[0].weight.dtype)
-        if self.srm == "concat30":
-            x = srm_filter(x, self.srm_weight)
-        elif self.srm == "residual3":
-            x = x + srm_filter(x, self.srm_weight)
+        dt = self.dtype if self.dtype == torch.bfloat16 else self.fc[0].weight.dtype
+        x = clips.to(dt)
+        if self.srm != "none":
+            xf = widen(x)
+            hp = srm_filter(xf, self.srm_weight)
+            x = (hp if self.srm == "concat30" else xf + hp).to(dt)
         x = self.base(x)
         # head: avg over (2, H, W) stride 1, 1×1×1 conv, temporal mean
         x = self.fc(avg_pool3d(x, (2, x.shape[3], x.shape[4])))
-        return x.flatten(2).mean(2)
+        return x.flatten(2).mean(2).float()
 
 
 def _s3d_net(cfg, spec, srm: str = "concat30") -> S3DNet:
-    if getattr(cfg, "dtype", "float32") != "float32":
-        raise NotImplementedError(f"S3D dtype {cfg.dtype!r}: the port runs S3D in float32 "
-                                  "(bf16 S3D is ROADMAP queue 1 item 11)")
-    return S3DNet(spec, num_class=cfg.num_class, srm=srm if cfg.srm_net else "none")
+    return S3DNet(spec, num_class=cfg.num_class, srm=srm if cfg.srm_net else "none",
+                  dtype=torch_dtype(cfg.dtype))
 
 
 @register("model", "s3d")

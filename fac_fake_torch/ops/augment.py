@@ -28,11 +28,18 @@ in int32; the LUT entries are integers ≤ 255. JAX gathers those entries with
 a bf16 one-hot matmul on the TPU, which is exact for them; the plain version
 here gathers them, so it computes JAX's values.
 
+Images are float32 or bfloat16. A bf16 image is JAX's bf16 chain (:805-809):
+CLAHE runs on ``sub.astype(float32)`` and the result is rounded back to
+bf16 (round to nearest even); the plain version does exactly that, and K7's
+bf16 mode loads bf16, computes the fp32 mode's values and rounds at the
+store. Non-takers keep their bits in either dtype.
+
 On the card both entries are one launch of K7 (`csrc/clahe.cu`: a
 thread-block cluster a budget slot that finds its taker on the card, reads
-the image once and writes it once), and add one to ``clahe_luma.launches``;
-they are bit-equal to `clahe_subset_plain_` and `clahe_luma_plain`. A CPU
-tensor takes the plain version.
+the image once and writes it once), and add one to ``clahe_luma.launches``
+(a bf16 launch also to ``clahe_luma.bf16_launches``); they are bit-equal to
+`clahe_subset_plain_` and `clahe_luma_plain`. A CPU tensor takes the plain
+version.
 """
 from __future__ import annotations
 
@@ -99,9 +106,16 @@ def _blend_tables(h: int, w: int, grid: int):
     return axis(h), axis(w)
 
 
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def clahe_luma_plain(imgs: torch.Tensor, clip_limit: float = 2.0,
                      grid: int = 8) -> torch.Tensor:
-    """K7's plain version: (K, H, W, 3) float32 in [0, 1] → the same shape."""
+    """K7's plain version: (K, H, W, 3) float32 or bfloat16 in [0, 1] → the
+    same shape and dtype (bf16: the fp32 CLAHE of ``imgs.float()``, rounded
+    back)."""
+    if imgs.dtype == torch.bfloat16:
+        return clahe_luma_plain(imgs.float(), clip_limit, grid).to(imgs.dtype)
     k, h, w, _ = imgs.shape
     dev = imgs.device
     g = clahe_grid(h, w, grid)
@@ -161,23 +175,31 @@ def _k7(src: torch.Tensor, dst: torch.Tensor, take, k_budget: int, clip_limit: f
     n, h, w, _ = src.shape
     g = clahe_grid(h, w, grid)
     tile_px = (h // g) * (w // g)
+    bf16 = src.dtype == torch.bfloat16
     err = kernels.lib("clahe").fac_clahe_subset(
         kernels.ptr(src), kernels.ptr(dst), None if take is None else kernels.ptr(take), n,
         k_budget, h, w, g, _clip_limit(tile_px, clip_limit), ctypes.c_float(255.0 / tile_px),
-        kernels.stream_ptr(src.device))
+        int(bf16), kernels.stream_ptr(src.device))
     kernels.check(err, "clahe")
     clahe_luma.launches += 1
+    clahe_luma.bf16_launches += bf16
+
+
+def _require(x: torch.Tensor, what: str) -> None:
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{what}: no kernel for {x.dtype} (float32 or bfloat16)")
+    kernels.require_cuda(x, what, None, (None, None, None, 3))
 
 
 def clahe_subset_(x: torch.Tensor, take: torch.Tensor, k_budget: int, clip_limit: float = 2.0,
                   grid: int = 8) -> torch.Tensor:
-    """K7 on ``x`` (N, H, W, 3) in place: `clahe_luma` of each of the first
-    ``k_budget`` images whose bool ``take`` (N,) fired; returns ``x``. CPU
-    tensors take `clahe_subset_plain_`; CUDA tensors launch the kernel or
-    raise."""
+    """K7 on ``x`` (N, H, W, 3) float32 or bfloat16 in place: `clahe_luma` of
+    each of the first ``k_budget`` images whose bool ``take`` (N,) fired;
+    returns ``x``. CPU tensors take `clahe_subset_plain_`; CUDA tensors
+    launch the kernel or raise."""
     if not x.is_cuda:
         return clahe_subset_plain_(x, take, k_budget, clip_limit, grid)
-    kernels.require_cuda(x, "clahe_subset_", torch.float32, (None, None, None, 3))
+    _require(x, "clahe_subset_")
     kernels.require_cuda(take, "clahe_subset_ take", torch.bool, (x.shape[0],))
     k_budget = min(k_budget, x.shape[0])
     if k_budget > 0:
@@ -190,7 +212,7 @@ def clahe_luma(imgs: torch.Tensor, clip_limit: float = 2.0, grid: int = 8) -> to
     `clahe_luma_plain`; CUDA tensors launch the kernel or raise."""
     if not imgs.is_cuda:
         return clahe_luma_plain(imgs, clip_limit, grid)
-    kernels.require_cuda(imgs, "clahe_luma", torch.float32, (None, None, None, 3))
+    _require(imgs, "clahe_luma")
     out = torch.empty_like(imgs)
     if imgs.shape[0] > 0:
         _k7(imgs, out, None, imgs.shape[0], clip_limit, grid)
@@ -198,3 +220,4 @@ def clahe_luma(imgs: torch.Tensor, clip_limit: float = 2.0, grid: int = 8) -> to
 
 
 clahe_luma.launches = 0
+clahe_luma.bf16_launches = 0

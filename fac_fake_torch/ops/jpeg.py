@@ -21,6 +21,19 @@ version on the taken frames; on a CUDA tensor one launch of K10
 on the card and walks their 16-row bands in chunks of at most 16 MCUs,
 `band_chunks`) that adds one to ``jpeg_subset_.launches``, or it raises.
 
+Frames are float32 or bfloat16. The bf16 mode is JAX's bf16 chain (:707,
+``jpeg_compress`` on bf16 frames, ``.astype(bf16)``), whose steps the plain
+version spells out (`ycbcr_bf16`, `_subsample`, `_blocks`): Y, Cb, Cr in
+bf16 arithmetic (JAX's Python-float constants are weak-typed, so each is
+rounded to bf16 and each product and sum is a bf16 op); the chroma 2×2
+mean summed in fp32 and returned in bf16; ``block − 128`` in bf16; then the
+DCTs, the quantization and ``_ycbcr_to_rgb`` in fp32, as JAX's fp32
+``_dct8`` einsums promote them; the result rounded to bf16. K10's bf16 mode
+does the same operations, so it equals the plain version bit for bit. JAX's
+own bf16 values on XLA:CPU are not held to these roundings (XLA may keep a
+fused bf16 chain in fp32), so the tests hold the bf16 plain version to JAX
+within a measured bound (`tests/test_torch_bf16_kernels.py`).
+
 Numbers: the kernel does the plain version's fp32 operations in its order,
 so the two are equal bit for bit. It divides by a table entry or by 255 as
 a reciprocal product and one residual step, which gives IEEE's quotient
@@ -82,9 +95,13 @@ def quality_table(base: np.ndarray, quality: torch.Tensor) -> torch.Tensor:
 
 
 def _blocks(plane: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) → (N, H/8, W/8, 8, 8) blocks of ``plane − 128``."""
+    """(N, H, W) → (N, H/8, W/8, 8, 8) blocks of ``plane − 128`` (a bf16
+    plane: the difference rounded to bf16, then fp32 for the DCT)."""
     n, h, w = plane.shape
-    return (plane - 128.0).reshape(n, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
+    b = plane - 128.0
+    if b.dtype == torch.bfloat16:
+        b = b.float()
+    return b.reshape(n, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
 
 
 def _over_rows(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -108,23 +125,28 @@ def _over_cols(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 def _coefs(plane: torch.Tensor) -> torch.Tensor:
     """``D · block · Dᵀ``: over the rows, then over the columns."""
-    d = dct8(plane.device, plane.dtype)
-    return _over_cols(_over_rows(d, _blocks(plane)), d)
+    blocks = _blocks(plane)
+    d = dct8(blocks.device, blocks.dtype)
+    return _over_cols(_over_rows(d, blocks), d)
 
 
 def _dct_quantize(plane: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(N, H, W) in [0, 255] → its blockwise DCT-quantized reconstruction."""
     n, h, w = plane.shape
-    dt = dct8(plane.device, plane.dtype).t()
     t = table[:, None, None]
-    coef = torch.round(_coefs(plane) / t) * t
+    coef = _coefs(plane)
+    dt = dct8(coef.device, coef.dtype).t()
+    coef = torch.round(coef / t) * t
     rec = _over_cols(_over_rows(dt, coef), dt)       # Dᵀ · q · D, in the same order
     return rec.permute(0, 1, 3, 2, 4).reshape(n, h, w) + 128.0
 
 
 def _subsample(c: torch.Tensor) -> torch.Tensor:
     """The mean of each 2×2 cell, ``((c00 + c01) + c10) + c11`` divided by a
-    tensor 4 (K10's order)."""
+    tensor 4 (K10's order); a bf16 plane's in fp32, rounded to bf16 (JAX's
+    ``mean`` of bf16)."""
+    if c.dtype == torch.bfloat16:
+        return _subsample(c.float()).to(c.dtype)
     n, h, w = c.shape
     q = c.reshape(n, h // 2, 2, w // 2, 2)
     s = ((q[:, :, 0, :, 0] + q[:, :, 0, :, 1]) + q[:, :, 1, :, 0]) + q[:, :, 1, :, 1]
@@ -147,19 +169,33 @@ def _check_hw(h: int, w: int) -> None:
         raise ValueError(f"JPEG compression needs H and W multiples of 16, got {h}x{w}")
 
 
+def ycbcr_bf16(img: torch.Tensor) -> tuple:
+    """JAX's `_rgb_to_ycbcr` on bf16 frames: every constant rounded to bf16
+    and every product and sum a bf16 op, left to right."""
+    c = lambda v: torch.tensor(v, dtype=img.dtype, device=img.device)
+    r, g, b = img[..., 0] * 255.0, img[..., 1] * 255.0, img[..., 2] * 255.0
+    y = c(0.299) * r + c(0.587) * g + c(0.114) * b
+    cb = c(-0.168736) * r - c(0.331264) * g + c(0.5) * b + 128.0
+    cr = c(0.5) * r - c(0.418688) * g - c(0.081312) * b + 128.0
+    return y, cb, cr
+
+
 def jpeg_compress_plain(imgs: torch.Tensor, quality: torch.Tensor) -> torch.Tensor:
-    """K10's plain version: (N, H, W, 3) float32 in [0, 1] and (N,) float
-    qualities → the compressed frames, a new tensor."""
+    """K10's plain version: (N, H, W, 3) float32 or bfloat16 in [0, 1] and
+    (N,) float qualities → the compressed frames, a new tensor of ``imgs``'s
+    dtype."""
     _check_hw(imgs.shape[1], imgs.shape[2])
-    y, cb, cr = rgb_to_ycbcr(imgs)
-    lq = quality_table(LUMA_Q, quality.to(imgs.dtype))
-    cq = quality_table(CHROMA_Q, quality.to(imgs.dtype))
+    bf16 = imgs.dtype == torch.bfloat16
+    y, cb, cr = (ycbcr_bf16 if bf16 else rgb_to_ycbcr)(imgs)
+    q = quality.to(torch.float32 if bf16 else imgs.dtype)
+    lq = quality_table(LUMA_Q, q)
+    cq = quality_table(CHROMA_Q, q)
 
     def chroma(c):
         rec = _dct_quantize(_subsample(c), cq)
         return rec.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
-    return ycbcr_to_rgb(_dct_quantize(y, lq), chroma(cb), chroma(cr))
+    return ycbcr_to_rgb(_dct_quantize(y, lq), chroma(cb), chroma(cr)).to(imgs.dtype)
 
 
 def near_ties(imgs: torch.Tensor, quality: torch.Tensor) -> tuple:
@@ -208,19 +244,23 @@ def division_check(device) -> int:
 
 
 def jpeg_subset_(x: torch.Tensor, take: torch.Tensor, quality: torch.Tensor) -> torch.Tensor:
-    """K10 on ``x`` (N, H, W, 3) float32 in place: each frame whose bool
-    ``take`` (N,) fired becomes its JPEG at ``quality`` (N,) float32; returns
-    ``x``. CPU tensors take `jpeg_subset_plain_`; CUDA tensors (``x`` at a
-    16-byte aligned address, as every allocation is) launch the kernel or
-    raise."""
+    """K10 on ``x`` (N, H, W, 3) float32 or bfloat16 in place: each frame
+    whose bool ``take`` (N,) fired becomes its JPEG at ``quality`` (N,)
+    float32; returns ``x``. CPU tensors take `jpeg_subset_plain_`; CUDA
+    tensors (``x`` at a 16-byte aligned address, as every allocation is)
+    launch the kernel or raise."""
     if not x.is_cuda:
         return jpeg_subset_plain_(x, take, quality)
-    kernels.require_cuda(x, "jpeg_subset_", torch.float32, (None, None, None, 3))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"jpeg_subset_: no kernel for {x.dtype} (float32 or bfloat16)")
+    kernels.require_cuda(x, "jpeg_subset_", None, (None, None, None, 3))
     n, h, w, _ = x.shape
     kernels.require_cuda(take, "jpeg_subset_ take", torch.bool, (n,))
     kernels.require_cuda(quality, "jpeg_subset_ quality", torch.float32, (n,))
     _, chunks, mcus = band_chunks(h, w)
     if x.data_ptr() % 16:
+        # a row segment is 16 · 3 values an MCU: 192 B in fp32, 96 B in bf16,
+        # so an aligned x aligns every segment in either dtype
         raise ValueError("jpeg_subset_: expected x at a 16-byte aligned address (its rows "
                          "move by bulk copies)")
     if n == 0:
@@ -228,10 +268,12 @@ def jpeg_subset_(x: torch.Tensor, take: torch.Tensor, quality: torch.Tensor) -> 
     err = kernels.lib("jpeg").fac_jpeg_subset(
         kernels.ptr(x), kernels.ptr(take), kernels.ptr(quality),
         kernels.ptr(dct8(torch.device("cpu"))), n, h, w, chunks, mcus,
-        kernels.stream_ptr(x.device))
+        int(x.dtype == torch.bfloat16), kernels.stream_ptr(x.device))
     kernels.check(err, "jpeg")
     jpeg_subset_.launches += 1
+    jpeg_subset_.bf16_launches += x.dtype == torch.bfloat16
     return x
 
 
 jpeg_subset_.launches = 0
+jpeg_subset_.bf16_launches = 0

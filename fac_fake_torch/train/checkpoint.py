@@ -1,11 +1,13 @@
 """Checkpoints — the port of `fac_fake_tpu/train/checkpoint.py`, with
 ``torch.save`` files in place of orbax directories.
 
-A training checkpoint is ``{"state_dict", "optimizer", "step", "epoch"}``:
-the model's state dict in the reference torch key layout (parameters,
-BatchNorm running stats, LinearNorm's counters), the Adam state and the
-step count. Every save is atomic: the file is written under a temporary
-name in the same directory and then renamed with ``os.replace``, so a file
+A training checkpoint is ``{"state_dict", "optimizer", "step", "epoch",
+"dtype"}``: the model's state dict in the reference torch key layout
+(parameters, BatchNorm running stats, LinearNorm's counters; always the
+fp32 master weights), the Adam state, the step count and the compute dtype
+it trained in (``model.dtype``: float32 or bfloat16). Every save is
+atomic: the file is written under a temporary name in the same directory
+and then renamed with ``os.replace``, so a file
 named ``epoch_<n>.pt`` or ``best.pth`` is always a finished save, and a
 crash mid-write leaves at most a stray temporary file.
 
@@ -44,11 +46,11 @@ def _host(obj):
 
 
 def snapshot(model: nn.Module, optimizer: Optional[torch.optim.Optimizer], step: int,
-             epoch: Optional[int] = None) -> dict:
+             epoch: Optional[int] = None, dtype: str = "float32") -> dict:
     """The training state in host memory."""
     return {"state_dict": _host(model.state_dict()),
             "optimizer": _host(optimizer.state_dict()) if optimizer is not None else None,
-            "step": int(step), "epoch": epoch}
+            "step": int(step), "epoch": epoch, "dtype": dtype}
 
 
 def atomic_save(obj, path: str) -> None:
@@ -96,9 +98,10 @@ class CheckpointWriter:
         if self._error is not None:
             raise RuntimeError("checkpoint write failed") from self._error
 
-    def save(self, model: nn.Module, optimizer, step: int, epoch: int) -> None:
+    def save(self, model: nn.Module, optimizer, step: int, epoch: int,
+             dtype: str = "float32") -> None:
         self._raise()
-        self._q.put((epoch, snapshot(model, optimizer, step, epoch)))
+        self._q.put((epoch, snapshot(model, optimizer, step, epoch, dtype)))
 
     def wait(self) -> None:
         self._q.join()
@@ -120,14 +123,16 @@ class CheckpointWriter:
         self.close()
 
 
-def save_checkpoint(directory: str, model: nn.Module, optimizer, step: int, epoch: int) -> None:
+def save_checkpoint(directory: str, model: nn.Module, optimizer, step: int, epoch: int,
+                    dtype: str = "float32") -> None:
     """One synchronous save (tools; training uses `CheckpointWriter`)."""
-    atomic_save(snapshot(model, optimizer, step, epoch), epoch_path(directory, epoch))
+    atomic_save(snapshot(model, optimizer, step, epoch, dtype), epoch_path(directory, epoch))
 
 
-def save_best(directory: str, model: nn.Module, optimizer, step: int) -> None:
+def save_best(directory: str, model: nn.Module, optimizer, step: int,
+              dtype: str = "float32") -> None:
     """The best-so-far snapshot (overwrites ``best.pth``)."""
-    atomic_save(snapshot(model, optimizer, step), os.path.join(directory, BEST))
+    atomic_save(snapshot(model, optimizer, step, dtype=dtype), os.path.join(directory, BEST))
 
 
 def latest_epoch(directory: str) -> Optional[int]:

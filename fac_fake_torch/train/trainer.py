@@ -28,10 +28,22 @@ do. Options, as JAX's:
     and those it ended with after, so the buffers are as one forward leaves
     them and the recompute sees what the forward saw.
 
+``model.dtype="bfloat16"`` trains in JAX's mixed precision (JAX :150-170):
+the parameters and Adam's state stay fp32, the model computes in bf16 (its
+layers follow their input's dtype, `models/layers.py`; BatchNorm's
+statistics and running stats in fp32), and the loss takes fp32 logits.
+``augment.compute_dtype="auto"`` then runs the chain in bf16, and the
+normalize stays in the chain's dtype with its constants rounded to it, as
+JAX's (``(x01 − bf16(mean)) / bf16(std)``; under ``raw255`` ``x01·255``).
+The model's input is cast to the model's dtype, as JAX's first bf16 layer
+casts it.
+
 `eval_step` normalizes a uint8 image batch with K2 (`ops/preprocess.py
-normalize_imagenet`, one launch a batch; a clip batch under ``raw255`` is
-``u8 / 255 · 255`` in fp32, as JAX's, with no K2: K2 has no fp32 raw mode)
-and runs the model in eval mode.
+normalize_imagenet`, one launch a batch, in the model's dtype: JAX's eval
+normalizes ``u8/255`` in fp32 and its first bf16 layer rounds it once, which
+is K2's bf16 mode; a clip batch under ``raw255`` is ``u8 / 255 · 255`` in
+fp32, as JAX's, with no K2: K2 has no fp32 raw mode) and runs the model in
+eval mode.
 `cache_data` keeps a whole uint8 dataset on the device (`DeviceCache`): each
 epoch shuffles it with a seeded generator and gathers the rows on the
 device. Host batches (`data/folder.py`) are read a batch ahead on a worker
@@ -42,7 +54,7 @@ running metrics stay on the device until the epoch ends, or ``log_every``.
 checkpoints on a background thread (`train/checkpoint.py`).
 
 Left out, and raising: the mesh and its tensor-parallel rules (ROADMAP
-queue 1 item 12), TensorBoard (item 16) and bf16 training (item 11). A
+queue 1 item 12) and TensorBoard (item 16). A
 model that holds a `KANLinear` (``reskan``, ``resvitkan``) is refused: K9,
 its spline bases on the card, has no backward, and JAX's `Trainer` cannot
 train the KAN family either.
@@ -50,6 +62,7 @@ train the KAN family either.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import functools
 import os
 import pickle
@@ -61,7 +74,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from fac_fake_torch.core.config import Config
+from fac_fake_torch.core.config import Config, torch_dtype
 from fac_fake_torch.core.device import DeviceLike, resolve_device
 from fac_fake_torch.data.augment import augment_batch, check_config
 from fac_fake_torch.models.blocks.kan import KANLinear
@@ -123,9 +136,10 @@ class Trainer:
                 "KANLinear's grid lookup raises ScopeCollectionNotFound)")
         self.device = resolve_device(device)
         tcfg = self.cfg.train
-        if self.cfg.model.dtype != "float32":
-            raise NotImplementedError(f"model.dtype={self.cfg.model.dtype!r}: bf16 training is "
-                                      "ROADMAP queue 1 item 11")
+        self.dtype = torch_dtype(self.cfg.model.dtype)
+        if getattr(model, "dtype", self.dtype) != self.dtype:
+            raise ValueError(f"model.dtype={self.cfg.model.dtype!r}, but the model computes "
+                             f"in {model.dtype}")
         if tcfg.tensorboard_dir:
             raise NotImplementedError("train.tensorboard_dir: TensorBoard is ROADMAP queue 1 "
                                       "item 16")
@@ -138,7 +152,7 @@ class Trainer:
             raise ValueError(f"data.normalize={self.cfg.data.normalize!r}: imagenet or raw255")
         self.raw255 = self.cfg.data.normalize == "raw255"
         if self.cfg.data.augment.enabled:
-            check_config(self.cfg.data.augment)
+            check_config(self.augment)
         self.model = model.to(self.device)
         self.loss_fn = make_loss(tcfg.loss, **(loss_kwargs or {}))
         self.controller = build_controller(tcfg.optim, tcfg.epochs)
@@ -147,6 +161,15 @@ class Trainer:
         self.step = 0
         self._mean = torch.from_numpy(preprocess.IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(preprocess.IMAGENET_STD).to(self.device)
+
+    @property
+    def augment(self):
+        """``data.augment`` with ``compute_dtype="auto"`` resolved: the
+        chain follows the model's dtype (JAX :150-158)."""
+        aug = self.cfg.data.augment
+        if aug.compute_dtype != "auto":
+            return aug
+        return dataclasses.replace(aug, compute_dtype=self.cfg.model.dtype)
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> None:
@@ -197,8 +220,17 @@ class Trainer:
 
     def normalize(self, x01: torch.Tensor) -> torch.Tensor:
         """[0, 1] NHWC (NDHWC) → the model's NCHW (NCDHW) input, a view of
-        ``channels_last`` (``channels_last_3d``) memory."""
-        x = x01 * 255.0 if self.raw255 else (x01 - self._mean) / self._std
+        ``channels_last`` (``channels_last_3d``) memory; the arithmetic in
+        ``x01``'s dtype, its constants rounded to it (JAX :161-168). Where the
+        model or ``x01`` is bf16 the result is cast to the model's dtype, as
+        JAX's first layer casts it (a float64 ``x01`` for an fp32 model, a
+        reference, stays float64)."""
+        if self.raw255:
+            x = x01 * 255.0
+        else:
+            x = (x01 - self._mean.to(x01.dtype)) / self._std.to(x01.dtype)
+        if torch.bfloat16 in (x.dtype, self.dtype):
+            x = x.to(self.dtype)
         return _channels_first(x)
 
     def train_step(self, batch: Dict[str, torch.Tensor],
@@ -208,7 +240,7 @@ class Trainer:
         augmentation. Returns the step's loss, correct and count as device
         scalars."""
         self.model.train()
-        x = self.normalize(augment_batch(batch["image"], self.cfg.data.augment, gen))
+        x = self.normalize(augment_batch(batch["image"], self.augment, gen))
         labels, mask = batch["label"], batch["mask"].float()
         cnt = mask.sum()
         self.optimizer.zero_grad(set_to_none=True)
@@ -244,7 +276,7 @@ class Trainer:
         if self.raw255:
             x = self.normalize(u8.float() / torch.full((1,), 255.0, device=u8.device))
         else:
-            x = preprocess.normalize_imagenet(u8)
+            x = preprocess.normalize_imagenet(u8, self.dtype)
         logits = self.model(x)
         return {"loss": self.loss_fn(logits, batch["label"], mask),
                 "correct": count_correct(logits, batch["label"], mask),
@@ -360,9 +392,10 @@ class Trainer:
                 from fac_fake_torch.train.checkpoint import _host, save_best
                 best = {"acc": va["acc"], "state_dict": _host(self.model.state_dict())}
                 if cfg.checkpoint_dir:
-                    save_best(cfg.checkpoint_dir, self.model, self.optimizer, self.step)
+                    save_best(cfg.checkpoint_dir, self.model, self.optimizer, self.step,
+                              self.cfg.model.dtype)
             if writer is not None and (epoch + 1) % cfg.checkpoint_every == 0:
-                writer.save(self.model, self.optimizer, self.step, epoch)
+                writer.save(self.model, self.optimizer, self.step, epoch, self.cfg.model.dtype)
             if cfg.patience:                  # early stop on val-loss patience
                 prior = history["val_loss"][:-1]
                 bad_epochs = bad_epochs + 1 if (epoch > 0 and va["loss"] >= min(

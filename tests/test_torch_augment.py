@@ -306,14 +306,27 @@ def test_augment_batch_is_seeded_and_in_range(oneof):
                                          ("to_gray_prob", 0.2), ("color_oneof", True)])
 def test_s3d_transform_extras_raise(field, value):
     """Each S3D transform extra runs in the chain (a seeded output in [0, 1]
-    of the input's shape); with the bf16 chain, which stays ROADMAP queue 1
-    item 11, it raises."""
+    of the input's shape), and in the bf16 chain: a bf16 output of the same
+    draws within 0.04 of the fp32 chain's with CLAHE off (measured: up to
+    0.031; JAX holds its bf16 chain within 0.03 at 32², `tests/
+    test_bf16_paths.py`). CLAHE is left out of the comparison: at 16² its
+    tiles are 2×2 pixels, and one pixel whose luma bin moves with the bf16
+    rounding of its input moves its tile's LUT by whole levels (0.25 here);
+    K7's bf16 mode is held to its plain version bit for bit elsewhere. An
+    unknown dtype raises."""
     from fac_fake_torch.core.config import AugmentConfig
     from fac_fake_torch.data.augment import augment_batch
     u8 = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 16, 16, 3),
                                                             dtype=np.uint8))
     out = augment_batch(u8, AugmentConfig(**{field: value}), torch.Generator().manual_seed(0))
     assert out.shape == u8.shape and float(out.min()) >= 0 and float(out.max()) <= 1
-    with pytest.raises(NotImplementedError, match="item 11"):
-        augment_batch(u8, AugmentConfig(**{field: value}, compute_dtype="bfloat16"),
+    f32 = augment_batch(u8, AugmentConfig(**{field: value}, clahe=False),
+                        torch.Generator().manual_seed(0))
+    b16 = augment_batch(u8, AugmentConfig(**{field: value}, clahe=False,
+                                          compute_dtype="bfloat16"),
+                        torch.Generator().manual_seed(0))
+    assert b16.dtype == torch.bfloat16 and b16.shape == u8.shape
+    assert float((b16.float() - f32).abs().max()) <= 0.04
+    with pytest.raises(ValueError, match="compute_dtype"):
+        augment_batch(u8, AugmentConfig(**{field: value}, compute_dtype="float16"),
                       torch.Generator())

@@ -806,6 +806,58 @@ def test_k7_subset_equals_plain(dev, case):
     assert torch.equal(got[changed], aug.clahe_luma_plain(x[changed]))
 
 
+# K7's bf16 mode (JAX's bf16 chain: CLAHE of the images in fp32, rounded
+# back): bit-equal to its plain version; its bands are half the bytes, so
+# these cases add one beyond shared memory in bf16 and rows of 44 x 6 B
+_K7_BF16_SUBSETS = dict(_K7_SUBSETS, bf16_streamed=((2, 640, 640, 3), 2, 2),
+                        bf16_odd_width=((4, 44, 44, 3), 3, 4))
+
+
+def _bf16_01(u8, dev):
+    return (torch.from_numpy(u8).to(dev).to(torch.bfloat16)
+            / torch.full((1,), 255.0, device=dev, dtype=torch.bfloat16)).contiguous()
+
+
+@pytest.mark.parametrize("case", ["seeded8", "seeded32", "flat", "every_byte", "grid1_odd",
+                                  "grid1_tiny", "small_grid8"])
+def test_k7_bf16_clahe_equals_plain(dev, case):
+    from fac_fake_torch.ops import augment as aug
+
+    x = _bf16_01(_k7_images(case, np.random.default_rng(7)), dev)
+    before = aug.clahe_luma.bf16_launches
+    got = aug.clahe_luma(x)
+    ref = aug.clahe_luma_plain(x)
+    torch.cuda.synchronize()
+    assert aug.clahe_luma.bf16_launches == before + 1
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("case", list(_K7_BF16_SUBSETS))
+def test_k7_bf16_subset_equals_plain(dev, case):
+    from fac_fake_torch.ops import augment as aug
+
+    shape, takers, budget = _K7_BF16_SUBSETS[case]
+    rng = np.random.default_rng(12)
+    u8 = (np.full(shape, 131, np.uint8) if case == "flat"
+          else rng.integers(0, 256, shape, dtype=np.uint8))
+    x = _bf16_01(u8, dev)
+    take = torch.zeros(shape[0], dtype=torch.bool)
+    take[torch.from_numpy(rng.choice(shape[0], takers, replace=False))] = True
+    take = take.to(dev)
+    before = aug.clahe_luma.bf16_launches
+    got = aug.clahe_subset_(x.clone(), take, budget)
+    ref = aug.clahe_subset_plain_(x.clone(), take, budget)
+    torch.cuda.synchronize()
+    assert aug.clahe_luma.bf16_launches == before + 1
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
+    changed = torch.zeros(shape[0], dtype=torch.bool, device=dev)
+    changed[torch.nonzero(take).flatten()[:budget]] = True
+    assert torch.equal(got[~changed], x[~changed])
+    assert torch.equal(got[changed],
+                       aug.clahe_luma_plain(x[changed].float()).to(torch.bfloat16))
+
+
 def test_k7_subset_refuses_what_it_does_not_take(dev):
     from fac_fake_torch.ops import augment as aug
 
@@ -1284,6 +1336,59 @@ def test_k10_geometries_equal_plain(dev, shape, taken):
     t = {"all": np.ones(n, bool), "seeded": rng.random(n) < 0.5,
          "last": np.arange(n) == n - 1}[taken]
     t[-1 if taken == "last" else rng.integers(n)] = True      # at least one taken
+    t = torch.from_numpy(t).to(dev)
+    got = oj.jpeg_subset_(x.clone(), t, q)
+    ref = oj.jpeg_subset_plain_(x.clone(), t, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got[~t], x[~t])
+    assert torch.equal(got[t], ref[t])
+    assert not torch.equal(got[t], x[t])
+
+
+@pytest.mark.parametrize("kind", ["seeded", "flat", "every_byte"])
+@pytest.mark.parametrize("quality", [1, 50, 60, 99, 100, "seeded"])
+@pytest.mark.parametrize("take", ["none", "all", "seeded"])
+def test_k10_bf16_jpeg_equals_plain(dev, kind, quality, take):
+    """K10's bf16 mode (JAX's bf16 JPEG steps: YCbCr in bf16 arithmetic, the
+    chroma mean and block − 128 rounded to bf16, the DCTs in fp32, the store
+    rounded to bf16) against `jpeg_subset_plain_` on bf16 frames: bit for
+    bit, untaken frames unchanged; one launch."""
+    from fac_fake_torch.ops import jpeg as oj
+
+    rng = np.random.default_rng(5)
+    n = 8
+    x = _bf16_01(_k10_frames(kind, n, rng), dev)
+    q = (np.floor(rng.uniform(60, 100, n)) if quality == "seeded"
+         else np.full(n, quality)).astype(np.float32)
+    q = torch.from_numpy(q).to(dev)
+    t = {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+         "seeded": rng.random(n) < 0.3}[take]
+    t = torch.from_numpy(t).to(dev)
+    before = oj.jpeg_subset_.bf16_launches
+    got = oj.jpeg_subset_(x.clone(), t, q)
+    ref = oj.jpeg_subset_plain_(x.clone(), t, q)
+    torch.cuda.synchronize()
+    assert oj.jpeg_subset_.bf16_launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got[~t], x[~t])
+    assert torch.equal(got[t], ref[t])
+
+
+@pytest.mark.parametrize("shape, taken", [
+    ((3, 64, 1920, 3), "all"), ((5, 48, 80, 3), "seeded"), ((2, 32, 272, 3), "all"),
+    ((6, 32, 32, 3), "last"), ((1, 224, 224, 3), "all")])
+def test_k10_bf16_geometries_equal_plain(dev, shape, taken):
+    """K10's bf16 mode over the work-item geometries of the fp32 test: bf16
+    row segments are 96 B an MCU, still 16-byte aligned."""
+    from fac_fake_torch.ops import jpeg as oj
+
+    rng = np.random.default_rng(6)
+    n = shape[0]
+    x = _bf16_01(rng.integers(0, 256, shape, dtype=np.uint8), dev)
+    q = torch.from_numpy(np.floor(rng.uniform(1, 100, n)).astype(np.float32)).to(dev)
+    t = {"all": np.ones(n, bool), "seeded": rng.random(n) < 0.5,
+         "last": np.arange(n) == n - 1}[taken]
+    t[-1 if taken == "last" else rng.integers(n)] = True
     t = torch.from_numpy(t).to(dev)
     got = oj.jpeg_subset_(x.clone(), t, q)
     ref = oj.jpeg_subset_plain_(x.clone(), t, q)

@@ -215,7 +215,7 @@ def test_cvit_forward_crops_equals_the_old_chain(quantize, dtype):
     pp.quantize_crops = counted("quantize_crops")
     pp.normalize_imagenet = counted("normalize_imagenet")
     try:
-        with torch.inference_mode(), scorer._autocast():
+        with torch.inference_mode():
             got = scorer.model.forward_crops(u8, dtype, pos)
     finally:
         q3.quantize_pad, pp.quantize_crops = orig["quantize_pad"], orig["quantize_crops"]
@@ -223,7 +223,7 @@ def test_cvit_forward_crops_equals_the_old_chain(quantize, dtype):
     walk = quantize != "none"
     assert ran == {"quantize_pad": 0, "quantize_crops": int(walk),
                    "normalize_imagenet": int(not walk)}
-    with torch.inference_mode(), scorer._autocast():
+    with torch.inference_mode():
         want = scorer.model(pp.normalize_imagenet(u8, dtype), pos)
     assert torch.equal(got, want)
     assert torch.equal(scorer._forward(crops, pos), got)

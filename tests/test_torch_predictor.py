@@ -137,9 +137,9 @@ def test_score_crops_capacity_and_upper_bound_match_jax():
 
 
 def test_bfloat16_model_dtype_scores_near_fp32(scorers):
-    """``model.dtype="bfloat16"``: K2's path writes bf16 and the forward runs
-    under bf16 autocast; the score stays within 2e-2 of fp32 (bf16 keeps
-    8 bits of mantissa)."""
+    """``model.dtype="bfloat16"``: K2's path writes bf16 and every layer
+    follows its input's dtype; the score stays within 2e-2 of fp32 (bf16
+    keeps 8 bits of mantissa)."""
     from fac_fake_torch.core.config import Config
     from fac_fake_torch.infer.predictor import VideoScorer
 

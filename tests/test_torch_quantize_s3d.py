@@ -370,10 +370,12 @@ def lockstep_logits(teng, x, points, blocks):
     def block_forward(real_forward):
         def forward(x_):
             j = next(order)
-            got, ref = real_forward(x_).permute(0, 2, 3, 4, 1).numpy(), blocks[j]
+            # compared in fp32 (a bf16 walk's blocks are bf16 on both sides)
+            y = real_forward(x_)
+            got, ref = y.float().permute(0, 2, 3, 4, 1).numpy(), blocks[j].astype(np.float32)
             err = float(np.abs(got - ref).max())
             assert err <= FP_BLOCK_REL * float(np.abs(ref).max()), (j, err)
-            return torch.from_numpy(ref.copy()).permute(0, 4, 1, 2, 3)
+            return torch.from_numpy(ref).to(y.dtype).permute(0, 4, 1, 2, 3)
         return forward
 
     with pytest.MonkeyPatch.context() as mp, torch.no_grad():

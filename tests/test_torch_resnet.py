@@ -234,8 +234,8 @@ def test_video_scorer_with_resvitkan_matches_jax():
 
 
 def test_resvitkan_bf16_scores_near_fp32():
-    """``model.dtype="bfloat16"``: K2 writes bf16, the forward runs under bf16
-    autocast, and the KAN head's bases are computed in bf16 (JAX casts x
+    """``model.dtype="bfloat16"``: K2 writes bf16, every layer follows its
+    input's dtype, and the KAN head's bases are computed in bf16 (JAX casts x
     and the grid to the model dtype); the score stays within 2e-2 of fp32."""
     from fac_fake_torch.core.config import Config
     from fac_fake_torch.infer.predictor import VideoScorer

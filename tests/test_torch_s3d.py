@@ -177,8 +177,9 @@ def test_build_model_registry_and_refusals():
     for name in ("msca_s3d", "msca_s3d_srm", "msca_s3d_v2", "msca_s3d_srm_v2"):
         m = build_model(ModelConfig(name=name, num_class=1, srm_net=True), device="cpu")
         assert isinstance(m, S3DNet) and m.srm == ("residual3" if "srm" in name else "concat30")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            build_model(ModelConfig(name=name, num_class=1, dtype="bfloat16"), device="cpu")
+        m16 = build_model(ModelConfig(name=name, num_class=1, dtype="bfloat16"), device="cpu")
+        assert m16.dtype == torch.bfloat16 and m.dtype == torch.float32
+        assert all(p.dtype == torch.float32 for p in m16.parameters())
     assert len(S3DNet(msca_spec(), 1).base) == len(msca_spec())
     res = S3DNet((P222,), 1, srm="residual3")
     np.testing.assert_array_equal(res.srm_weight.numpy(), srm_weight(full=False).numpy())

@@ -425,15 +425,32 @@ def test_trainer_runs_on_the_card_by_default_and_refuses_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(m, port_cfg())
-    for path, value, match in (("model.dtype", "bfloat16", "item 11"),
-                               ("train.tensorboard_dir", "tb", "item 16"),
-                               ("mesh.data", 2, "item 12"),
-                               ("data.augment.compute_dtype", "bfloat16", "item 11")):
-        from fac_fake_torch.core.config import apply_dotted
+    from fac_fake_torch.core.config import apply_dotted
+    for path, value, match in (("train.tensorboard_dir", "tb", "item 16"),
+                               ("mesh.data", 2, "item 12")):
         cfg = port_cfg()
         cfg.data.augment.enabled = True
         apply_dotted(cfg, [f"{path}={value!r}"])
         with pytest.raises(NotImplementedError, match=match):
+            Trainer(m, cfg, device="cpu")
+    # bf16 training is ported: the model's dtype and a bf16 chain are taken on
+    # the CPU; "auto" follows the model; the parameters stay fp32
+    for sets, chain in ((["model.dtype='bfloat16'"], "bfloat16"),
+                        (["data.augment.compute_dtype='bfloat16'"], "bfloat16"),
+                        (["model.dtype='bfloat16'", "data.augment.compute_dtype='float32'"],
+                         "float32")):
+        cfg = port_cfg()
+        cfg.data.augment.enabled = True
+        apply_dotted(cfg, sets)
+        tr = Trainer(m, cfg, device="cpu")
+        assert tr.augment.compute_dtype == chain
+        assert tr.dtype == (torch.bfloat16 if "model" in sets[0] else torch.float32)
+        assert all(p.dtype == torch.float32 for p in tr.model.parameters())
+    for path, value in (("model.dtype", "float16"), ("data.augment.compute_dtype", "float16")):
+        cfg = port_cfg()
+        cfg.data.augment.enabled = True
+        apply_dotted(cfg, [f"{path}={value!r}"])
+        with pytest.raises(ValueError, match="float16"):
             Trainer(m, cfg, device="cpu")
     cfg = port_cfg()
     cfg.data.normalize = "raw"
