@@ -4,7 +4,8 @@ hold each against its plain PyTorch version, score videos end to end with the
 full-width base CViT and the flagship cvit_repbn8 in fp32 and under int8
 post-training quantization, score S3D clips, train both CViTs at full width,
 detect with MTCNN and serve, score videos with the ResNet/KAN resvitkan, train
-the S3D family from its plans and score the msca family, and print what it
+the S3D family from its plans and score the msca family, score every entry of
+the CViT variant zoo in fp32 and three of them in int8_full, and print what it
 measured.
 
     python3 chip_smoke.py [--seed N] [--profile]     # all phases, one card
@@ -231,9 +232,29 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      phase 14's rule (fp: within the CPU's own bf16-vs-fp32 difference),
      lock-step within S3D_FP_BLOCK_RTOL_BF16 and LOGIT_TOL_BF16; each B
      phase's numbers printed beside the fp32 ones of this run;
+ Z1. the variant zoo (`zoo_phases`), each of its 29 registry entries at its
+     published widths, seeded, carried through a reference checkpoint
+     (`load_reference_pth`) into a second build, folded by `VideoScorer`:
+     fp32 logits card vs CPU at batch 2 within the JAX package's zoo bar
+     (ZOO_LOGIT_RTOL, ZOO_LOGIT_ATOL), crops/s through `score_crops` (29
+     crops, capacity 96) beside base cvit's, one line an entry;
+ Z2. cvit_bfm_ggca_mdfa (BFM, GGCA, the MDFA token block) end to end as
+     phase 5 (`fp32_path`: videos/min, K1 and K2 launches); then K3 and K4
+     (`k3_phase`, `k4_phase`) at the int8_full walks of cvit_ggca_sla (28^2
+     256- and 512-channel convs, 96 x 16/17 dense rows) and
+     cvit_ggca_add_glu (56^2 convs, 96 x 64/65 rows), bit-equal and timed;
+ Z3. int8_full on cvit_ggca_sla, cvit_ggca_add_glu and cvit_ggca_add_wtconv
+     (`zoo_int8`): crops/s beside fp32's, launches whole forwards of the
+     planned walk (ZOO_INT8_WALKS, `int8_denses`), one forward at batch 96
+     running it, every K3 and K4 call of one more bit-equal to its plain
+     version, logits card vs CPU in lock-step (`cvit_int8_lockstep`: the
+     CPU's forward fed the card's input at each fp quantize point, each fp
+     step within ZOO_FP_STEP_RTOL) within LOGIT_TOL, the free-running
+     difference and int8 vs fp32 for information;
  15. the training line (and T3/T4's per-tensor watch over T4_WATCH_SEEDS
-     seeds) and the kernels line, with K7's and K10's bf16 modes; 16. the
-     result line. Each phase group prints the seconds since the start.
+     seeds), the zoo line and the kernels line, with K7's and K10's bf16
+     modes and the zoo's K1-K4 launches and K3/K4 times; 16. the result
+     line. Each phase group prints the seconds since the start.
 """
 from __future__ import annotations
 
@@ -261,15 +282,6 @@ INT8_TC_OPS = 1979e12                              # H100 SXM, dense int8 tensor
 SLEEP_CYCLES = 100_000_000                         # ~50 ms at the H100's 1.98 GHz boost
 
 QBATCH = 96                                        # crops a batch (batch_crops)
-# (H, Cin, Cout) of the folded base stem's 17 convs -> how many there are
-STEM_CONVS = {(224, 3, 32): 1, (224, 32, 32): 2, (112, 32, 64): 1, (112, 64, 64): 2,
-              (56, 64, 128): 1, (56, 128, 128): 2, (28, 128, 256): 1, (28, 256, 256): 3,
-              (14, 256, 512): 1, (14, 512, 512): 3}
-# (rows, out, in, bias) of the 26 int8_full denses at batch 96 -> how many:
-# patch embedding, to_qkv, to_out, FFN fc1, fc2 (two tokens a crop), head fc1
-INT8_DENSES = {(96, 1024, 25088, True): 1, (192, 3072, 1024, False): 6,
-               (192, 1024, 1024, True): 6, (192, 2048, 1024, True): 6,
-               (192, 1024, 2048, True): 6, (96, 2048, 1024, True): 1}
 # one forward from uint8 crops through the quantized base stem's int8 walk:
 # K2's int8 entry (no K2 fp launch), 17 K3 launches (16 quantizing for the
 # next conv), 0 quantize passes, no fp ReLU, 4 int8 pools and 1 fp max-pool
@@ -435,6 +447,36 @@ S3D_STATS_F64_SLACK = 1e-5
 S3D_MSCA_T = 30               # S5: the plans' frames
 MSCA_INT8 = ("msca_s3d", "msca_s3d_srm")   # S5: scored in int8 too
 S3D_TRAIN_HW = 224            # S3-S5: the plans' image-size
+# Z1-Z3: the variant zoo, the JAX registry's other 29 CViT entries in its order
+ZOO = ("cvit_ggca", "cvit_ggca_add", "cvit_ggca_add_repbn", "cvit_ggca4", "cvit_ggca_add3",
+       "cvit_deconv", "cvit_ggca_add_deconv", "cvit_repbn", "cvit_repbn3", "cvit_repbn4",
+       "cvit_repbn5", "cvit_ggca_add_dconv", "cvit_ggca_add_scconv", "cvit_ggca_add_wtconv",
+       "cvit_ggca_add_odconv", "cvit_ggca_odconv", "cvit_ggca_add_moga", "cvit_ggca_smfa",
+       "cvit_ggca_uffc", "cvit_ggca_sla", "cvit_ggca_add_glu", "cvit_ggca4_bfm5",
+       "cvit_ggca4_mdfa5", "cvit_bfm_ggca_mdfa", "cvit_bfm_mdfa", "cvit_ggca_bfm_mdfa",
+       "cvit_ggca_mdfa_bfm", "cvit_mdfa_bfm", "cvit_mdfa_ggca_bfm")
+ZOO_CHECK_BATCH = 2           # Z1, Z3: logits card vs CPU
+# Z1: fp32 logits card vs CPU, the JAX package's zoo bar (rtol, atol of
+# tests/test_variant_zoo_parity.py): with seeded weights the MDFA token
+# block's x * excite(x) products drive cvit_ggca_bfm_mdfa's logits to ~10^3
+ZOO_LOGIT_RTOL, ZOO_LOGIT_ATOL = 1e-3, 5e-4
+# Z3: each fp step between int8 layers, card vs CPU on the same input, over
+# its largest value (the S3D lock-step's bound, S3D_FP_BLOCK_RTOL)
+ZOO_FP_STEP_RTOL = 1e-4
+ZOO_TIMED_CALLS = 3           # Z1, Z3: score_crops calls timed after a warm-up call
+ZOO_VIDEO_ENTRY = "cvit_bfm_ggca_mdfa"    # Z2: BFM, GGCA and the MDFA token block
+# Z3: int8_full on the entries whose walks are new, one forward from uint8
+# crops: sla two all-int8 stems (28^2 convs with no pool before them, stem 2
+# from a quantize pass), glu one of 17 convs (56^2), wtconv one conv from
+# K2's int8 entry that writes fp32 for WTConv and the fp rest of its stem
+ZOO_INT8_WALKS = {
+    "cvit_ggca_sla": dict(convs=17, fused=15, no_relu_fused=0, quantize=1, k2_int8=1, k2_fp=0,
+                          int8_pools=3, fp_pools=0, fp_relus=0),
+    "cvit_ggca_add_glu": dict(convs=17, fused=16, no_relu_fused=0, quantize=0, k2_int8=1,
+                              k2_fp=0, int8_pools=2, fp_pools=0, fp_relus=0),
+    "cvit_ggca_add_wtconv": dict(convs=1, fused=0, no_relu_fused=0, quantize=0, k2_int8=1,
+                                 k2_fp=0, int8_pools=0, fp_pools=5, fp_relus=16),
+}
 
 
 def log(msg: str) -> None:
@@ -654,19 +696,43 @@ def k2_phase(rng, dev) -> dict:
     return res
 
 
+def quantized_specs(name: str) -> list:
+    """The stems' specs of the registry entry ``name`` as int8 serving runs
+    them, value-free: `compat/fold.py`'s spec (each conv or deconv, with the
+    BN after it folded in, one conv; BNs after the zoo's mixers stay), then
+    `compat/quantize.py`'s plan of its conv prefix."""
+    import torch
+    import fac_fake_torch.models  # noqa: F401  (registers the entries)
+    from fac_fake_torch.compat.quantize import _plan_stem
+    from fac_fake_torch.core.config import ModelConfig
+    from fac_fake_torch.core.registry import get
+    with torch.device("meta"):
+        model = get("model", name)(ModelConfig(name=name))
+    out = []
+    for field, _, _ in model.stems():
+        spec, folded, i = model.config[field], [], 0
+        while i < len(spec):
+            op = spec[i]
+            if op[0] in ("conv", "deconv"):
+                folded.append(("conv", op[1]))
+                i += 2 if i + 1 < len(spec) and spec[i + 1][0] == "bn" else 1
+            else:
+                folded.append(op)
+                i += 1
+        out.append(_plan_stem(tuple(folded))[0])
+    return out
+
+
 def stem_walk(name: str = "cvit") -> list:
     """(H, Cin, Cout, fused, relu, source) of each K3 launch of one forward
     of the quantized CViT ``name`` from the crops, in order, from the
-    stems' own planner (value-free: DEConvs fold to convs, BNs drop out);
-    ``fused``: the conv quantizes its output for the next conv; ``source``
-    of its int8 input: "k2" (K2's int8 entry), "quantize" (a later stem's
-    quantize pass of its fp input), "conv" or "pool"."""
-    from fac_fake_torch.models.stems import plan_walk, repbn8_stem1, repbn8_stem2, vgg_stem
-    specs = {"cvit": [vgg_stem()], "cvit_repbn8": [repbn8_stem1(), repbn8_stem2()]}[name]
+    stems' own planner (`quantized_specs`); ``fused``: the conv quantizes
+    its output for the next conv; ``source`` of its int8 input: "k2" (K2's
+    int8 entry), "quantize" (a later stem's quantize pass of its fp input),
+    "conv" or "pool"."""
+    from fac_fake_torch.models.stems import plan_walk
     hw, cin, out = 224, 3, []
-    for k, spec in enumerate(specs):
-        spec = tuple(("qconv", op[1]) if op[0] in ("conv", "deconv") else op for op in spec
-                     if op[0] != "bn")
+    for k, spec in enumerate(quantized_specs(name)):
         steps, _ = plan_walk(spec)
         source = "k2" if k == 0 else "quantize"
         for st in steps:
@@ -675,6 +741,30 @@ def stem_walk(name: str = "cvit") -> list:
             source = "pool" if st.pool else "conv"
             hw, cin = hw // (2 if st.pool else 1), cout
         hw //= 2 ** sum(op[0] == "pool" for op in spec[steps[-1].conv:])   # the fp tail
+    return out
+
+
+def int8_denses(name: str, batch: int = QBATCH) -> dict:
+    """(rows, out, in, bias) of each int8_full dense of one forward of the
+    registry entry ``name`` at ``batch`` crops -> how many: the patch
+    embedding (one row a patch), to_qkv, to_out, FFN fc1 and fc2 (one row a
+    token: the patches and the cls token), head fc1 (one a crop)."""
+    import torch
+    import fac_fake_torch.models  # noqa: F401  (registers the entries)
+    from fac_fake_torch.core.config import ModelConfig
+    from fac_fake_torch.core.registry import get
+    with torch.device("meta"):
+        model = get("model", name)(ModelConfig(name=name))
+    dim, k_pe = model.patch_to_embedding.weight.shape
+    mlp, depth = model.mlp_head[0].weight.shape[0], len(model.transformer.layers)
+    side = model.config["image_size"] // 2 ** sum(st.pools for _, _, st in model.stems())
+    patches = (side // model.patch_size) ** 2
+    rows, tokens = batch * patches, batch * (patches + 1)
+    out = {}
+    for key, n in (((rows, dim, k_pe, True), 1), ((tokens, 3 * dim, dim, False), depth),
+                   ((tokens, dim, dim, True), depth), ((tokens, mlp, dim, True), depth),
+                   ((tokens, dim, mlp, True), depth), ((batch, mlp, dim, True), 1)):
+        out[key] = out.get(key, 0) + n
     return out
 
 
@@ -806,14 +896,16 @@ def k3_phase(rng, dev, name: str = "cvit") -> dict:
     return tot
 
 
-def k4_phase(rng, dev) -> dict:
-    """K4 against its plain version at the 26 int8_full denses, batch 96,
-    beside torch._int_mm (the GEMM alone, on pre-quantized operands)."""
+def k4_phase(rng, dev, name: str = "cvit") -> dict:
+    """K4 against its plain version at the 26 int8_full denses of the CViT
+    ``name`` at batch 96 (`int8_denses`), beside torch._int_mm (the GEMM
+    alone, on pre-quantized operands)."""
     import torch
     from fac_fake_torch.ops import quant as q
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0, bound_sum=0.0,
                err=0.0)
-    for (m, n, k, has_bias), mult in INT8_DENSES.items():
+    denses = int8_denses(name)
+    for (m, n, k, has_bias), mult in denses.items():
         x, wq, sw, sx, b = quant_inputs(rng, dev, (m, k), n, k)
         b = b if has_bias else None
         for dt in (torch.float32, torch.bfloat16):
@@ -847,7 +939,8 @@ def k4_phase(rng, dev) -> dict:
         tot["ops"] += mult * ops
         tot["bound_sum"] += mult * bms
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], INT8_TC_OPS)
-    log(f"K4 over one int8_full forward's 26 denses: kernel {tot['ms']:.4f} ms plain "
+    log(f"K4 over one {name} int8_full forward's {sum(denses.values())} denses: kernel "
+        f"{tot['ms']:.4f} ms plain "
         f"{tot['plain_ms']:.4f} ms torch._int_mm {tot['library_ms']:.4f} ms bound "
         f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}; sum of per-dense bounds "
         f"{tot['bound_sum']:.4f} ms)")
@@ -954,20 +1047,21 @@ def forward_counts(model, u8, pos) -> dict:
             "K4": q.quant_dense.launches}
 
 
-def check_k3_calls(model, u8, pos) -> tuple:
+def check_k3_calls(model, u8, pos, denses: bool = False) -> tuple:
     """One fp32 forward of the quantized CViT ``model`` from the uint8 crops
-    ``u8`` in which K2's int8 entry, every K3 call and any quantize pass also
-    run through their plain versions on the same (real, calibrated) inputs
-    and must be bit-equal: ({kind: calls checked}, "fused" among the convs
-    those that quantize for the next conv, "no_relu_fused" those of them
-    with no ReLU; the shapes of the latter)."""
+    ``u8`` in which K2's int8 entry, every K3 call and any quantize pass
+    (and with ``denses`` every K4 call) also run through their plain
+    versions on the same (real, calibrated) inputs and must be bit-equal:
+    ({kind: calls checked}, "fused" among the convs those that quantize for
+    the next conv, "no_relu_fused" those of them with no ReLU, "K4" the
+    denses; the shapes of the no-ReLU ones)."""
     import torch
     from fac_fake_torch.ops import preprocess as pp
     from fac_fake_torch.ops import quant as q
     from fac_fake_torch.ops import quant3d as q3
     n = {"convs": 0, "fused": 0, "no_relu_fused": 0, "quantize": 0, "k2_int8": 0}
     no_relu = []
-    orig = (q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops)
+    orig = (q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops, q.quant_dense)
 
     def same(got, ref, what):
         if not torch.equal(got, ref):
@@ -1000,14 +1094,23 @@ def check_k3_calls(model, u8, pos) -> tuple:
         n["k2_int8"] += 1
         return y
 
+    def dense(x, kernel_q, w_scale, x_scale, bias=None):
+        y = orig[3](x, kernel_q, w_scale, x_scale, bias)
+        same(y, q.quant_dense_plain(x, kernel_q, w_scale, x_scale, bias),
+             f"K4 dense {tuple(x.shape)} -> {kernel_q.shape[0]}")
+        n["K4"] += 1
+        return y
+
     # launches made here count on the checker's functions, not the wrappers'
-    conv.launches = quantize.launches = entry.launches = 0
+    conv.launches = quantize.launches = entry.launches = dense.launches = 0
     q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops = conv, quantize, entry
+    if denses:
+        n["K4"], q.quant_dense = 0, dense
     try:
         with torch.inference_mode():
             model.forward_crops(u8, torch.float32, pos)
     finally:
-        q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops = orig
+        q.int8_conv3x3, q3.quantize_pad, pp.quantize_crops, q.quant_dense = orig
     return n, no_relu
 
 
@@ -1783,11 +1886,12 @@ def fp32_path(scorer, paths, crops, stacks, with_faces, name: str = "cvit",
     return launches
 
 
-def logits_vs_cpu(model, four, what: str, plain: bool = False) -> float:
-    """Phases 6 and 10 (and F2, F4): ``model``'s fp32 logits from the uint8
-    crops ``four`` (on the CPU) on the card and on a copy of it on the CPU
-    (``plain``: the kernels' plain versions run there), within LOGIT_TOL and
-    finite."""
+def logits_vs_cpu(model, four, what: str, plain: bool = False, rtol: float = 0.0,
+                  atol: float = LOGIT_TOL) -> float:
+    """Phases 6 and 10 (and F2, F4, Z1, Z3): ``model``'s fp32 logits from
+    the uint8 crops ``four`` (on the CPU) on the card and on a copy of it on
+    the CPU (``plain``: the kernels' plain versions run there), each within
+    ``atol + rtol·|CPU's|`` (LOGIT_TOL unless given) and finite."""
     import torch
     pos = torch.arange(four.shape[0])
     dev = model.cls_token.device
@@ -1799,8 +1903,8 @@ def logits_vs_cpu(model, four, what: str, plain: bool = False) -> float:
     err = float((gpu - cpu).abs().max())
     log(f"{what} card vs CPU ({'plain versions, ' if plain else ''}{t_cpu:.1f} s on the CPU): "
         f"max abs {err:.3g} (|logit| max {float(cpu.abs().max()):.3g})")
-    if not (torch.isfinite(gpu).all() and err <= LOGIT_TOL):
-        raise AssertionError(f"{what} differ: {err} > {LOGIT_TOL}")
+    if not (torch.isfinite(gpu).all() and ((gpu - cpu).abs() <= atol + rtol * cpu.abs()).all()):
+        raise AssertionError(f"{what} differ: {err} > {atol} + {rtol} x |logit|")
     return err
 
 
@@ -1880,7 +1984,7 @@ def int8_modes(model, scorer, det, reader, crops, stacks, paths, fp32_rates, wan
         log(f"{tag}{mode}: one forward at batch {QBATCH} runs {one} (the stems' planned walk: "
             f"{walk})")
         want_one = dict({k: want[k] for k in FORWARD_KEYS},
-                        K4=sum(INT8_DENSES.values()) if mode == "int8_full" else 0)
+                        K4=sum(int8_denses(name).values()) if mode == "int8_full" else 0)
         if one != want_one or walk != want:
             raise AssertionError(f"{tag}{mode}: one forward ran {one}, the walk plans {walk}; "
                                  f"want {want_one}, {want}")
@@ -3917,6 +4021,243 @@ def msca_scoring(seed, rng, dev, dtype: str = "float32", profile: bool = False) 
     return out
 
 
+def zoo_scorer(name, seed, dev, det, reader, quantize: str = "none"):
+    """Z1-Z3: the registry entry ``name`` at its published widths, seeded,
+    its weights carried through the key map of a reference checkpoint
+    (``{"state_dict": {"module." + key: ...}}``, `load_reference_pth`) into
+    a second build and loaded strictly, then a `VideoScorer` (which folds
+    it) with ``infer.quantize``."""
+    import torch
+    from fac_fake_torch.compat.weights import load_reference_pth
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.infer.predictor import VideoScorer
+    from fac_fake_torch.models import build_model
+    cfg = Config()
+    cfg.model.name = name
+    cfg.infer.quantize = quantize
+    src = build_model(cfg.model, device=dev, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}.pth")
+        torch.save({"epoch": 0, "state_dict": {f"module.{k}": v
+                                               for k, v in src.state_dict().items()}}, path)
+        model = build_model(cfg.model, device=dev, seed=seed + 1)
+        model.load_state_dict(load_reference_pth(path), strict=True)
+    want = src.state_dict()
+    if not all(torch.equal(v, want[k]) for k, v in model.state_dict().items()):
+        raise AssertionError(f"{name}: the reference checkpoint did not carry every tensor")
+    del src, want
+    return VideoScorer(model, cfg, detector=det, reader=reader)
+
+
+def zoo_crops_per_s(scorer, crops) -> tuple:
+    """crops/s through ``score_crops`` over ZOO_TIMED_CALLS calls after one
+    to warm up, and the last score."""
+    import torch
+    scorer.score_crops(crops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_TIMED_CALLS):
+        p = scorer.score_crops(crops)
+    torch.cuda.synchronize()
+    return len(crops) * ZOO_TIMED_CALLS / (time.perf_counter() - t0), p
+
+
+def zoo_fp32(seed, dev, det, reader, crops, four) -> dict:
+    """Z1: every zoo entry at its published widths (`zoo_scorer`): fp32
+    logits of the folded model card vs CPU at batch ZOO_CHECK_BATCH within
+    ZOO_LOGIT_ATOL + ZOO_LOGIT_RTOL·|logit|, and crops/s through ``score_crops`` (29 crops, capacity 96)
+    beside base cvit's, timed the same way in this phase."""
+    import torch
+    out = {}
+    for name in ("cvit",) + ZOO:
+        scorer = zoo_scorer(name, seed, dev, det, reader)
+        err = 0.0 if name == "cvit" else logits_vs_cpu(
+            scorer.model, four[:ZOO_CHECK_BATCH], f"Z1 {name} fp32 logits (folded)",
+            rtol=ZOO_LOGIT_RTOL, atol=ZOO_LOGIT_ATOL)
+        rate, p = zoo_crops_per_s(scorer, crops)
+        n_par = sum(t.numel() for t in scorer.model.state_dict().values())
+        out[name] = dict(crops_per_s=rate, logit_err=err, score=p)
+        log(f"Z1 {name}: {rate:.1f} crops/s ({rate / out['cvit']['crops_per_s']:.3f} of cvit's); "
+            f"score {p:.4f}; {n_par / 1e6:.1f} M values folded")
+        if not (np.isfinite(p) and 0.0 <= p <= 1.0):
+            raise AssertionError(f"Z1 {name}: score {p} is not a probability")
+        del scorer
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_int8(seed, dev, det, reader, crops, four, fp32: dict) -> dict:
+    """Z3: int8_full on the three entries of ZOO_INT8_WALKS (`zoo_scorer`;
+    the first ``score_crops`` calibrates): crops/s beside the entry's fp32
+    rate of Z1; launches through ``score_crops`` whole forwards of the
+    planned walk; one forward from the uint8 crops at batch QBATCH runs the
+    walk (`forward_counts`: ``CViT.walk_counts`` as ZOO_INT8_WALKS and
+    `int8_denses` K4 launches) and every K3 and K4 call of one more, K2's
+    int8 entry and any quantize pass, is bit-equal to its plain version on
+    the real crops and activations (`check_k3_calls`); int8_full logits card
+    vs CPU (plain versions) at batch ZOO_CHECK_BATCH in lock-step
+    (`cvit_int8_lockstep`) within LOGIT_TOL, each fp step within
+    ZOO_FP_STEP_RTOL; int8_full vs fp32 logits for information."""
+    import torch
+    from fac_fake_torch.ops import preprocess as pp
+    from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
+    out = {}
+    u96, pos96 = crops_96(crops, dev)
+    for name, want in ZOO_INT8_WALKS.items():
+        qs = zoo_scorer(name, seed, dev, det, reader, "int8_full")
+        fp_model = qs.model
+        t_cal = time.perf_counter()
+        qs.score_crops(crops)                       # calibrates
+        torch.cuda.synchronize()
+        walk = qs.model.walk_counts()
+        n_q = sum(op[0] == "qconv" for op in qs.model.stem_ops())
+        log(f"Z3 {name} int8_full: calibrated and scored in {time.perf_counter() - t_cal:.2f} s; "
+            f"{n_q} convs quantized, the walk {walk}")
+        if qs._quant_pending or not qs.model.quant_dense or walk != want or n_q != want["convs"]:
+            raise AssertionError(f"Z3 {name}: quantized {n_q} convs, walk {walk}; want {want}")
+        q.int8_conv3x3.launches = q3.quantize_pad.launches = q.quant_dense.launches = 0
+        pp.quantize_crops.launches = pp.normalize_imagenet.launches = 0
+        rate, p = zoo_crops_per_s(qs, crops)
+        calls = ZOO_TIMED_CALLS + 1
+        launches = {"K2": pp.normalize_imagenet.launches, "K2_int8": pp.quantize_crops.launches,
+                    "K3": q.int8_conv3x3.launches, "K3_quantize": q3.quantize_pad.launches,
+                    "K4": q.quant_dense.launches}
+        n_dense = sum(int8_denses(name).values())
+        whole = {"K2": calls * want["k2_int8"], "K2_int8": calls * want["k2_int8"],
+                 "K3": calls * want["convs"], "K3_quantize": calls * want["quantize"],
+                 "K4": calls * n_dense}
+        log(f"Z3 {name} int8_full: {rate:.1f} crops/s (fp32 {fp32[name]['crops_per_s']:.1f}); "
+            f"score {p:.4f}; launches over {calls} score_crops calls {launches}")
+        if launches != whole or not (np.isfinite(p) and 0.0 <= p <= 1.0):
+            raise AssertionError(f"Z3 {name}: launches {launches}, whole forwards {whole}; "
+                                 f"score {p}")
+        one = forward_counts(qs.model, u96, pos96)
+        want_one = dict({k: want[k] for k in FORWARD_KEYS}, K4=n_dense)
+        checked, _ = check_k3_calls(qs.model, u96, pos96, denses=True)
+        want_checked = dict({k: want[k] for k in CHECKED_KEYS}, K4=n_dense)
+        log(f"Z3 {name} forward at batch {QBATCH}: runs {one}; K2's int8 entry, every K3 and "
+            f"K4 call bit-equal to the plain versions on the same crops and activations: "
+            f"{checked}")
+        if one != want_one or checked != want_checked:
+            raise AssertionError(f"Z3 {name}: ran {one}, checked {checked}; want {want_one}, "
+                                 f"{want_checked}")
+        lock = cvit_int8_lockstep(qs.model, four[:ZOO_CHECK_BATCH])
+        log(f"Z3 {name} int8_full card vs CPU at batch {ZOO_CHECK_BATCH} in lock-step (the "
+            f"CPU's walk fed the card's input at each of its {lock['points']} fp quantize "
+            f"points): logits max abs {lock['logit_err']:.3g}, fp steps within "
+            f"{lock['step_err']:.3g} of their largest value; free-running (information: a "
+            f"code flips where an fp step's rounding meets a .5 tie) {lock['free_err']:.3g}")
+        if not (lock["logit_err"] <= LOGIT_TOL and lock["step_err"] <= ZOO_FP_STEP_RTOL):
+            raise AssertionError(f"Z3 {name}: int8_full card vs CPU in lock-step {lock}")
+        with torch.inference_mode():
+            u29, pos29 = torch.from_numpy(crops).to(dev), torch.arange(29, device=dev)
+            a = fp_model.forward_crops(u29, torch.float32, pos29).double()
+            b = qs.model.forward_crops(u29, torch.float32, pos29).double()
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        log(f"Z3 {name} int8_full vs fp32 logits on 29 crops (information): max abs "
+            f"{float((a - b).abs().max()):.4g} cosine {cos:.6f} "
+            f"(|logit| max {float(a.abs().max()):.3g})")
+        out[name] = dict(crops_per_s=rate, fp32_crops_per_s=fp32[name]["crops_per_s"],
+                         launches=launches, per_forward=one, lockstep=lock,
+                         int8_vs_fp32_max_abs=float((a - b).abs().max()), cosine=cos)
+        del qs, fp_model
+        torch.cuda.empty_cache()
+    return out
+
+
+def cvit_int8_lockstep(model, u8) -> dict:
+    """Z3: the int8_full CViT ``model``'s forward from the uint8 crops ``u8``
+    (on the CPU), card against CPU in lock-step. K2's int8 entry and the K3
+    walk are exact either way (each kernel equals its plain version), but
+    the fp steps between the int8 layers (a stem's fp tail, the blocks,
+    LayerNorm, attention, GELU) round differently on the two devices, and
+    free-running such a difference flips a code wherever a value sits on a
+    .5 tie of a quantize point. Here the card's forward records the fp input
+    of each quantize point (each K4 dense, each quantize pass); the CPU's
+    runs its own, holds it to the card's (``step_err``: the largest
+    difference over the card's largest value, any point) and goes on with
+    the card's. Returns that, the logits' max abs difference, the number of
+    points, and the free-running logits' max abs difference."""
+    import torch
+    from fac_fake_torch.ops import quant as q
+    from fac_fake_torch.ops import quant3d as q3
+    dev = model.cls_token.device
+    pos = torch.arange(u8.shape[0])
+    real, seen = (q.quant_dense, q3.quantize_pad), []
+
+    def record(kind, fn):
+        def run(x, *args, **kw):
+            seen.append((kind, x.detach().cpu()))
+            return fn(x, *args, **kw)
+        run.launches = 0
+        return run
+
+    q.quant_dense, q3.quantize_pad = record("K4", real[0]), record("quantize", real[1])
+    try:
+        with torch.inference_mode():
+            gpu = model.forward_crops(u8.to(dev), torch.float32, pos.to(dev)).cpu()
+    finally:
+        q.quant_dense, q3.quantize_pad = real
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        free = cpu_model.forward_crops(u8, torch.float32, pos)
+    steps, worst = iter(seen), [0.0]
+
+    def carried(kind, fn):
+        def run(x, *args, **kw):
+            k, ref = next(steps)
+            if k != kind or ref.shape != x.shape:
+                raise AssertionError(f"quantize points out of order: the card's {k} "
+                                     f"{tuple(ref.shape)}, the CPU's {kind} {tuple(x.shape)}")
+            worst[0] = max(worst[0], float((x.float() - ref.float()).abs().max()
+                                           / ref.float().abs().max().clamp_min(1e-30)))
+            return fn(ref, *args, **kw)
+        run.launches = 0
+        return run
+
+    q.quant_dense, q3.quantize_pad = carried("K4", real[0]), carried("quantize", real[1])
+    try:
+        with torch.inference_mode():
+            cpu = cpu_model.forward_crops(u8, torch.float32, pos)
+    finally:
+        q.quant_dense, q3.quantize_pad = real
+    if next(steps, None) is not None:
+        raise AssertionError("the CPU's forward passed fewer quantize points than the card's")
+    return dict(logit_err=float((gpu - cpu).abs().max()), step_err=worst[0], points=len(seen),
+                free_err=float((gpu - free).abs().max()))
+
+
+def zoo_phases(seed, rng, dev, det, reader, crops, stacks, paths, with_faces, four) -> dict:
+    """Z1-Z3, the variant zoo at full width (seeded weights, TF32 off): Z1
+    every entry (`zoo_fp32`); Z2 ZOO_VIDEO_ENTRY end to end through
+    `VideoScorer` over the videos of phase 5 (`fp32_path`: videos/min, K1
+    and K2 launches); K3 and K4 at the new shapes of cvit_ggca_sla's and
+    cvit_ggca_add_glu's int8_full walks (`k3_phase`, `k4_phase`: each
+    distinct conv and dense bit-equal to its plain version, fp32 and bf16,
+    and timed); Z3 int8_full on three entries (`zoo_int8`)."""
+    import torch
+    t0 = time.perf_counter()
+    z1 = zoo_fp32(seed, dev, det, reader, crops, four)
+    log(f"[Z1 {time.perf_counter() - t0:.1f} s]")
+    scorer = zoo_scorer(ZOO_VIDEO_ENTRY, seed, dev, det, reader)
+    z2_rates = {}
+    z2 = fp32_path(scorer, paths, crops, stacks, with_faces, ZOO_VIDEO_ENTRY, z2_rates)
+    del scorer
+    torch.cuda.empty_cache()
+    log(f"[Z2 {time.perf_counter() - t0:.1f} s]")
+    k3 = {n: k3_phase(rng, dev, n) for n in ("cvit_ggca_sla", "cvit_ggca_add_glu")}
+    k4 = {n: k4_phase(rng, dev, n) for n in ("cvit_ggca_sla", "cvit_ggca_add_glu")}
+    torch.cuda.empty_cache()
+    log(f"[K3, K4 at the zoo's shapes {time.perf_counter() - t0:.1f} s]")
+    z3 = zoo_int8(seed, dev, det, reader, crops, four, z1)
+    log(f"[Z3 {time.perf_counter() - t0:.1f} s]")
+    log(json.dumps({"zoo": {"fp32": z1, "video_path": dict(z2_rates, entry=ZOO_VIDEO_ENTRY,
+                                                           launches=z2),
+                            "int8_full": z3}}, default=str))
+    return dict(z1=z1, z2=z2, z2_rates=z2_rates, k3=k3, k4=k4, z3=z3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4092,6 +4433,11 @@ def main() -> int:
     clock("B3")
     b4 = msca_scoring(args.seed, b_rng, dev, "bfloat16", args.profile)
     clock("B4")
+
+    # ---- Z1-Z3. the variant zoo ------------------------------------------------------
+    zoo = zoo_phases(args.seed, side_rng(rng), dev, det, reader, crops, stacks, paths,
+                     with_faces, four)
+    clock("Z1-Z3")
     for name, fp32, bf in (("cvit", t2, b2["cvit"]), ("cvit_repbn8", t4, b2["cvit_repbn8"])):
         log(f"B2 {name} at batch {TRAIN_BATCH}: bf16 {bf['crops_per_s']:.1f} train crops/s, "
             f"{bf['step_ms']:.2f} ms a step, {bf['busy_share']:.1%} busy, {bf['peak_gb']:.2f} GB; "
@@ -4353,6 +4699,30 @@ def main() -> int:
                    "s3d under plan1_2 (B3), one a step"},
     ]
     rows[1]["bf16_train_eval_launches"] = b2["cvit"]["launches"]["K2"]
+    # the variant zoo: Z2's fp32 video path (K1, K2), Z3's int8_full paths
+    # (K2's int8 entry, K3, K4), K3 and K4 at cvit_ggca_sla's and
+    # cvit_ggca_add_glu's walks
+    z3 = zoo["z3"]
+    rows[0]["zoo_launches"] = {ZOO_VIDEO_ENTRY: zoo["z2"]["K1"]}
+    rows[1]["zoo_launches"] = {ZOO_VIDEO_ENTRY: zoo["z2"]["K2"]}
+    rows[1]["zoo_int8_launches"] = {n: z3[n]["launches"]["K2_int8"] for n in z3}
+    for row, kern in ((rows[2], "k3"), (rows[3], "k4")):
+        key = "K3" if kern == "k3" else "K4"
+        row["zoo_launches"] = {n: z3[n]["launches"][key] for n in z3}
+        row["zoo_launches_per_forward"] = {n: z3[n]["per_forward"]["convs" if kern == "k3"
+                                                                   else "K4"] for n in z3}
+        row["zoo"] = {n: {f: v for f, v in zoo[kern][n].items()
+                          if f in ("ms", "conv_ms", "quantize_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "err", "convs", "fused")}
+                      for n in zoo[kern]}
+    rows[2]["zoo_quantize_launches"] = {n: z3[n]["launches"]["K3_quantize"] for n in z3}
+    rows[2]["zoo_shapes"] = ("zoo: the convs (and stem 2's quantize pass) of one int8 forward "
+                             "from the crops at batch 96, fp32, of cvit_ggca_sla (28^2 256- and "
+                             "512-channel convs) and cvit_ggca_add_glu (56^2); zoo_launches: "
+                             "Z3's int8_full paths")
+    rows[3]["zoo_shapes"] = ("zoo: the 26 denses of one int8_full forward at batch 96 of "
+                             "cvit_ggca_sla (96 x 16 patch rows, 96 x 17 token rows) and "
+                             "cvit_ggca_add_glu (96 x 64, 96 x 65); zoo_launches: Z3's paths")
     rows[4]["bf16_launches"] = {n: b4[n]["int8_launches"]["K5"] for n in b4}
     log(json.dumps({"training": {"cvit": dict(t2, vs_cpu=t3),
                                  "cvit_repbn8": dict(t4, vs_cpu=t4_cpu),

@@ -9,7 +9,10 @@ DEConv (the flagship's 128-stage quirk) composes into a plain conv. The
 folded spec holds ``("conv", ch)`` ops only where there were conv and
 deconv ops, and drops the folded ``("bn", ch)``, so stem indices renumber
 as in the JAX fold: the flagship's stems fold to plain conv/relu/pool
-specs of 14 and 4 convs.
+specs of 14 and 4 convs. The variant zoo's stem ops (scconv, wtconv, idw,
+od) and a BN after one pass through with their parameters and stats,
+renumbered (JAX `compat/fold.py:94`); the blocks' BNs (GGCA, MDFA, BFM,
+ODConv's attention) keep theirs.
 """
 from __future__ import annotations
 
@@ -63,8 +66,8 @@ def fold_stem_bn(spec: Tuple, sd: Dict[str, torch.Tensor]
 
 def fold_cvit(model):
     """A new CViT on the model's device with every stem's BNs folded and
-    DEConvs composed, in eval mode; GGCA's BN, the transformer and the head
-    keep their weights and stats (copied)."""
+    DEConvs composed, in eval mode; the blocks, the transformer and the
+    head keep their weights and stats (copied)."""
     from fac_fake_torch.models.cvit import CViT
 
     sd = model.state_dict()

@@ -12,7 +12,14 @@ Scheme, as in the JAX package:
 
 Only the plain conv/relu/pool prefix of a folded stem quantizes: the first
 other op ends it, because the calibration walk models only those ops and
-advances the activations with the fp convs. Every stem quantizes (the
+advances the activations with the fp convs. On the variant zoo's stems
+that op is the first mixer (scconv, wtconv, idw, od): the stem's int8 walk
+then ends in a conv that writes fp32 and the rest runs as modules
+(`models/stems.py`). Folded, such a stem keeps the BN after each mixer
+(nothing to fold it into). The JAX package's `quantize_cvit` refuses any
+stem that holds a BN, so it cannot serve those four entries in int8; the
+port refuses only a stem that is not folded (a BN right after a conv, or
+a deconv left). Every stem quantizes (the
 flagship's ``features1`` and ``features2``), each calibrated from its own
 fp input: a later stem's comes from one fp forward of the folded model,
 read by a forward pre-hook where JAX reads its ``stem2_input`` sow. With
@@ -52,6 +59,13 @@ def _weight_q(w: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     shape = (-1,) + (1,) * (w.dim() - 1)
     w_q = torch.clamp(torch.round(w / s_w.reshape(shape)), -127, 127).to(torch.int8)
     return w_q, s_w
+
+
+def _folded(spec: Tuple) -> bool:
+    """No deconv left and no BN right after a conv (`compat/fold.py` folds
+    those; a BN after a zoo mixer stays)."""
+    return not any(op[0] == "deconv" or (op[0] == "conv" and nxt[0] == "bn")
+                   for op, nxt in zip(spec, tuple(spec[1:]) + (("",),)))
 
 
 def _plan_stem(spec: Tuple) -> Tuple[Tuple, List[int]]:
@@ -145,7 +159,7 @@ def quantize_cvit(model, calib_x: torch.Tensor, transformer: bool = False):
     if not isinstance(model, CViT):
         raise ValueError(f"{type(model).__name__} has no foldable stem to quantize")
     stems = model.stems()
-    if any(op[0] == "bn" for field, _, _ in stems for op in model.config[field]):
+    if not all(_folded(model.config[field]) for field, _, _ in stems):
         raise ValueError("quantize_cvit expects a folded stem (run fold_cvit first)")
     plans = {name: _plan_stem(model.config[field]) for field, name, _ in stems}
     if not any(q_idx for _, q_idx in plans.values()) and not transformer:

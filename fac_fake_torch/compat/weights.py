@@ -1,11 +1,13 @@
 """Carry weights into the port: JAX variables and reference ``.pth`` files.
 
 The port's counterpart of `fac_fake_tpu/compat/torch_weights.py` and
-`torch_export.py`, with its own copies of the ``cvit``/``cvit_repbn8``,
-S3D and ResNet/KAN key maps (`torch_weights._cvit_torch_key`,
-``_s3d_torch_key``, ``_resnet_key``, ``_kan_key``) and of
-the layout transforms: flax HWIO convs → OIHW, DHWIO → OIDHW, 1-D (k, I, O)
-taps → (O, I, k), flax (I, O) denses → (O, I). The int8 leaves of a JAX
+`torch_export.py`, with its own copies of the CViT (every registry entry:
+the variant zoo's blocks and stem ops too), S3D and ResNet/KAN key maps
+(`torch_weights._cvit_torch_key`, ``_block_torch_key``, ``_stem_op_key``,
+``_s3d_torch_key``, ``_resnet_key``, ``_kan_key``) and of the layout
+transforms: flax HWIO convs → OIHW, DHWIO → OIDHW, 1-D (k, I, O) taps →
+(O, I, k), flax (I, O) denses → (O, I), an ODConv's (kn, k, k, I, O)
+candidates → (kn, O, I, k, k), a flat per-channel scale → (1, C, 1, 1). The int8 leaves of a JAX
 `quantize_cvit` output (``kernel_q``, ``w_scale``, ``x_scale``) map to the
 port's `QuantConv3x3` / `QuantLinear` buffers of the same names, with the
 same layout transforms; ``kernel_q`` stays int8. The port's module tree
@@ -62,10 +64,24 @@ def _leaf(base: str, leaf: str, kernel_tf: Callable) -> Tuple[str, Callable]:
     return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
 
 
+def t_od_weight(w: np.ndarray) -> np.ndarray:   # (kn, k, k, I, O) -> (kn, O, I, k, k)
+    return np.transpose(w, (0, 4, 3, 1, 2))
+
+
+def t_chan(w: np.ndarray) -> np.ndarray:        # (C,) -> (1, C, 1, 1)
+    return np.asarray(w).reshape(1, -1, 1, 1)
+
+
 _DECONV = {"cd": "conv1_1.conv", "hd": "conv1_2.conv", "vd": "conv1_3.conv",
            "ad": "conv1_4.conv", "std": "conv1_5"}
 _GGCA = {"conv1": "0", "bn": "1", "conv2": "3"}
-CVIT_VARIANTS = ("cvit", "cvit_repbn8")
+#: variants whose one stem is ``features`` (JAX's rule: every other name
+#: means ``features1..3``; pass ``"single"`` for a one-stem zoo entry)
+SINGLE_STEM = ("cvit", "single")
+#: the flax module names of the zoo's blocks (``*_tok``: the token block)
+BLOCKS = ("ggca", "bfm", "mdfa", "bfm_tok", "mdfa_tok", "odconv", "moga", "smfa", "uffc",
+          "sla", "glu")
+_PLAIN_LEAVES = ("kernel", "kernel_q", "w_scale", "x_scale", "scale", "bias", "mean", "var")
 
 
 def _norm_key(base: str, col: str, leaf: str) -> Tuple[str, Callable]:
@@ -75,23 +91,27 @@ def _norm_key(base: str, col: str, leaf: str) -> Tuple[str, Callable]:
     return (f"{base}.weight", t_id) if leaf == "scale" else (f"{base}.bias", t_id)
 
 
+def _term(base: str, col: str, leaf: str, kernel_tf: Callable = t_conv) -> Tuple[str, Callable]:
+    """A conv's or norm's leaf under ``base`` (JAX ``_term``)."""
+    if col == "batch_stats" or leaf == "scale":
+        return _norm_key(base, col, leaf)
+    return _leaf(base, leaf, kernel_tf)
+
+
 def cvit_torch_key(path, variant: str = "cvit") -> Tuple[str, Callable]:
     """flax variable path (``("params", "stem", "l0", "kernel")``) →
-    (torch key, flax→torch transform) for base ``cvit`` and the flagship
-    ``cvit_repbn8`` — the port's copy of JAX `torch_weights._cvit_torch_key`
-    (:69-157). The flagship's stems are ``features1``/``features2``; a
-    DEConv's ``w_*``/``b_*`` leaves map to its branches (the hd/vd taps by
-    `t_conv1d`); GGCA's ``conv1``/``bn``/``conv2`` to
-    ``ggca.shared_conv.{0,1,3}``; a LinearNorm's ``norm1`` (LayerNorm),
-    ``norm2`` (RepBN: ``alpha``, ``bn``) and its ``schedule`` counters
+    (torch key, flax→torch transform), for every CViT registry entry — the
+    port's copy of JAX `torch_weights._cvit_torch_key` (:69-157). A stem is
+    ``features`` for a ``variant`` in `SINGLE_STEM`, else ``features1..3``;
+    a DEConv's ``w_*``/``b_*`` leaves map to its branches (the hd/vd taps by
+    `t_conv1d`); the zoo's stem ops and blocks as `_stem_op_key` and
+    `_block_torch_key`; a LinearNorm's ``norm1`` (LayerNorm), ``norm2``
+    (RepBN: ``alpha``, ``bn``) and its ``schedule`` counters
     ``warm``/``iter``."""
-    if variant not in CVIT_VARIANTS:
-        raise NotImplementedError(
-            f"variant {variant!r}: the CViT variant zoo is ROADMAP queue 1 item 14b")
     col, rest = path[0], list(path[1:])
     leaf = rest[-1]
     if rest[0] in ("stem", "stem2", "stem3"):
-        name = "features" if variant == "cvit" else \
+        name = "features" if variant in SINGLE_STEM else \
             {"stem": "features1", "stem2": "features2", "stem3": "features3"}[rest[0]]
         base = f"{name}.{rest[1][1:]}"  # l{i} -> i
         m = re.match(r"^([wb])_(cd|hd|vd|ad|std)$", leaf)
@@ -100,14 +120,11 @@ def cvit_torch_key(path, variant: str = "cvit") -> Tuple[str, Callable]:
             if m.group(1) == "b":
                 return f"{key}.bias", t_id
             return f"{key}.weight", t_conv1d if m.group(2) in ("hd", "vd") else t_conv
-        if len(rest) != 3:
-            raise KeyError(f"no torch mapping for flax path {path}")
-        if col == "batch_stats" or leaf == "scale":
-            return _norm_key(base, col, leaf)
-        return _leaf(base, leaf, t_conv)
-    if rest[0] == "ggca":
-        base = f"ggca.shared_conv.{_GGCA[rest[1]]}"
-        return _norm_key(base, col, leaf) if rest[1] == "bn" else _leaf(base, leaf, t_conv)
+        if len(rest) == 3 and leaf in _PLAIN_LEAVES:   # a conv, qconv or bn
+            return _term(base, col, leaf)
+        return _stem_op_key(base, rest[2:], col, leaf)
+    if rest[0] in BLOCKS:
+        return _block_torch_key(rest[0], rest[1:], col, leaf)
     if rest in (["pos_embedding"], ["cls_token"]):
         return rest[0], t_id
     if rest[0] == "patch_to_embedding":
@@ -134,6 +151,96 @@ def cvit_torch_key(path, variant: str = "cvit") -> Tuple[str, Callable]:
             return f"{N}.norm2.alpha", t_id
         return _norm_key(f"{N}.norm2.bn", col, leaf)
     raise KeyError(f"no torch mapping for flax path {path}")
+
+
+_MDFA = {"b1_conv": "branch1.0", "b1_bn": "branch1.1", "b2_conv": "branch2.0",
+         "b2_bn": "branch2.1", "b3_conv": "branch3.0", "b3_bn": "branch3.1",
+         "b4_conv": "branch4.0", "b4_bn": "branch4.1", "b5_conv": "branch5_conv",
+         "b5_bn": "branch5_bn", "cat_conv": "conv_cat.0", "cat_bn": "conv_cat.1"}
+_HEBING = {"tongdao": "Hebing.tongdao.fc", "kongjian": "Hebing.kongjian.Conv1x1"}
+_MOGA_VALUE = {"dw0": "DW_conv0", "dw1": "DW_conv1", "dw2": "DW_conv2", "pw": "PW_conv"}
+_SMFA_LDE = {"conv0a": "conv_0.0", "conv0b": "conv_0.1", "conv1": "conv_1"}
+_UFFC = {"conv_down": "conv_layer_down55", "conv_down_shift": "conv_layer_down55_shift"}
+_OD_ATTENTION = ("fc", "bn", "channel_fc", "filter_fc", "spatial_fc", "kernel_fc")
+
+
+def _block_torch_key(tname: str, rest, col: str, leaf: str) -> Tuple[str, Callable]:
+    """A zoo block's flax sub-path → (torch key, transform) — JAX
+    `torch_weights._block_torch_key` (:478-563). The torch module is the
+    flax one's name without its ``_tok`` suffix."""
+    kind, sub = tname.replace("_tok", ""), rest[0] if rest else None
+    if kind == "ggca":
+        return _term(f"ggca.shared_conv.{_GGCA[sub]}", col, leaf)
+    if kind == "mdfa":
+        if sub == "hebing":
+            return _term(f"mdfa.{_HEBING[rest[1]]}", col, leaf)
+        return _term(f"mdfa.{_MDFA[sub]}", col, leaf)
+    if kind == "bfm":
+        if sub.startswith("ms_conv"):
+            i = {"3": "1", "5": "2", "7": "3"}[sub[-1]]
+            return _term(f"bfm.multi_scale_extractor.conv{i}", col, leaf)
+        inner = rest[1]                         # under tfam
+        if inner.startswith("channel_conv"):
+            return _term(f"bfm.tfam.channel_attention.{inner}", col, leaf, t_conv1d)
+        return _term(f"bfm.tfam.spatial_attention.{inner}", col, leaf)
+    if kind == "odconv":
+        return _od_key("odconv", sub, col, leaf)
+    if kind == "moga":
+        if sub == "sigma":
+            return "moga.sigma.scale", t_chan
+        if sub == "value":
+            return _term(f"moga.value.{_MOGA_VALUE[rest[1]]}", col, leaf)
+        return _term(f"moga.{sub}", col, leaf)          # proj_1 / gate / proj_2
+    if kind == "smfa":
+        if sub in ("alpha", "belt"):
+            return f"smfa.{sub}", t_chan
+        if sub == "lde":
+            return _term(f"smfa.lde.{_SMFA_LDE[rest[1]]}", col, leaf)
+        return _term(f"smfa.{sub}", col, leaf)          # linear_0/1/2, dw_conv
+    if kind == "uffc":
+        if sub in ("locMap", "lambda_base"):
+            return f"uffc.{sub}", t_id
+        return _term(f"uffc.{_UFFC[sub]}", col, leaf)
+    if kind == "sla":
+        if sub == "positional_encoding":
+            return "sla.positional_encoding", t_id
+        return _term(f"sla.{sub}", col, leaf, t_conv if sub == "dwc" else t_dense)
+    if kind == "glu":
+        if sub == "dwconv":
+            return _term("glu.dwconv.dwconv", col, leaf)
+        return _leaf(f"glu.{sub}", leaf, t_dense)       # fc1 / fc2
+    raise KeyError(f"no torch mapping for block {tname} / {rest}")
+
+
+def _od_key(base: str, sub: str, col: str, leaf: str) -> Tuple[str, Callable]:
+    """An ODConv2d's leaf: its candidate ``weight``, or its attention head."""
+    if sub == "weight":
+        return f"{base}.weight", t_od_weight
+    if sub in _OD_ATTENTION:
+        return _term(f"{base}.attention.{sub}", col, leaf)
+    raise KeyError(f"no torch mapping for ODConv leaf {sub}")
+
+
+def _stem_op_key(base: str, rest, col: str, leaf: str) -> Tuple[str, Callable]:
+    """A zoo stem op's leaf under ``features*.{i}`` (scconv, wtconv, idw,
+    od) — JAX `torch_weights._stem_op_key` (:566-596)."""
+    sub = rest[0]
+    if sub == "sru":
+        return f"{base}.SRU.gn.{'weight' if leaf == 'gn_scale' else 'bias'}", t_id
+    if sub == "cru":
+        inner = {"gwc": "GWC", "pwc1": "PWC1", "pwc2": "PWC2"}.get(rest[1], rest[1])
+        return _term(f"{base}.CRU.{inner}", col, leaf)
+    if sub == "base_conv":
+        return _term(f"{base}.base_conv", col, leaf)
+    if sub == "base_scale":
+        return f"{base}.base_scale.weight", t_chan
+    if sub.startswith("wavelet_scale"):
+        return f"{base}.wavelet_scale.{sub[len('wavelet_scale'):]}.weight", t_chan
+    if sub.startswith("wavelet_conv"):
+        return _term(f"{base}.wavelet_convs.{sub[len('wavelet_conv'):]}", col, leaf)
+    if sub in ("dwconv_hw", "dwconv_w", "dwconv_h"):
+        return _term(f"{base}.{sub}", col, leaf)
+    return _od_key(base, sub, col, leaf)
 
 
 def cvit_state_dict_from_flax(flat: Mapping[str, np.ndarray],

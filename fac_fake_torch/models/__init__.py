@@ -24,7 +24,11 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     3D convs and linears LeCun-normal, biases 0, norms identity (BatchNorm
     running mean 0, var 1; RepBN's ``alpha`` 1), LinearNorm's schedule at
     its start, the CViT's (and ResVitKan's) cls token and legacy
-    pos-embedding N(0, 1) (patch mode N(0, 0.02)), a `KANLinear` as JAX's
+    pos-embedding N(0, 1) (patch mode N(0, 0.02)), 1-D convs as 2D ones,
+    a GroupNorm as identity, the zoo's own parameters as their
+    ``reset_own`` says (JAX's initializers: an ODConv's candidate kernels
+    He-normal, scales at their start values, UFFC's location map U[0, 1),
+    SLA's positional encoding 0), a `KANLinear` as JAX's
     (`KANLinear.reset_parameters`: kaiming-uniform base weight and scaler,
     the spline weight fitted to noise, the default grid), as the JAX
     package initialises them; an S3DNet's frozen SRM bank is written anew
@@ -56,25 +60,29 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 scale = math.sqrt(2.0 / w[0].numel()) / float(w.square().mean().sqrt())
                 for c in branches:
                     c.weight.mul_(scale)
-            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
                 if id(m.weight) in done:   # a DEConv branch
                     continue
                 fan_in = m.weight[0].numel()
-                gain = math.sqrt(2.0) if isinstance(m, nn.Conv2d) \
+                gain = math.sqrt(2.0) if isinstance(m, (nn.Conv1d, nn.Conv2d)) \
                     and id(m.weight) not in lecun else 1.0
                 m.weight.normal_(0.0, gain / math.sqrt(fan_in), generator=gen)
                 done.add(id(m.weight))
                 if m.bias is not None:
                     m.bias.zero_()
                     done.add(id(m.bias))
-            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm)):
+            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm,
+                                nn.GroupNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 done.update((id(m.weight), id(m.bias)))
-                if not isinstance(m, nn.LayerNorm):
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
                     m.running_mean.zero_()
                     m.running_var.fill_(1.0)
                     m.num_batches_tracked.zero_()
+            elif hasattr(m, "reset_own"):
+                m.reset_own(gen)
+                done.update(id(p) for p in m.parameters(recurse=False))
             elif isinstance(m, RepBN):
                 m.alpha.fill_(1.0)
                 done.add(id(m.alpha))

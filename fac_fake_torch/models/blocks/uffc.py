@@ -1,0 +1,57 @@
+"""UFFC, the modified Fourier unit — the port of
+`fac_fake_tpu/models/blocks/uffc.py` (`other/cvit_GGCA_UFFC.py:387-482`).
+
+The orthonormal real FFT over (H, W); its real and imaginary parts
+interleaved per channel (channel ``2c`` the real part of input channel
+``c``, ``2c + 1`` its imaginary part) with the learned location map as one
+more channel; a 1×1 conv (``conv_layer_down55``), ``fftshift`` over H,
+ReLU; the shifted location map again, a reflect pad of 2 and a 3×3 conv at
+dilation 2 (``conv_layer_down55_shift``), ``fftshift`` over H; a blend with
+the raw spectrum by ``sigmoid(lambda_base)``; the inverse FFT. The output is
+moved to the input's mean and clipped to the input's range ± 0.5, both
+taken over the whole batch, as the JAX package takes them (so a sample's
+output depends on the batch it is scored in). ``locMap`` is sized by the
+map the block runs on (``image_size``). NCHW in and out.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fac_fake_torch.models.layers import Conv2d, FlatLoad
+
+
+class FourierUnitModified(FlatLoad, nn.Module):
+    _flat = ("lambda_base",)
+
+    def __init__(self, channels: int, image_size: int):
+        super().__init__()
+        self.conv_layer_down55 = Conv2d(2 * channels + 1, 2 * channels, 1, bias=False)
+        self.conv_layer_down55_shift = Conv2d(2 * channels + 1, 2 * channels, 3, dilation=2,
+                                              bias=False)
+        self.locMap = nn.Parameter(torch.empty(image_size, image_size // 2 + 1))
+        self.lambda_base = nn.Parameter(torch.empty(()))
+
+    def reset_own(self, gen: torch.Generator) -> None:
+        self.locMap.data.uniform_(0.0, 1.0, generator=gen)
+        self.lambda_base.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        wf = w // 2 + 1
+        f = torch.fft.rfftn(x.float(), dim=(2, 3), norm="ortho")
+        ff = torch.stack([f.real, f.imag], dim=2).reshape(b, 2 * c, h, wf)
+        ff_copy = ff
+        loc = self.locMap[:h, :wf].expand(b, 1, h, wf)
+        ff = self.conv_layer_down55(torch.cat([ff, loc], dim=1))
+        ff = torch.relu(torch.fft.fftshift(ff, dim=2))
+        cat = torch.cat([ff, torch.fft.fftshift(loc, dim=2)], dim=1)
+        ff = self.conv_layer_down55_shift(F.pad(cat, (2, 2, 2, 2), mode="reflect"))
+        ff = torch.fft.fftshift(ff, dim=2)
+        lb = torch.sigmoid(self.lambda_base)
+        ff = (ff_copy * lb + ff * (1.0 - lb)).reshape(b, c, 2, h, wf)
+        out = torch.fft.irfftn(torch.complex(ff[:, :, 0], ff[:, :, 1]), s=(h, w), dim=(2, 3),
+                               norm="ortho")
+        out = out - out.mean() + x.mean()
+        return torch.clamp(out, x.min() - 0.5, x.max() + 0.5).to(x.dtype)

@@ -99,6 +99,24 @@ def conv3x3(cin: int, cout: int) -> Conv2d:
     return Conv2d(cin, cout, 3, stride=1, padding=1, bias=True)
 
 
+class FlatLoad:
+    """A module mixin: each parameter named in ``_flat`` also loads from a
+    state-dict tensor of another shape with as many values, reshaped. The
+    reference keeps a per-channel scale as (1, C, 1, 1) (as does the port);
+    the JAX package's `export_cvit` writes it as flax holds it, (C,), since
+    its inverse transforms know no reshape."""
+
+    _flat: tuple = ()
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for name in self._flat:
+            key, p = prefix + name, getattr(self, name)
+            t = state_dict.get(key)
+            if t is not None and t.shape != p.shape and t.numel() == p.numel():
+                state_dict[key] = t.reshape(p.shape)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
 class _FlaxRunningStats:
     """A torch BatchNorm whose training forward updates the running stats
     with flax's rule (JAX `models/layers.py:78-84`, stock flax in fp32):

@@ -1,12 +1,16 @@
-"""Convolutional stem DSL — the port of `fac_fake_tpu/models/stems.py` for
-the plain op kinds.
+"""Convolutional stem DSL — the port of `fac_fake_tpu/models/stems.py`.
 
 A stem is data: a tuple of ops run in order by one `Stem` module,
 ``("conv", ch)`` 3×3 pad-1 conv · ``("qconv", ch)`` its int8 twin
 (`compat/quantize.py` writes it) · ``("deconv", ch)`` a `DEConv`
 (`models/blocks/deconv.py`) · ``("bn", ch)`` · ``("relu",)`` ·
-``("pool",)`` 2×2 max-pool. Op ``i`` is ``features.{i}`` in the state dict,
-as in the reference's ``nn.Sequential`` (relu and pool hold no weights).
+``("pool",)`` 2×2 max-pool, and the variant zoo's mixers, each ``ch``
+channels in and out: ``("scconv", ch)`` `ScConv` · ``("wtconv", ch)``
+`WTConv2d` · ``("idw", ch)`` `InceptionDWConv2d` · ``("od", ch)`` an
+`ODConv2d` (`models/blocks/`). Op ``i`` is ``features.{i}`` in the state
+dict, as in the reference's ``nn.Sequential`` (relu and pool hold no
+weights). The spec functions below are the JAX package's, each layout
+taken from the reference Sequential it cites.
 
 A quantized stem runs its ``qconv`` chain as one int8 walk (`plan_walk`,
 value-free, at construction): each qconv is K3 (`ops/quant.py
@@ -36,6 +40,10 @@ import torch
 from torch import nn
 
 from fac_fake_torch.models.blocks.deconv import DEConv
+from fac_fake_torch.models.blocks.inception_dw import InceptionDWConv2d
+from fac_fake_torch.models.blocks.odconv import ODConv2d
+from fac_fake_torch.models.blocks.scconv import ScConv
+from fac_fake_torch.models.blocks.wtconv import WTConv2d
 from fac_fake_torch.models.layers import QuantConv3x3, batch_norm, conv3x3
 from fac_fake_torch.ops import preprocess, quant
 
@@ -43,13 +51,9 @@ StemSpec = Tuple[Tuple, ...]
 
 _VGG_STAGES = ((32, 3), (64, 3), (128, 3), (256, 4), (512, 4))
 
-# op kinds of the JAX stem DSL that later slices port
-_LATER = {
-    "scconv": "ROADMAP queue 1 item 14b (variant zoo)",
-    "wtconv": "ROADMAP queue 1 item 14b (variant zoo)",
-    "idw": "ROADMAP queue 1 item 14b (variant zoo)",
-    "od": "ROADMAP queue 1 item 14b (variant zoo)",
-}
+# the zoo's mixers: op kind -> module, ch channels in and out
+MIXERS = {"scconv": ScConv, "wtconv": WTConv2d, "idw": InceptionDWConv2d,
+          "od": lambda ch: ODConv2d(ch, ch, 3)}
 
 
 def _cbr(ch: int, kind: str = "conv"):
@@ -72,6 +76,20 @@ def vgg_stem() -> StemSpec:
     return spec
 
 
+def vgg_split(n_stages: int = 4) -> Tuple[StemSpec, StemSpec]:
+    """The VGG stem split after ``n_stages`` stages, the ``features1`` /
+    ``features2`` split most `other/` variants use (4 → 256ch/14², 2 →
+    64ch/56²)."""
+    first: Tuple = ()
+    second: Tuple = ()
+    for i, (ch, n) in enumerate(_VGG_STAGES):
+        if i < n_stages:
+            first += _stage(ch, ["conv"] * n)
+        else:
+            second += _stage(ch, ["conv"] * n)
+    return first, second
+
+
 def repbn8_stem1() -> StemSpec:
     """Flagship ``features1`` (`cvit_GGCA_ADD_DEConv_RepBn8.py:349-396`):
     14 convs, 4 pools, 224→14×14×256. The 128 stage keeps the reference's
@@ -90,6 +108,97 @@ def repbn8_stem2() -> StemSpec:
     """Flagship ``features2`` (`cvit_GGCA_ADD_DEConv_RepBn8.py:397-412`):
     4 convs, 1 pool, 14²×256 → 7×7×512."""
     return _stage(512, ["conv", "deconv", "deconv", "deconv"])
+
+
+def deconv_stem1(tail_deconv: bool = True) -> StemSpec:
+    """cvit_DEConv.py features1 == RepBn8's; RepBn4 swaps the last 256 deconv
+    for a conv (`cvit_GGCA_ADD_DEConv_RepBn4.py`)."""
+    spec = repbn8_stem1()
+    if tail_deconv:
+        return spec
+    last = max(i for i, op in enumerate(spec) if op == ("deconv", 256))
+    return spec[:last] + (("conv", 256),) + spec[last + 1:]
+
+
+def deconv_stem2() -> StemSpec:
+    return repbn8_stem2()
+
+
+def repbn_stem1() -> StemSpec:
+    """cvit_GGCA_ADD_DEConv_RepBn.py features1: one DEConv per early stage."""
+    spec: Tuple = _stage(32, ["conv", "conv", "deconv"])
+    spec += _stage(64, ["conv", "deconv", "conv"])
+    spec += _stage(128, ["conv", "deconv", "conv"])
+    spec += _stage(256, ["conv", "deconv", "deconv", "conv"])
+    return spec
+
+
+def repbn3_stems() -> dict:
+    """cvit_GGCA_ADD_DEConv_RepBn3.py: three stems, GGCA add at 64ch/56²."""
+    s1 = _stage(32, ["conv", "conv", "deconv"]) + _stage(64, ["conv", "deconv", "conv"])
+    s2 = _stage(128, ["conv", "deconv", "conv"]) \
+        + _stage(256, ["conv", "deconv", "deconv", "conv"])
+    s3 = _stage(512, ["conv"] * 4)
+    return dict(stem_spec=s1, stem2_spec=s2, stem3_spec=s3, slot1=("ggca", "add", 64))
+
+
+def repbn4_stem2() -> StemSpec:
+    """cvit_GGCA_ADD_DEConv_RepBn4.py features2."""
+    return _stage(512, ["conv", "conv", "deconv", "conv"])
+
+
+def scconv_stem1() -> StemSpec:
+    """other/cvit_GGCA_ADD_ScConv.py features1."""
+    spec: Tuple = _stage(32, ["conv"] * 3)
+    spec += _stage(64, ["conv", "scconv", "conv"])
+    spec += _stage(128, ["conv", "scconv", "conv"])
+    spec += _stage(256, ["conv", "scconv", "conv", "scconv"])
+    return spec
+
+
+def wtconv_stem() -> StemSpec:
+    """other/cvit_GGCA_ADD_WTConv.py features (single stem)."""
+    spec: Tuple = ()
+    for ch, n in ((32, 3), (64, 3), (128, 3)):
+        spec += _stage(ch, ["conv"] + ["wtconv"] * (n - 1))
+    spec += _stage(256, ["conv", "wtconv", "wtconv", "wtconv"])
+    spec += _stage(512, ["conv"] * 4)
+    return spec
+
+
+def idw_stem() -> StemSpec:
+    """cvit_GGCA_ADD_DConv.py features (InceptionDW mixers)."""
+    spec: Tuple = ()
+    for ch, n in ((32, 3), (64, 3), (128, 3)):
+        spec += _stage(ch, ["conv"] + ["idw"] * (n - 1))
+    spec += _stage(256, ["conv", "idw", "idw", "idw"])
+    spec += _stage(512, ["conv"] * 4)
+    return spec
+
+
+def odconv_stem1() -> StemSpec:
+    """other/cvit_GGCA_ADD_ODConv.py features1 (ODConv as a stem op)."""
+    spec: Tuple = _stage(32, ["conv"] * 3)
+    spec += _stage(64, ["conv", "od", "conv"])
+    spec += _stage(128, ["conv", "od", "conv"])
+    spec += _stage(256, ["conv", "od", "conv", "od"])
+    return spec
+
+
+def sla_stems() -> dict:
+    """other/cvit_GGCA_SLA.py: only 3 pools (28² features), GGCA add post."""
+    s1: Tuple = _stage(32, ["conv"] * 3) + _stage(64, ["conv"] * 3) \
+        + _stage(128, ["conv"] * 3)
+    s1 += _cbr(256) * 4                 # 256 stage WITHOUT pool
+    s2: Tuple = _cbr(512) * 4           # 512 stage WITHOUT pool
+    return dict(stem_spec=s1, stem2_spec=s2, slot2=("ggca", "add", 512))
+
+
+def glu_stem() -> StemSpec:
+    """other/cvit_GGCA_ADD_GLUconv.py features: only 2 pools (56² output)."""
+    spec: Tuple = _stage(32, ["conv"] * 3) + _stage(64, ["conv"] * 3)
+    spec += _cbr(128) * 3 + _cbr(256) * 4 + _cbr(512) * 4
+    return spec
 
 
 class WalkStep(NamedTuple):
@@ -162,8 +271,9 @@ class Stem(nn.Sequential):
             elif kind == "pool":
                 layers.append(nn.MaxPool2d(2, 2))
                 pools += 1
-            elif kind in _LATER:
-                raise NotImplementedError(f"stem op {kind!r} is {_LATER[kind]}")
+            elif kind in MIXERS:
+                layers.append(MIXERS[kind](op[1]))
+                ch = op[1]
             else:
                 raise ValueError(f"unknown stem op {kind}")
         super().__init__(*layers)

@@ -293,11 +293,14 @@ def _quant_inputs(rng, x_shape, n_out, k_in, dev, dtype):
 
 # every distinct conv of the folded base stem, (H, Cin, Cout), and ragged ones;
 # at batch 2 the last two fill the card with two-warpgroup tiles (as the
-# stem's convs do at batch 96) whose rows end in no whole tile
+# stem's convs do at batch 96) whose rows end in no whole tile; then the
+# variant zoo's new ones: cvit_ggca_sla's 512-channel convs at 28² and
+# cvit_ggca_add_glu's 256- and 512-channel convs at 56² (no pool before them)
 STEM_CONVS = [(224, 3, 32), (224, 32, 32), (112, 32, 64), (112, 64, 64), (56, 64, 128),
               (56, 128, 128), (28, 128, 256), (28, 256, 256), (14, 256, 512),
               (14, 512, 512), ((7, 9), 3, 8), ((6, 5), 16, 40), ((97, 91), 32, 40),
-              ((89, 99), 128, 72)]
+              ((89, 99), 128, 72), (28, 256, 512), (28, 512, 512), (56, 128, 256),
+              (56, 256, 256), (56, 256, 512), (56, 512, 512)]
 
 
 @pytest.mark.parametrize("hw,cin,cout", STEM_CONVS)
@@ -352,10 +355,14 @@ def test_k3_fused_epilogue_equals_plain(dev, hw, cin, cout, dtype):
         assert torch.equal(got_q, q3.quantize_pad_plain(y, q_scale))
 
 
-# (rows, out, in) of the int8_full path at batch 96 and 256, and tiny ones
+# (rows, out, in) of the int8_full path at batch 96 and 256, and tiny ones;
+# then the zoo's at batch 96: cvit_ggca_sla's 16 patches and 17 tokens a
+# crop, cvit_ggca_add_glu's 64 and 65
 DENSE_SHAPES = [(96, 1024, 25088), (192, 3072, 1024), (192, 1024, 1024), (192, 2048, 1024),
                 (192, 1024, 2048), (96, 2048, 1024), (256, 1024, 1024), (5, 24, 40),
-                (1, 8, 27)]
+                (1, 8, 27), (96 * 16, 1024, 25088), (96 * 17, 3072, 1024),
+                (96 * 17, 1024, 2048), (96 * 64, 1024, 25088), (96 * 65, 3072, 1024),
+                (96 * 65, 1024, 2048)]
 
 
 @pytest.mark.parametrize("m,n,k", DENSE_SHAPES)
