@@ -5,8 +5,9 @@ full-width base CViT and the flagship cvit_repbn8 in fp32 and under int8
 post-training quantization, score S3D clips, train both CViTs at full width,
 detect with MTCNN and serve, score videos with the ResNet/KAN resvitkan, train
 the S3D family from its plans and score the msca family, score every entry of
-the CViT variant zoo in fp32 and three of them in int8_full, and print what it
-measured.
+the CViT variant zoo in fp32 and bf16 and three of them in int8_full, train
+one entry of each of its block kinds in fp32 and four in bf16, and print what
+it measured.
 
     python3 chip_smoke.py [--seed N] [--profile]     # all phases, one card
 
@@ -251,10 +252,35 @@ Phases, in order (any failure exits non-zero; no phase's exception is caught):
      CPU's forward fed the card's input at each fp quantize point, each fp
      step within ZOO_FP_STEP_RTOL) within LOGIT_TOL, the free-running
      difference and int8 vs fp32 for information;
+ Z4. the zoo trained (`zoo_train_phases`): one entry of each block kind
+     (ZOO_TRAIN: the ScConv, WTConv, InceptionDW and ODConv stems, the
+     ODConv, MOGA, SMFA and UFFC slots, SLA and GLU on the embedding, BFM
+     and MDFA in a slot and on the tokens both ways, the DEConv stems) as
+     T2 at its published widths, batch 32 (a batch that does not fit
+     fails the run), strong_aug on, the crops cached on the card: crops/s, ms a
+     step, peak memory and the busy share over ZOO_TRAIN_TIMED_STEPS steps,
+     one K7 call a step; ZOO_FIT_ENTRY also `fit` for one epoch (one K2
+     launch an eval batch, finite losses) and 10 fixed-batch steps whose
+     loss falls;
+ Z5. one train step of each card vs CPU vs float64 at batch 2
+     (`train_vs_cpu(..., zoo=True)`, T3's float64 rule: the loss card vs
+     CPU, the gradient and each running-stat tensor against float64; the
+     CPU's and float64's max-pools, ScConv gates and ReLUs routed as the
+     card's);
+ Z6. bf16: every zoo entry through `VideoScorer` at model.dtype=bfloat16
+     (`zoo_bf16_scoring`: crops/s beside Z1's fp32 of this run, one K2
+     launch a call, the head's input on the card within
+     ZOO_BF16_FEATURE_RATIO x the CPU bf16's distance from the CPU's fp32
+     one, on ZOO_BF16_CHECK_SEEDS weight seeds), and ZOO_BF16_TRAIN (SLA,
+     GLU, the ODConv block,
+     BFM/GGCA/MDFA) trained in bf16 as B2 (K7's bf16 mode once a step) with
+     one bf16 step card vs CPU vs float64 held layer by layer
+     (`replay_layers`);
  15. the training line (and T3/T4's per-tensor watch over T4_WATCH_SEEDS
-     seeds), the zoo line and the kernels line, with K7's and K10's bf16
-     modes and the zoo's K1-K4 launches and K3/K4 times; 16. the result
-     line. Each phase group prints the seconds since the start.
+     seeds), the zoo lines and the kernels line, with K7's and K10's bf16
+     modes, the zoo's K1-K4 launches and K3/K4 times, and K7's and K2's
+     launches in the zoo's training and bf16 scoring; 16. the result line.
+     Each phase group prints the seconds since the start.
 """
 from __future__ import annotations
 
@@ -392,6 +418,17 @@ BF16_LAYER_LEFT_OUT = 0.1
 # a BatchNorm): its share of the whole gradient's norm on either device, in
 # fp32 and (bf16 rounding is 2^16 times coarser) in bf16
 TRAIN_NOISE_SHARE = {"float32": 1e-4, "bfloat16": 1e-2}
+# the routed step's decisions (`_route_pools`: 2x2 max-pool windows, ReLU
+# values, `MaxOver` maxima, ScConv's SRU gates) that the CPU or the float64
+# step would have taken otherwise, as a share of all routed. In fp32 these
+# are near-ties that the two devices' roundings break apart: on an H100,
+# T3 and T4 over three seeds, 2.4e-7 to 1.2e-6 (PERF.md §6), so 1e-4. A
+# bf16 step routes its max-pools alone; a deep bf16 activation is some 1%
+# off float64 (2^-9 an op, over some 20 layers), and each window whose two
+# largest values lie within that can flip: B2 and Z6 read 1.3-2.9% of the
+# windows (PERF.md §6), so 1e-1, the share at which `train_vs_cpu`'s
+# left-out check fails. More is not rounding, and fails
+ROUTED_APART_SHARE = {"float32": 1e-4, "bfloat16": 1e-1}
 T4_WATCH_SEEDS = 3            # T3/T4: the one-step check on this many side_rng seeds (§3 watch)
 # MTCNN (M1-M3)
 MTCNN_HW = (1080, 1920)                            # the reader's frames: 12 pyramid scales
@@ -463,7 +500,7 @@ ZOO_LOGIT_RTOL, ZOO_LOGIT_ATOL = 1e-3, 5e-4
 # Z3: each fp step between int8 layers, card vs CPU on the same input, over
 # its largest value (the S3D lock-step's bound, S3D_FP_BLOCK_RTOL)
 ZOO_FP_STEP_RTOL = 1e-4
-ZOO_TIMED_CALLS = 3           # Z1, Z3: score_crops calls timed after a warm-up call
+ZOO_TIMED_CALLS = 3           # Z1, Z3, Z6: score_crops calls timed after a warm-up call
 ZOO_VIDEO_ENTRY = "cvit_bfm_ggca_mdfa"    # Z2: BFM, GGCA and the MDFA token block
 # Z3: int8_full on the entries whose walks are new, one forward from uint8
 # crops: sla two all-int8 stems (28^2 convs with no pool before them, stem 2
@@ -477,6 +514,28 @@ ZOO_INT8_WALKS = {
     "cvit_ggca_add_wtconv": dict(convs=1, fused=0, no_relu_fused=0, quantize=0, k2_int8=1,
                                  k2_fp=0, int8_pools=0, fp_pools=5, fp_relus=16),
 }
+# Z4-Z6: the zoo trained, one entry of each block kind (the stem mixers
+# ScConv, WTConv, InceptionDW, ODConv; the slot blocks ODConv, MOGA, SMFA,
+# UFFC; the embedding blocks SLA, GLU; BFM and MDFA in a slot and on the
+# tokens; the DEConv family without the flagship's stems)
+ZOO_TRAIN = ("cvit_ggca_add_scconv", "cvit_ggca_add_wtconv", "cvit_ggca_add_dconv",
+             "cvit_ggca_add_odconv", "cvit_ggca_odconv", "cvit_ggca_add_moga", "cvit_ggca_smfa",
+             "cvit_ggca_uffc", "cvit_ggca_sla", "cvit_ggca_add_glu", "cvit_bfm_ggca_mdfa",
+             "cvit_ggca_mdfa_bfm", "cvit_deconv")
+ZOO_TRAIN_TIMED_STEPS = 3     # Z4: timed train steps an entry after a warm-up step
+ZOO_FIT_ENTRY = "cvit_ggca_add_odconv"    # Z4: also fit for one epoch, and the fixed batch
+ZOO_BF16_TRAIN = ("cvit_ggca_sla", "cvit_ggca_add_glu", "cvit_ggca_odconv",
+                  "cvit_bfm_ggca_mdfa")  # Z6: one bf16 step each, held layer by layer
+# Z6: bf16 card vs CPU at batch ZOO_CHECK_BATCH on the head's input (the
+# class token after the transformer, dim values a crop), held to the CPU's
+# fp32 one: the card's bf16 error norm within ZOO_BF16_FEATURE_RATIO x the
+# CPU bf16's. Phase 14's card-vs-CPU form would fail by chance here: the
+# two devices' bf16 roundings part as far as either parts from fp32 after
+# the transformer (on an H100 over the 29 entries: card vs CPU 0.51-1.13 of
+# the CPU's bf16-vs-fp32 difference, the card's own distance 0.70-1.07 of
+# the CPU's), where a wrong or zero output reads ~1/bf16-error, some 100
+ZOO_BF16_FEATURE_RATIO = 2.0
+ZOO_BF16_CHECK_SEEDS = 2      # Z6: the head-input check on this many weight seeds
 
 
 def log(msg: str) -> None:
@@ -2226,7 +2285,8 @@ def _linear_norms(model) -> list:
 
 
 def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = "",
-                dtype: str = "float32") -> tuple:
+                dtype: str = "float32", timed_steps: int = TRAIN_TIMED_STEPS,
+                fit: bool = True) -> tuple:
     """T2 (base cvit) and T4's first half (the flagship), and with ``dtype``
     bfloat16 B2's (``model.dtype``: bf16 compute over fp32 master weights,
     the chain in bf16, K7's and K2's bf16 modes): `Trainer` at full
@@ -2241,8 +2301,10 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
     an eval batch, finite losses; then TRAIN_FIXED_STEPS steps on one fixed
     batch with the augmentation off, whose last loss must be below its
     first. The flagship's LinearNorm ``iter`` must have fallen by the
-    number of training forwards, and no ``warm`` below 0. Returns the
-    numbers and the trained model."""
+    number of training forwards, and no ``warm`` below 0. Z4 (the zoo) at
+    ``timed_steps`` and without ``fit``: the timed steps are the main path,
+    with the counts set to 0 before them: one K7 call a step, no K2 launch.
+    Returns the numbers and the trained model."""
     import torch
     from fac_fake_torch.core.config import Config
     from fac_fake_torch.models import build_model
@@ -2273,11 +2335,15 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
     tr.train_step(batch(0), gen)                        # warm-up: cuDNN, cuBLAS, K7
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    aug.clahe_luma.launches = aug.clahe_luma.bf16_launches = 0
+    pp.normalize_imagenet.launches = 0
     t0 = time.perf_counter()
-    for i in range(TRAIN_TIMED_STEPS):
+    for i in range(timed_steps):
         tr.train_step(batch(i % train.steps), gen)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    step_launches = {"K7": aug.clahe_luma.launches, "K7_bf16": aug.clahe_luma.bf16_launches,
+                     "K2": pp.normalize_imagenet.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     wall, busy = profile_forward(lambda: tr.train_step(batch(0), gen),
                                  f"{name} train step, batch {TRAIN_BATCH}",
@@ -2287,15 +2353,22 @@ def train_phase(name, seed, dev, data, profile: bool = False, ckpt_dir: str = ""
         vb = {"image": val.images, "label": val.labels, "mask": ones}
         profile_forward(lambda: tr.eval_step(vb), f"{name} eval step, batch {TRAIN_BATCH}",
                         expect=("normalize_table",))
-    step_ms = dt / TRAIN_TIMED_STEPS * 1e3
-    timing = dict(step_ms=step_ms, crops_per_s=TRAIN_BATCH * TRAIN_TIMED_STEPS / dt,
+    step_ms = dt / timed_steps * 1e3
+    timing = dict(step_ms=step_ms, crops_per_s=TRAIN_BATCH * timed_steps / dt, batch=TRAIN_BATCH,
                   peak_gb=peak_gb, traced_wall_ms=wall, traced_busy_ms=busy,
-                  traced_busy_share=busy / wall, busy_share=busy / step_ms)
+                  traced_busy_share=busy / wall, busy_share=busy / step_ms,
+                  step_launches=step_launches)
     log(f"{name} training at batch {TRAIN_BATCH}: {timing['crops_per_s']:.1f} train crops/s, "
-        f"{step_ms:.2f} ms a step ({TRAIN_TIMED_STEPS} steps after a warm-up step); one traced "
+        f"{step_ms:.2f} ms a step ({timed_steps} steps after a warm-up step); one traced "
         f"step {wall:.2f} ms wall (the profiler's overhead in it), device busy {busy:.2f} ms: "
         f"{busy / wall:.1%} of the traced step, {busy / step_ms:.1%} of an untraced step; peak "
-        f"memory {peak_gb:.2f} GB")
+        f"memory {peak_gb:.2f} GB; launches over the timed steps {step_launches}")
+    want = {"K7": timed_steps, "K7_bf16": timed_steps if dtype == "bfloat16" else 0, "K2": 0}
+    if step_launches != want:
+        raise AssertionError(f"{name}: want one K7 call a train step, in its {dtype} mode, and "
+                             f"no K2 launch over {timed_steps} steps: {step_launches}")
+    if not fit:
+        return dict(timing, dtype=dtype), model
 
     aug.clahe_luma.launches = aug.clahe_luma.bf16_launches = 0
     pp.normalize_imagenet.launches = 0
@@ -2432,47 +2505,149 @@ def replay_layers(before, rec, what: str) -> dict:
     return res
 
 
+def _flat_max(m, x):
+    """``x`` with a `MaxOver` module's dims moved last and flattened: its
+    max is the last axis's."""
+    k = len(m.dims)
+    return x.movedim(m.dims, tuple(range(x.dim() - k, x.dim()))).flatten(-k)
+
+
 def _record_routes(model) -> tuple:
-    """Hooks on ``model``'s 2x2 max-pools that record each forward's argmax
-    indices; returns (the list they fill, the hooks)."""
+    """Record the choices of ``model``'s next forward: each 2x2 max-pool's
+    argmax indices (by hooks, in call order), each `MaxOver` call's argmax
+    (GGCA's, TFAM's and SMFA's maxima), each ScConv SRU's gate
+    (`SRU.gate`, which values pass whole: a step at ``rew = 0.5``, so a
+    value within rounding of it changes the forward on one device and not
+    on another) and each `nn.ReLU` call's positives (a BatchNorm output
+    within rounding of 0 takes the other side on another device, and that
+    entry's gradient moves every layer before it) and each `Clip` call's
+    values below and above its bounds; returns ({"pools": [...], "gates":
+    {SRU name: [...]}, "relus": {ReLU name: [...]}, "maxes": {MaxOver
+    name: [...]}, "clips": {Clip name: [...]}}, the hooks)."""
     import torch.nn.functional as F
-    routes = []
-    hooks = [m.register_forward_hook(lambda m, i, o: routes.append(
+    routes = {"pools": [], "gates": {}, "relus": {}, "maxes": {}, "clips": {}}
+    hooks = [m.register_forward_hook(lambda m, i, o: routes["pools"].append(
         F.max_pool2d(i[0].detach(), 2, 2, return_indices=True)[1].cpu()))
         for m in model.modules() if type(m).__name__ == "MaxPool2d"]
+    for name, m in model.named_modules():
+        if type(m).__name__ == "ReLU":
+            kept = routes["relus"][name] = []
+            hooks.append(m.register_forward_hook(
+                lambda m, i, o, kept=kept: kept.append((i[0] > 0).detach().cpu())))
+        elif type(m).__name__ == "MaxOver":
+            kept = routes["maxes"][name] = []
+            hooks.append(m.register_forward_hook(lambda m, i, o, kept=kept: kept.append(
+                _flat_max(m, i[0].detach()).argmax(-1, keepdim=True).cpu())))
+        elif type(m).__name__ == "Clip":
+            kept = routes["clips"][name] = []
+            hooks.append(m.register_forward_hook(lambda m, i, o, kept=kept: kept.append(
+                ((i[0] < i[1]).detach().cpu(), (i[0] > i[2]).detach().cpu()))))
+    for name, m in model.named_modules():
+        if type(m).__name__ == "SRU":
+            kept = routes["gates"][name] = []
+            m.gate = lambda rew, m=m, kept=kept: kept.append(
+                type(m).gate(m, rew).cpu()) or kept[-1].to(rew.device)
     return routes, hooks
 
 
-def _route_pools(model, routes) -> None:
+def _route_pools(model, routes, apart: dict) -> None:
     """``model``'s 2x2 max-pools take their values (and so their gradients)
-    from ``routes``, in order: another device's choice at each window."""
+    from ``routes["pools"]``, in order, its SRU gates from
+    ``routes["gates"]``, its ReLUs' positives from ``routes["relus"]`` and
+    its `MaxOver` maxima from ``routes["maxes"]`` and its `Clip` sides
+    (UFFC's) from ``routes["clips"]`` (those named there): another device's
+    choice at each window and value. ``apart[kind]`` counts, over the
+    forward, [decisions this model would have taken otherwise, decisions
+    routed]: a routed pool window or maximum whose value is below the
+    model's own max there, a ReLU value, SRU gate or clipped value on the
+    other side of its step."""
+    import torch
+    import torch.nn.functional as F
+
+    def tally(kind, other, n):
+        count = apart.setdefault(kind, [0, 0])
+        count[0] += int(other)
+        count[1] += n
+
+    def pool(x, idx):
+        y = x.flatten(2).gather(2, idx.to(x.device).flatten(2)).view(idx.shape)
+        tally("pools", (y.detach() < F.max_pool2d(x.detach(), 2, 2)).sum(), y.numel())
+        return y
+
+    def relu(x, keep):
+        keep = keep.to(x.device)
+        tally("relus", ((x.detach() > 0) != keep).sum(), keep.numel())
+        return x * keep
+
+    def most(m, x, idx):
+        flat = _flat_max(m, x)
+        y = flat.gather(-1, idx.to(x.device))
+        tally("maxes", (y.detach() < flat.detach().amax(-1, keepdim=True)).sum(), y.numel())
+        return y.reshape(x.amax(m.dims, keepdim=True).shape)
+
+    def clip(x, lo, hi, sides):
+        below, above = (t.to(x.device) for t in sides)
+        tally("clips", ((x.detach() < lo) != below).sum() + ((x.detach() > hi) != above).sum(),
+              below.numel())
+        return torch.where(below, lo, torch.where(above, hi, x))
+
+    def gate(m, rew, routed):
+        routed = routed.to(rew.device)
+        tally("gates", (type(m).gate(m, rew) != routed).sum(), routed.numel())
+        return routed
+
     pools = [m for m in model.modules() if type(m).__name__ == "MaxPool2d"]
-    if len(pools) != len(routes):
-        raise AssertionError(f"{len(routes)} recorded pools for {len(pools)} max-pools")
-    for m, idx in zip(pools, routes):
-        m.forward = lambda x, idx=idx: x.flatten(2).gather(2, idx.to(x.device).flatten(2)) \
-            .view(idx.shape)
+    if len(pools) != len(routes["pools"]):
+        raise AssertionError(f"{len(routes['pools'])} recorded pools for {len(pools)} "
+                             "max-pools")
+    for m, idx in zip(pools, routes["pools"]):
+        m.forward = lambda x, idx=idx: pool(x, idx)
+    for name, m in model.named_modules():
+        if name in routes["gates"]:
+            m.gate = lambda rew, m=m, it=iter(routes["gates"][name]): gate(m, rew, next(it))
+        elif name in routes["relus"]:
+            m.forward = lambda x, it=iter(routes["relus"][name]): relu(x, next(it))
+        elif name in routes["maxes"]:
+            m.forward = lambda x, m=m, it=iter(routes["maxes"][name]): most(m, x, next(it))
+        elif name in routes["clips"]:
+            m.forward = lambda x, lo, hi, it=iter(routes["clips"][name]): clip(x, lo, hi,
+                                                                               next(it))
 
 
-def _f64_grads(model, b, routes) -> tuple:
-    """The float64 gradient and loss of a training forward (augmentation
-    off) of a CPU copy of ``model`` on ``b``, its max-pools routed by
-    ``routes``."""
+def _routed_apart(apart: dict, dtype: str, where: str, name: str) -> float:
+    """The share of the routed decisions (all kinds) that ``where`` would
+    have taken otherwise (`_route_pools`); more than ROUTED_APART_SHARE of
+    them is more than near-ties at ``dtype``'s rounding, and fails."""
+    other, n = (sum(v[i] for v in apart.values()) for i in (0, 1))
+    share = other / max(n, 1)
+    if share > ROUTED_APART_SHARE[dtype]:
+        raise AssertionError(f"{name} {dtype}: {where} would route {other} of {n} decisions "
+                             f"apart from the card ({share:.3g} > "
+                             f"{ROUTED_APART_SHARE[dtype]}): {apart}")
+    return share
+
+
+def _f64_grads(model, b, routes, apart: dict) -> tuple:
+    """The float64 gradient, loss and buffers of a training forward
+    (augmentation off) of a CPU copy of ``model`` on ``b``, its max-pools,
+    SRU gates, ReLUs and maxima routed by ``routes`` (the decisions routed
+    apart counted into ``apart``)."""
     import copy
 
     import torch
     from fac_fake_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
     from fac_fake_torch.train.losses import cross_entropy
     m = copy.deepcopy(model).cpu().double().train()
-    _route_pools(m, routes)
+    _route_pools(m, routes, apart)
     x = (b["image"].double() / 255.0 - torch.from_numpy(IMAGENET_MEAN).double()) \
         / torch.from_numpy(IMAGENET_STD).double()
     loss = cross_entropy(m(x.permute(0, 3, 1, 2)), b["label"], b["mask"].double())
     loss.backward()
-    return {k: p.grad.clone() for k, p in m.named_parameters()}, float(loss.detach())
+    return ({k: p.grad.clone() for k, p in m.named_parameters()}, float(loss.detach()),
+            {k: v.detach().double() for k, v in m.named_buffers()})
 
 
-def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
+def train_vs_cpu(model, name, rng, dtype: str = "float32", zoo: bool = False) -> dict:
     """T3 (base cvit) and T4's second half (the flagship), and with ``dtype``
     bfloat16 B2's (both steps bf16; held layer by layer by `replay_layers`
     and as a whole by the TRAIN_BF16 rule, the rest printed): one train step at
@@ -2484,8 +2659,32 @@ def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
     float64 one (`_f64_grads`). The CPU's max-pools take the card's argmax
     at every window (`_route_pools`): at full width a few windows hold a
     near-tie that the two devices' roundings break apart, and a gradient
-    entry then goes elsewhere. The CPU's step with its own pools is printed
-    beside it."""
+    entry then goes elsewhere. The ReLUs take the card's positives, the
+    `MaxOver` maxima (GGCA's, TFAM's, SMFA's) its argmax, and ScConv's SRU
+    gates (`SRU.gate`, a step in the forward: a value passes
+    whole above 0.5 and is weighed by its gate below it) the card's
+    choices, on the CPU and in float64, for the same reason, in fp32. A
+    bf16 step routes its max-pools alone: some 1% of its decisions part from
+    the card's, not near-ties, and forcing the card's ReLUs and maxima on
+    values that took other sides leaves a reference that agrees with
+    neither device (`cvit_ggca_odconv`: its CPU and float64 steps so routed
+    25% and 27% from the card's loss, the CPU's own 0.65%). The decisions
+    each would have taken otherwise are counted, and more than
+    ROUTED_APART_SHARE of those routed fails (`_routed_apart`). The CPU's
+    step with its own routes is printed beside it. Z5 (``zoo``, fp32) holds
+    T3's float64 rule alone:
+    the loss card vs CPU within TRAIN_LOSS_RTOL, the gradient and each
+    running-stat tensor no further from the float64 step's than
+    TRAIN_GRAD_F64_RATIO x the CPU's + TRAIN_GRAD_F64_SLACK (stats: +
+    S3D_STATS_F64_SLACK), LinearNorm's counters equal, the parameters after
+    the step within TRAIN_PARAM_ATOL; the card-vs-CPU tensor and left-out
+    numbers are printed (a zoo entry's CPU fp32 gradient can be the further
+    from float64: depthwise convs' weight sums over 224² maps). Z6 (``zoo``,
+    bf16) holds its step layer by layer (`replay_layers`) and the
+    parameters after it; the whole-step numbers and the rounding-noise
+    tensors are printed: ODConv's attention BatchNorm normalizes each
+    channel by the batch's two values, which bf16 rounds apart, so the whole
+    bf16 step of `cvit_ggca_odconv` is a draw on either device (PERF.md §6)."""
     import copy
 
     import torch
@@ -2501,14 +2700,15 @@ def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
     b = {"image": u8, "label": torch.arange(TRAIN_CHECK_BATCH) % 2,
          "mask": torch.ones(TRAIN_CHECK_BATCH)}
     dev = next(model.parameters()).device
-    side, routes, layers = {}, None, None
-    for where in ("card", "cpu", "cpu_own_pools"):
+    side, routes, layers, apart_cpu, apart_f64 = {}, None, None, {}, {}
+    # the CPU's step with its own routes is information; Z5 leaves it out
+    for where in ("card", "cpu") + (() if zoo else ("cpu_own_pools",)):
         m = copy.deepcopy(model) if where == "card" else copy.deepcopy(model).cpu()
         if where == "card" and dtype == "bfloat16":
             before = copy.deepcopy(m)
             rec, layer_hooks = record_layers(m)
         if where == "cpu":
-            _route_pools(m, routes)
+            _route_pools(m, routes, apart_cpu)
         else:
             recorded, hooks = _record_routes(m)
         if where == "card" and dtype == "bfloat16":
@@ -2523,7 +2723,9 @@ def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
                            params={k: p.detach().double().cpu() for k, p in m.named_parameters()},
                            bufs={k: v.double().cpu() for k, v in m.named_buffers()})
         if where == "card":
-            routes = recorded
+            # in bf16 the max-pools alone (`_route_pools`)
+            routes = recorded if dtype == "float32" else dict(
+                recorded, gates={}, relus={}, maxes={}, clips={})
         if where != "cpu":
             for h in hooks:
                 h.remove()
@@ -2531,8 +2733,11 @@ def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
             layers = replay_layers(before, rec, name)
             del before, rec
         del m, tr
-    c, g, own = side["cpu"], side["card"], side["cpu_own_pools"]
-    g64, loss64 = _f64_grads(model, b, routes)
+    c, g, own = side["cpu"], side["card"], side.get("cpu_own_pools")
+    hold_step = not (zoo and dtype == "bfloat16")   # Z6's bf16 steps: layer by layer alone
+    g64, loss64, bufs64 = _f64_grads(model, b, routes, apart_f64)
+    share_cpu = _routed_apart(apart_cpu, dtype, "the CPU", name)
+    share_f64 = _routed_apart(apart_f64, dtype, "float64", name)
     norm = lambda d: float(sum((t ** 2).sum() for t in d.values())) ** 0.5
     total = norm(c["grads"])
     rel = lambda a, b: norm({k: a[k] - b[k] for k in b}) / norm(b)
@@ -2545,7 +2750,12 @@ def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
         g64n = float(g64[k].norm())
         if float(g64[k].norm()) < 1e-8 * total:      # zero but for rounding
             noise.append(k)
-            if max(float(gg.norm()), float(gc.norm())) >= TRAIN_NOISE_SHARE[dtype] * total:
+            # Z5 holds the card's alone: the CPU's BatchNorm backward sums a
+            # conv bias's gradient over 224^2 maps in fp32, which can leave
+            # it over the share on the CPU where the card's is not (as for
+            # cvit_ggca_add_odconv's first stage)
+            held = float(gg.norm()) if zoo else max(float(gg.norm()), float(gc.norm()))
+            if hold_step and held >= TRAIN_NOISE_SHARE[dtype] * total:
                 raise AssertionError(f"{name}: {k}'s gradient is zero in float64, "
                                      f"{float(gg.norm()) / total:.3g} of the norm on the card")
             left_out += gc.numel()
@@ -2574,13 +2784,21 @@ def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
                left_out_share=left_out / n,
                card_beyond_cpu_tensors={k: [round(v, 6) for v in t] for k, t in apart},
                stats_over_tol=s_err, param_max_abs=p_err, left_out=left_out, params=n,
-               cpu_s=c["t"], own_pools_loss_rel=abs(g["loss"] - own["loss"]) / abs(own["loss"]),
-               own_pools_grad_rel=rel(g["grads"], own["grads"]),
-               pool_windows_routed_apart=sum(int((a != r).sum())
-                                             for a, r in zip(routes, recorded)), layers=layers)
+               cpu_s=c["t"], layers=layers, routed_apart_cpu=apart_cpu,
+               routed_apart_f64=apart_f64)
+    if own is not None:
+        res.update(own_pools_loss_rel=abs(g["loss"] - own["loss"]) / abs(own["loss"]),
+                   own_pools_grad_rel=rel(g["grads"], own["grads"]),
+                   pool_windows_routed_apart=sum(int((a != r).sum()) for a, r in
+                                                 zip(routes["pools"], recorded["pools"])),
+                   **{f"{kind}_routed_apart": sum(int((a != r).sum()) for k in routes[kind]
+                                                  for a, r in zip(routes[kind][k],
+                                                                  recorded[kind][k]))
+                      for kind in ("gates", "relus", "maxes")})
     log(f"{name}{'' if dtype == 'float32' else ' ' + dtype} one train step card vs CPU, batch "
         f"{TRAIN_CHECK_BATCH} (CPU {c['t']:.1f} s; "
-        f"its max-pools routed as the card's): loss {g['loss']:.6f} / {c['loss']:.6f} (rel "
+        f"routed as the card's: {', '.join(k for k in routes if routes[k])}): loss "
+        f"{g['loss']:.6f} / {c['loss']:.6f} (rel "
         f"{loss_err:.3g}, bound {TRAIN_LOSS_RTOL}); gradient rel L2 to the float64 one: card "
         f"{card_f64:.3g}, CPU {cpu_f64:.3g} (bound: card <= {TRAIN_GRAD_F64_RATIO} x CPU + "
         f"{TRAIN_GRAD_F64_SLACK}); card vs CPU gradient rel L2 {whole:.3g} (bound "
@@ -2588,23 +2806,49 @@ def train_vs_cpu(model, name, rng, dtype: str = "float32") -> dict:
         f"{TRAIN_GRAD_TENSOR_RTOL}), {len(noise)} rounding-noise tensors; running stats and "
         f"counters at {s_err:.3g} of their tolerance (rtol {TRAIN_STATS_RTOL}, atol "
         f"{TRAIN_STATS_ATOL}); parameters after the step max abs {p_err:.3g} (bound "
-        f"{TRAIN_PARAM_ATOL}), {left_out} of {n} entries left out. With the CPU's own pools "
-        f"({res['pool_windows_routed_apart']} windows routed apart): loss rel "
-        f"{res['own_pools_loss_rel']:.3g}, gradient rel L2 {res['own_pools_grad_rel']:.3g} "
-        f"(information). Loss to float64 {loss64:.6f}: card {res['card_loss_vs_f64']:.3g}, CPU "
+        f"{TRAIN_PARAM_ATOL}), {left_out} of {n} entries left out. Decisions [taken "
+        f"otherwise, routed] by kind: CPU {apart_cpu}, float64 {apart_f64} (share "
+        f"{share_cpu:.3g} and {share_f64:.3g}, bound {ROUTED_APART_SHARE[dtype]}). "
+        + (f"With the CPU's own routes ({res['pool_windows_routed_apart']} pool windows, "
+           f"{res['relus_routed_apart']} ReLU values, {res['maxes_routed_apart']} maxima and "
+           f"{res['gates_routed_apart']} SRU gates routed apart): loss rel "
+           f"{res['own_pools_loss_rel']:.3g}, gradient rel L2 {res['own_pools_grad_rel']:.3g} "
+           "(information). " if own is not None else "")
+        + f"Loss to float64 {loss64:.6f}: card {res['card_loss_vs_f64']:.3g}, CPU "
         f"{res['cpu_loss_vs_f64']:.3g}; left out {left_out / n:.2%}; the tensors where the card "
         f"is furthest beyond the CPU (card, CPU distance to float64, left-out share): "
         f"{res['card_beyond_cpu_tensors']}")
-    if dtype == "float32":
+    if zoo and dtype == "float32":
+        # Z5: T3's float64 rule alone; each running-stat tensor's distance to
+        # the float64 step's within the ratio of the CPU's + the stats' slack
+        rt = lambda a, bb: float((a - bb).norm() / max(float(bb.norm()), 1e-30))
+        running = [k for k in stats if k.endswith(("running_mean", "running_var"))]
+        res["stats_f64_over"] = max((rt(g["bufs"][k], bufs64[k])
+                                     - TRAIN_GRAD_F64_RATIO * rt(c["bufs"][k], bufs64[k]))
+                                    / S3D_STATS_F64_SLACK for k in running)
+        counters = all(torch.equal(g["bufs"][k], c["bufs"][k]) for k in stats
+                       if k not in running)
+        res["relus_routed"] = sum(len(v) for v in routes["relus"].values())
+        log(f"{name} Z5: gradient card {card_f64:.3g} <= {TRAIN_GRAD_F64_RATIO} x CPU "
+            f"{cpu_f64:.3g} + {TRAIN_GRAD_F64_SLACK}; loss card vs CPU {loss_err:.3g} <= "
+            f"{TRAIN_LOSS_RTOL}; running stats each at {res['stats_f64_over']:.3g} of the slack "
+            f"beyond {TRAIN_GRAD_F64_RATIO} x the CPU's distance to float64; counters equal "
+            f"{counters}; {res['relus_routed']} ReLU calls routed as the card's")
+        ok = (loss_err <= TRAIN_LOSS_RTOL and res["stats_f64_over"] <= 1.0 and counters
+              and card_f64 <= TRAIN_GRAD_F64_RATIO * cpu_f64 + TRAIN_GRAD_F64_SLACK
+              and p_err <= TRAIN_PARAM_ATOL)
+    elif dtype == "float32":
         ok = (loss_err <= TRAIN_LOSS_RTOL and whole <= TRAIN_GRAD_RTOL
               and card_f64 <= TRAIN_GRAD_F64_RATIO * cpu_f64 + TRAIN_GRAD_F64_SLACK
               and worst[0][1] <= TRAIN_GRAD_TENSOR_RTOL and s_err <= 1.0
               and p_err <= TRAIN_PARAM_ATOL and left_out < 0.1 * n)
     else:
-        ok = (card_f64 <= TRAIN_GRAD_F64_RATIO * cpu_f64 + TRAIN_BF16_GRAD_F64_SLACK
-              and res["card_loss_vs_f64"] <= TRAIN_GRAD_F64_RATIO * res["cpu_loss_vs_f64"]
-              + TRAIN_BF16_LOSS_F64_SLACK and p_err <= TRAIN_PARAM_ATOL)
-        log(f"{name} {dtype}: held to float64: gradient card {card_f64:.3g} <= "
+        ok = p_err <= TRAIN_PARAM_ATOL and (not hold_step or (
+            card_f64 <= TRAIN_GRAD_F64_RATIO * cpu_f64 + TRAIN_BF16_GRAD_F64_SLACK
+            and res["card_loss_vs_f64"] <= TRAIN_GRAD_F64_RATIO * res["cpu_loss_vs_f64"]
+            + TRAIN_BF16_LOSS_F64_SLACK))
+        log(f"{name} {dtype}: {'held' if hold_step else 'printed, not held'} to float64: gradient "
+            f"card {card_f64:.3g} <= "
             f"{TRAIN_GRAD_F64_RATIO} x CPU {cpu_f64:.3g} + {TRAIN_BF16_GRAD_F64_SLACK}; loss "
             f"card {res['card_loss_vs_f64']:.3g} <= {TRAIN_GRAD_F64_RATIO} x CPU "
             f"{res['cpu_loss_vs_f64']:.3g} + {TRAIN_BF16_LOSS_F64_SLACK}; parameters after the "
@@ -4258,6 +4502,132 @@ def zoo_phases(seed, rng, dev, det, reader, crops, stacks, paths, with_faces, fo
     return dict(z1=z1, z2=z2, z2_rates=z2_rates, k3=k3, k4=k4, z3=z3)
 
 
+def zoo_bf16_scoring(seed, dev, det, reader, crops, four, z1: dict) -> dict:
+    """Z6's scoring half: every zoo entry at its published widths, seeded,
+    through `VideoScorer` at ``model.dtype=bfloat16`` (fp32 weights, folded;
+    K2's bf16 normalize feeds the bf16 activations; UFFC's FFTs stay fp32):
+    crops/s through ``score_crops`` (29 crops, capacity 96) beside Z1's fp32
+    rate of this run, one K2 launch a call; then, for each of
+    ZOO_BF16_CHECK_SEEDS weight seeds from ``seed`` on, each with its own
+    ZOO_CHECK_BATCH of the uint8 crops ``four``, the folded model: the
+    head's input on the card in bf16 no further (error norm) from the CPU's
+    fp32 one than ZOO_BF16_FEATURE_RATIO x the CPU's bf16 one; the logits
+    finite, card vs CPU printed."""
+    import torch
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.infer.predictor import VideoScorer
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import preprocess as pp
+    out = {}
+    pos = torch.arange(ZOO_CHECK_BATCH)
+
+    def head_in(model, u8, dtype):
+        """The logits and the head's input of ``model`` on the crops ``u8``."""
+        seen = []
+        hook = model.mlp_head.register_forward_pre_hook(
+            lambda _, args: seen.append(args[0].detach().cpu().double()))
+        try:
+            logits = model.forward_crops(u8, dtype, pos.to(u8.device)).cpu()
+        finally:
+            hook.remove()
+        return logits, seen[0]
+
+    for name in ZOO:
+        cfg = Config()
+        cfg.model.name = name
+        cfg.model.dtype = "bfloat16"
+        scorer = VideoScorer(build_model(cfg.model, device=dev, seed=seed), cfg, detector=det,
+                             reader=reader)
+        pp.normalize_imagenet.launches = 0
+        rate, p = zoo_crops_per_s(scorer, crops)
+        k2 = pp.normalize_imagenet.launches
+        if k2 != ZOO_TIMED_CALLS + 1 or not (np.isfinite(p) and 0.0 <= p <= 1.0):
+            raise AssertionError(f"Z6 {name}: {k2} K2 launches for {ZOO_TIMED_CALLS + 1} "
+                                 f"calls, score {p}")
+        fp32_rate = z1[name]["crops_per_s"]
+        out[name] = dict(crops_per_s=rate, fp32_crops_per_s=fp32_rate, score=p, k2_launches=k2,
+                         checks=[])
+        log(f"Z6 {name} bf16: {rate:.1f} crops/s ({rate / fp32_rate:.3f} of its fp32 "
+            f"{fp32_rate:.1f} in Z1); score {p:.4f}")
+        for k in range(ZOO_BF16_CHECK_SEEDS):
+            model = scorer.model if k == 0 else VideoScorer(
+                build_model(cfg.model, device=dev, seed=seed + k), cfg, detector=det,
+                reader=reader).model
+            x = four[k * ZOO_CHECK_BATCH:(k + 1) * ZOO_CHECK_BATCH]
+            with torch.inference_mode():
+                card, card_f = head_in(model, x.to(dev), torch.bfloat16)
+                t_cpu = time.perf_counter()
+                cpu_model = copy.deepcopy(model).cpu()
+                cpu, cpu_f = head_in(cpu_model, x, torch.bfloat16)
+                cpu32, cpu32_f = head_in(cpu_model, x, torch.float32)
+                t_cpu = time.perf_counter() - t_cpu
+            err, own = float((card - cpu).abs().max()), float((cpu - cpu32).abs().max())
+            f_err = float((card_f - cpu32_f).norm() / (cpu_f - cpu32_f).norm())
+            f_apart = float((card_f - cpu_f).norm() / (cpu_f - cpu32_f).norm())
+            out[name]["checks"].append(dict(seed=seed + k, logit_err=err, cpu_bf16_vs_fp32=own,
+                                            head_input_err=f_err,
+                                            head_input_card_vs_cpu=f_apart))
+            log(f"Z6 {name} bf16, weights seed {seed + k}: head input: the card's bf16 from "
+                f"the CPU's fp32 {f_err:.3g} of the CPU bf16's distance (limit "
+                f"{ZOO_BF16_FEATURE_RATIO}), card vs CPU in bf16 {f_apart:.3g} of it; logits "
+                f"card vs CPU {err:.3g}, the CPU's bf16 vs fp32 {own:.3g} (CPU {t_cpu:.1f} s)")
+            if not (torch.isfinite(card).all() and f_err <= ZOO_BF16_FEATURE_RATIO):
+                raise AssertionError(f"Z6 {name}: bf16 head input from fp32 {f_err} of the CPU "
+                                     f"bf16's distance > {ZOO_BF16_FEATURE_RATIO}")
+            del model, cpu_model
+        del scorer
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train_phases(seed, rng, dev, data, det, reader, crops, four, z1: dict,
+                     profile: bool = False) -> dict:
+    """Z4-Z6, the zoo trained at full width (seeded weights, TF32 off). Z4:
+    each ZOO_TRAIN entry through `train_phase` at batch TRAIN_BATCH,
+    strong_aug on, the dataset cached
+    on the card: ZOO_TRAIN_TIMED_STEPS timed steps after a warm-up step
+    (crops/s, ms a step, peak memory, the busy share of a traced step; one
+    K7 call a step); ZOO_FIT_ENTRY also `fit` for one epoch with an eval
+    pass (one K2 launch an eval batch, finite losses) and a fixed batch
+    whose loss falls. Z5: one train step of each card vs CPU vs float64 at
+    batch TRAIN_CHECK_BATCH (`train_vs_cpu`, T3's rule). Z6: every entry
+    scored in bf16 (`zoo_bf16_scoring`), and ZOO_BF16_TRAIN trained in bf16
+    (`train_phase`: K7's bf16 mode once a step) with one bf16 step card vs
+    CPU vs float64 held layer by layer (`train_vs_cpu(..., "bfloat16")`)."""
+    import torch
+    t0 = time.perf_counter()
+    z4, z5 = {}, {}
+    for name in ZOO_TRAIN:
+        fit = name == ZOO_FIT_ENTRY
+        z4[name], model = train_phase(name, seed, dev, data, profile=profile and fit,
+                                      timed_steps=ZOO_TRAIN_TIMED_STEPS, fit=fit)
+        z5[name] = train_vs_cpu(model, name, rng, zoo=True)
+        del model
+        torch.cuda.empty_cache()
+        log(f"[Z4-Z5 {name} {time.perf_counter() - t0:.1f} s]")
+    z6 = zoo_bf16_scoring(seed, dev, det, reader, crops, four, z1)
+    log(f"[Z6 scoring {time.perf_counter() - t0:.1f} s]")
+    z6_train, z6_cpu = {}, {}
+    for name in ZOO_BF16_TRAIN:
+        z6_train[name], model = train_phase(name, seed, dev, data, dtype="bfloat16",
+                                            timed_steps=ZOO_TRAIN_TIMED_STEPS, fit=False)
+        z6_cpu[name] = train_vs_cpu(model, name, rng, "bfloat16", zoo=True)
+        del model
+        torch.cuda.empty_cache()
+    log(f"[Z6 training {time.perf_counter() - t0:.1f} s]")
+    for name in ZOO_BF16_TRAIN:
+        bf, fp32 = z6_train[name], z4[name]
+        log(f"Z6 {name} at batch {bf['batch']}: bf16 {bf['crops_per_s']:.1f} train crops/s, "
+            f"{bf['step_ms']:.2f} ms a step, {bf['busy_share']:.1%} busy, {bf['peak_gb']:.2f} GB; "
+            f"fp32 (Z4, this run) {fp32['crops_per_s']:.1f}, {fp32['step_ms']:.2f} ms, "
+            f"{fp32['busy_share']:.1%}, {fp32['peak_gb']:.2f} GB")
+    log(json.dumps({"zoo_training": {"fp32": {n: dict(z4[n], vs_cpu=z5[n]) for n in z4},
+                                     "bf16_scoring": z6,
+                                     "bf16": {n: dict(z6_train[n], vs_cpu=z6_cpu[n])
+                                              for n in z6_train}}}, default=str))
+    return dict(z4=z4, z5=z5, z6=z6, z6_train=z6_train, z6_cpu=z6_cpu)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4438,6 +4808,11 @@ def main() -> int:
     zoo = zoo_phases(args.seed, side_rng(rng), dev, det, reader, crops, stacks, paths,
                      with_faces, four)
     clock("Z1-Z3")
+
+    # ---- Z4-Z6. the variant zoo trained, and scored in bf16 ---------------------------
+    zt = zoo_train_phases(args.seed, side_rng(rng), dev, data, det, reader, crops, four,
+                          zoo["z1"], args.profile)
+    clock("Z4-Z6")
     for name, fp32, bf in (("cvit", t2, b2["cvit"]), ("cvit_repbn8", t4, b2["cvit_repbn8"])):
         log(f"B2 {name} at batch {TRAIN_BATCH}: bf16 {bf['crops_per_s']:.1f} train crops/s, "
             f"{bf['step_ms']:.2f} ms a step, {bf['busy_share']:.1%} busy, {bf['peak_gb']:.2f} GB; "
@@ -4724,6 +5099,19 @@ def main() -> int:
                              "cvit_ggca_sla (96 x 16 patch rows, 96 x 17 token rows) and "
                              "cvit_ggca_add_glu (96 x 64, 96 x 65); zoo_launches: Z3's paths")
     rows[4]["bf16_launches"] = {n: b4[n]["int8_launches"]["K5"] for n in b4}
+    # the zoo trained (Z4, Z6): K7 over each entry's timed steps, K2 over the
+    # fit entry's eval batches and Z6's bf16 scoring
+    z4, z6t, z6 = zt["z4"], zt["z6_train"], zt["z6"]
+    k7_row = next(r for r in rows if r["name"] == "K7_clahe_luma")
+    k7_row["zoo_train_launches"] = {n: z4[n]["step_launches"]["K7"] for n in z4}
+    k7_row["zoo_train_steps"] = ZOO_TRAIN_TIMED_STEPS
+    k7_row["zoo_fit_launches"] = {ZOO_FIT_ENTRY: z4[ZOO_FIT_ENTRY]["launches"]["K7"]}
+    k7_row["zoo_fit_steps"] = z4[ZOO_FIT_ENTRY]["fit_steps"]
+    k7_bf16_row = next(r for r in rows if r["name"] == "K7_clahe_luma_bf16")
+    k7_bf16_row["zoo_train_launches"] = {n: z6t[n]["step_launches"]["K7_bf16"] for n in z6t}
+    k7_bf16_row["zoo_train_steps"] = ZOO_TRAIN_TIMED_STEPS
+    rows[1]["zoo_train_eval_launches"] = {ZOO_FIT_ENTRY: z4[ZOO_FIT_ENTRY]["launches"]["K2"]}
+    rows[1]["zoo_bf16_launches"] = {n: z6[n]["k2_launches"] for n in z6}
     log(json.dumps({"training": {"cvit": dict(t2, vs_cpu=t3),
                                  "cvit_repbn8": dict(t4, vs_cpu=t4_cpu),
                                  "s3d_family": s3, "s3d_vs_cpu": s4, "s3d_scoring": s5,

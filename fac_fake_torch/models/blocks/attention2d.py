@@ -14,7 +14,14 @@
   and 7×7 convs over its four spatial pools, each pair softmaxed over the
   two inputs, ``att = channel + spatial + 1`` weighing the sum.
 
-NCHW in and out, eval mode (BNs on their running stats). The module trees
+The ReLUs are `nn.ReLU` modules, as the stems' are, and the maxima
+`MaxOver` modules: a check that holds two devices' training steps together
+replays one device's ReLU and argmax choices on the other (`chip_smoke.py`
+`_route_pools`). NCHW in and out; in training the
+BNs normalize by the batch and move their
+running stats by flax's rule (`models/layers.py`), in eval they use them.
+Every conv, the 1-D channel convs too, computes in its input's dtype, as
+JAX's take ``dtype``: a bf16 input keeps both blocks in bf16. The module trees
 are the reference's (``branch1.0``, ``conv_cat.1``, ``Hebing.tongdao.fc``;
 ``multi_scale_extractor.conv1``, ``tfam.channel_attention.channel_conv1``,
 ``tfam.spatial_attention.spatial_conv1``).
@@ -26,7 +33,7 @@ import math
 import torch
 from torch import nn
 
-from fac_fake_torch.models.layers import Conv2d, batch_norm
+from fac_fake_torch.models.layers import Conv1d, Conv2d, MaxOver, batch_norm
 
 
 def _cbr(cin: int, cout: int, k: int, dilation: int) -> nn.Sequential:
@@ -39,9 +46,10 @@ class ChannelExcite(nn.Module):     # the reference's `tongdao`
     def __init__(self, channels: int):
         super().__init__()
         self.fc = Conv2d(channels, 1, 1, bias=False)
+        self.relu = nn.ReLU()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * torch.relu(self.fc(x.mean(dim=(2, 3), keepdim=True)))
+        return x * self.relu(self.fc(x.mean(dim=(2, 3), keepdim=True)))
 
 
 class SpatialExcite(nn.Module):     # `kongjian`
@@ -72,13 +80,15 @@ class MDFA(nn.Module):
         self.branch4 = _cbr(dim_in, dim_out, 3, 18 * rate)
         self.branch5_conv = Conv2d(dim_in, dim_out, 1)
         self.branch5_bn = batch_norm(dim_out)
+        self.branch5_relu = nn.ReLU()
         self.Hebing = ExciteMax(5 * dim_out)
         self.conv_cat = nn.Sequential(Conv2d(5 * dim_out, dim_out, 1), batch_norm(dim_out),
                                       nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b1 = self.branch1(x)
-        g = torch.relu(self.branch5_bn(self.branch5_conv(x.mean(dim=(2, 3), keepdim=True))))
+        g = self.branch5_relu(self.branch5_bn(self.branch5_conv(x.mean(dim=(2, 3),
+                                                                        keepdim=True))))
         cat = torch.cat([b1, self.branch2(x), self.branch3(x), self.branch4(x),
                          g.expand_as(b1)], dim=1)
         return self.conv_cat(self.Hebing(cat) * cat)
@@ -93,13 +103,14 @@ class ChannelAttention(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         k = eca_kernel_size(channels)
-        self.channel_conv1 = nn.Conv1d(4, 1, k, padding=k // 2)
-        self.channel_conv2 = nn.Conv1d(4, 1, k, padding=k // 2)
+        self.channel_conv1 = Conv1d(4, 1, k, padding=k // 2)
+        self.channel_conv2 = Conv1d(4, 1, k, padding=k // 2)
+        self.max = MaxOver(2, 3)
 
     def forward(self, t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
         """(2, B, C, 1, 1): the two inputs' channel weights."""
-        pools = torch.stack([t1.mean(dim=(2, 3)), t1.amax(dim=(2, 3)),
-                             t2.mean(dim=(2, 3)), t2.amax(dim=(2, 3))], dim=1)   # (B, 4, C)
+        pools = torch.stack([t1.mean(dim=(2, 3)), self.max(t1).flatten(1),
+                             t2.mean(dim=(2, 3)), self.max(t2).flatten(1)], dim=1)   # (B, 4, C)
         att = torch.stack([self.channel_conv1(pools), self.channel_conv2(pools)])  # (2, B, 1, C)
         return torch.softmax(att, dim=0)[:, :, 0, :, None, None]
 
@@ -109,11 +120,12 @@ class SpatialAttention(nn.Module):
         super().__init__()
         self.spatial_conv1 = Conv2d(4, 1, 7, padding=3)
         self.spatial_conv2 = Conv2d(4, 1, 7, padding=3)
+        self.max = MaxOver(1)
 
     def forward(self, t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
         """(2, B, 1, H, W): the two inputs' spatial weights."""
-        pools = torch.cat([t1.mean(dim=1, keepdim=True), t1.amax(dim=1, keepdim=True),
-                           t2.mean(dim=1, keepdim=True), t2.amax(dim=1, keepdim=True)], dim=1)
+        pools = torch.cat([t1.mean(dim=1, keepdim=True), self.max(t1),
+                           t2.mean(dim=1, keepdim=True), self.max(t2)], dim=1)
         return torch.softmax(torch.stack([self.spatial_conv1(pools),
                                           self.spatial_conv2(pools)]), dim=0)
 
@@ -137,9 +149,10 @@ class MultiScaleExtractor(nn.Module):
         self.conv1 = Conv2d(channels, channels, 3, padding=1)
         self.conv2 = Conv2d(channels, channels, 5, padding=2)
         self.conv3 = Conv2d(channels, channels, 7, padding=3)
+        self.relu = nn.ReLU()
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.conv1(t)) + torch.relu(self.conv2(t)) + torch.relu(self.conv3(t))
+        return self.relu(self.conv1(t)) + self.relu(self.conv2(t)) + self.relu(self.conv3(t))
 
 
 class BFM(nn.Module):

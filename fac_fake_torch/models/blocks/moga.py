@@ -21,7 +21,8 @@ from fac_fake_torch.models.layers import Conv2d, FlatLoad
 
 
 class ElementScale(FlatLoad, nn.Module):
-    """``x · scale``, a learned (1, C, 1, 1) scale started at ``init``."""
+    """``x · scale``, a learned (1, C, 1, 1) scale started at ``init``; the
+    product in the promoted dtype (fp32 for a bf16 ``x``, as JAX's)."""
 
     _flat = ("scale",)
 
@@ -34,7 +35,7 @@ class ElementScale(FlatLoad, nn.Module):
         self.scale.data.fill_(self.init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.scale.to(x.dtype)
+        return x * self.scale
 
 
 def _dw(ch: int, k: int, dil: int) -> Conv2d:
@@ -71,8 +72,10 @@ class MultiOrderGatedAggregation(nn.Module):
         self.proj_2 = Conv2d(dim, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = x
+        shortcut, dt = x, x.dtype
         x = self.proj_1(x)
-        x = F.silu(x + self.sigma(x - x.mean(dim=(2, 3), keepdim=True)))
+        # the decomposition promotes to the scale's dtype (fp32 in a bf16
+        # model, as JAX's); gate and value round it back, as flax's convs
+        x = F.silu(x + self.sigma(x - x.mean(dim=(2, 3), keepdim=True))).to(dt)
         y = self.proj_2(F.silu(self.gate(x)) * F.silu(self.value(x)))
         return y + shortcut

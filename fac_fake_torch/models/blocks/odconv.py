@@ -8,7 +8,9 @@ kernels (a softmax). Each sample's kernel is the candidates blended by its
 kernel attention, times its tap attention; the input times its channel
 attention is convolved with it, and the output times its filter attention.
 JAX vmaps the per-sample convolution over the batch; here it is one conv
-with the batch folded into the groups. NCHW in and out.
+with the batch folded into the groups (its backward too). NCHW in and out,
+in the input's dtype. In training the head's BatchNorm normalizes by the
+batch's B values a channel and moves its running stats by flax's rule.
 
 The weight is the reference's (kernel_num, O, I, k, k). The JAX package's
 `export_cvit` writes it as flax holds it, (kernel_num, k, k, I, O) (its
@@ -23,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fac_fake_torch.models.layers import Conv2d, batch_norm
+from fac_fake_torch.models.layers import Conv2d, batch_norm, widen
 
 
 class Attention(nn.Module):
@@ -40,6 +42,7 @@ class Attention(nn.Module):
         self.filter_fc = Conv2d(att, out_planes, 1)
         self.spatial_fc = Conv2d(att, kernel_size * kernel_size, 1)
         self.kernel_fc = Conv2d(att, kernel_num, 1)
+        self.relu = nn.ReLU()
 
 
 class ODConv2d(nn.Module):
@@ -78,12 +81,15 @@ class ODConv2d(nn.Module):
         b, cin, h, w = x.shape
         kn, cout, _, k, _ = self.weight.shape
         att, t = self.attention, self.temperature
-        a = torch.relu(att.bn(att.fc(x.mean(dim=(2, 3), keepdim=True))))
+        a = att.relu(att.bn(att.fc(x.mean(dim=(2, 3), keepdim=True))))
         ch_att = torch.sigmoid(att.channel_fc(a) / t)                        # (b, Ci, 1, 1)
         f_att = torch.sigmoid(att.filter_fc(a) / t)                          # (b, Co, 1, 1)
         s_att = torch.sigmoid(att.spatial_fc(a) / t).reshape(b, 1, 1, k, k)
         k_att = torch.softmax(att.kernel_fc(a) / t, dim=1).reshape(b, kn, 1, 1, 1, 1)
-        agg = (k_att * self.weight.to(x.dtype)[None]).sum(dim=1) * s_att     # (b, Co, Ci, k, k)
-        y = F.conv2d((x * ch_att).reshape(1, b * cin, h, w), agg.reshape(b * cout, cin, k, k),
+        # the blend in the weight's dtype (JAX: a bf16 attention times the
+        # fp32 candidates is fp32), rounded once to x's for the conv
+        agg = (widen(k_att) * self.weight[None]).sum(dim=1) * widen(s_att)   # (b, Co, Ci, k, k)
+        y = F.conv2d((x * ch_att).reshape(1, b * cin, h, w),
+                     agg.reshape(b * cout, cin, k, k).to(x.dtype),
                      stride=self.stride, padding=self.padding, groups=b)
         return y.reshape(b, cout, y.shape[2], y.shape[3]) * f_att

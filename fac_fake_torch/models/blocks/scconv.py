@@ -8,7 +8,8 @@ below, and crosses the two halves of the channels. CRU squeezes the upper
 and lower halves of the channels by 2, runs a grouped 3×3 plus a 1×1 on the
 upper and a 1×1 on the lower, and sums the two halves of their concatenation
 weighed by a softmax over the channels of its spatial mean. NCHW in and
-out; the module tree is the reference's (``SRU.gn``, ``CRU.squeeze1`` ...).
+out, in the input's dtype; the module tree is the reference's (``SRU.gn``,
+``CRU.squeeze1`` ...).
 """
 from __future__ import annotations
 
@@ -27,21 +28,34 @@ class SRU(nn.Module):
         self.gate_threshold = gate_threshold
         self.gn = nn.GroupNorm(group_num, channels)
 
+    def gate(self, rew: torch.Tensor) -> torch.Tensor:
+        """Which values pass whole (``rew`` above the threshold); the rest
+        are weighed by ``rew``. The forward steps here: a ``rew`` within
+        rounding of the threshold is weighed 1 on one device and 0.5 on
+        another, so a check that holds two devices' steps together makes
+        one take the other's gates (`chip_smoke.py` `_route_pools`)."""
+        return rew > self.gate_threshold
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        scale, bias = self.gn.weight.to(x.dtype), self.gn.bias.to(x.dtype)
+        scale, bias = self.gn.weight, self.gn.bias
         xg = x.reshape(b, self.group_num, c // self.group_num, h, w)
-        # the biased variance, as jnp.var
+        # the statistics and the normalize in x's dtype, the biased variance,
+        # as jnp.mean / jnp.var
         var, mean = torch.var_mean(xg, dim=(2, 3, 4), keepdim=True, correction=0)
         xn = ((xg - mean) / torch.sqrt(var + GN_EPS)).reshape(b, c, h, w)
         view = lambda t: t.reshape(1, c, 1, 1)
+        # the affine and the gates in the parameters' dtype (JAX's promotion
+        # of a bf16 map by its fp32 scale); the halves' sums rounded once to
+        # x's dtype, where JAX's CRU convs round them
         gn_x = xn * view(scale) + view(bias)
         rew = torch.sigmoid(gn_x * view(scale / scale.sum()))
-        above = rew > self.gate_threshold
+        above = self.gate(rew)
         x1 = torch.where(above, torch.ones_like(rew), rew) * x
         x2 = torch.where(above, torch.zeros_like(rew), rew) * x
         half = c // 2
-        return torch.cat([x1[:, :half] + x2[:, half:], x1[:, half:] + x2[:, :half]], dim=1)
+        return torch.cat([x1[:, :half] + x2[:, half:], x1[:, half:] + x2[:, :half]],
+                         dim=1).to(x.dtype)
 
 
 class CRU(nn.Module):

@@ -8,7 +8,9 @@ and K, ``num_heads`` heads; each head's output is ``Q (Kᵀ V) / (Q · ΣK +
 plus a depthwise 5×5 conv of V seen as a √N × √N map; then ``proj``. In the
 CViT (``cvit_ggca_sla``) the tokens are the embedding's channels and the
 features its patches. The module tree is the reference's (``qkv``,
-``proj``, ``dwc``, ``positional_encoding``).
+``proj``, ``dwc``, ``positional_encoding``). In a bf16 model ``qkv``, the
+local conv and ``proj`` compute in bf16 and the attention's products in
+fp32 (the fp32 encoding promotes K, as in JAX's).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ class SimplifiedLinearAttention(nn.Module):
         self.dwc = Conv2d(hd, hd, kernel_size, padding=kernel_size // 2, groups=hd)
         self.positional_encoding = nn.Parameter(
             torch.empty(1, window_size[0] * window_size[1], dim))
+        self.relu = nn.ReLU()
 
     def reset_own(self, gen: torch.Generator) -> None:
         self.positional_encoding.data.zero_()
@@ -38,18 +41,22 @@ class SimplifiedLinearAttention(nn.Module):
         h = self.num_heads
         hd = self.dim // h
         q, k, v = self.qkv(x).reshape(b, n, 3, c).unbind(2)
-        k = k + self.positional_encoding[:, :n].to(x.dtype)
-        q, k = torch.relu(q), torch.relu(k)
+        # the fp32 encoding promotes K (JAX's promotion in a bf16 model), and
+        # the products with K then run in its dtype
+        k = k + self.positional_encoding[:, :n]
+        q, k = self.relu(q), self.relu(k)
         split = lambda t: t.reshape(b, n, h, hd).transpose(1, 2).reshape(b * h, n, hd)
         q, k, v = split(q), split(k), split(v)
-        z = 1.0 / (torch.einsum("bic,bc->bi", q, k.sum(dim=1)) + 1e-6)
+        qa, va = q.to(k.dtype), v.to(k.dtype)
+        z = 1.0 / (torch.einsum("bic,bc->bi", qa, k.sum(dim=1)) + 1e-6)
         if n * n * (hd + hd) > hd * hd * (n + n):
-            kv = torch.einsum("bjc,bjd->bcd", k, v)
-            out = torch.einsum("bic,bcd->bid", q, kv) * z[..., None]
+            kv = torch.einsum("bjc,bjd->bcd", k, va)
+            out = torch.einsum("bic,bcd->bid", qa, kv) * z[..., None]
         else:
-            qk = torch.einsum("bic,bjc->bij", q, k)
-            out = torch.einsum("bij,bjd->bid", qk, v) * z[..., None]
+            qk = torch.einsum("bic,bjc->bij", qa, k)
+            out = torch.einsum("bij,bjd->bid", qk, va) * z[..., None]
         side = int(round(n ** 0.5))
         fm = self.dwc(v.reshape(b * h, side, side, hd).permute(0, 3, 1, 2))
         out = out + fm.permute(0, 2, 3, 1).reshape(b * h, n, hd)
-        return self.proj(out.reshape(b, h, n, hd).transpose(1, 2).reshape(b, n, c))
+        out = out.reshape(b, h, n, hd).transpose(1, 2).reshape(b, n, c)
+        return self.proj(out.to(x.dtype))

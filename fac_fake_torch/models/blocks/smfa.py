@@ -3,7 +3,8 @@
 
 ``linear_0`` (1×1) doubles the channels into a local half ``y`` and a
 non-local half ``xs``. The non-local branch max-pools ``xs`` by
-``down_scale`` (JAX's `adaptive_max_pool`, for sizes that divide), runs a
+``down_scale`` (JAX's `adaptive_max_pool`, for sizes that divide; a
+`MaxOver` module), runs a
 depthwise 3×3, adds ``belt`` times the spatial variance of ``xs`` (biased,
 as ``jnp.var``) to ``alpha`` times it, a 1×1 and an exact GELU, and its
 nearest upsample (row ``i`` reads ``floor(i·oh/h)``, torch's rule) gates
@@ -18,13 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fac_fake_torch.models.layers import Conv2d, FlatLoad
-
-
-def adaptive_max_pool(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """``adaptive_max_pool2d`` for sizes that divide (JAX's reshape and max)."""
-    b, c, h, w = x.shape
-    return x.reshape(b, c, out_h, h // out_h, out_w, w // out_w).amax(dim=(3, 5))
+from fac_fake_torch.models.layers import Conv2d, FlatLoad, MaxOver
 
 
 class DMlp(nn.Module):
@@ -52,6 +47,7 @@ class SMFA(FlatLoad, nn.Module):
         self.dw_conv = Conv2d(dim, dim, 3, padding=1, groups=dim)
         self.alpha = nn.Parameter(torch.empty(1, dim, 1, 1))
         self.belt = nn.Parameter(torch.empty(1, dim, 1, 1))
+        self.pool_max = MaxOver(3, 5)
 
     def reset_own(self, gen: torch.Generator) -> None:
         self.alpha.data.fill_(1.0)
@@ -60,9 +56,14 @@ class SMFA(FlatLoad, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, _, h, w = x.shape
         y, xs = torch.split(self.linear_0(x), self.dim, dim=1)
-        x_s = self.dw_conv(adaptive_max_pool(xs, h // self.down_scale, w // self.down_scale))
+        # adaptive_max_pool2d for sizes that divide (JAX's reshape and max)
+        b, c, oh, ow = xs.shape[0], self.dim, h // self.down_scale, w // self.down_scale
+        pooled = self.pool_max(xs.reshape(b, c, oh, h // oh, ow, w // ow)).reshape(b, c, oh, ow)
+        x_s = self.dw_conv(pooled)
         x_v = torch.var(xs, dim=(2, 3), keepdim=True, correction=0)
-        gate = F.gelu(self.linear_1(x_s * self.alpha.to(x.dtype) + x_v * self.belt.to(x.dtype)))
+        # the modulation in the parameters' dtype (fp32 in a bf16 model, as
+        # JAX's promotion), rounded once by linear_1 as flax's conv rounds it
+        gate = F.gelu(self.linear_1((x_s * self.alpha + x_v * self.belt).to(x.dtype)))
         oh, ow = gate.shape[2], gate.shape[3]
         rows = torch.arange(h, device=x.device) * oh // h
         cols = torch.arange(w, device=x.device) * ow // w

@@ -10,8 +10,11 @@ dilation 2 (``conv_layer_down55_shift``), ``fftshift`` over H; a blend with
 the raw spectrum by ``sigmoid(lambda_base)``; the inverse FFT. The output is
 moved to the input's mean and clipped to the input's range ± 0.5, both
 taken over the whole batch, as the JAX package takes them (so a sample's
-output depends on the batch it is scored in). ``locMap`` is sized by the
-map the block runs on (``image_size``). NCHW in and out.
+output depends on the batch it is scored in, and in training each sample's
+gradient on the others'). ``locMap`` is sized by the map the block runs on
+(``image_size``). NCHW in and out, in the input's dtype; in a bf16 model
+the FFTs, the blend and the clip stay fp32 and the two convs compute in
+bf16, as JAX's.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fac_fake_torch.models.layers import Conv2d, FlatLoad
+from fac_fake_torch.models.layers import Clip, Conv2d, FlatLoad, widen
 
 
 class FourierUnitModified(FlatLoad, nn.Module):
@@ -32,6 +35,8 @@ class FourierUnitModified(FlatLoad, nn.Module):
                                               bias=False)
         self.locMap = nn.Parameter(torch.empty(image_size, image_size // 2 + 1))
         self.lambda_base = nn.Parameter(torch.empty(()))
+        self.relu = nn.ReLU()
+        self.clip = Clip()
 
     def reset_own(self, gen: torch.Generator) -> None:
         self.locMap.data.uniform_(0.0, 1.0, generator=gen)
@@ -40,18 +45,21 @@ class FourierUnitModified(FlatLoad, nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         wf = w // 2 + 1
-        f = torch.fft.rfftn(x.float(), dim=(2, 3), norm="ortho")
+        dt = x.dtype
+        f = torch.fft.rfftn(widen(x), dim=(2, 3), norm="ortho")
         ff = torch.stack([f.real, f.imag], dim=2).reshape(b, 2 * c, h, wf)
         ff_copy = ff
         loc = self.locMap[:h, :wf].expand(b, 1, h, wf)
-        ff = self.conv_layer_down55(torch.cat([ff, loc], dim=1))
-        ff = torch.relu(torch.fft.fftshift(ff, dim=2))
-        cat = torch.cat([ff, torch.fft.fftshift(loc, dim=2)], dim=1)
+        # the two convs in x's dtype, as JAX's take ``dtype``: a bf16 model
+        # convolves the fp32 spectrum rounded to bf16
+        ff = self.conv_layer_down55(torch.cat([ff, loc], dim=1).to(dt))
+        ff = self.relu(torch.fft.fftshift(ff, dim=2))
+        cat = torch.cat([ff, torch.fft.fftshift(loc, dim=2)], dim=1).to(dt)
         ff = self.conv_layer_down55_shift(F.pad(cat, (2, 2, 2, 2), mode="reflect"))
         ff = torch.fft.fftshift(ff, dim=2)
         lb = torch.sigmoid(self.lambda_base)
-        ff = (ff_copy * lb + ff * (1.0 - lb)).reshape(b, c, 2, h, wf)
+        ff = (ff_copy * lb + widen(ff) * (1.0 - lb)).reshape(b, c, 2, h, wf)
         out = torch.fft.irfftn(torch.complex(ff[:, :, 0], ff[:, :, 1]), s=(h, w), dim=(2, 3),
                                norm="ortho")
         out = out - out.mean() + x.mean()
-        return torch.clamp(out, x.min() - 0.5, x.max() + 0.5).to(x.dtype)
+        return self.clip(out, x.min() - 0.5, x.max() + 0.5).to(x.dtype)

@@ -10,6 +10,14 @@ depthwise 5×5 conv of the input with its own scale is added. The variant
 uses one level and db1 only, so the filters are written out (no pywt).
 NCHW in and out; the module tree is the reference's (``base_conv``,
 ``base_scale``, ``wavelet_convs.0``, ``wavelet_scale.0``).
+
+In bf16 the convs compute in the input's dtype, the scales promote to fp32
+(JAX's ``_Scale``), the inverse transform then runs on those fp32 bands,
+and the output is rounded once to the input's dtype. The Haar filters take
+the dtype of the map they transform (bf16's 1/√2 is 0.70703125). JAX's own
+bf16 WTConv raises (its fp32 filters meet a bf16 map in
+``lax.conv_general_dilated``); this is what it computes with its filters
+cast to the map's dtype.
 """
 from __future__ import annotations
 
@@ -29,7 +37,9 @@ _REC_LO, _REC_HI = (_S, _S), (_S, -_S)
 
 class ChannelScale(FlatLoad, nn.Module):
     """``x · weight``, a learned (1, C, 1, 1) scale on NCHW ``x``, started at
-    ``init`` (the reference's ``_ScaleModule``)."""
+    ``init`` (the reference's ``_ScaleModule``); the product in the
+    promoted dtype (a bf16 ``x`` times the fp32 scale is fp32, as JAX's
+    ``_Scale``)."""
 
     _flat = ("weight",)
 
@@ -42,7 +52,7 @@ class ChannelScale(FlatLoad, nn.Module):
         self.weight.data.fill_(self.init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.weight.to(x.dtype)
+        return x * self.weight
 
 
 def _bands(lo, hi) -> torch.Tensor:
@@ -86,6 +96,7 @@ class WTConv2d(nn.Module):
                                            for _ in range(wt_levels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
         base = self.base_scale(self.base_conv(x))
         lls, highs, shapes = [], [], []
         cur = x
@@ -105,4 +116,4 @@ class WTConv2d(nn.Module):
             next_ll = inverse_wavelet_transform(torch.cat([ll[:, :, None], highs.pop()], dim=2))
             sh = shapes.pop()
             next_ll = next_ll[:, :, :sh[2], :sh[3]]
-        return base + next_ll
+        return (base + next_ll).to(dt)

@@ -12,7 +12,7 @@ updates its running ones as the JAX package does (`BatchNorm2d`), and
 `LinearNorm` runs its schedule's blend.
 
 Precision follows JAX's ``dtype=bfloat16`` modules, with fp32 master
-parameters: `Linear`, `Conv2d`, `Conv3d` compute in their input's dtype
+parameters: `Linear`, `Conv1d`, `Conv2d`, `Conv3d` compute in their input's dtype
 (the weights cast to it, as flax's ``Dense``/``Conv`` cast theirs), so a
 bf16 input keeps the model in bf16; `LayerNorm` normalizes in fp32 and
 rounds once to its input's dtype (flax's ``LayerNorm(dtype=bf16)``); the
@@ -61,6 +61,13 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` in its input's dtype (flax ``Conv(dtype=...)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype (flax ``Conv(dtype=...)``)."""
 
@@ -93,6 +100,30 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(widen(x), self.normalized_shape, self.weight, self.bias,
                             self.eps).to(x.dtype)
+
+
+class MaxOver(nn.Module):
+    """``x.amax(dims, keepdim=True)``. A module, as `nn.MaxPool2d` is, so
+    that a check holding two devices' training steps together can make one
+    take the other's argmax (`chip_smoke.py` `_route_pools`): two values
+    within rounding of each other can win on one device and lose on the
+    other, and the gradient then goes to another element."""
+
+    def __init__(self, *dims: int):
+        super().__init__()
+        self.dims = dims
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amax(self.dims, keepdim=True)
+
+
+class Clip(nn.Module):
+    """``x.clamp(lo, hi)``, a module for the same reason as `MaxOver`: a
+    value within rounding of a bound is clipped on one device and not on
+    the other, and its gradient then goes to the bound."""
+
+    def forward(self, x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(x, lo, hi)
 
 
 def conv3x3(cin: int, cout: int) -> Conv2d:

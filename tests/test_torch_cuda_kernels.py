@@ -915,6 +915,55 @@ def test_train_step_on_the_card_runs_k7_and_k2(dev):
     assert np.isfinite(float(met["loss"])) and np.isfinite(float(ev["loss"]))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["cvit_ggca_add_odconv", "cvit_ggca_sla"])
+def test_k7_in_a_zoo_train_step_equals_plain(dev, name, dtype):
+    """One train step of a zoo entry at its published widths (the
+    registry's defaults), batch 32 of seeded 224² crops, the strong_aug chain
+    on, at ``model.dtype``: the chain calls K7 once, in its ``dtype`` mode,
+    and that call's output is bit-equal to its plain version on the same
+    input, takers and budget; untaken images keep their bits."""
+    from fac_fake_torch.core.config import Config
+    from fac_fake_torch.models import build_model
+    from fac_fake_torch.ops import augment as aug
+    from fac_fake_torch.train.trainer import Trainer
+
+    cfg = Config()
+    cfg.model.name = name
+    cfg.model.dtype = dtype
+    tr = Trainer(build_model(cfg.model, device=dev, seed=0), cfg)
+    rng = np.random.default_rng(19)
+    b = {"image": torch.from_numpy(rng.integers(0, 256, (32, 224, 224, 3), dtype=np.uint8)).to(dev),
+         "label": torch.from_numpy(rng.integers(0, 2, 32)).to(dev),
+         "mask": torch.ones(32, device=dev)}
+    calls, real = [], aug.clahe_subset_
+
+    def recording(x, take, k_budget, *a, **k):
+        x0 = x.clone()
+        out = real(x, take, k_budget, *a, **k)
+        calls.append((x0, take.clone(), k_budget, out.clone()))
+        return out
+
+    k7, k7_bf16 = aug.clahe_luma.launches, aug.clahe_luma.bf16_launches
+    aug.clahe_subset_ = recording
+    try:
+        met = tr.train_step(b, torch.Generator(device=dev).manual_seed(3))
+    finally:
+        aug.clahe_subset_ = real
+    torch.cuda.synchronize()
+    assert len(calls) == 1 and np.isfinite(float(met["loss"]))
+    x0, take, budget, got = calls[0]
+    want_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    assert x0.shape == (32, 224, 224, 3) and x0.dtype == want_dtype and budget == 8
+    assert aug.clahe_luma.launches == k7 + 1
+    assert aug.clahe_luma.bf16_launches == k7_bf16 + (dtype == "bfloat16")
+    ref = aug.clahe_subset_plain_(x0.clone(), take, budget)
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
+    done = torch.zeros(32, dtype=torch.bool, device=dev)
+    done[torch.nonzero(take).flatten()[:budget]] = True
+    assert torch.equal(got[~done], x0[~done])
+
+
 def _cell_boxes(rng, n, frac):
     """n x1y1x2y2 boxes like the cascade's: 12-px P-net cells on a stride-2
     grid (overlapping neighbours), integer or jittered by fractions."""

@@ -111,13 +111,75 @@ def msca(request):
     tm.load_state_dict({k: torch.from_numpy(np.array(a))
                         for k, a in export_s3d(v, SPEC).items()}, strict=True)
     x = torch.from_numpy(clips).permute(0, 4, 1, 2, 3)
-    return srm, jm, v, jeng, tm, quantize_s3d(tm, x), clips, x
+    teng, inputs = port_calibration(tm, x)
+    return srm, jm, v, jeng, tm, teng, clips, x, inputs
+
+
+def port_calibration(tm, x):
+    """The port's engine of ``tm`` calibrated on ``x``, and each conv's
+    calibration input (NDHWC, the fp32 activation the conv reads; the
+    pooled input for a mix's ``b3``), keyed as the engine keys its convs."""
+    from fac_fake_torch.compat import quantize_s3d as tq
+
+    inputs, real = [], tq.QConv3d.calibrate.__func__
+
+    def recording(cls, w, b, x_, s_x, geom, act):
+        inputs.append(x_.clone())
+        return real(cls, w, b, x_, s_x, geom, act)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tq.QConv3d, "calibrate", classmethod(recording))
+        teng = tq.quantize_s3d(tm, x)
+    assert len(inputs) == len(teng.qconvs)
+    return teng, dict(zip(teng.qconvs, inputs))
+
+
+def jax_calibration(jeng, variables, clips):
+    """JAX's calibration pass, jitted as `quantize_s3d` runs it, recording
+    each conv's input (the fp32 activation its ``s_x`` is the max of, or the
+    pooled input of a mix's ``b3``) and its ``s_w`` by the engine's own
+    expression: {key: (input, s_w)}; and the qparams (equal to the engine's,
+    bit for bit)."""
+    import fac_fake_tpu.compat.quantize_s3d as jq
+
+    order = []
+
+    def calibrate(v, c):
+        rec, real, build = [], jq._conv3d, {}
+
+        def recording(x, w, strides, padding, int8=False):
+            rec.append((x, jnp.maximum(jnp.max(jnp.abs(w), axis=(0, 1, 2, 3)) / 127.0,
+                                       1e-12)))
+            return real(x, w, strides, padding, int8)
+
+        jq._conv3d = recording
+        try:
+            jeng._walk(v, c, build=build, qp=None)
+        finally:
+            jq._conv3d = real
+        order.extend(build)
+        return build, rec[:len(build)]         # the head's conv comes last
+
+    build, rec = jax.jit(calibrate)(variables, jnp.asarray(clips))
+    points = {k: (np.asarray(a), np.asarray(s_w)) for k, (a, s_w) in zip(order, rec)}
+    return {k: {n: np.asarray(t) for n, t in e.items()} for k, e in build.items()}, points
+
+
+def _port_qparams_to_jax(teng, jq):
+    """The port engine's qparams in JAX's layout (``w_q`` (kt, kh, kw, I, O),
+    the padded input channels cut), for JAX's engine to run with."""
+    out = {}
+    for key, qc in teng.qconvs.items():
+        cin = np.asarray(jq[key]["w_q"]).shape[3]
+        out[key] = {"w_q": jnp.asarray(qc.w_q[..., :cin].permute(1, 2, 3, 4, 0).numpy()),
+                    **{n: jnp.asarray(getattr(qc, n).numpy()) for n in ("s", "b", "s_x")}}
+    return out
 
 
 def test_msca_folded_fp_walk_matches_jax(msca):
     """The folded fp32 walk (MSCAN-half and iFormer through the model's own
     blocks, the residual SRM in front) against JAX's and the model, 1e-4."""
-    srm, jm, v, jeng, tm, teng, clips, x = msca
+    srm, jm, v, jeng, tm, teng, clips, x, inputs = msca
     ref = np.asarray(jax.jit(jeng.folded_fp_forward)(v, jnp.asarray(clips)))
     np.testing.assert_allclose(teng.folded_fp_forward(tm, x).numpy(), ref, rtol=1e-4, atol=1e-4)
     with torch.no_grad():
@@ -128,16 +190,31 @@ def test_msca_qparams_match_jax(msca):
     """JAX's keys; ``w_q`` equal to JAX's but where the port's folded w/s_w
     lies within TIE_ULPS ulps of 127 of a .5 tie (the fold rounds in another
     order under JAX's `jit`: one code of the 22 convs' flips, l10/b1b/s,
-    where the port's w/s_w is -87.5 exactly); scales within 1e-6 relative
-    (the stem's ``s_x`` exactly: its input is the clip, or with the residual
-    SRM the same fp32 conv's output); each conv's epilogue act: ReLU6, none
-    on the V2 mix's spatial convs."""
+    where the port's w/s_w is -87.5 exactly); ``s_w`` within TIE_ULPS ulps of
+    JAX's and ``b`` within 1e-6 relative; each ``s_x`` exactly max|a|/127 of
+    the port's own calibration activation ``a`` (a mix's four convs share
+    their input's), and each ``a`` within the fp walk's 1e-4 of JAX's at the
+    same point; ``s`` exactly the port's ``s_x·s_w``; the stem's ``s_x``
+    equal to JAX's (its input is the clip, or with the residual SRM the same
+    fp32 conv's output); each conv's epilogue act: ReLU6, none on the V2
+    mix's spatial convs.
+
+    ``s_x`` is a max over activations that come after the fp blocks and
+    many fp32 convs, and is not held to JAX's ``s_x`` in the last bits: the
+    two sides' activations round apart by a host's summation order (8.4e-7
+    at ``l9/b1b/t``; both are held to float64 by
+    `test_msca_input_scales_near_float64`)."""
     from fac_fake_torch.compat.quantize_s3d import folded_convs
     from fac_fake_torch.ops import quant3d as q3
 
-    srm, jm, v, jeng, tm, teng, clips, x = msca
+    srm, jm, v, jeng, tm, teng, clips, x, inputs = msca
     jq, tq = jeng.qparams, teng.qparams
     assert set(tq) == set(jq) and len(tq) == COUNTS["conv"]
+    build, points = jax_calibration(jeng, v, clips)
+    assert set(points) == set(jq)
+    for key, e in build.items():
+        for name, t in e.items():
+            np.testing.assert_array_equal(t, np.asarray(jq[key][name]))
     folded, flips = folded_convs(tm), 0
     for key, e in tq.items():
         wj = np.asarray(jq[key]["w_q"])                     # (kt, kh, kw, I, O)
@@ -151,22 +228,88 @@ def test_msca_qparams_match_jax(msca):
         assert not (flip & ~tie).any(), (key, np.argwhere(flip & ~tie)[:4])
         assert (np.abs(wt.astype(int) - wj) <= 1).all()
         flips += int(flip.sum())
-        for name in ("s_x", "s", "b"):
-            np.testing.assert_allclose(e[name].numpy(), np.asarray(jq[key][name]),
-                                       rtol=1e-6, atol=0)
+        a_ref, s_w_ref = points[key]
+        assert (np.abs(s_w - s_w_ref) <= TIE_ULPS * np.spacing(s_w_ref)).all(), key
+        a = inputs[key].numpy()
+        np.testing.assert_allclose(a, a_ref, rtol=1e-4, atol=1e-4, err_msg=key)
+        # a mix's b3 reads the pooled input; its scale is the mix input's
+        src = key[:-2] + "b0" if key.endswith("/b3") else key
+        amax = np.maximum(np.abs(inputs[src].numpy()).max(), np.float32(1e-8))
+        s_x = e["s_x"].numpy()
+        assert s_x.dtype == np.float32 and s_x == amax / np.float32(127), key
+        np.testing.assert_array_equal(e["s"].numpy(), s_x * s_w, err_msg=key)
+        np.testing.assert_allclose(e["b"].numpy(), np.asarray(jq[key]["b"]), rtol=1e-6, atol=0)
         v2_spatial = key.startswith("l9/") and key.endswith("b/s")
         assert teng.qconvs[key].act == (q3.ACT_NONE if v2_spatial else q3.ACT_RELU6), key
     assert np.float32(tq["l0/s"]["s_x"].item()) == np.float32(jq["l0/s"]["s_x"])
     assert flips <= 4, flips
 
 
+def _conv_modules(model):
+    """Each conv of the int8 walk, keyed as `folded_convs` keys it, as the
+    model's own `Conv3d` (its input is the walk's calibration activation:
+    the BN after it is what the walk folds)."""
+    out = {}
+    for i, op in enumerate(model.spec):
+        m, key = model.base[i], f"l{i}"
+        seps = []
+        if op[0] == "sep":
+            seps.append((key, m))
+        elif op[0] == "basic":
+            out[key] = m.conv
+        elif op[0] == "mix":
+            out.update({f"{key}/b0": m.branch0[0].conv, f"{key}/b1a": m.branch1[0].conv,
+                        f"{key}/b2a": m.branch2[0].conv, f"{key}/b3": m.branch3[1].conv})
+            seps += [(f"{key}/b1b", m.branch1[1]), (f"{key}/b2b", m.branch2[1])]
+        for k, sep in seps:
+            out[k + "/s"], out[k + "/t"] = sep.conv_s, sep.conv_t
+    return out
+
+
+def test_msca_input_scales_near_float64(msca):
+    """Each ``s_x``, the port's and JAX's, within 4e-6 (relative) of max|a|/127
+    of the float64 activation ``a`` at its conv (the port's model run in
+    float64 on the same clips: folding is exact algebra); a mix's four convs
+    share their input's. Measured (torch 2.13 CPU, jax 0.9.0): at most 7.3e-7
+    for the port (``l9/b1b/t``, all of it from ``l9/b1b/s``'s 864-term fp32
+    sums) and 6.2e-7 for JAX (``l10/b1b/t``), so the two sides' ``s_x`` part
+    by up to 8.4e-7: host rounding, which `test_msca_qparams_match_jax` no
+    longer holds them to."""
+    srm, jm, v, jeng, tm, teng, clips, x, inputs = msca
+    m64 = copy.deepcopy(tm).double()
+    convs = _conv_modules(m64)
+    assert set(convs) == set(teng.qconvs)
+    amax = {}
+    hooks = [c.register_forward_pre_hook(lambda mod, args, k=k: amax.__setitem__(
+        k, float(args[0].abs().amax()))) for k, c in convs.items()]
+    with torch.no_grad():
+        m64(x.double())
+    for h in hooks:
+        h.remove()
+    errs = {"port": [], "jax": []}
+    for key in convs:
+        src = key[:-2] + "b0" if key.endswith("/b3") else key
+        want = max(amax[src], 1e-8) / 127.0
+        for side, got in (("port", teng.qconvs[key].s_x.item()),
+                          ("jax", float(np.asarray(jeng.qparams[key]["s_x"])))):
+            errs[side].append((abs(got - want) / want, key))
+            assert abs(got - want) <= 4e-6 * want, (side, key, got, want)
+    worst = {side: max(e) for side, e in errs.items()}
+    print(f"{srm}: s_x from float64's, worst {worst}; l9/b1b/t: float64 "
+          f"{max(amax['l9/b1b/t'], 1e-8) / 127.0!r}, port {teng.qconvs['l9/b1b/t'].s_x.item()!r}, "
+          f"JAX {float(np.asarray(jeng.qparams['l9/b1b/t']['s_x']))!r}")
+
+
 def test_msca_int8_logits_match_jax_engine(msca):
     """With JAX's qparams carried over, the port's int8 walk steps with JAX's
     (`lockstep_logits`: every quantize at JAX's scale, x/s_x within a few
     ulps, codes equal but at .5 ties; each fp block within 1e-5 of JAX's)
-    and gives JAX's int8 logits within 1e-3; with its own calibration,
-    within 2% of the fp logits' spread of JAX's."""
-    srm, jm, v, jeng, tm, teng, clips, x = msca
+    and gives JAX's int8 logits within 1e-3. With its own calibration, the
+    same against JAX's engine run with the port's qparams carried the other
+    way, and the port's own forward within 2% of the fp logits' spread of
+    those logits (the lock-step carries JAX's code at a .5 tie; the own
+    forward does not)."""
+    srm, jm, v, jeng, tm, teng, clips, x, inputs = msca
     ref = np.asarray(jeng(jnp.asarray(clips))).ravel()
     rec, points, blocks = jax_quantize_points(jeng, v, clips)
     np.testing.assert_array_equal(rec, ref)
@@ -177,10 +320,17 @@ def test_msca_int8_logits_match_jax_engine(msca):
     _carry_qparams(carried, jeng.qparams)
     got, flips = lockstep_logits(carried, x, points, blocks)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
+
+    jeng_own = copy.copy(jeng)
+    jeng_own.qparams = _port_qparams_to_jax(teng, jeng.qparams)
+    ref_own, points, blocks = jax_quantize_points(jeng_own, v, clips)
+    assert len(points) == 16 and len(blocks) == COUNTS["fp_modules"]
+    got, flips = lockstep_logits(teng, x, points, blocks)
+    np.testing.assert_allclose(got, ref_own, rtol=0, atol=1e-3)
     with torch.no_grad():
         own = teng(x).numpy().ravel()
     fp = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(clips))).ravel()
-    assert np.abs(own - ref).max() <= 0.02 * (fp.max() - fp.min()), (own, ref, fp)
+    assert np.abs(own - ref_own).max() <= 0.02 * (fp.max() - fp.min()), (own, ref_own, fp)
 
 
 def _counting(monkeypatch):
@@ -219,7 +369,7 @@ def test_msca_walk_counts(msca, monkeypatch):
     from uint8 clips (with no SRM bank, K2's raw entry then makes the stem
     conv's input); the uint8 forward equals the float one on the same
     bytes."""
-    srm, jm, v, jeng, tm, teng, clips, x = msca
+    srm, jm, v, jeng, tm, teng, clips, x, inputs = msca
     u8 = torch.from_numpy(np.round(clips).astype(np.uint8)).permute(0, 4, 1, 2, 3)
     seen = _counting(monkeypatch)
     with torch.no_grad():

@@ -69,28 +69,42 @@ def _port_from_jax_state(name, state):
     return m, tr
 
 
-def _gradient_errors(g_port, g_jax, g64):
+def _gradient_errors(g_port, g_jax, g64, jax64=None):
     """The gradient within 1e-4 of its norm: the port's against the float64
     gradient of the same model routed as the port's fp32 forward
     (``g64["routed"]``), and against JAX's wherever neither fp32 gradient
     strays from the float64 one (``g64["plain"]``) by more than that. A
     max-pool window at a near-tie can pick another element in fp32 than in
-    float64, on either side; then the two are printed, not held."""
+    float64, on either side; then the two are printed, not held. With
+    ``jax64``, JAX's own float64 gradient from the same state (by the
+    port's keys): the port's float64 gradient within 1e-6 of it, and JAX's
+    fp32 distance measured from it; where that distance is over 1e-4 (a
+    step that JAX's fp32 does not resolve), the port's fp32 gradient is
+    held to it in place of 1e-4; the two fp32 gradients, each within that
+    of float64, within twice it of each other (their distances add)."""
     errs = {"port_vs_f64_routed": _rel(g_port, g64["routed"]),
             "port_vs_f64": _rel(g_port, g64["plain"]), "jax_vs_f64": _rel(g_jax, g64["plain"]),
             "port_vs_jax": _rel(g_port, g_jax)}
-    assert errs["port_vs_f64_routed"] <= 1e-4, errs
-    if errs["port_vs_f64"] <= 1e-4 and errs["jax_vs_f64"] <= 1e-4:
-        assert errs["port_vs_jax"] <= 1e-4, errs
+    bound = pair = 1e-4
+    if jax64 is not None:
+        errs["port_f64_vs_jax_f64"] = _rel(g64["plain"], jax64)
+        errs["jax_vs_f64"] = _rel(g_jax, jax64)
+        assert errs["port_f64_vs_jax_f64"] <= 1e-6, errs
+        bound = max(1e-4, errs["jax_vs_f64"])
+        pair = 2 * bound
+    assert errs["port_vs_f64_routed"] <= bound, errs
+    if errs["port_vs_f64"] <= bound and errs["jax_vs_f64"] <= bound:
+        assert errs["port_vs_jax"] <= pair, errs
     return errs
 
 
-def _compare_state(m, tr, state, name, g64):
+def _compare_state(m, tr, state, name, g64, jax64=None, bufs64=None):
     """After a first step: the gradient (Adam's first moment over 1 − β1)
     against JAX's and against the float64 gradient ``g64`` of the same
     model, the second moment's root likewise, the parameters where |g| is
     clear of ε, the running stats and counters. Returns how many parameter
-    entries were left out, and the gradient errors."""
+    entries were left out, and the gradient errors. ``jax64`` as in
+    `_gradient_errors`, ``bufs64`` as in `_compare_buffers`."""
     from fac_fake_torch.compat.weights import cvit_state_dict_from_flax
     adam = _adam(state.opt_state)
     mu = cvit_state_dict_from_flax(flat(adam.mu, ("params",)), name)
@@ -101,7 +115,7 @@ def _compare_state(m, tr, state, name, g64):
     g_jax = {k: mu[k].double() / 0.1 for k in params}
     r_port = {k: tr.optimizer.state[p]["exp_avg_sq"].double().sqrt() for k, p in params.items()}
     r_jax = {k: nu[k].double().sqrt() for k in params}
-    errs = _gradient_errors(g_port, g_jax, g64)
+    errs = _gradient_errors(g_port, g_jax, g64, jax64)
     errs["sqrt_nu_port_vs_jax"] = _rel(r_port, r_jax)
     if errs["port_vs_jax"] <= 1e-4:
         assert errs["sqrt_nu_port_vs_jax"] <= 1e-4, errs
@@ -124,19 +138,38 @@ def _compare_state(m, tr, state, name, g64):
         left_out += int((~clear).sum())
         np.testing.assert_allclose(p.detach().numpy()[clear], jp[k].numpy()[clear],
                                    rtol=0, atol=2e-7, err_msg=k)
-    _compare_buffers(m, state, name)
+    _compare_buffers(m, state, name, bufs64)
     return left_out, errs
 
 
-def _compare_buffers(m, state, name):
-    """Running stats (biased variance) and LinearNorm's counters: JAX's."""
+def _compare_buffers(m, state, name, bufs64=None):
+    """Running stats (biased variance) and LinearNorm's counters: JAX's.
+    With ``bufs64``, the running stats of JAX's own float64 step from the
+    same state (torch keys), the port's running stats held to those
+    instead: each variance within 1e-4 of it (relative) + 1e-6, each mean
+    within 1e-4 of its |mean| + √variance + 1e-6. A batch mean near 0 is a
+    cancelling fp32 sum of values on the scale of the channel's spread,
+    which each side's fp32 BatchNorm rounds its own way
+    (``cvit_ggca_add_dconv``: the port 3.4e-6 from float64, JAX 3.7e-7, on
+    means of 0.04-0.31; ``cvit_ggca_add_odconv``'s GGCA BN: the port 9e-6,
+    JAX 2e-4); the counters equal JAX's."""
     from fac_fake_torch.compat.weights import cvit_state_dict_from_flax
     bufs = dict(m.named_buffers())
     jb = cvit_state_dict_from_flax(flat({"batch_stats": state.batch_stats, **(
         {"schedule": state.schedule} if state.schedule else {})}), name)
     for k, ref in jb.items():
-        np.testing.assert_allclose(bufs[k].float().numpy(), ref.numpy(), rtol=1e-4, atol=1e-6,
-                                   err_msg=k)
+        if bufs64 is None:
+            np.testing.assert_allclose(bufs[k].float().numpy(), ref.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+        elif k.endswith(("running_mean", "running_var")):
+            want = bufs64[k].double().numpy()
+            scale = np.abs(want)
+            if k.endswith("running_mean"):
+                scale = scale + np.sqrt(bufs64[k[:-4] + "var"].double().numpy())
+            err = np.abs(bufs[k].double().numpy() - want)
+            assert (err <= 1e-4 * scale + 1e-6).all(), (k, float(err.max()))
+        else:
+            assert torch.equal(bufs[k], ref.to(bufs[k].dtype)), k
 
 
 def _grads(m, tr, batch, dtype, routes=None, losses=None):
