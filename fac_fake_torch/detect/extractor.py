@@ -14,6 +14,7 @@ detections → face crops. The port of `fac_fake_tpu/detect/extractor.py`.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -148,23 +149,50 @@ def _frame_detections(dets, valid, split: float, offsets, frame_hw,
         MAX_FACES, IOU_THRESH, margin)
 
 
+def new_stage_stats() -> dict:
+    """Seconds and counts a `FaceExtractor` adds up when given this dict:
+    the host's tile resizes (``tiles_s``), the detection on the detector's
+    device with K1 and the copy back (``detect_s``), the frames seen; and
+    ``crops_s``, the crop resizes of its caller (`data/preprocess.py`)."""
+    return {"tiles_s": 0.0, "detect_s": 0.0, "crops_s": 0.0, "frames": 0}
+
+
 class FaceExtractor:
     """frames → face crops with BlazeFace (the packaged weights unless a
-    detector is given)."""
+    detector is given). ``video_read_fn(path)`` → ``(frames, idxs)`` or
+    None, as in the reference (`helpers_face_extract_1.py:10-21`), serves
+    `process_video`; ``stage_stats``, a `new_stage_stats` dict, times each
+    `process_frames`."""
 
-    def __init__(self, detector: Optional[BlazeFace] = None):
+    def __init__(self, detector: Optional[BlazeFace] = None, video_read_fn=None,
+                 stage_stats: Optional[dict] = None):
         self.detector = detector or BlazeFace.from_packaged_assets()
+        self.video_read_fn = video_read_fn
+        self.stage_stats = stage_stats
+
+    def process_video(self, video_path: str):
+        result = self.video_read_fn(video_path)
+        if result is None:
+            return []
+        frames, idxs = result
+        return self.process_frames(frames, idxs)
 
     def process_frames(self, frames: np.ndarray, idxs: Optional[Sequence[int]] = None):
         """Returns the reference's list-of-frame-dict structure
         (video_idx omitted): frame_idx, frame_w/h, faces, scores, boxes."""
         f, h, w, _ = frames.shape
         idxs = list(range(f)) if idxs is None else idxs
+        t0 = time.perf_counter()
         tiles, split, offsets = make_tiles(frames)
+        t1 = time.perf_counter()
         dets, valid = self.detector.predict_on_batch(tiles, apply_nms=False)
         faces, mask = _frame_detections(dets, valid, split, offsets, (h, w), len(offsets))
         faces = faces.cpu().numpy()
         mask = mask.cpu().numpy()
+        if self.stage_stats is not None:
+            self.stage_stats["tiles_s"] += t1 - t0
+            self.stage_stats["detect_s"] += time.perf_counter() - t1
+            self.stage_stats["frames"] += f
 
         out = []
         for i in range(f):
@@ -181,3 +209,27 @@ class FaceExtractor:
             out.append({"frame_idx": idxs[i], "frame_w": w, "frame_h": h,
                         "faces": crops, "scores": scores, "boxes": boxes})
         return out
+
+    @staticmethod
+    def keep_only_best_face(crops):
+        """`helpers_face_extract_1.py:347-360` (NMS order is score-desc, so
+        face 0 is the most confident)."""
+        for fd in crops:
+            fd["faces"] = fd["faces"][:1]
+            fd["scores"] = fd["scores"][:1]
+            if "boxes" in fd:
+                fd["boxes"] = fd["boxes"][:1]
+
+    @staticmethod
+    def remove_large_crops(crops, pct: float = 0.1):
+        """Drop faces covering ``pct`` of the frame or more
+        (`helpers_face_extract_1.py:319-345`)."""
+        for fd in crops:
+            area = fd["frame_w"] * fd["frame_h"]
+            boxes = fd.get("boxes") or [None] * len(fd["faces"])
+            keep = [(f, s, b) for f, s, b in zip(fd["faces"], fd["scores"], boxes)
+                    if f.shape[0] * f.shape[1] / area < pct]
+            fd["faces"] = [f for f, _, _ in keep]
+            fd["scores"] = [s for _, s, _ in keep]
+            if "boxes" in fd:
+                fd["boxes"] = [b for _, _, b in keep]
