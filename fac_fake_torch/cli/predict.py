@@ -1,13 +1,16 @@
 """Video scoring CLI — the port of `fac_fake_tpu/cli/predict.py`.
 
   python -m fac_fake_torch.cli.predict --videos dir/ --weights cvit.pth \
-      --save-csv out.csv [--device cuda] [--model cvit_repbn8|resvitkan|resvit]
+      --save-csv out.csv [--metadata meta.json] [--device cuda] \
+      [--model cvit_repbn8|resvitkan|resvit]
 
 Input a folder of mp4s (decoded with cv2, which must be installed), output a
 ``filename,label`` CSV of fake-probabilities; prob < 0.5 → REAL, ≥ 0.5 → FAKE.
 ``--model`` names a registered model that scores videos: ``cvit``,
 ``cvit_repbn8``, or the ResNet/KAN family's ``resvitkan`` (its KAN head runs
 kernel K9) and ``resvit``; ``reskan`` takes no pos rows and is refused.
+``--metadata`` evaluates the CSV just written against a metadata.json
+(accuracy and AUC, `evaluate/metrics.py evaluate_prediction_csv`).
 ``--weights`` takes a reference or exported ``.pth``; JAX-trained weights
 come over with ``python -m fac_fake_tpu.cli.export torch out.pth --weights
 ckpt/``.
@@ -26,6 +29,8 @@ def parse_args(argv=None):
                     help="checkpoint: reference or exported torch .pth")
     ap.add_argument("--model", default="cvit")
     ap.add_argument("--save-csv", default="predictions.csv")
+    ap.add_argument("--metadata", default=None,
+                    help="metadata.json to report accuracy/AUC against")
     ap.add_argument("--workers", type=int, default=None,
                     help="videos decoded/detected concurrently "
                          "(default: min(4, cpu_count))")
@@ -71,6 +76,12 @@ def main(argv=None):
     if stats:
         print(f"per-video latency: p50 {stats['p50_s']:.2f}s "
               f"p90 {stats['p90_s']:.2f}s over {stats['count']} videos")
+
+    if args.metadata:
+        from fac_fake_torch.evaluate.metrics import evaluate_prediction_csv
+        out = evaluate_prediction_csv(args.save_csv, args.metadata)
+        print(f"accuracy: {out['accuracy'] * 100:.2f}%  AUC: {out['auc']:.4f} "
+              f"({out['count']} scored)")
     return rows
 
 

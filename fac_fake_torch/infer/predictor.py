@@ -368,10 +368,16 @@ class VideoScorer:
         paths = [os.path.join(video_dir, f) for f in filenames]
         preds = (self.score_videos_batched(paths, num_workers) if batched
                  else self.score_videos(paths, num_workers))
-        os.makedirs(os.path.dirname(save_csv) or ".", exist_ok=True)
         rows = list(zip(filenames, preds))
-        with open(save_csv, "w", newline="") as fh:
-            w = csv.writer(fh)
-            w.writerow(["filename", "label"])
-            w.writerows(rows)
+        write_predictions_csv(save_csv, rows)
         return rows
+
+
+def write_predictions_csv(save_csv: str, rows: Sequence[tuple]) -> None:
+    """The ``filename,label`` CSV of (file name, fake-probability) rows
+    (`cvit_prediction.py:342-343`), which `evaluate/metrics.py` reads."""
+    os.makedirs(os.path.dirname(save_csv) or ".", exist_ok=True)
+    with open(save_csv, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["filename", "label"])
+        w.writerows(rows)

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fac_fake_torch.models.layers import Clip, Conv2d, FlatLoad, widen
+from fac_fake_torch.models.layers import Clip, Conv2d, FlatLoad, MaxOver, widen
 
 
 class FourierUnitModified(FlatLoad, nn.Module):
@@ -36,6 +36,11 @@ class FourierUnitModified(FlatLoad, nn.Module):
         self.locMap = nn.Parameter(torch.empty(image_size, image_size // 2 + 1))
         self.lambda_base = nn.Parameter(torch.empty(()))
         self.relu = nn.ReLU()
+        # the clip's bounds, the input's batch-wide max and min (that of -x),
+        # as modules: a near-tie for the largest value goes one way on one
+        # device and the other way on another, and the bound's gradient
+        # then reaches another element (`MaxOver`)
+        self.x_max, self.neg_x_max = MaxOver(0, 1, 2, 3), MaxOver(0, 1, 2, 3)
         self.clip = Clip()
 
     def reset_own(self, gen: torch.Generator) -> None:
@@ -62,4 +67,4 @@ class FourierUnitModified(FlatLoad, nn.Module):
         out = torch.fft.irfftn(torch.complex(ff[:, :, 0], ff[:, :, 1]), s=(h, w), dim=(2, 3),
                                norm="ortho")
         out = out - out.mean() + x.mean()
-        return self.clip(out, x.min() - 0.5, x.max() + 0.5).to(x.dtype)
+        return self.clip(out, -self.neg_x_max(-x) - 0.5, self.x_max(x) + 0.5).to(x.dtype)

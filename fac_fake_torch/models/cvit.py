@@ -205,9 +205,20 @@ class CViT(nn.Module):
                   for i, f in enumerate(self.stem_names)]
         return {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
 
-    def forward(self, img: torch.Tensor,
-                pos_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self._head(self._after_first_stem(self.stems()[0][2](img)), pos_indices)
+    def forward(self, img: Optional[torch.Tensor],
+                pos_indices: Optional[torch.Tensor] = None,
+                features_override: Optional[torch.Tensor] = None,
+                embed_override: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits of ``img``. The Grad-CAM hooks (JAX `CViT.__call__`'s):
+        ``features_override`` stands for `stem_features` (the stems' NCHW
+        output, after every slot and GGCA) and ``embed_override`` for
+        `patch_tokens` (the patch embedding's (B, n, dim) output, before the
+        SLA/GLU embedding block, the cls token and the positions); ``img``
+        is not read where an override stands for what it would give."""
+        if embed_override is None:
+            x = self.stem_features(img) if features_override is None else features_override
+            embed_override = self.patch_tokens(x)
+        return self._head(embed_override, pos_indices)
 
     def forward_crops(self, crops_u8: torch.Tensor, dtype: torch.dtype = torch.float32,
                       pos_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -216,8 +227,23 @@ class CViT(nn.Module):
         K2 makes the first stem's input, and a quantized stem's int8 walk
         starts from K2's int8 entry; a later stem's walk quantizes its fp
         input in one pass)."""
-        x = self.stems()[0][2].forward_crops(crops_u8, dtype)
-        return self._head(self._after_first_stem(x), pos_indices)
+        return self._head(self.patch_tokens(self.stem_features_crops(crops_u8, dtype)),
+                          pos_indices)
+
+    def stem_features(self, img: torch.Tensor) -> torch.Tensor:
+        """The stems' NCHW output from the NCHW float input (JAX's sown
+        ``stem_features``)."""
+        return self._after_first_stem(self.stems()[0][2](img))
+
+    def stem_features_crops(self, crops_u8: torch.Tensor,
+                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """`stem_features` of uint8 NHWC crops, their normalize by K2."""
+        return self._after_first_stem(self.stems()[0][2].forward_crops(crops_u8, dtype))
+
+    def patch_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """The patch embedding of the stems' NCHW output: (B, n, dim), JAX's
+        sown ``patch_tokens``."""
+        return self.patch_to_embedding(patchify(x, self.patch_size))
 
     def _block(self, x: torch.Tensor, kind: str, mode: str) -> torch.Tensor:
         y = getattr(self, kind)(x, x) if kind == "bfm" else getattr(self, kind)(x)
@@ -245,9 +271,8 @@ class CViT(nn.Module):
             x = x * self.ggca(x)
         return x
 
-    def _head(self, x: torch.Tensor, pos_indices: Optional[torch.Tensor]) -> torch.Tensor:
-        """The stems' NCHW output → logits."""
-        y = self.patch_to_embedding(patchify(x, self.patch_size))
+    def _head(self, y: torch.Tensor, pos_indices: Optional[torch.Tensor]) -> torch.Tensor:
+        """The patch tokens (`patch_tokens`) → logits."""
         if self.embed_kind == "sla":
             # the embedding's channels are SLA's tokens (`cvit_GGCA_SLA.py`)
             y = y + self.sla(y.transpose(1, 2)).transpose(1, 2)

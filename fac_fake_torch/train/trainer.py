@@ -53,8 +53,14 @@ running metrics stay on the device until the epoch ends, or ``log_every``.
 (saved as ``best.pth``), early stop on the validation loss, periodic
 checkpoints on a background thread (`train/checkpoint.py`).
 
+``train.tensorboard_dir``: the scalars JAX writes (``train/loss``,
+``train/acc``, ``val/loss``, ``val/acc``, ``lr``, one an epoch, through
+tensorboardX, imported by `fit` only then), and the model's graph: the
+``torch.export`` graph of the eval forward in ``model_graph.txt`` and as
+a text summary, best-effort as JAX's StableHLO dump is (JAX :475-496).
+
 Left out, and raising: the mesh and its tensor-parallel rules (ROADMAP
-queue 1 item 12) and TensorBoard (item 16). A
+queue 1 item 12). A
 model that holds a `KANLinear` (``reskan``, ``resvitkan``) is refused: K9,
 its spline bases on the card, has no backward, and JAX's `Trainer` cannot
 train the KAN family either.
@@ -140,9 +146,6 @@ class Trainer:
         if getattr(model, "dtype", self.dtype) != self.dtype:
             raise ValueError(f"model.dtype={self.cfg.model.dtype!r}, but the model computes "
                              f"in {model.dtype}")
-        if tcfg.tensorboard_dir:
-            raise NotImplementedError("train.tensorboard_dir: TensorBoard is ROADMAP queue 1 "
-                                      "item 16")
         if self.cfg.mesh.data not in (-1, 1) or self.cfg.mesh.model != 1:
             raise NotImplementedError("a mesh of several devices (data parallel, tensor "
                                       "parallel) is ROADMAP queue 1 item 12")
@@ -358,23 +361,49 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         history = {"train_loss": [], "train_acc": [], "val_loss": [], "val_acc": [], "lr": []}
         best = {"acc": -1.0, "state_dict": None}
-        writer = None
+        writer = tb = None
         if cfg.checkpoint_every and cfg.checkpoint_dir:
             from fac_fake_torch.train.checkpoint import CheckpointWriter
             writer = CheckpointWriter(cfg.checkpoint_dir)
+        if cfg.tensorboard_dir:
+            from tensorboardX import SummaryWriter
+            tb = SummaryWriter(cfg.tensorboard_dir)
+            self._dump_graph(tb, cfg.tensorboard_dir)
         t0 = time.time()
         try:
             best = self._epoch_loop(gen, start_epoch, history, best, train_batches_fn,
-                                    val_batches_fn, writer)
+                                    val_batches_fn, writer, tb)
         finally:
+            if tb is not None:
+                tb.close()
             if writer is not None:        # drain: the last snapshot becomes durable
                 writer.close()
         history["wall_seconds"] = time.time() - t0
         history["best_acc"] = best["acc"]
         return {"history": history, "best": best}
 
+    def _dump_graph(self, tb, logdir: str) -> None:
+        """The reference's ``add_graph`` (`S3D-train.py:209-210`): the
+        ``torch.export`` graph of the eval forward on a zero batch of one,
+        to ``model_graph.txt`` and as a text summary. Best-effort, as JAX's
+        StableHLO dump: a model that does not export is printed and
+        skipped."""
+        size = self.cfg.data.image_size
+        was = self.model.training
+        try:
+            self.model.eval()
+            x = torch.zeros((1, 3, size, size), dtype=self.dtype, device=self.device)
+            graph = str(torch.export.export(self.model, (x,)))
+            with open(os.path.join(logdir, "model_graph.txt"), "w") as f:
+                f.write(graph)
+            tb.add_text("model/graph", "```\n" + graph[:20000] + "\n```", 0)
+        except Exception as e:            # the graph dump is best-effort, never fatal
+            print(f"model-graph dump skipped: {e!r}")
+        finally:
+            self.model.train(was)
+
     def _epoch_loop(self, gen, start_epoch, history, best, train_batches_fn, val_batches_fn,
-                    writer):
+                    writer, tb):
         cfg = self.cfg.train
         bad_epochs = 0
         for epoch in range(start_epoch, cfg.epochs):
@@ -388,6 +417,10 @@ class Trainer:
                 history[k].append(v)
             print(f"epoch {epoch}: train loss {tr['loss']:.4f} acc {tr['acc']:.4f} | val loss "
                   f"{va['loss']:.4f} acc {va['acc']:.4f} | lr {lr:.2e}")
+            if tb is not None:
+                for tag, v in (("train/loss", tr["loss"]), ("train/acc", tr["acc"]),
+                               ("val/loss", va["loss"]), ("val/acc", va["acc"]), ("lr", lr)):
+                    tb.add_scalar(tag, v, epoch)
             if va["acc"] > best["acc"]:       # best-acc snapshot (cvit_train.py:180-190)
                 from fac_fake_torch.train.checkpoint import _host, save_best
                 best = {"acc": va["acc"], "state_dict": _host(self.model.state_dict())}

@@ -48,11 +48,19 @@ def test_importing_every_port_module_loads_no_jax():
             "fac_fake_torch.models.resnet"} <= set(mods)
     # S3D training: the JPEG step (kernel K10), face masking
     assert {"fac_fake_torch.ops.jpeg", "fac_fake_torch.data.masking"} <= set(mods)
+    # evaluation, Grad-CAM, plots and profiling (the CSV evaluation in
+    # evaluate.metrics, the csv/gradcam/plots subcommands in cli.evaluate,
+    # cli.predict --metadata)
+    assert {"fac_fake_torch.evaluate.gradcam", "fac_fake_torch.evaluate.plots",
+            "fac_fake_torch.utils.profiling", "fac_fake_torch.cli.predict"} <= set(mods)
+    # nor what the card's machine lacks: each is imported where it draws,
+    # reads or writes (cv2, matplotlib, tensorboardX) or not at all
+    lacking = ("pandas", "sklearn", "matplotlib", "tensorboardX", "cv2")
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + lacking!r})\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

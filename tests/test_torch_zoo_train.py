@@ -127,9 +127,10 @@ def port_model(name):
         memory_format=torch.channels_last)
 
 
-def flax_variables(jm, m, hw, name):
+def flax_variables(jm, m, hw, name, var=None):
     """JAX variables of ``jm`` holding the port model ``m``'s weights, laid
-    out by the port's key map (`cvit_torch_key`): each leaf the inverse of
+    out by the port's key map (`cvit_torch_key`, for ``var`` or the entry
+    ``name``'s variant): each leaf the inverse of
     its flax → torch transform. The tree's shapes come from
     `jax.eval_shape` of JAX's ``init(train=True)``, which compiles nothing
     (a jitted JAX init of one small twin takes ~10 s here)."""
@@ -140,7 +141,7 @@ def flax_variables(jm, m, hw, name):
     sd = m.state_dict()
     out = {}
     for path, leaf in traverse_util.flatten_dict(shapes).items():
-        key, tf = cvit_torch_key(list(path), variant(name))
+        key, tf = cvit_torch_key(list(path), var or variant(name))
         where = np.asarray(tf(np.arange(int(np.prod(leaf.shape))).reshape(leaf.shape)))
         vals = np.empty(where.size, np.float64)
         vals[where.ravel()] = sd[key].double().contiguous().numpy().ravel()
