@@ -12,7 +12,8 @@ candidates → (kn, O, I, k, k), a flat per-channel scale → (1, C, 1, 1). The 
 port's `QuantConv3x3` / `QuantLinear` buffers of the same names, with the
 same layout transforms; ``kernel_q`` stays int8. The port's module tree
 already uses the reference torch names, so a reference ``.pth`` needs no
-map, only `load_reference_pth` (and, for S3D, `load_s3d_state_dict`).
+map, only `load_reference_pth` (and, for S3D, `load_s3d_state_dict`), and
+`export_state_dict` writes a model back out in that layout.
 
 A JAX training state comes over whole: its ``params``, ``batch_stats`` and
 ``schedule`` collections by `cvit_state_dict_from_flax`, and optax's Adam
@@ -553,6 +554,17 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return strip_ddp_prefix(obj)
+
+
+def export_state_dict(model) -> Dict[str, torch.Tensor]:
+    """The reference-layout ``state_dict`` of a CViT-family model, as CPU
+    tensors: the port's modules carry the reference's keys, so it is the
+    model's own ``state_dict`` without BatchNorm's ``num_batches_tracked``,
+    which JAX's `export_cvit` does not write either (torch fills it in on a
+    strict load). It loads into the reference's models and, ``strict=True``,
+    into the port's (`load_reference_pth`)."""
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
 
 
 # MTCNN: facenet_pytorch's layer names a net, and the JAX package's flax names

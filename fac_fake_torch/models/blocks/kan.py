@@ -9,13 +9,16 @@ and layouts are efficient-KAN's (``base_weight`` (out, in),
 persistent buffer ``grid`` (in, grid + 2·order + 1); a `KAN` stacks them
 under ``layers.{i}``), so a reference ``state_dict`` loads ``strict=True``.
 
-Inference only: efficient-KAN's ``update_grid`` refit and
-``regularization_loss`` belong to KAN training (ROADMAP queue 1).
+KAN's grid functions are pure, as JAX's: `regularization_loss` of a
+spline weight, and `update_grid`, the data-adaptive refit of a layer's grid
+and spline weight from a batch of its inputs (its bases through K9 on the
+card, its solve `curve2coeff`'s on the CPU). Nothing trains the family:
+K9 has no backward, and `Trainer` refuses a KAN model.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +57,57 @@ def curve2coeff(x: torch.Tensor, y: torch.Tensor, grid: torch.Tensor,
     b = y.cpu().transpose(0, 1)                                        # (in, B, out)
     sol = torch.linalg.lstsq(a, b, driver="gelsd").solution            # (in, coeff, out)
     return sol.permute(2, 0, 1).contiguous().to(x.device)
+
+
+def regularization_loss(spline_weight: torch.Tensor, regularize_activation: float = 1.0,
+                        regularize_entropy: float = 1.0) -> torch.Tensor:
+    """efficient-KAN's regularization (JAX :128-136): the sum of each edge's
+    mean |w| (L1) plus the entropy of the edges' shares of it. A zero edge
+    gives ``0 · log 0``, NaN, as in JAX."""
+    l1 = spline_weight.abs().mean(-1)
+    total = l1.sum()
+    p = l1 / total
+    entropy = -torch.sum(p * torch.log(p))
+    return regularize_activation * total + regularize_entropy * entropy
+
+
+@torch.no_grad()
+def update_grid(x: torch.Tensor, grid: torch.Tensor, spline_weight: torch.Tensor,
+                spline_scaler: Optional[torch.Tensor] = None, grid_size: int = 5,
+                spline_order: int = 3, grid_eps: float = 0.02, margin: float = 0.01
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The data-adaptive grid refit (JAX :139-165, efficient-KAN's
+    ``update_grid``): the layer's spline output on ``x`` (B, in) under the
+    old grid (its bases through K9 on the card), a new grid blending the
+    sorted inputs at ``grid_size + 1`` evenly spaced ranks with a uniform
+    grid over their range (``grid_eps``), extended by ``spline_order``
+    steps at each end, and the spline weight refitted to that output on the
+    new grid (`curve2coeff`). Pure: returns (new grid (in, L), new spline
+    weight (out, in, coeff)) on ``x``'s device. The ranks are truncated
+    fp32 ``linspace`` values made on the host, and the grid's one division
+    is by a tensor, so the card's grid equals the CPU's bit for bit. Quirk
+    kept: the refit is against the *scaled* spline output but stored into
+    the raw spline weight, so a layer with a scaler applies it twice after
+    a refit (the reference's `kan.py:259-260`)."""
+    batch = x.shape[0]
+    scaled = spline_weight if spline_scaler is None \
+        else spline_weight * spline_scaler[..., None]
+    splines = b_splines(x, grid, spline_order).transpose(0, 1)        # (in, B, c)
+    orig = scaled.permute(1, 2, 0)                                     # (in, c, out)
+    unreduced = torch.bmm(splines, orig).transpose(0, 1)               # (B, in, out)
+
+    x_sorted = torch.sort(x, dim=0).values
+    idx = torch.linspace(0, batch - 1, grid_size + 1).to(torch.int64).to(x.device)
+    grid_adaptive = x_sorted[idx]
+    size = torch.tensor(float(grid_size), dtype=x.dtype, device=x.device)
+    step = (x_sorted[-1] - x_sorted[0] + 2 * margin) / size
+    ar = lambda *a: torch.arange(*a, dtype=x.dtype, device=x.device)[:, None]
+    grid_uniform = ar(grid_size + 1) * step + x_sorted[0] - margin
+    g = grid_eps * grid_uniform + (1 - grid_eps) * grid_adaptive
+    lo = g[:1] - step * ar(spline_order, 0, -1)
+    hi = g[-1:] + step * ar(1, spline_order + 1)
+    new_grid = torch.cat([lo, g, hi], dim=0).T.contiguous()           # (in, L)
+    return new_grid, curve2coeff(x, unreduced, new_grid, spline_order)
 
 
 class KANLinear(nn.Module):

@@ -53,6 +53,11 @@ def test_importing_every_port_module_loads_no_jax():
     # cli.predict --metadata)
     assert {"fac_fake_torch.evaluate.gradcam", "fac_fake_torch.evaluate.plots",
             "fac_fake_torch.utils.profiling", "fac_fake_torch.cli.predict"} <= set(mods)
+    # export: the ONNX writer and reader (the port's own copy, not JAX's
+    # numpy-only one), the torch.export program, the CLI; KAN's grid
+    # functions live in models.blocks.kan
+    assert {"fac_fake_torch.compat.onnx_proto", "fac_fake_torch.compat.onnx_export",
+            "fac_fake_torch.compat.export", "fac_fake_torch.cli.export"} <= set(mods)
     # nor what the card's machine lacks: each is imported where it draws,
     # reads or writes (cv2, matplotlib, tensorboardX) or not at all
     lacking = ("pandas", "sklearn", "matplotlib", "tensorboardX", "cv2")
